@@ -1,0 +1,475 @@
+"""SD1.5 UNet2DConditionModel in PyTorch (counterpart of ``controllora_tpu/models/unet.py``).
+
+NCHW inside; parameter names follow diffusers' state-dict keys, so
+``load_state_dict(strict=True)`` takes ``utils/torch_compat.flax_to_torch_unet``
+output (and diffusers safetensors) as they are. GroupNorm, LayerNorm and the GEGLU
+gelu compute in fp32 whatever the weight dtype.
+
+Attention layers run the adapter-free path or the FOLDED path: the adapters are
+pre-folded into the projection weights (``ops/folding.py``) and only per-position
+biases (``FoldedBias``) ride the forward, keyed by diffusers processor name. On the
+folded path, self-attention with L >= 2048 on a CUDA tensor goes to the biased flash
+kernel K1. Left out for now: ToMe, DeepCache, tensor parallelism, SDXL text_time and
+SD2 linear projections.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from controllora_tpu_torch.models.lora import _match_batch
+from controllora_tpu_torch.ops.attention import dot_product_attention, use_flash
+
+
+@dataclasses.dataclass(frozen=True)
+class UNetConfig:
+    """SD1.5 architecture (runwayml/stable-diffusion-v1-5 unet/config.json)."""
+
+    sample_size: int = 64
+    in_channels: int = 4
+    out_channels: int = 4
+    down_block_types: Tuple[str, ...] = (
+        "CrossAttnDownBlock2D",
+        "CrossAttnDownBlock2D",
+        "CrossAttnDownBlock2D",
+        "DownBlock2D",
+    )
+    up_block_types: Tuple[str, ...] = (
+        "UpBlock2D",
+        "CrossAttnUpBlock2D",
+        "CrossAttnUpBlock2D",
+        "CrossAttnUpBlock2D",
+    )
+    block_out_channels: Tuple[int, ...] = (320, 640, 1280, 1280)
+    layers_per_block: int = 2
+    cross_attention_dim: int = 768
+    # number of heads (diffusers naming quirk): an int, or one per down block
+    attention_head_dim: Any = 8
+    transformer_layers_per_block: Any = 1
+    norm_num_groups: int = 32
+    norm_eps: float = 1e-5
+    flip_sin_to_cos: bool = True
+    freq_shift: int = 0
+
+
+# ---------------------------------------------------------------------------- helpers
+
+
+def timestep_embedding(t: torch.Tensor, dim: int, flip_sin_to_cos: bool = True,
+                       freq_shift: float = 0.0) -> torch.Tensor:
+    """Sinusoidal timestep embedding (diffusers get_timestep_embedding), fp32."""
+    half = dim // 2
+    exponent = -math.log(10000.0) * torch.arange(half, dtype=torch.float32,
+                                                 device=t.device)
+    exponent = exponent / (half - freq_shift)
+    emb = torch.exp(exponent)[None, :] * t.float()[:, None]
+    emb = torch.cat([torch.sin(emb), torch.cos(emb)], dim=-1)
+    if flip_sin_to_cos:
+        emb = torch.cat([emb[:, half:], emb[:, :half]], dim=-1)
+    return emb
+
+
+class GroupNorm(nn.GroupNorm):
+    """GroupNorm computed in fp32 and cast back (bf16-safe). Calls the aten op
+    directly: ``F.group_norm`` refuses groups holding a single value, which the hint
+    encoder's deepest stage produces for small guides."""
+
+    def forward(self, x):
+        y = torch.group_norm(x.float(), self.num_groups, self.weight.float(),
+                             self.bias.float(), self.eps)
+        return y.to(x.dtype)
+
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm computed in fp32 and cast back."""
+
+    def forward(self, x):
+        y = F.layer_norm(x.float(), self.normalized_shape, self.weight.float(),
+                         self.bias.float(), self.eps)
+        return y.to(x.dtype)
+
+
+def conv3(cin: int, cout: int, stride: int = 1) -> nn.Conv2d:
+    return nn.Conv2d(cin, cout, 3, stride=stride, padding=1)
+
+
+def to_tokens(x: torch.Tensor) -> torch.Tensor:
+    """(B, C, H, W) -> (B, H*W, C), row-major over (h, w) like the JAX NHWC reshape."""
+    b, c, h, w = x.shape
+    return x.permute(0, 2, 3, 1).reshape(b, h * w, c)
+
+
+def from_tokens(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    b, _, c = x.shape
+    return x.reshape(b, h, w, c).permute(0, 3, 1, 2)
+
+
+def _fit(bias: Optional[torch.Tensor], batch: int, dtype) -> Optional[torch.Tensor]:
+    """Per-image biases (batch n under the 2n CFG batch) tile to the block
+    [uncond || cond] layout; batch-1 biases broadcast."""
+    if bias is None:
+        return None
+    if bias.shape[0] != 1:
+        bias = _match_batch(bias, batch)
+    return bias.to(dtype)
+
+
+# ---------------------------------------------------------------------------- blocks
+
+
+class ResnetBlock2D(nn.Module):
+    def __init__(self, in_channels: int, out_channels: int, temb_channels: Optional[int],
+                 groups: int = 32, eps: float = 1e-5):
+        super().__init__()
+        self.norm1 = GroupNorm(groups, in_channels, eps)
+        self.conv1 = conv3(in_channels, out_channels)
+        self.time_emb_proj = (nn.Linear(temb_channels, out_channels)
+                              if temb_channels else None)
+        self.norm2 = GroupNorm(groups, out_channels, eps)
+        self.conv2 = conv3(out_channels, out_channels)
+        self.conv_shortcut = (nn.Conv2d(in_channels, out_channels, 1)
+                              if in_channels != out_channels else None)
+
+    def forward(self, x, temb=None):
+        h = self.conv1(F.silu(self.norm1(x)))
+        if temb is not None:
+            h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
+        h = self.conv2(F.silu(self.norm2(h)))
+        if self.conv_shortcut is not None:
+            x = self.conv_shortcut(x)
+        return x + h
+
+
+class Downsample2D(nn.Module):
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = conv3(channels, channels, stride=2)
+
+    def forward(self, x):
+        return self.conv(x)
+
+
+class Upsample2D(nn.Module):
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = conv3(channels, channels)
+
+    def forward(self, x):
+        return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
+
+
+class CrossAttention(nn.Module):
+    """One attention layer: the adapter-free path, or the folded path with the
+    precomputed per-position biases (JAX ``unet.py`` :233-292)."""
+
+    def __init__(self, query_dim: int, heads: int, dim_head: int,
+                 cross_attention_dim: Optional[int] = None):
+        super().__init__()
+        inner = heads * dim_head
+        self.heads = heads
+        self.to_q = nn.Linear(query_dim, inner, bias=False)
+        self.to_k = nn.Linear(cross_attention_dim or query_dim, inner, bias=False)
+        self.to_v = nn.Linear(cross_attention_dim or query_dim, inner, bias=False)
+        self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
+
+    def forward(self, hidden, ctx=None, bias=None):
+        q = self.to_q(hidden)
+        ctx_in = hidden if ctx is None else ctx
+        k = self.to_k(ctx_in)
+        v = self.to_v(ctx_in)
+        if bias is None:
+            attn = dot_product_attention(q, k, v, self.heads)
+            return self.to_out[0](attn)
+        b_h, L = hidden.shape[:2]
+        if ctx is None and use_flash(L, L, q.device):
+            from controllora_tpu_torch.ops.flash_attention import biased_attention
+
+            # K1 tiles the bias batch over the CFG batch inside the kernel
+            attn = biased_attention(
+                q, k, v, self.heads,
+                *(None if t is None else t.to(q.dtype).contiguous()
+                  for t in (bias.q_bias, bias.k_bias, bias.v_bias)),
+            )
+        else:
+            if bias.q_bias is not None:
+                q = q + _fit(bias.q_bias, b_h, q.dtype)
+            if bias.k_bias is not None:
+                k = k + _fit(bias.k_bias, b_h, k.dtype)
+            if bias.v_bias is not None:
+                v = v + _fit(bias.v_bias, b_h, v.dtype)
+            attn = dot_product_attention(q, k, v, self.heads)
+        out = self.to_out[0](attn)
+        if bias.out_bias is not None:
+            out = out + _fit(bias.out_bias, b_h, out.dtype)
+        return out
+
+
+class GEGLU(nn.Module):
+    def __init__(self, dim: int, inner: int):
+        super().__init__()
+        self.proj = nn.Linear(dim, inner * 2)
+
+    def forward(self, x):
+        a, gate = self.proj(x).chunk(2, dim=-1)
+        return a * F.gelu(gate.float(), approximate="none").to(a.dtype)
+
+
+class FeedForward(nn.Module):
+    """GEGLU feed-forward; ``net.1`` is diffusers' (parameter-free) dropout slot."""
+
+    def __init__(self, dim: int, mult: int = 4):
+        super().__init__()
+        self.net = nn.ModuleList([GEGLU(dim, dim * mult), nn.Identity(),
+                                  nn.Linear(dim * mult, dim)])
+
+    def forward(self, x):
+        return self.net[2](self.net[0](x))
+
+
+class BasicTransformerBlock(nn.Module):
+    def __init__(self, dim: int, heads: int, dim_head: int, cross_attention_dim: int,
+                 proc_prefix: str):
+        super().__init__()
+        self.proc_prefix = proc_prefix
+        self.norm1 = LayerNorm(dim)
+        self.attn1 = CrossAttention(dim, heads, dim_head)
+        self.norm2 = LayerNorm(dim)
+        self.attn2 = CrossAttention(dim, heads, dim_head, cross_attention_dim)
+        self.norm3 = LayerNorm(dim)
+        self.ff = FeedForward(dim)
+
+    def forward(self, x, ctx, biases=None):
+        def bias_for(attn):
+            return biases.get(f"{self.proc_prefix}.{attn}.processor") if biases else None
+
+        x = x + self.attn1(self.norm1(x), None, bias_for("attn1"))
+        x = x + self.attn2(self.norm2(x), ctx, bias_for("attn2"))
+        return x + self.ff(self.norm3(x))
+
+
+class Transformer2DModel(nn.Module):
+    def __init__(self, channels: int, heads: int, dim_head: int, cross_attention_dim: int,
+                 depth: int, groups: int, proc_prefix: str):
+        super().__init__()
+        inner = heads * dim_head
+        self.norm = GroupNorm(groups, channels, 1e-6)
+        self.proj_in = nn.Conv2d(channels, inner, 1)
+        self.transformer_blocks = nn.ModuleList([
+            BasicTransformerBlock(inner, heads, dim_head, cross_attention_dim,
+                                  f"{proc_prefix}.transformer_blocks.{i}")
+            for i in range(depth)
+        ])
+        self.proj_out = nn.Conv2d(inner, channels, 1)
+
+    def forward(self, x, ctx, biases=None):
+        _, _, hh, ww = x.shape
+        residual = x
+        h = to_tokens(self.proj_in(self.norm(x)))
+        for block in self.transformer_blocks:
+            h = block(h, ctx, biases)
+        return self.proj_out(from_tokens(h, hh, ww)) + residual
+
+
+class _Block(nn.Module):
+    """A down/up block: resnets, optional attentions, optional resampler (diffusers
+    key layout ``resnets.i``, ``attentions.i``, ``downsamplers.0``/``upsamplers.0``)."""
+
+    def __init__(self, resnets, attentions, downsample=None, upsample=None):
+        super().__init__()
+        self.resnets = nn.ModuleList(resnets)
+        if attentions:
+            self.attentions = nn.ModuleList(attentions)
+        if downsample is not None:
+            self.downsamplers = nn.ModuleList([downsample])
+        if upsample is not None:
+            self.upsamplers = nn.ModuleList([upsample])
+
+    def attention(self, i):
+        return self.attentions[i] if hasattr(self, "attentions") else None
+
+
+def _per_block(value, n: int) -> Tuple[int, ...]:
+    return tuple(value) if isinstance(value, (tuple, list)) else (value,) * n
+
+
+# ---------------------------------------------------------------------------- UNet
+
+
+class UNet2DConditionModel(nn.Module):
+    def __init__(self, config: UNetConfig = UNetConfig()):
+        super().__init__()
+        self.config = cfg = config
+        n = len(cfg.block_out_channels)
+        heads = _per_block(cfg.attention_head_dim, n)
+        depths = _per_block(cfg.transformer_layers_per_block, n)
+        ch0 = cfg.block_out_channels[0]
+        temb_dim = ch0 * 4
+        groups, eps, xdim = cfg.norm_num_groups, cfg.norm_eps, cfg.cross_attention_dim
+
+        def transformer(ch, bi, prefix):
+            return Transformer2DModel(ch, heads[bi], ch // heads[bi], xdim, depths[bi],
+                                      groups, prefix)
+
+        self.conv_in = conv3(cfg.in_channels, ch0)
+        self.time_embedding = nn.Module()
+        self.time_embedding.linear_1 = nn.Linear(ch0, temb_dim)
+        self.time_embedding.linear_2 = nn.Linear(temb_dim, temb_dim)
+
+        self.down_blocks = nn.ModuleList()
+        out_ch = ch0
+        skip_channels = [ch0]
+        for bi, btype in enumerate(cfg.down_block_types):
+            in_ch, out_ch = out_ch, cfg.block_out_channels[bi]
+            resnets, attns = [], []
+            for li in range(cfg.layers_per_block):
+                resnets.append(ResnetBlock2D(in_ch if li == 0 else out_ch, out_ch,
+                                             temb_dim, groups, eps))
+                if btype == "CrossAttnDownBlock2D":
+                    attns.append(transformer(out_ch, bi, f"down_blocks.{bi}.attentions.{li}"))
+                skip_channels.append(out_ch)
+            final = bi == n - 1
+            self.down_blocks.append(_Block(resnets, attns,
+                                           None if final else Downsample2D(out_ch)))
+            if not final:
+                skip_channels.append(out_ch)
+
+        mid_ch = cfg.block_out_channels[-1]
+        self.mid_block = _Block(
+            [ResnetBlock2D(mid_ch, mid_ch, temb_dim, groups, eps),
+             ResnetBlock2D(mid_ch, mid_ch, temb_dim, groups, eps)],
+            [transformer(mid_ch, n - 1, "mid_block.attentions.0")],
+        )
+
+        self.up_blocks = nn.ModuleList()
+        rev = list(reversed(cfg.block_out_channels))
+        h_ch = mid_ch
+        for bi, btype in enumerate(cfg.up_block_types):
+            out_ch = rev[bi]
+            resnets, attns = [], []
+            for li in range(cfg.layers_per_block + 1):
+                cat_ch = h_ch + skip_channels.pop()
+                resnets.append(ResnetBlock2D(cat_ch, out_ch, temb_dim, groups, eps))
+                h_ch = out_ch
+                if btype == "CrossAttnUpBlock2D":
+                    attns.append(transformer(out_ch, n - 1 - bi,
+                                             f"up_blocks.{bi}.attentions.{li}"))
+            final = bi == n - 1
+            self.up_blocks.append(_Block(resnets, attns,
+                                         upsample=None if final else Upsample2D(out_ch)))
+
+        self.conv_norm_out = GroupNorm(groups, ch0, eps)
+        self.conv_out = conv3(ch0, cfg.out_channels)
+
+    def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
+                encoder_hidden_states: torch.Tensor,
+                biases: Optional[Dict[str, Any]] = None) -> torch.Tensor:
+        """sample (B, 4, H, W) NCHW, timesteps (B,) or scalar, context (B, 77, D);
+        ``biases``: {processor name: FoldedBias} of the folded adapters, or None.
+        Returns the fp32 model output (B, 4, H, W)."""
+        cfg = self.config
+        dtype = self.conv_in.weight.dtype
+        if timesteps.dim() == 0:
+            timesteps = timesteps.expand(sample.shape[0])
+        t_emb = timestep_embedding(timesteps, cfg.block_out_channels[0],
+                                   cfg.flip_sin_to_cos, cfg.freq_shift).to(dtype)
+        temb = self.time_embedding.linear_2(F.silu(self.time_embedding.linear_1(t_emb)))
+        ctx = encoder_hidden_states.to(dtype)
+
+        h = self.conv_in(sample.to(dtype))
+        skips: List[torch.Tensor] = [h]
+        for block in self.down_blocks:
+            for li, resnet in enumerate(block.resnets):
+                h = resnet(h, temb)
+                attn = block.attention(li)
+                if attn is not None:
+                    h = attn(h, ctx, biases)
+                skips.append(h)
+            if hasattr(block, "downsamplers"):
+                h = block.downsamplers[0](h)
+                skips.append(h)
+
+        h = self.mid_block.resnets[0](h, temb)
+        h = self.mid_block.attentions[0](h, ctx, biases)
+        h = self.mid_block.resnets[1](h, temb)
+
+        for block in self.up_blocks:
+            for li, resnet in enumerate(block.resnets):
+                h = resnet(torch.cat([h, skips.pop()], dim=1), temb)
+                attn = block.attention(li)
+                if attn is not None:
+                    h = attn(h, ctx, biases)
+            if hasattr(block, "upsamplers"):
+                h = block.upsamplers[0](h)
+
+        h = self.conv_out(F.silu(self.conv_norm_out(h)))
+        return h.float()
+
+
+# ------------------------------------------------------------------ processor inventory
+
+
+def attention_processor_names(config: UNetConfig = UNetConfig()) -> List[str]:
+    """Diffusers processor names in ``unet.attn_processors`` order (down, mid, up;
+    attn1 then attn2 per transformer block)."""
+    depths = _per_block(config.transformer_layers_per_block, len(config.block_out_channels))
+    names = []
+    for bi, btype in enumerate(config.down_block_types):
+        if btype == "CrossAttnDownBlock2D":
+            for li in range(config.layers_per_block):
+                for ti in range(depths[bi]):
+                    for a in ("attn1", "attn2"):
+                        names.append(f"down_blocks.{bi}.attentions.{li}"
+                                     f".transformer_blocks.{ti}.{a}.processor")
+    for ti in range(depths[-1]):
+        for a in ("attn1", "attn2"):
+            names.append(f"mid_block.attentions.0.transformer_blocks.{ti}.{a}.processor")
+    rev_depths = list(reversed(depths))
+    for bi, btype in enumerate(config.up_block_types):
+        if btype == "CrossAttnUpBlock2D":
+            for li in range(config.layers_per_block + 1):
+                for ti in range(rev_depths[bi]):
+                    for a in ("attn1", "attn2"):
+                        names.append(f"up_blocks.{bi}.attentions.{li}"
+                                     f".transformer_blocks.{ti}.{a}.processor")
+    return names
+
+
+def processor_bucket(name: str, n_blocks: int) -> int:
+    """Resolution bucket (control_id) of a processor name."""
+    if name.startswith("mid_block"):
+        return n_blocks - 1
+    if name.startswith("up_blocks"):
+        block_id = int(name[len("up_blocks."):].split(".")[0])
+        return n_blocks - 1 - block_id
+    if name.startswith("down_blocks"):
+        return int(name[len("down_blocks."):].split(".")[0])
+    raise ValueError(name)
+
+
+def processor_cross_dim(name: str, config: UNetConfig = UNetConfig()) -> Optional[int]:
+    return None if ".attn1." in name else config.cross_attention_dim
+
+
+def processor_hidden_size(name: str, config: UNetConfig = UNetConfig()) -> int:
+    """Channel width at a processor's location."""
+    if name.startswith("mid_block"):
+        return config.block_out_channels[-1]
+    if name.startswith("down_blocks"):
+        return config.block_out_channels[int(name[len("down_blocks."):].split(".")[0])]
+    bi = int(name[len("up_blocks."):].split(".")[0])
+    return list(reversed(config.block_out_channels))[bi]
+
+
+def derive_cross_attention_dims(config: UNetConfig = UNetConfig()):
+    """Per-bucket ``lora_cross_attention_dims`` matching this UNet exactly."""
+    n_blocks = len(config.block_out_channels)
+    buckets = [[] for _ in range(n_blocks)]
+    for name in attention_processor_names(config):
+        buckets[processor_bucket(name, n_blocks)].append(processor_cross_dim(name, config))
+    return tuple(tuple(b) for b in buckets)

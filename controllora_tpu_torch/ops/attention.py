@@ -1,0 +1,60 @@
+"""Multi-head attention primitive (counterpart of ``controllora_tpu/ops/attention.py``).
+
+The default path is plain ``torch.matmul`` with fp32 logits and softmax, as the JAX
+package computes it outside any kernel. Long self-attention on a CUDA tensor
+(q_len == kv_len >= 2048, the JAX ``_use_flash`` rule) goes to the hand-written
+flash kernel K2 (``ops/flash_attention.py``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+FLASH_MIN_LEN = 2048
+
+
+def split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
+    """(B, L, H*D) -> (B, heads, L, D)."""
+    b, l, hd = x.shape
+    return x.reshape(b, l, heads, hd // heads).transpose(1, 2)
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """(B, heads, L, D) -> (B, L, H*D)."""
+    b, h, l, d = x.shape
+    return x.transpose(1, 2).reshape(b, l, h * d)
+
+
+def tile_batch(x: torch.Tensor, b: int) -> torch.Tensor:
+    """TILE a batch-n tensor to batch b: row i pairs with rows i, n + i, ... of the
+    block [u1..un || c1..cn] CFG layout (never interleave)."""
+    if x.shape[0] != b:
+        x = x.repeat((b // x.shape[0],) + (1,) * (x.dim() - 1))
+    return x
+
+
+def use_flash(q_len: int, kv_len: int, device: torch.device) -> bool:
+    """Long self-attention on the card takes the flash kernel; cross attention
+    (kv = 77) and short sequences stay on the matmul path."""
+    return device.type == "cuda" and q_len == kv_len and q_len >= FLASH_MIN_LEN
+
+
+def dot_product_attention(
+    query: torch.Tensor,
+    key: torch.Tensor,
+    value: torch.Tensor,
+    heads: int,
+) -> torch.Tensor:
+    """Attention over (B, L, inner) projections; returns (B, Lq, inner) in
+    query.dtype. Logits and softmax are fp32 whatever the input dtype."""
+    if use_flash(query.shape[1], key.shape[1], query.device):
+        from controllora_tpu_torch.ops.flash_attention import flash_attention
+
+        return flash_attention(query, key, value, heads)[0]
+    q = split_heads(query, heads)
+    k = split_heads(key, heads)
+    v = split_heads(value, heads)
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * q.shape[-1] ** -0.5
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.matmul(probs.to(v.dtype), v)
+    return merge_heads(out).to(query.dtype)

@@ -1,0 +1,163 @@
+"""Guided text-to-image pipeline in PyTorch (counterpart of
+``controllora_tpu/pipelines/text_to_image.py``).
+
+Order of work: tokenizer -> CLIP -> hint encoder -> ``fold_adapters`` -> a plain
+Python loop of CFG UNet evals and DPM-Solver++ updates -> one batched VAE decode.
+The CFG batch is the block layout [uncond * n || cond * n]; a batch-1 guide's biases
+broadcast over it and per-image guides tile to it.
+
+The public layout is the JAX package's: guides (H, W, 3) or (n, H, W, 3) in [-1, 1],
+``latents=`` (n, H/8, W/8, 4), results HWC uint8 images or float arrays in [-1, 1]
+with ``return_array=True``. Inside, tensors are NCHW on ``device``.
+Not ported yet: img2img, inpaint, the SDXL refiner, ToMe, DeepCache, extra LoRAs and
+controls, meshes, and the other schedulers.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Union
+
+import numpy as np
+import torch
+from torch.func import functional_call
+
+from controllora_tpu_torch.models.lora import is_foldable
+from controllora_tpu_torch.ops.folding import fold_adapters
+from controllora_tpu_torch.schedulers import DPMSolverMultistepScheduler
+
+
+def _nhwc_to_nchw(x, device, dtype=torch.float32) -> torch.Tensor:
+    t = torch.as_tensor(np.asarray(x, np.float32) if not torch.is_tensor(x) else x)
+    return t.to(device=device, dtype=dtype).permute(0, 3, 1, 2).contiguous()
+
+
+class StableDiffusionControlLoRAPipeline:
+    def __init__(self, unet, vae, text_encoder, tokenizer, control_lora=None,
+                 scheduler: Optional[DPMSolverMultistepScheduler] = None,
+                 device="cpu"):
+        self.device = torch.device(device)
+        self.unet = unet.to(self.device)
+        self.vae = vae.to(self.device)
+        self.text_encoder = text_encoder.to(self.device)
+        self.control_lora = None if control_lora is None else control_lora.to(self.device)
+        self.tokenizer = tokenizer
+        self.scheduler = scheduler or DPMSolverMultistepScheduler()
+
+    # ------------------------------------------------------------------ text
+
+    @torch.inference_mode()
+    def encode_prompt(self, prompt: Union[str, Sequence[str]],
+                      negative_prompt: Union[str, Sequence[str]] = "") -> torch.Tensor:
+        """-> (2, 77, hidden) [uncond || cond] context; for a LIST of n prompts,
+        (2, n, 77, hidden) with the uncond row block first (image-major on axis 1).
+        ``negative_prompt`` may be a matching list or one string for all images."""
+        per_image = None
+        if isinstance(prompt, (list, tuple)):
+            prompts = list(prompt)
+            negs = (list(negative_prompt) if isinstance(negative_prompt, (list, tuple))
+                    else [negative_prompt] * len(prompts))
+            if len(negs) != len(prompts):
+                raise ValueError(f"{len(prompts)} prompts but {len(negs)} negative prompts")
+            texts = negs + prompts
+            per_image = len(prompts)
+        elif isinstance(negative_prompt, (list, tuple)):
+            raise ValueError("list negative_prompt requires a list prompt")
+        else:
+            texts = [negative_prompt, prompt]
+        ids = torch.as_tensor(self.tokenizer(texts), dtype=torch.long, device=self.device)
+        enc = self.text_encoder(ids)
+        return enc if per_image is None else enc.reshape((2, per_image) + enc.shape[1:])
+
+    # ------------------------------------------------------------------ call
+
+    @torch.inference_mode()
+    def __call__(
+        self,
+        prompt: Union[str, Sequence[str]],
+        guide: Optional[np.ndarray] = None,
+        negative_prompt: Union[str, Sequence[str]] = "",
+        num_inference_steps: int = 20,
+        guidance_scale: float = 9.0,
+        num_images: int = 1,
+        height: Optional[int] = None,
+        width: Optional[int] = None,
+        generator: Optional[torch.Generator] = None,
+        lora_scale: float = 1.0,
+        latents=None,
+        return_array: bool = False,
+    ) -> List[np.ndarray]:
+        """Returns a list of HWC uint8 images (float arrays in [-1, 1] with
+        ``return_array``). Without ``latents=`` the initial noise is drawn from
+        ``generator`` (a CPU generator; default seed 0)."""
+        if isinstance(prompt, (list, tuple)):
+            if num_images not in (1, len(prompt)):
+                raise ValueError(f"{len(prompt)} per-image prompts conflict with "
+                                 f"num_images={num_images}")
+            num_images = len(prompt)
+        if guide is not None:
+            guide = np.asarray(guide, np.float32)
+            guide = guide[None] if guide.ndim == 3 else guide
+            height = height or guide.shape[1]
+            width = width or guide.shape[2]
+        if latents is not None:
+            latents = np.asarray(latents.cpu() if torch.is_tensor(latents) else latents,
+                                 np.float32)
+            latents = latents if latents.ndim == 4 else latents[None]
+            height = height or latents.shape[1] * 8
+            width = width or latents.shape[2] * 8
+        height, width = height or 512, width or 512
+        lh, lw = height // 8, width // 8
+        c_in = self.unet.config.in_channels
+
+        if latents is not None:
+            n = latents.shape[0]
+            if num_images not in (1, n):
+                raise ValueError(f"explicit latents provide the batch ({n} image(s)); "
+                                 f"num_images={num_images} conflicts")
+            lat = _nhwc_to_nchw(latents, self.device)
+        else:
+            n = num_images
+            if generator is None:
+                generator = torch.Generator().manual_seed(0)
+            noise = torch.randn((n, lh, lw, c_in), generator=generator)
+            lat = _nhwc_to_nchw(noise, self.device)
+
+        ctx = self.encode_prompt(prompt, negative_prompt)
+        if ctx.dim() == 4:
+            if ctx.shape[1] != n:
+                raise ValueError(f"{ctx.shape[1]} per-image prompts for a batch of {n}")
+            ctx_n = ctx.reshape((-1,) + ctx.shape[2:])
+        else:
+            ctx_n = torch.cat([ctx[:1].expand(n, -1, -1), ctx[1:].expand(n, -1, -1)])
+
+        weights, biases = {}, None
+        if guide is not None and self.control_lora is not None:
+            if guide.shape[0] not in (1, n):
+                raise ValueError(f"guide batch {guide.shape[0]} must be 1 (shared) or "
+                                 f"match the image batch {n} (per-image guides)")
+            g = _nhwc_to_nchw(guide, self.device)
+            adapters = self.control_lora.adapters_for(g, self.unet.config)
+            if not is_foldable(adapters):
+                raise ValueError("only foldable adapter stacks are served by the port")
+            weights, biases = fold_adapters(self.unet, adapters, lora_scale)
+            # cast once: every step adds them in the UNet's compute dtype
+            dtype = self.unet.conv_in.weight.dtype
+            biases = {k: b.to(dtype) for k, b in biases.items()}
+
+        sch = self.scheduler
+        tables = sch.tables(num_inference_steps)
+        state = sch.init_state(lat)
+        for i in range(num_inference_steps):
+            lat2 = torch.cat([state.sample, state.sample])
+            t = torch.full((lat2.shape[0],), int(tables[0][i]), dtype=torch.long,
+                           device=self.device)
+            eps = functional_call(self.unet, weights, (lat2, t, ctx_n),
+                                  {"biases": biases})
+            eps_u, eps_c = eps.chunk(2)
+            eps_g = eps_u + guidance_scale * (eps_c - eps_u)
+            state = sch.step(state, eps_g, i, num_inference_steps, tables)
+
+        img = self.vae.decode(state.sample).float().permute(0, 2, 3, 1).cpu().numpy()
+        if return_array:
+            return [img[i] for i in range(n)]
+        return [np.clip((img[i] + 1.0) * 127.5, 0, 255).astype(np.uint8) for i in range(n)]

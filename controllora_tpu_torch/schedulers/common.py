@@ -1,0 +1,74 @@
+"""Shared diffusion noise-schedule tables (counterpart of
+``controllora_tpu/schedulers/common.py``).
+
+The tables are host numpy (float32, like the JAX package's); only the per-sample
+math takes tensors. SD1.5 schedule: scaled_linear betas in [0.00085, 0.012], 1000
+train steps, epsilon prediction.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class DiffusionSchedule:
+    """Per-timestep coefficient tables (float32, length num_train_timesteps)."""
+
+    betas: np.ndarray
+    alphas_cumprod: np.ndarray
+    num_train_timesteps: int = 1000
+    prediction_type: str = "epsilon"
+    steps_offset: int = 1
+
+    @classmethod
+    def create(cls, num_train_timesteps: int = 1000, beta_start: float = 0.00085,
+               beta_end: float = 0.012, beta_schedule: str = "scaled_linear",
+               prediction_type: str = "epsilon",
+               steps_offset: int = 1) -> "DiffusionSchedule":
+        if beta_schedule == "linear":
+            betas = np.linspace(beta_start, beta_end, num_train_timesteps, dtype=np.float64)
+        elif beta_schedule == "scaled_linear":
+            betas = np.linspace(beta_start**0.5, beta_end**0.5, num_train_timesteps,
+                                dtype=np.float64) ** 2
+        elif beta_schedule == "squaredcos_cap_v2":
+            t = np.arange(num_train_timesteps, dtype=np.float64)
+
+            def f(u):
+                return np.cos((u / num_train_timesteps + 0.008) / 1.008 * np.pi / 2) ** 2
+
+            betas = np.clip(1.0 - f(t + 1) / f(t), 0, 0.999)
+        else:
+            raise ValueError(f"unknown beta_schedule {beta_schedule!r}")
+        return cls(
+            betas=betas.astype(np.float32),
+            alphas_cumprod=np.cumprod(1.0 - betas).astype(np.float32),
+            num_train_timesteps=num_train_timesteps,
+            prediction_type=prediction_type,
+            steps_offset=steps_offset,
+        )
+
+    def pred_original_sample(self, sample: torch.Tensor, model_output: torch.Tensor,
+                             t: int) -> torch.Tensor:
+        """x0 estimate from a model output at integer timestep t."""
+        acp = self.alphas_cumprod[int(t)]
+        alpha_t = float(np.sqrt(acp))
+        sigma_t = float(np.sqrt(np.float32(1.0) - acp))
+        if self.prediction_type == "epsilon":
+            return (sample - sigma_t * model_output) / alpha_t
+        if self.prediction_type == "v_prediction":
+            return alpha_t * sample - sigma_t * model_output
+        if self.prediction_type == "sample":
+            return model_output
+        raise ValueError(f"unknown prediction_type {self.prediction_type!r}")
+
+
+def linspace_timesteps(num_train_timesteps: int, num_inference_steps: int) -> np.ndarray:
+    """DPM-Solver grid: linspace over [0, T-1], 0 endpoint dropped, descending
+    (diffusers DPMSolverMultistepScheduler.set_timesteps)."""
+    ts = (np.linspace(0, num_train_timesteps - 1, num_inference_steps + 1)
+          .round()[::-1][:-1].astype(np.int32))
+    return ts.copy()

@@ -1,0 +1,188 @@
+"""Continuous micro-batching serving engine (counterpart of
+``controllora_tpu/serving/engine.py``).
+
+Concurrent requests coalesce into per-image-prompt batches over one pipeline:
+
+* **Bucketed batch shapes.** Batches pad up to the next bucket (default 1/2/4/8) by
+  repeating the last request; padded outputs are dropped.
+* **Composition-independent results.** Each request's initial latents come from its
+  own seed at submit time, ``torch.Generator().manual_seed(seed)`` drawing an
+  (1, H/8, W/8, 4) standard normal, and ride the pipeline's ``latents=`` argument, so
+  a request renders the same image in a batch of 1 or 8 (up to fp reassociation).
+  The torch generator is not ``jax.random``: the same seed gives DIFFERENT latents,
+  hence different images, than the JAX engine.
+* **Compatibility groups.** Only requests with identical (steps, resolution,
+  guidance, lora_scale, guided-ness, output kind) share a batch; others are held for
+  the next one.
+* **One dispatch thread** owns the device; a forming batch waits at most
+  ``max_wait_ms`` for companions.
+
+The JAX engine's data-mesh handling (bucket snapping, guide fingerprints) is not
+ported: the port serves from one device.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+import time
+from concurrent.futures import Future
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+
+@dataclass
+class Request:
+    prompt: str
+    negative_prompt: str = ""
+    guide: Optional[np.ndarray] = None  # (H, W, 3) in [-1, 1]
+    num_inference_steps: int = 20
+    guidance_scale: float = 9.0
+    height: int = 512
+    width: int = 512
+    seed: int = 0
+    lora_scale: float = 1.0
+    return_array: bool = False
+    # internal
+    _latents: Any = field(default=None, repr=False)
+    _future: Any = field(default=None, repr=False)
+
+    @property
+    def group_key(self):
+        """Requests sharing this key can render in one batched pipeline call."""
+        return (self.num_inference_steps, self.height, self.width,
+                float(self.guidance_scale), float(self.lora_scale),
+                self.guide is not None, self.return_array)
+
+
+def request_latents(seed: int, height: int, width: int, channels: int = 4) -> np.ndarray:
+    """A request's initial latents (1, H/8, W/8, C) from its seed."""
+    g = torch.Generator().manual_seed(int(seed))
+    return torch.randn((1, height // 8, width // 8, channels), generator=g).numpy()
+
+
+class BatchingEngine:
+    def __init__(self, pipe, max_wait_ms: float = 25.0,
+                 buckets: Sequence[int] = (1, 2, 4, 8),
+                 pipe_kwargs: Optional[Dict[str, Any]] = None, device=None):
+        """``pipe``: a StableDiffusionControlLoRAPipeline. ``max_wait_ms``: how long a
+        forming batch waits for companions. ``buckets``: allowed batch sizes; the
+        largest is the cap. ``pipe_kwargs``: extra kwargs for every pipeline call.
+        ``device``: the device the engine serves on, which must be the pipeline's
+        (default: the pipeline's); latents are drawn on the CPU and moved there."""
+        self.device = torch.device(device) if device is not None else pipe.device
+        if self.device != pipe.device:
+            raise ValueError(f"engine device {self.device} but the pipeline runs on "
+                             f"{pipe.device}")
+        self.pipe = pipe
+        self.pipe_kwargs = dict(pipe_kwargs or {})
+        self.max_wait_ms = float(max_wait_ms)
+        self.buckets = tuple(sorted(int(b) for b in buckets))
+        if not self.buckets or self.buckets[0] < 1:
+            raise ValueError(f"buckets must be positive ints, got {buckets!r}")
+        self._q: "queue.Queue[Request]" = queue.Queue()
+        self._held: list = []  # incompatible leftovers, FIFO priority next round
+        self._stop = threading.Event()
+        self.stats: Dict[str, Any] = {"requests": 0, "batches": 0, "padded_slots": 0,
+                                      "batch_sizes": {}, "errors": 0}
+        self._worker = threading.Thread(target=self._loop, daemon=True,
+                                        name="serving-batcher")
+        self._worker.start()
+
+    # ------------------------------------------------------------------ client
+
+    def submit(self, prompt: str, **kw) -> Future:
+        """Enqueue one request; resolves to its image (HWC uint8, or a float array
+        with return_array=True)."""
+        req = Request(prompt=prompt, **kw)
+        if req.guide is not None:
+            g = np.asarray(req.guide, np.float32)
+            if g.ndim != 3 or g.shape[:2] != (req.height, req.width):
+                raise ValueError(f"guide shape {g.shape} must be "
+                                 f"({req.height}, {req.width}, 3)")
+            req.guide = g
+        req._latents = request_latents(req.seed, req.height, req.width,
+                                       self.pipe.unet.config.in_channels)
+        req._future = Future()
+        self._q.put(req)
+        return req._future
+
+    def stop(self, timeout: float = 10.0) -> None:
+        self._stop.set()
+        self._worker.join(timeout=timeout)
+
+    # ------------------------------------------------------------------ worker
+
+    def _take_first(self) -> Optional[Request]:
+        if self._held:
+            return self._held.pop(0)
+        try:
+            return self._q.get(timeout=0.05)
+        except queue.Empty:
+            return None
+
+    def _loop(self) -> None:
+        while not self._stop.is_set():
+            first = self._take_first()
+            if first is None:
+                continue
+            batch = [first]
+            cap = self.buckets[-1]
+            deadline = time.monotonic() + self.max_wait_ms / 1000.0
+            keep = []
+            for r in self._held:
+                (batch if len(batch) < cap and r.group_key == first.group_key
+                 else keep).append(r)
+            self._held = keep
+            while len(batch) < cap:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                try:
+                    r = self._q.get(timeout=remaining)
+                except queue.Empty:
+                    break
+                if r.group_key == first.group_key:
+                    batch.append(r)
+                else:
+                    self._held.append(r)
+            self._run(batch)
+
+    def _run(self, batch) -> None:
+        n = len(batch)
+        bucket = next(b for b in self.buckets if b >= n)
+        pad = bucket - n
+        reqs = batch + [batch[-1]] * pad  # padded slots repeat the last request
+        first = batch[0]
+        kw: Dict[str, Any] = dict(
+            self.pipe_kwargs,
+            negative_prompt=[r.negative_prompt for r in reqs],
+            num_inference_steps=first.num_inference_steps,
+            guidance_scale=first.guidance_scale,
+            height=first.height, width=first.width,
+            lora_scale=first.lora_scale,
+            latents=np.concatenate([r._latents for r in reqs], axis=0),
+            return_array=first.return_array,
+        )
+        if first.guide is not None:
+            kw["guide"] = np.stack([r.guide for r in reqs])
+        try:
+            t0 = time.monotonic()
+            imgs = self.pipe([r.prompt for r in reqs], **kw)
+            dt = time.monotonic() - t0
+            for r, img in zip(batch, imgs[:n]):
+                r._future.set_result(img)
+            self.stats["requests"] += n
+            self.stats["batches"] += 1
+            self.stats["padded_slots"] += pad
+            sizes = self.stats["batch_sizes"]
+            sizes[bucket] = sizes.get(bucket, 0) + 1
+            self.stats["last_batch_seconds"] = dt
+        except Exception as e:  # fail the whole batch, keep serving
+            self.stats["errors"] += 1
+            for r in batch:
+                if not r._future.done():
+                    r._future.set_exception(e)
