@@ -6,8 +6,12 @@
 Phases, each of which raises (non-zero exit, no result line) when it fails:
   1. device   the CUDA device, its name and power limit (nvidia-smi); TF32 off.
   2. build    nvcc builds the hand-written kernels from controllora_tpu_torch/csrc.
-  3. kernels  K1 and K2 against their plain PyTorch versions on the card, bf16
-              inputs, at the main path's shapes and the ragged ones; times of both.
+  3. kernels  K1-K4 against their plain PyTorch versions on the card, bf16 inputs,
+              at the serving and training paths' shapes, other resolutions' shapes,
+              and (K3/K4) ragged L, not a multiple of the 64-row tile; times of both.
+              Then the gradient of FlashAttention (K2 forward, K3 + K4 backward)
+              through dot_product_attention against autograd of the plain fp32
+              attention, at the training shape and a ragged one.
   4. parity   full-width SD1.5 (random seeded bf16 weights) + the `base` ControlLoRA
               (perturbed so the folded biases are nonzero): one folded UNet eval,
               one VAE decode and the CLIP encoder on the card against the same
@@ -17,17 +21,33 @@ Phases, each of which raises (non-zero exit, no result line) when it fails:
               together (one padded batch of 4), then 1 unguided; exact kernel launch
               counts per call, finite 512x512x3 images, latency and img/s.
   6. decode   VAE decode times at batch 1 and batch 4.
+  7. train parity  one ControlLoRA train step's loss and adapter gradient at batch 1
+              (same weights, latents, noise, t, ids, guide) on the card (bf16,
+              kernels; then again with the adapters cast to bf16 as well) against
+              the CPU (fp32, plain versions); VAE encode_moments.
+  8. train    the training slice: ControlLoRATrainer.train_step on full-width SD1.5
+              + `base` at 512², batch 8 of fill50k, bf16 frozen stack: 2 warm-up and
+              5 timed steps, exact launches per step, finite loss, nonzero gradient,
+              params updated; ms/step, img/s, peak memory, one profiled step.
+  9. entry    `python -m controllora_tpu_torch.train` for 2 steps at 512² batch 8;
+              its artifact loads back into the port's ControlLoRA strictly.
 The last lines are the kernel record, the card's name and power limit, and
 {"ok": true, "device": {...}}.
 """
 
 import json
+import os
 import statistics
 import subprocess
+import sys
+import tempfile
 import time
 
-O_BOUND, LSE_BOUND, REL_BOUND = 1e-2, 1e-3, 5e-2
+O_BOUND, LSE_BOUND, GRAD_BOUND, REL_BOUND = 1e-2, 1e-3, 1e-2, 5e-2
 STEPS, CFG, RES = 20, 9.0, 512
+TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS = 8, 2, 5
+TRAIN_LAUNCHES = {"k1": 0, "k2": 6, "k3": 5, "k4": 5}  # per step: 5 UNet + 1 VAE
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
 def log(msg):
@@ -107,8 +127,10 @@ def phase_kernels(torch, fa, device):
         record["k1"]["max_abs_err"] = max(record["k1"]["max_abs_err"], err)
         log(line)
         del q, k, v, qb, kb, vb, out, ref
-    # K2: the VAE mid-attention (main path) and the unguided UNet self-attention
-    for b, h, l, d in ((1, 1, 4096, 512), (2, 8, 4096, 40)):
+    # K2: the VAE mid-attention and the unguided UNet self-attention of serving
+    # (batch 1), then the training path's (batch 8): UNet self-attention and VAE encoder
+    for b, h, l, d in ((1, 1, 4096, 512), (2, 8, 4096, 40), (8, 8, 4096, 40),
+                       (8, 1, 4096, 512)):
         q, k, v = rnd(b, l, h * d), rnd(b, l, h * d), rnd(b, l, h * d)
         o, lse = fa.flash_attention(q, k, v, h)
         torch.cuda.synchronize()
@@ -122,7 +144,7 @@ def phase_kernels(torch, fa, device):
         ms = cuda_ms(lambda: fa.flash_attention(q, k, v, h))
         pms = cuda_ms(lambda: fa.attention_lse_plain(q, k, v, h))
         line += f"  kernel {ms:.4f} ms  plain {pms:.4f} ms"
-        if d == 512:
+        if (b, d) == (1, 512):
             record["k2"].update(ms=ms, plain_ms=pms)
         record["k2"]["max_abs_err"] = max(record["k2"]["max_abs_err"], err)
         log(line)
@@ -270,8 +292,8 @@ def phase_serve(torch, fa, pipe):
             out = [f.result(timeout=900) for f in futs]
             per_call = {k: fa.LAUNCHES[k] - before[k] for k in before}
             guided = reqs[0][1] is not None
-            want = ({"k1": 5 * STEPS, "k2": 1} if guided
-                    else {"k1": 0, "k2": 5 * STEPS + 1})
+            want = ({"k1": 5 * STEPS, "k2": 1, "k3": 0, "k4": 0} if guided
+                    else {"k1": 0, "k2": 5 * STEPS + 1, "k3": 0, "k4": 0})
             if per_call != want:
                 raise AssertionError(f"{name}: launches {per_call}, expected {want}")
             dt = eng.stats["last_batch_seconds"]
@@ -306,6 +328,272 @@ def phase_decode(torch, pipe, device):
         f"({b4 / 4:.3f} ms/image), 4 x batch 1 {loop4:.3f} ms")
 
 
+def grad_check(name, out, ref):
+    """max|out - ref| <= GRAD_BOUND * max(1, max|ref|), finite; returns the error."""
+    err = (out.float() - ref).abs().max().item()
+    bound = GRAD_BOUND * max(1.0, ref.abs().max().item())
+    if not (out.shape == ref.shape and bool(out.isfinite().all()) and err <= bound):
+        raise AssertionError(f"{name}: max|d| {err} > {bound}")
+    return err
+
+
+def phase_backward_kernels(torch, fa, device):
+    """K3/K4 vs plain (fp32 on the same bf16 inputs, O and LSE from K2); returns
+    {kernel: {"max_abs_err", "ms", "plain_ms"}}."""
+    gen = torch.Generator(device=device).manual_seed(3)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+
+    record = {"k3": {"max_abs_err": 0.0}, "k4": {"max_abs_err": 0.0}}
+    # the training path's shape (5 UNet self-attentions at 512², batch 8), the 384²
+    # and 704² latents (L a multiple of the kernels' 64-row tile), then ragged L: the
+    # 520² latent (4225 = 66 * 64 + 1) and a short one, where the kernels mask P by index
+    for b, h, l, d in ((8, 8, 4096, 40), (2, 8, 2304, 80), (1, 8, 7744, 40),
+                       (2, 8, 4225, 40), (1, 8, 300, 80)):
+        q, k, v, do = (rnd(b, l, h * d) for _ in range(4))
+        o, lse = fa.flash_attention(q, k, v, h)
+        dcap = fa.attention_dcap(o, do, h)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, dcap, h)
+        dq = fa.flash_bwd_dq(q, k, v, do, lse, dcap, h)
+        torch.cuda.synchronize()
+        args = [x.float() for x in (q, k, v, do)] + [lse, dcap]
+        ref_dk, ref_dv = fa.flash_bwd_dkv_plain(*args, h)
+        ref_dq = fa.flash_bwd_dq_plain(*args, h)
+        tag = f"B={b} H={h} L={l} D={d}"
+        errs = {n: grad_check(f"{n} {tag}", out, ref)
+                for n, out, ref in (("dq", dq, ref_dq), ("dk", dk, ref_dk), ("dv", dv, ref_dv))}
+        del ref_dk, ref_dv, ref_dq, args
+        line = (f"K3/K4 {tag}: max|d| dQ {errs['dq']:.3e}, dK {errs['dk']:.3e}, "
+                f"dV {errs['dv']:.3e} <= {GRAD_BOUND} * max(1, max|ref|)")
+        if (b, l, d) == (8, 4096, 40):
+            bwd = (q, k, v, do, lse, dcap, h)
+            ms3 = cuda_ms(lambda: fa.flash_bwd_dkv(*bwd))
+            pms3 = cuda_ms(lambda: fa.flash_bwd_dkv_plain(*bwd))
+            ms4 = cuda_ms(lambda: fa.flash_bwd_dq(*bwd))
+            pms4 = cuda_ms(lambda: fa.flash_bwd_dq_plain(*bwd))
+            record["k3"].update(ms=ms3, plain_ms=pms3)
+            record["k4"].update(ms=ms4, plain_ms=pms4)
+            line += (f"  K3 {ms3:.4f} ms (plain {pms3:.4f})  K4 {ms4:.4f} ms "
+                     f"(plain {pms4:.4f})")
+        record["k3"]["max_abs_err"] = max(record["k3"]["max_abs_err"], errs["dk"], errs["dv"])
+        record["k4"]["max_abs_err"] = max(record["k4"]["max_abs_err"], errs["dq"])
+        log(line)
+        del q, k, v, do, o, lse, dcap, dk, dv, dq
+    return record
+
+
+def phase_flash_grad(torch, fa, device):
+    """Gradients through dot_product_attention (the route that used to drop them)
+    against autograd of the plain fp32 attention: the training shape, and a ragged L."""
+    for b, h, l, d in ((8, 8, 4096, 40), (2, 8, 4225, 40)):
+        flash_grad_case(torch, fa, device, b, h, l, d)
+
+
+def flash_grad_case(torch, fa, device, b, h, l, d):
+    from controllora_tpu_torch.ops.attention import dot_product_attention, merge_heads, split_heads
+
+    gen = torch.Generator(device=device).manual_seed(4)
+    q, k, v, do = (torch.randn((b, l, h * d), generator=gen, device=device)
+                   .to(torch.bfloat16) for _ in range(4))
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    before = dict(fa.LAUNCHES)
+    dot_product_attention(q, k, v, h).backward(do)
+    torch.cuda.synchronize()
+    used = {n: fa.LAUNCHES[n] - before[n] for n in before}
+    if used != {"k1": 0, "k2": 1, "k3": 1, "k4": 1}:
+        raise AssertionError(f"FlashAttention launches {used}")
+    ref_in = [x.detach().float().requires_grad_() for x in (q, k, v)]
+    qh, kh, vh = (split_heads(x, h) for x in ref_in)
+    merge_heads(torch.softmax(qh @ kh.transpose(-1, -2) * d**-0.5, dim=-1) @ vh
+                ).backward(do.float())
+    errs = {n: grad_check(f"FlashAttention d{n}", x.grad, r.grad)
+            for n, x, r in zip("qkv", (q, k, v), ref_in)}
+    log(f"FlashAttention grad B={b} H={h} L={l} D={d} vs plain fp32 autograd: "
+        + ", ".join(f"max|d{n}| {e:.3e}" for n, e in errs.items())
+        + f" <= {GRAD_BOUND} * max(1, max|ref|); |dq| max {q.grad.abs().max().item():.3e}")
+
+
+def phase_train_parity(torch, pipe, device):
+    """One train step's loss and adapter gradient at batch 1, card (bf16, kernels)
+    against CPU (fp32, plain versions) on the same weights and draws; VAE encode."""
+    import numpy as np
+
+    from controllora_tpu_torch.models.clip import CLIPTextModel
+    from controllora_tpu_torch.models.control_lora import ControlLoRA
+    from controllora_tpu_torch.models.unet import UNet2DConditionModel
+    from controllora_tpu_torch.models.vae import AutoencoderKL
+    from controllora_tpu_torch.training.trainer import ControlLoRATrainer
+
+    rng = np.random.default_rng(5)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32))
+
+    batch = {"latents": t(rng.normal(size=(1, 4, RES // 8, RES // 8))),
+             "guide_values": t(rng.uniform(-1, 1, (1, 3, RES, RES))),
+             "input_ids": torch.from_numpy(rng.integers(0, 49408, (1, 77))).long()}
+    noise = t(rng.normal(size=(1, 4, RES // 8, RES // 8)))
+    steps = torch.tensor([500])
+    pixels = t(rng.uniform(-1, 1, (1, 3, RES, RES)))
+
+    def run(unet, vae, text, control, dev, hint_dtype, adapter_dtype=None):
+        trainer = ControlLoRATrainer(control, unet, vae, text, hint_compute_dtype=hint_dtype,
+                                     adapter_compute_dtype=adapter_dtype)
+        loss = trainer.loss({k: x.to(dev) for k, x in batch.items()},
+                            noise=noise.to(dev), timesteps=steps.to(dev))
+        grad = torch.cat([g.detach().float().flatten().cpu() for g in trainer.grads(loss)])
+        with torch.no_grad():
+            moments = torch.cat(vae.encode_moments(pixels.to(dev)), dim=1).float().cpu()
+        return loss.item(), grad, moments
+
+    card = (pipe.unet, pipe.vae, pipe.text_encoder, pipe.control_lora, device, torch.bfloat16)
+    loss, grad, moments = run(*card)
+    # --adapter_compute_bf16: the adapter factors and control maps cast to bf16 too
+    loss16, grad16, _ = run(*card, adapter_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    c_loss, c_grad, c_moments = run(
+        cpu_copy(torch, pipe.unet, UNet2DConditionModel, pipe.unet.config),
+        cpu_copy(torch, pipe.vae, AutoencoderKL, pipe.vae.config),
+        cpu_copy(torch, pipe.text_encoder, CLIPTextModel, pipe.text_encoder.config),
+        cpu_copy(torch, pipe.control_lora, ControlLoRA, pipe.control_lora.config),
+        torch.device("cpu"), None)
+    cpu_s = time.perf_counter() - t0
+    errs = {"train loss": abs(loss - c_loss) / abs(c_loss),
+            "adapter gradient": rel_l2(grad, c_grad),
+            "train loss (adapter compute bf16)": abs(loss16 - c_loss) / abs(c_loss),
+            "adapter gradient (adapter compute bf16)": rel_l2(grad16, c_grad),
+            "vae encode_moments": rel_l2(moments, c_moments)}
+    for name, err in errs.items():
+        log(f"train parity {name}: card bf16 vs CPU fp32 relative {err:.4e} <= {REL_BOUND}")
+    log(f"train parity: loss card {loss:.6f} CPU {c_loss:.6f}; |grad| card "
+        f"{grad.norm():.4e} CPU {c_grad.norm():.4e}; CPU side (fp32, batch 1, L=4096) "
+        f"{cpu_s:.1f} s")
+    if not (np.isfinite(loss) and np.isfinite(loss16) and bool(grad.isfinite().all())
+            and bool(grad16.isfinite().all()) and c_grad.norm() > 0):
+        raise AssertionError("train parity: non-finite or zero result")
+    bad = {k: v for k, v in errs.items() if not v <= REL_BOUND}
+    if bad:
+        raise AssertionError(f"train parity outside {REL_BOUND}: {bad}")
+
+
+KERNEL_CLASSES = (("flash (ours)", ("flash_",)),
+                  ("GEMM", ("gemm", "cutlass", "xmma", "sm90_", "cublas")),
+                  ("conv + layout", ("conv", "cudnn", "nchwToNhwc", "nhwcToNchw")),
+                  ("norms", ("Moments", "norm", "Norm")),
+                  ("softmax", ("softmax", "Softmax")))
+
+
+def kernel_class(name):
+    for label, keys in KERNEL_CLASSES:
+        if any(k in name for k in keys):
+            return label
+    return "elementwise, copies, other"
+
+
+def device_profile(torch, fn):
+    """Run fn() once under torch.profiler; returns (wall s, device busy s, kernels
+    [(name, ms)] by time). Busy time is the sum of the CUDA kernel and memory
+    operation durations (one stream: they do not overlap)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])
+    return wall, sum(by_name.values()) / 1e3, top
+
+
+def phase_train(torch, fa, pipe, device):
+    """The training main path; returns its launch counts."""
+    from controllora_tpu.data.registry import DatasetBase, batch_iterator
+    from controllora_tpu.data.tokenizer import HashTokenizer
+    from controllora_tpu_torch.training.trainer import ControlLoRATrainer, to_device_batch
+
+    data = batch_iterator(DatasetBase.from_name("process/fill50k")(HashTokenizer(),
+                                                                   resolution=RES),
+                          TRAIN_BATCH, seed=0)
+    batches = [to_device_batch(next(data), device)
+               for _ in range(TRAIN_WARMUP + TRAIN_STEPS + 1)]
+    trainer = ControlLoRATrainer(pipe.control_lora, pipe.unet, pipe.vae, pipe.text_encoder,
+                                 hint_compute_dtype=torch.bfloat16)
+    gen = torch.Generator(device=device).manual_seed(0)
+    for batch in batches[:TRAIN_WARMUP]:
+        trainer.train_step(batch, gen)
+    torch.cuda.synchronize()
+    before = [p.detach().clone() for p in trainer.params]
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()  # the main path starts here
+    t0 = time.perf_counter()
+    metrics, per_step = [], []
+    for batch in batches[TRAIN_WARMUP:TRAIN_WARMUP + TRAIN_STEPS]:
+        c0 = dict(fa.LAUNCHES)
+        metrics.append(trainer.train_step(batch, gen))
+        per_step.append({n: fa.LAUNCHES[n] - c0[n] for n in c0})
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / TRAIN_STEPS
+    total = dict(fa.LAUNCHES)  # the main path ends here
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    changed = sum(not torch.equal(a, p.detach()) for a, p in zip(before, trainer.params))
+    log(f"train {RES}² batch {TRAIN_BATCH}: {step_s * 1e3:.1f} ms/step, "
+        f"{TRAIN_BATCH / step_s:.3f} img/s, peak {peak_gb:.2f} GiB allocated; losses "
+        + ", ".join(f"{x:.4f}" for x in losses) + "; grad norms "
+        + ", ".join(f"{x:.4f}" for x in norms)
+        + f"; {changed}/{len(before)} params changed; launches per step {per_step[0]}")
+    if any(p != TRAIN_LAUNCHES for p in per_step):
+        raise AssertionError(f"train launches per step {per_step}, expected {TRAIN_LAUNCHES}")
+    import math
+
+    if not all(math.isfinite(x) for x in losses + norms) or min(norms) <= 0:
+        raise AssertionError(f"train: losses {losses}, grad norms {norms}")
+    if changed == 0:
+        raise AssertionError("train: no adapter parameter changed")
+
+    wall, busy, top = device_profile(torch, lambda: trainer.train_step(batches[-1], gen))
+    classes = {}
+    for name, ms in top:
+        classes[kernel_class(name)] = classes.get(kernel_class(name), 0.0) + ms
+    log(f"train profiled step: wall {wall * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms, "
+        f"idle share {1 - busy / wall:.3f} (against the unprofiled step "
+        f"{1 - busy / step_s:.3f}); by class: "
+        + "; ".join(f"{c} {ms:.1f} ms" for c, ms in sorted(classes.items(), key=lambda kv: -kv[1]))
+        + "; top kernels: " + "; ".join(f"{name[:60]} {ms:.1f} ms" for name, ms in top[:10]))
+    return total
+
+
+def phase_entry_point(torch):
+    """The training CLI end to end; the saved artifact loads back strictly."""
+    from controllora_tpu_torch.training.checkpoint import load_control_lora
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "controllora_tpu_torch.train", "--max_train_steps", "2",
+             "--resolution", str(RES), "--train_batch_size", str(TRAIN_BATCH),
+             "--log_every", "1", "--output_dir", out, "--device", "cuda"],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"train CLI failed ({proc.returncode}):\n{proc.stderr[-3000:]}")
+        steps = [ln for ln in proc.stdout.splitlines() if ln.startswith("step ")]
+        if len(steps) != 2 or "nan" in proc.stdout:
+            raise AssertionError(f"train CLI output:\n{proc.stdout[-2000:]}")
+        model, _ = load_control_lora(out)
+        n = sum(p.numel() for p in model.parameters())
+    log(f"entry point: python -m controllora_tpu_torch.train 2 steps at {RES}² batch "
+        f"{TRAIN_BATCH} in {time.perf_counter() - t0:.1f} s ({steps[-1]}); artifact "
+        f"loads strictly ({n / 1e6:.2f}M params)")
+
+
 def main():
     import torch
 
@@ -326,20 +614,32 @@ def main():
     log(f"build: {time.perf_counter() - t0:.1f} s ({fa.library_path().name})")
 
     record = phase_kernels(torch, fa, device)
+    record.update(phase_backward_kernels(torch, fa, device))
+    phase_flash_grad(torch, fa, device)
     pipe = build_stack(torch, device)
     phase_parity(torch, pipe, device)
     phase_breakdown(torch, pipe, device)
-    launches = phase_serve(torch, fa, pipe)
+    serve = phase_serve(torch, fa, pipe)
     phase_decode(torch, pipe, device)
+    phase_train_parity(torch, pipe, device)
+    train = phase_train(torch, fa, pipe, device)
+    phase_entry_point(torch)
+    # launches on the two main paths, each counted from 0 (serving, then training)
+    launches = {n: serve[n] + train[n] for n in serve}
 
-    source = "controllora_tpu_torch/csrc/flash_attn_fwd.cu"
+    fwd = "controllora_tpu_torch/csrc/flash_attn_fwd.cu"
+    bwd = "controllora_tpu_torch/csrc/flash_attn_bwd.cu"
+    vjp = "controllora_tpu/ops/pallas_attention_vjp.py"
     kernels = [
-        dict(name="k1_biased_flash_fwd", route="cuda", source=source,
+        dict(name="k1_biased_flash_fwd", route="cuda", source=fwd,
              replaces="controllora_tpu/ops/pallas_attention.py:56", launches=launches["k1"],
              **record["k1"]),
-        dict(name="k2_flash_fwd_lse", route="cuda", source=source,
-             replaces="controllora_tpu/ops/pallas_attention_vjp.py:46",
+        dict(name="k2_flash_fwd_lse", route="cuda", source=fwd, replaces=f"{vjp}:46",
              launches=launches["k2"], **record["k2"]),
+        dict(name="k3_flash_bwd_dkv", route="cuda", source=bwd, replaces=f"{vjp}:126",
+             launches=launches["k3"], **record["k3"]),
+        dict(name="k4_flash_bwd_dq", route="cuda", source=bwd, replaces=f"{vjp}:165",
+             launches=launches["k4"], **record["k4"]),
     ]
     for k in kernels:
         if k["launches"] < 1:

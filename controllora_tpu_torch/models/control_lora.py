@@ -4,6 +4,9 @@
 State-dict keys follow the reference ControlLoRA (``conv_in``, ``down_blocks.0.<k>``,
 ``down_blocks.<i>``, ``pre_lora_layers.<i>``, ``lora_layers.<i>.<j>.to_q_lora.down``),
 which is what ``utils/torch_compat.control_lora_to_torch`` writes.
+
+The module is trainable as it is: the adapter factors ``build_adapters`` hands out
+are views of its ``Parameter``s, so gradients through the threaded UNet reach them.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
 
 from controllora_tpu.config import ControlLoRAConfig
 from controllora_tpu_torch.models import unet as unet_lib
@@ -98,9 +102,23 @@ class HintEncoder(nn.Module):
                     kernel_size=cfg.lora_pre_conv_layers_kernel_size,
                     groups=cfg.norm_num_groups, add_downsample=False))
 
-    def apply(self, guide: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    def apply(self, guide: torch.Tensor, dtype: Optional[torch.dtype] = None
+              ) -> Tuple[torch.Tensor, ...]:
         """guide (B, 3, H, W) in [-1, 1] -> per-bucket control states (B, L_i, C_i),
-        fp32, tokens row-major over (h, w)."""
+        fp32, tokens row-major over (h, w).
+
+        ``dtype`` is the convolutions' compute dtype (flax ``ControlLoRA(dtype=)``):
+        their weights are cast for this call only, the norms keep theirs, and
+        gradients flow back through the cast to the master weights. None computes
+        in the weights' own dtype."""
+        if dtype is None:
+            return self(guide)
+        casts = {f"{name}.{p}": t.to(dtype)
+                 for name, m in self.named_modules() if isinstance(m, nn.Conv2d)
+                 for p, t in m.named_parameters(recurse=False)}
+        return functional_call(self, casts, (guide,))
+
+    def forward(self, guide: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         dtype = self.conv_in.weight.dtype
         h = self.down_blocks[0](self.conv_in(guide.to(dtype)))
         controls = []
@@ -210,7 +228,8 @@ class ControlLoRA(HintEncoder):
             ))
         return adapters
 
-    def adapters_for(self, guide: torch.Tensor,
-                     unet_config: UNetConfig = UNetConfig()) -> Dict[str, AdapterStack]:
-        """Encode the guide and build the adapter dict for the UNet."""
-        return self.build_adapters(self.apply(guide), unet_config)
+    def adapters_for(self, guide: torch.Tensor, unet_config: UNetConfig = UNetConfig(),
+                     dtype: Optional[torch.dtype] = None) -> Dict[str, AdapterStack]:
+        """Encode the guide (convolutions in ``dtype``, see ``apply``) and build the
+        adapter dict for the UNet."""
+        return self.build_adapters(self.apply(guide, dtype), unet_config)

@@ -5,12 +5,17 @@ NCHW inside; parameter names follow diffusers' state-dict keys, so
 output (and diffusers safetensors) as they are. GroupNorm, LayerNorm and the GEGLU
 gelu compute in fp32 whatever the weight dtype.
 
-Attention layers run the adapter-free path or the FOLDED path: the adapters are
-pre-folded into the projection weights (``ops/folding.py``) and only per-position
-biases (``FoldedBias``) ride the forward, keyed by diffusers processor name. On the
-folded path, self-attention with L >= 2048 on a CUDA tensor goes to the biased flash
-kernel K1. Left out for now: ToMe, DeepCache, tensor parallelism, SDXL text_time and
-SD2 linear projections.
+Attention layers run one of three paths, keyed by diffusers processor name:
+  * adapter-free;
+  * FOLDED (serving): the adapters are pre-folded into the projection weights
+    (``ops/folding.py``) and only per-position biases (``FoldedBias``) ride the
+    forward; self-attention with L >= 2048 on a CUDA tensor goes to the biased flash
+    kernel K1;
+  * THREADED (training): each layer runs its ``AdapterStack`` chain
+    (``models/lora.py`` ``adapt_*``), so gradients reach the adapter factors; long
+    self-attention on the card goes through ``FlashAttention`` (K2, K3 + K4).
+Left out for now: ToMe, DeepCache, tensor parallelism, SDXL text_time and SD2 linear
+projections.
 """
 
 from __future__ import annotations
@@ -23,7 +28,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from controllora_tpu_torch.models.lora import _match_batch
+from controllora_tpu_torch.models.lora import (
+    AdapterStack,
+    _match_batch,
+    adapt_hidden_post_attn,
+    adapt_hidden_pre_q,
+    adapt_key,
+    adapt_output,
+    adapt_query,
+    adapt_value,
+)
 from controllora_tpu_torch.ops.attention import dot_product_attention, use_flash
 
 
@@ -165,8 +179,8 @@ class Upsample2D(nn.Module):
 
 
 class CrossAttention(nn.Module):
-    """One attention layer: the adapter-free path, or the folded path with the
-    precomputed per-position biases (JAX ``unet.py`` :233-292)."""
+    """One attention layer: adapter-free, folded (a ``FoldedBias``, JAX ``unet.py``
+    :233-292) or threaded (an ``AdapterStack``, JAX :294-321)."""
 
     def __init__(self, query_dim: int, heads: int, dim_head: int,
                  cross_attention_dim: Optional[int] = None):
@@ -178,7 +192,10 @@ class CrossAttention(nn.Module):
         self.to_v = nn.Linear(cross_attention_dim or query_dim, inner, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
 
-    def forward(self, hidden, ctx=None, bias=None):
+    def forward(self, hidden, ctx=None, stack=None, lora_scale=1.0):
+        if isinstance(stack, AdapterStack):
+            return self._threaded(hidden, ctx, stack, lora_scale)
+        bias = stack
         q = self.to_q(hidden)
         ctx_in = hidden if ctx is None else ctx
         k = self.to_k(ctx_in)
@@ -208,6 +225,16 @@ class CrossAttention(nn.Module):
         if bias.out_bias is not None:
             out = out + _fit(bias.out_bias, b_h, out.dtype)
         return out
+
+    def _threaded(self, hidden, ctx, stack: AdapterStack, scale):
+        hidden = adapt_hidden_pre_q(stack, hidden, scale)
+        q = adapt_query(stack, self.to_q(hidden), hidden, scale)
+        ctx_in = hidden if ctx is None else ctx
+        k = adapt_key(stack, self.to_k(ctx_in), ctx_in, scale)
+        v = adapt_value(stack, self.to_v(ctx_in), ctx_in, scale)
+        attn = dot_product_attention(q, k, v, self.heads)
+        attn = adapt_hidden_post_attn(stack, attn, scale)
+        return adapt_output(stack, self.to_out[0](attn), attn, scale)
 
 
 class GEGLU(nn.Module):
@@ -244,12 +271,12 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = LayerNorm(dim)
         self.ff = FeedForward(dim)
 
-    def forward(self, x, ctx, biases=None):
-        def bias_for(attn):
-            return biases.get(f"{self.proc_prefix}.{attn}.processor") if biases else None
+    def forward(self, x, ctx, stacks=None, lora_scale=1.0):
+        def stack_for(attn):
+            return stacks.get(f"{self.proc_prefix}.{attn}.processor") if stacks else None
 
-        x = x + self.attn1(self.norm1(x), None, bias_for("attn1"))
-        x = x + self.attn2(self.norm2(x), ctx, bias_for("attn2"))
+        x = x + self.attn1(self.norm1(x), None, stack_for("attn1"), lora_scale)
+        x = x + self.attn2(self.norm2(x), ctx, stack_for("attn2"), lora_scale)
         return x + self.ff(self.norm3(x))
 
 
@@ -267,12 +294,12 @@ class Transformer2DModel(nn.Module):
         ])
         self.proj_out = nn.Conv2d(inner, channels, 1)
 
-    def forward(self, x, ctx, biases=None):
+    def forward(self, x, ctx, stacks=None, lora_scale=1.0):
         _, _, hh, ww = x.shape
         residual = x
         h = to_tokens(self.proj_in(self.norm(x)))
         for block in self.transformer_blocks:
-            h = block(h, ctx, biases)
+            h = block(h, ctx, stacks, lora_scale)
         return self.proj_out(from_tokens(h, hh, ww)) + residual
 
 
@@ -368,10 +395,16 @@ class UNet2DConditionModel(nn.Module):
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 encoder_hidden_states: torch.Tensor,
-                biases: Optional[Dict[str, Any]] = None) -> torch.Tensor:
+                biases: Optional[Dict[str, Any]] = None,
+                adapters: Optional[Dict[str, AdapterStack]] = None,
+                lora_scale: float = 1.0) -> torch.Tensor:
         """sample (B, 4, H, W) NCHW, timesteps (B,) or scalar, context (B, 77, D);
-        ``biases``: {processor name: FoldedBias} of the folded adapters, or None.
-        Returns the fp32 model output (B, 4, H, W)."""
+        ``biases``: {processor name: FoldedBias} of the folded adapters, or
+        ``adapters``: {processor name: AdapterStack} threaded at ``lora_scale``; at
+        most one of the two. Returns the fp32 model output (B, 4, H, W)."""
+        if biases is not None and adapters is not None:
+            raise ValueError("pass folded `biases` or threaded `adapters`, not both")
+        stacks = adapters if adapters is not None else biases
         cfg = self.config
         dtype = self.conv_in.weight.dtype
         if timesteps.dim() == 0:
@@ -388,14 +421,14 @@ class UNet2DConditionModel(nn.Module):
                 h = resnet(h, temb)
                 attn = block.attention(li)
                 if attn is not None:
-                    h = attn(h, ctx, biases)
+                    h = attn(h, ctx, stacks, lora_scale)
                 skips.append(h)
             if hasattr(block, "downsamplers"):
                 h = block.downsamplers[0](h)
                 skips.append(h)
 
         h = self.mid_block.resnets[0](h, temb)
-        h = self.mid_block.attentions[0](h, ctx, biases)
+        h = self.mid_block.attentions[0](h, ctx, stacks, lora_scale)
         h = self.mid_block.resnets[1](h, temb)
 
         for block in self.up_blocks:
@@ -403,7 +436,7 @@ class UNet2DConditionModel(nn.Module):
                 h = resnet(torch.cat([h, skips.pop()], dim=1), temb)
                 attn = block.attention(li)
                 if attn is not None:
-                    h = attn(h, ctx, biases)
+                    h = attn(h, ctx, stacks, lora_scale)
             if hasattr(block, "upsamplers"):
                 h = block.upsamplers[0](h)
 

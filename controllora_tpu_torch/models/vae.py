@@ -1,18 +1,17 @@
-"""SD1.5 VAE decoder in PyTorch (counterpart of ``controllora_tpu/models/vae.py``).
+"""SD1.5 VAE in PyTorch (counterpart of ``controllora_tpu/models/vae.py``).
 
 Parameter names follow diffusers' AutoencoderKL (the 0.13 AttentionBlock naming
-``group_norm``/``query``/``key``/``value``/``proj_attn``). The mid-block attention is
-one head with D = 512 over L = (H/8)*(W/8) tokens; at 512² (L = 4096) on a CUDA
-tensor it runs on the flash kernel K2. Decoding is one plain batched call: the JAX
-package's ``decode_per_image`` works around an XLA scheduling problem. The Encoder
-(and ``quant_conv``) come with the training slice; ``utils/convert.py`` drops their
-keys when it loads a full VAE state dict.
+``group_norm``/``query``/``key``/``value``/``proj_attn``). The mid-block attentions
+of the encoder and the decoder are one head with D = 512 over L = (H/8)*(W/8)
+tokens; at 512² (L = 4096) on a CUDA tensor they run on the flash kernel K2 (the VAE
+is frozen: training encodes without a graph). Decoding is one plain batched call:
+the JAX package's ``decode_per_image`` works around an XLA scheduling problem.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -71,6 +70,49 @@ class VAEAttention(nn.Module):
         return x + from_tokens(self.proj_attn(h), hh, ww)
 
 
+class Encoder(nn.Module):
+    """Image (B, 3, H, W) -> posterior moments (B, 2 * latent, H/8, W/8)."""
+
+    def __init__(self, config: VAEConfig):
+        super().__init__()
+        cfg = config
+        groups = cfg.norm_num_groups
+        ch = cfg.block_out_channels[0]
+        self.conv_in = conv3(cfg.in_channels, ch)
+        self.down_blocks = nn.ModuleList()
+        for bi, out_ch in enumerate(cfg.block_out_channels):
+            block = nn.Module()
+            block.resnets = nn.ModuleList([
+                VAEResnet(ch if li == 0 else out_ch, out_ch, groups)
+                for li in range(cfg.layers_per_block)
+            ])
+            ch = out_ch
+            if bi != len(cfg.block_out_channels) - 1:
+                down = nn.Module()
+                down.conv = nn.Conv2d(out_ch, out_ch, 3, stride=2)
+                block.downsamplers = nn.ModuleList([down])
+            self.down_blocks.append(block)
+        self.mid_block = nn.Module()
+        self.mid_block.resnets = nn.ModuleList([VAEResnet(ch, ch, groups),
+                                                VAEResnet(ch, ch, groups)])
+        self.mid_block.attentions = nn.ModuleList([VAEAttention(ch, groups)])
+        self.conv_norm_out = GroupNorm(groups, ch, 1e-6)
+        self.conv_out = conv3(ch, 2 * cfg.latent_channels)
+
+    def forward(self, x):
+        h = self.conv_in(x)
+        for block in self.down_blocks:
+            for resnet in block.resnets:
+                h = resnet(h)
+            if hasattr(block, "downsamplers"):
+                # diffusers encoder downsample: asymmetric (0, 1) pad, stride-2 conv
+                h = block.downsamplers[0].conv(F.pad(h, (0, 1, 0, 1)))
+        h = self.mid_block.resnets[0](h)
+        h = self.mid_block.attentions[0](h)
+        h = self.mid_block.resnets[1](h)
+        return self.conv_out(F.silu(self.conv_norm_out(h)))
+
+
 class Decoder(nn.Module):
     def __init__(self, config: VAEConfig):
         super().__init__()
@@ -114,13 +156,35 @@ class Decoder(nn.Module):
 
 
 class AutoencoderKL(nn.Module):
-    """Decode half of the SD VAE: ``post_quant_conv`` + ``decoder``."""
+    """The SD VAE: ``encoder`` + ``quant_conv`` and ``post_quant_conv`` + ``decoder``."""
 
     def __init__(self, config: VAEConfig = VAEConfig()):
         super().__init__()
         self.config = config
+        latent = config.latent_channels
+        self.encoder = Encoder(config)
+        self.quant_conv = nn.Conv2d(2 * latent, 2 * latent, 1)
         self.decoder = Decoder(config)
-        self.post_quant_conv = nn.Conv2d(config.latent_channels, config.latent_channels, 1)
+        self.post_quant_conv = nn.Conv2d(latent, latent, 1)
+
+    def encode_moments(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Image (B, 3, H, W) in [-1, 1] -> (mean, logvar), each (B, 4, H/8, W/8) in
+        the module's dtype; logvar clipped to [-30, 20]."""
+        x = x.to(self.quant_conv.weight.dtype)
+        mean, logvar = self.quant_conv(self.encoder(x)).chunk(2, dim=1)
+        return mean, logvar.clamp(-30.0, 20.0)
+
+    def encode(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+               noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Scaled latents: a posterior sample mean + std * noise when ``noise`` is
+        given or drawn from ``generator``, else the posterior mean; times
+        ``scaling_factor``."""
+        mean, logvar = self.encode_moments(x)
+        if noise is None and generator is not None:
+            noise = torch.randn(mean.shape, generator=generator, device=mean.device)
+        if noise is not None:
+            mean = mean + torch.exp(0.5 * logvar) * noise.to(mean.dtype)
+        return mean * self.config.scaling_factor
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """Scaled latents (B, 4, h, w) -> image (B, 3, 8h, 8w) in [-1, 1], in the

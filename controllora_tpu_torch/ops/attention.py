@@ -3,7 +3,8 @@
 The default path is plain ``torch.matmul`` with fp32 logits and softmax, as the JAX
 package computes it outside any kernel. Long self-attention on a CUDA tensor
 (q_len == kv_len >= 2048, the JAX ``_use_flash`` rule) goes to the hand-written
-flash kernel K2 (``ops/flash_attention.py``).
+flash kernels through ``FlashAttention`` (``ops/flash_attention.py``): K2 forward,
+K3 + K4 backward, so gradients flow through it as through the JAX ``custom_vjp``.
 """
 
 from __future__ import annotations
@@ -48,9 +49,9 @@ def dot_product_attention(
     """Attention over (B, L, inner) projections; returns (B, Lq, inner) in
     query.dtype. Logits and softmax are fp32 whatever the input dtype."""
     if use_flash(query.shape[1], key.shape[1], query.device):
-        from controllora_tpu_torch.ops.flash_attention import flash_attention
+        from controllora_tpu_torch.ops.flash_attention import FlashAttention
 
-        return flash_attention(query, key, value, heads)[0]
+        return FlashAttention.apply(query, key, value, heads)
     q = split_heads(query, heads)
     k = split_heads(key, heads)
     v = split_heads(value, heads)

@@ -1,25 +1,34 @@
-"""Hand-written Hopper flash attention (K1, K2): build, wrappers, plain versions.
+"""Hand-written Hopper flash attention (K1-K4): build, wrappers, plain versions.
 
-Counterparts of the JAX package's two forward Pallas kernels:
+Counterparts of the JAX package's flash-attention Pallas kernels:
 
   * K1 ``biased_attention`` <- ``controllora_tpu/ops/pallas_attention.py``
     (``_attn_kernel`` via ``flash_attention_fwd`` and ``biased_attention``): attention
     over (q + q_bias, k + k_bias, v + v_bias), the folded-adapter UNet self-attention;
   * K2 ``flash_attention`` <- ``controllora_tpu/ops/pallas_attention_vjp.py``
     (``_fwd_kernel`` via ``_fwd``): the same attention without biases, also returning
-    LSE = logsumexp of each scaled logit row.
+    LSE = logsumexp of each scaled logit row;
+  * K3 ``flash_bwd_dkv`` <- ``pallas_attention_vjp.py`` (``_bwd_dkv_kernel`` via
+    ``_bwd``): dK and dV of that attention;
+  * K4 ``flash_bwd_dq`` <- ``pallas_attention_vjp.py`` (``_bwd_dq_kernel`` via
+    ``_bwd``): dQ.
 
-Both kernels live in ``csrc/flash_attn_fwd.cu`` (see its header for the design) and
-take the projections in the (B, L, H*D) layout the attention layers produce, so no
-head split or padding copy is made. The JAX block-size policy (``pick_block``,
-``serving_blocks``) does not carry over: each kernel sizes its own tiles.
+``FlashAttention`` ties K2 to K3 + K4 as one ``torch.autograd.Function``, the
+counterpart of the JAX ``flash_attention`` ``custom_vjp``.
+
+K1 and K2 live in ``csrc/flash_attn_fwd.cu``, K3 and K4 in ``csrc/flash_attn_bwd.cu``
+(see their headers for the design). All take the projections in the (B, L, H*D)
+layout the attention layers produce, so no head split or padding copy is made. The
+JAX block-size policy (``pick_block``, ``serving_blocks``) does not carry over: each
+kernel sizes its own tiles.
 
 Device rule: a tensor on the CPU takes the plain PyTorch version beside each kernel;
-a CUDA tensor launches the kernel or raises. The source is compiled with ``nvcc`` for
-``sm_90a`` at the first CUDA call, into ``csrc/_build/`` (keyed by the source hash),
-and bound with ``ctypes``.
+a CUDA tensor launches the kernel or raises. Every ``csrc/*.cu`` is compiled with
+``nvcc`` for ``sm_90a`` at the first CUDA call (one ``nvcc`` per source, all started
+together, then one link) into one library in ``csrc/_build/``, keyed by the hash of
+all the sources, and bound with ``ctypes``.
 
-``LAUNCHES`` counts kernel launches per kernel ("k1", "k2"); only the CUDA branch of
+``LAUNCHES`` counts kernel launches per kernel ("k1".."k4"); only the CUDA branch of
 each wrapper increments it, so a run can show that its main path went through them.
 """
 
@@ -32,20 +41,20 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from controllora_tpu_torch.ops.attention import merge_heads, split_heads, tile_batch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCE = CSRC / "flash_attn_fwd.cu"
 BUILD_DIR = CSRC / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAX_HEAD_DIM = 512
+MAX_BWD_HEAD_DIM = 80  # K3/K4 instances: DP 48 and 80
 
-LAUNCHES: Dict[str, int] = {"k1": 0, "k2": 0}
+LAUNCHES: Dict[str, int] = {"k1": 0, "k2": 0, "k3": 0, "k4": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
@@ -59,16 +68,41 @@ def reset_launch_counts() -> None:
 # ---------------------------------------------------------------------------- build
 
 
+def sources() -> List[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
 def library_path() -> Path:
-    tag = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"libflash_attn_fwd_{tag}.so"
+    digest = hashlib.sha256()
+    for f in sorted(CSRC.glob("*.cu*")):  # kernels and their shared headers
+        digest.update(f.name.encode())
+        digest.update(f.read_bytes())
+    return BUILD_DIR / f"libflash_attn_{digest.hexdigest()[:16]}.so"
+
+
+def _spawn(nvcc: str, out: Path, args) -> Tuple[Path, subprocess.Popen]:
+    return out, subprocess.Popen([nvcc, *args, "-o", str(out)], stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+
+
+def _run(procs: List[Tuple[Path, subprocess.Popen]]) -> None:
+    """Wait for every compiler process; keep each report as ``<output>.log``."""
+    failed = []
+    for out, proc in procs:
+        stdout, stderr = proc.communicate()
+        out.with_name(out.name + ".log").write_text(stdout + stderr)
+        if proc.returncode != 0:
+            failed.append(f"{out.name} ({proc.returncode}):\n{stderr}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
 
 
 def build_kernels() -> ctypes.CDLL:
-    """Compile (once per source version) and load the kernel library.
+    """Compile (once per source version) and load the kernel library: one ``nvcc -c``
+    per ``csrc/*.cu``, all started together, then one ``nvcc -shared`` link.
 
-    The compiler's report (``-Xptxas -v``: registers, shared memory, spills) is kept
-    beside the library as ``<name>.log``."""
+    The compiler's reports (``-Xptxas -v``: registers, shared memory, spills) are
+    kept beside each object as ``<name>.o.log``."""
     global _lib
     with _lib_lock:
         if _lib is not None:
@@ -80,12 +114,13 @@ def build_kernels() -> ctypes.CDLL:
                 raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
                                    "build the flash-attention kernels")
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                                  capture_output=True, text=True)
-            so.with_name(so.name + ".log").write_text(proc.stdout + proc.stderr)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+            stem = f"{so.stem}.{os.getpid()}"
+            srcs = sources()
+            objs = [BUILD_DIR / f"{stem}.{src.stem}.o" for src in srcs]
+            _run([_spawn(nvcc, obj, (*NVCC_FLAGS, "-c", str(src)))
+                  for src, obj in zip(srcs, objs)])
+            tmp = so.with_name(f"{stem}.so.tmp")
+            _run([_spawn(nvcc, tmp, (*ARCH, "-shared", *map(str, objs)))])
             os.replace(tmp, so)
         lib = ctypes.CDLL(str(so))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -94,6 +129,10 @@ def build_kernels() -> ctypes.CDLL:
         lib.k1_biased_flash_fwd.restype = i
         lib.k2_flash_fwd_lse.argtypes = [p, p, p, p, p, i, i, i, i, i, f, p]
         lib.k2_flash_fwd_lse.restype = i
+        lib.k3_flash_bwd_dkv.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, f, p]
+        lib.k3_flash_bwd_dkv.restype = i
+        lib.k4_flash_bwd_dq.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, f, p]
+        lib.k4_flash_bwd_dq.restype = i
         _lib = lib
         return lib
 
@@ -135,6 +174,22 @@ def _check_bias(name, bias, batch: int, length: int, inner: int) -> int:
     return bias.shape[0]
 
 
+def _check_bwd_inputs(q, k, v, do, lse, dcap, heads: int) -> Tuple[int, int, int, int, int]:
+    """Validate what K3/K4 take; returns (B, H, Lq, Lk, D)."""
+    b, h, lq, lk, d = _check_cuda_inputs(q, k, v, heads, (("dout", do),))
+    if do.shape != q.shape:
+        raise ValueError(f"dout {tuple(do.shape)} must match q {tuple(q.shape)}")
+    if d > MAX_BWD_HEAD_DIM:
+        raise ValueError(f"head dim {d} > {MAX_BWD_HEAD_DIM}: the backward kernels "
+                         f"K3/K4 take head dims up to {MAX_BWD_HEAD_DIM}")
+    for name, t in (("lse", lse), ("dcap", dcap)):
+        if t.shape != (b * h, lq) or t.dtype != torch.float32 or t.device != q.device \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous fp32 ({b * h}, {lq}) on "
+                             f"{q.device}, got {tuple(t.shape)} {t.dtype} {t.device}")
+    return b, h, lq, lk, d
+
+
 def _ptr(t) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
@@ -165,6 +220,41 @@ def biased_attention_plain(q, k, v, heads: int, q_bias=None, k_bias=None, v_bias
 
     o, _ = attention_lse_plain(add(q, q_bias), add(k, k_bias), add(v, v_bias), heads)
     return o.to(q.dtype)
+
+
+def attention_dcap(o, do, heads: int):
+    """Dcap = rowsum(dO * O) per head in fp32, (B*H, Lq): the term the JAX ``_bwd``
+    computes outside its kernels (one reduction, no kernel of its own)."""
+    b, lq, inner = o.shape
+    prod = (do.float() * o.float()).reshape(b, lq, heads, inner // heads).sum(-1)
+    return prod.permute(0, 2, 1).reshape(b * heads, lq).contiguous()
+
+
+def _bwd_terms(q, k, v, do, lse, dcap, heads: int):
+    """The shared part of the plain K3/K4, line by line as the JAX ``_bwd`` kernels
+    compute it, in fp32: P = exp(S * scale - LSE), dP = dO V^T, dS = P (dP - Dcap)."""
+    qh, kh, vh, doh = (split_heads(x.float(), heads) for x in (q, k, v, do))
+    b, h, lq, d = qh.shape
+    scale = d**-0.5
+    s = torch.matmul(qh, kh.transpose(-1, -2)) * scale
+    p = torch.exp(s - lse.reshape(b, h, lq, 1))
+    dp = torch.matmul(doh, vh.transpose(-1, -2))
+    ds = p * (dp - dcap.reshape(b, h, lq, 1))
+    return qh, kh, doh, p, ds, scale
+
+
+def flash_bwd_dkv_plain(q, k, v, do, lse, dcap, heads: int):
+    """Plain version of K3: (dK, dV) in k.dtype / v.dtype, (B, Lk, H*D)."""
+    qh, _, doh, p, ds, scale = _bwd_terms(q, k, v, do, lse, dcap, heads)
+    dv = torch.matmul(p.transpose(-1, -2), doh)
+    dk = torch.matmul(ds.transpose(-1, -2), qh) * scale
+    return merge_heads(dk).to(k.dtype), merge_heads(dv).to(v.dtype)
+
+
+def flash_bwd_dq_plain(q, k, v, do, lse, dcap, heads: int):
+    """Plain version of K4: dQ in q.dtype, (B, Lq, H*D)."""
+    _, kh, _, _, ds, scale = _bwd_terms(q, k, v, do, lse, dcap, heads)
+    return merge_heads(torch.matmul(ds, kh) * scale).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------- wrappers
@@ -219,3 +309,67 @@ def biased_attention(q, k, v, heads: int, q_bias=None, k_bias=None, v_bias=None)
         raise RuntimeError(f"k1_biased_flash_fwd launch failed: cudaError {err}")
     LAUNCHES["k1"] += 1
     return o
+
+
+def flash_bwd_dkv(q, k, v, do, lse, dcap, heads: int):
+    """K3: (dK, dV) of softmax(q k^T / sqrt(D)) v over (B, L, H*D) projections, from
+    dO, K2's LSE and Dcap (``attention_dcap``), both (B*H, Lq) fp32.
+    CPU tensors take the plain version; CUDA tensors launch the kernel or raise."""
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_plain(q, k, v, do, lse, dcap, heads)
+    b, h, lq, lk, d = _check_bwd_inputs(q, k, v, do, lse, dcap, heads)
+    lib = build_kernels()
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.k3_flash_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                                   lse.data_ptr(), dcap.data_ptr(), dk.data_ptr(),
+                                   dv.data_ptr(), b, h, lq, lk, d, d**-0.5, stream)
+    if err:
+        raise RuntimeError(f"k3_flash_bwd_dkv launch failed: cudaError {err}")
+    LAUNCHES["k3"] += 1
+    return dk, dv
+
+
+def flash_bwd_dq(q, k, v, do, lse, dcap, heads: int):
+    """K4: dQ of the same attention, (B, Lq, H*D). CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise."""
+    if q.device.type == "cpu":
+        return flash_bwd_dq_plain(q, k, v, do, lse, dcap, heads)
+    b, h, lq, lk, d = _check_bwd_inputs(q, k, v, do, lse, dcap, heads)
+    lib = build_kernels()
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.k4_flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                                  lse.data_ptr(), dcap.data_ptr(), dq.data_ptr(),
+                                  b, h, lq, lk, d, d**-0.5, stream)
+    if err:
+        raise RuntimeError(f"k4_flash_bwd_dq launch failed: cudaError {err}")
+    LAUNCHES["k4"] += 1
+    return dq
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention over (B, L, H*D) projections: forward K2,
+    backward K3 + K4 (the JAX ``flash_attention`` ``custom_vjp``). Saves q, k, v, O
+    and LSE; the gradients come back in the inputs' dtypes and layout. Under
+    ``no_grad``/``inference_mode`` no graph is kept. The backward kernels build no
+    graph either, so a second-order gradient (``create_graph=True``) raises."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, heads: int):
+        o, lse = flash_attention(q, k, v, heads)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.heads = heads
+        return o
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        dcap = attention_dcap(o, do, ctx.heads)
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, dcap, ctx.heads)
+        dq = flash_bwd_dq(q, k, v, do, lse, dcap, ctx.heads)
+        return dq, dk, dv, None

@@ -51,6 +51,29 @@ class DiffusionSchedule:
             steps_offset=steps_offset,
         )
 
+    # ------------------------------------------------------------------ training math
+
+    def _gather(self, table: np.ndarray, t: torch.Tensor, ndim: int) -> torch.Tensor:
+        """Per-sample coefficients table[t] (fp32), broadcastable to an ndim tensor."""
+        v = torch.as_tensor(table, device=t.device)[t.long()]
+        return v.reshape(v.shape + (1,) * (ndim - v.dim()))
+
+    def add_noise(self, x0: torch.Tensor, noise: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """q(x_t | x_0) sample in fp32: the trainer's noising step."""
+        acp = self._gather(self.alphas_cumprod, t, x0.dim())
+        return torch.sqrt(acp) * x0.float() + torch.sqrt(1.0 - acp) * noise.float()
+
+    def get_velocity(self, x0: torch.Tensor, noise: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """v-prediction target (diffusers convention), fp32."""
+        acp = self._gather(self.alphas_cumprod, t, x0.dim())
+        return torch.sqrt(acp) * noise.float() - torch.sqrt(1.0 - acp) * x0.float()
+
+    def snr(self, t: torch.Tensor) -> torch.Tensor:
+        """Signal-to-noise ratio acp / (1 - acp) per sample, (B,) fp32 (the min-SNR
+        loss weight reads it)."""
+        acp = self._gather(self.alphas_cumprod, t, 1)
+        return acp / (1.0 - acp)
+
     def pred_original_sample(self, sample: torch.Tensor, model_output: torch.Tensor,
                              t: int) -> torch.Tensor:
         """x0 estimate from a model output at integer timestep t."""

@@ -1,0 +1,287 @@
+"""ControlLoRA training step in PyTorch (counterpart of
+``controllora_tpu/training/trainer.py``).
+
+One step, as the JAX ``_loss_fn`` and ``make_train_step`` run it: VAE encode (a
+posterior sample), DDPM noising at a random t, text encode, hint encoder -> threaded
+adapters, UNet forward, MSE against the training target (optional min-SNR weight),
+adapter-only backward, global-norm clip and AdamW. The frozen stack (UNet, VAE,
+CLIP) runs in its own dtype (bf16 on the card) with no gradients of its own; the
+ControlLoRA master weights and the optimizer state stay fp32. Long self-attention on
+the card runs the flash kernels K2 forward and K3 + K4 backward
+(``ops/flash_attention.py``).
+
+Randomness comes from an explicit ``torch.Generator``; ``loss`` also takes the
+posterior sample, the noise and the timesteps injected, so a test can feed it the
+JAX trainer's own draws. Not ported yet (ROADMAP): remat of the UNet, 8-bit Adam,
+data parallelism.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Dict, Iterable, List, Optional
+
+import numpy as np
+import torch
+from torch.optim.lr_scheduler import LambdaLR
+
+from controllora_tpu_torch.models.lora import cast_adapters
+from controllora_tpu_torch.schedulers import DDPMScheduler
+from controllora_tpu_torch.training.conditioning import resolve_text_conditioning
+
+LR_SCHEDULES = ("constant", "constant_with_warmup", "linear", "cosine",
+                "cosine_with_restarts", "polynomial")
+
+
+# ---------------------------------------------------------------------------- schedule
+
+
+def _linear(init: float, end: float, steps: int) -> Callable[[int], float]:
+    """optax.linear_schedule."""
+    if steps <= 0:
+        return lambda n: init
+    return lambda n: (init - end) * (1 - min(max(n, 0), steps) / steps) + end
+
+
+def _cosine(init: float, steps: int) -> Callable[[int], float]:
+    """optax.cosine_decay_schedule with alpha 0."""
+    if steps <= 0:
+        raise ValueError(f"cosine decay needs positive decay steps, got {steps}")
+    return lambda n: init * 0.5 * (1 + math.cos(math.pi * min(n, steps) / steps))
+
+
+def _join(schedules: List[Callable[[int], float]], boundaries: List[int]):
+    """optax.join_schedules: past each boundary, the next schedule from 0."""
+
+    def schedule(n: int) -> float:
+        out = schedules[0](n)
+        for boundary, s in zip(boundaries, schedules[1:]):
+            if n >= boundary:
+                out = s(n - boundary)
+        return out
+
+    return schedule
+
+
+def make_lr_schedule(learning_rate: float, lr_schedule: str = "constant",
+                     warmup_steps: int = 0, total_steps: int = 30_000,
+                     num_cycles: int = 1, power: float = 1.0) -> Callable[[int], float]:
+    """The JAX ``make_lr_schedule`` (diffusers ``get_scheduler`` names) as a
+    ``LambdaLR`` factor: step -> lr(step) / learning_rate, step = updates so far."""
+    if learning_rate <= 0:
+        raise ValueError(f"learning_rate must be > 0, got {learning_rate}")
+    lr = learning_rate
+    decay_steps = max(total_steps - warmup_steps, 1)
+
+    def with_warmup(body):
+        return _join([_linear(0.0, lr, warmup_steps), body], [warmup_steps]) \
+            if warmup_steps else body
+
+    if lr_schedule in ("constant", "constant_with_warmup"):
+        sched = with_warmup(lambda n: lr)
+    elif lr_schedule == "cosine":
+        sched = _join([_linear(0.0, lr, warmup_steps),
+                       _cosine(lr, total_steps - warmup_steps)], [warmup_steps])
+    elif lr_schedule == "cosine_with_restarts":
+        cycles = max(num_cycles, 1)
+        seg = max(decay_steps // cycles, 1)
+        sched = with_warmup(_join([_cosine(lr, seg)] * cycles,
+                                  [seg * (i + 1) for i in range(cycles - 1)]))
+    elif lr_schedule == "polynomial":
+        def poly(n):
+            frac = 1 - min(max(n, 0), decay_steps) / decay_steps
+            return (lr - 1e-7) * frac**power + 1e-7
+
+        sched = with_warmup(poly)
+    elif lr_schedule == "linear":
+        sched = with_warmup(_linear(lr, 0.0, decay_steps))
+    else:
+        raise ValueError(f"unknown lr_schedule {lr_schedule!r}; known: {LR_SCHEDULES}")
+    return lambda n: sched(n) / lr
+
+
+# ---------------------------------------------------------------------------- optimizer
+
+
+def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares over every element (optax.global_norm), fp32."""
+    return torch.sqrt(sum(t.float().pow(2).sum() for t in tensors))
+
+
+class AdapterOptimizer:
+    """optax ``chain(clip_by_global_norm(max_grad_norm), adamw(schedule))``, wrapped
+    in ``MultiSteps`` when ``grad_accumulation_steps`` > 1, over torch parameters:
+    ``torch.optim.AdamW`` on its default (non-fused) path, the schedule as a
+    ``LambdaLR`` stepped once per update."""
+
+    def __init__(self, params: Iterable[torch.nn.Parameter], learning_rate: float = 1e-4,
+                 beta1: float = 0.9, beta2: float = 0.999, weight_decay: float = 1e-2,
+                 eps: float = 1e-8, max_grad_norm: float = 1.0,
+                 lr_schedule: str = "constant", warmup_steps: int = 0,
+                 total_steps: int = 30_000, grad_accumulation_steps: int = 1,
+                 num_cycles: int = 1, power: float = 1.0):
+        self.params = list(params)
+        self.adamw = torch.optim.AdamW(self.params, lr=learning_rate, betas=(beta1, beta2),
+                                       eps=eps, weight_decay=weight_decay)
+        self.schedule = LambdaLR(self.adamw, make_lr_schedule(
+            learning_rate, lr_schedule, warmup_steps, total_steps, num_cycles, power))
+        self.max_grad_norm = max_grad_norm
+        self.accumulation = grad_accumulation_steps
+        self._sum: Optional[List[torch.Tensor]] = None
+        self._micro = 0
+
+    def step(self, grads: List[torch.Tensor]) -> bool:
+        """Feed one micro-batch's gradients (one per parameter, in order); returns
+        whether the parameters were updated (every ``grad_accumulation_steps`` calls,
+        with the mean of the accumulated gradients)."""
+        if self.accumulation > 1:
+            self._sum = list(grads) if self._sum is None else \
+                [s + g for s, g in zip(self._sum, grads)]
+            self._micro += 1
+            if self._micro < self.accumulation:
+                return False
+            grads = [s / self.accumulation for s in self._sum]
+            self._sum, self._micro = None, 0
+        norm = global_norm(grads)
+        keep = norm < self.max_grad_norm
+        for p, g in zip(self.params, grads):
+            p.grad = torch.where(keep, g, g / norm * self.max_grad_norm)
+        self.adamw.step()
+        self.schedule.step()
+        for p in self.params:
+            p.grad = None
+        return True
+
+
+def make_optimizer(params: Iterable[torch.nn.Parameter], learning_rate: float = 1e-4,
+                   beta1: float = 0.9, beta2: float = 0.999, weight_decay: float = 1e-2,
+                   eps: float = 1e-8, max_grad_norm: float = 1.0,
+                   lr_schedule: str = "constant", warmup_steps: int = 0,
+                   total_steps: int = 30_000, grad_accumulation_steps: int = 1,
+                   use_8bit: bool = False, num_cycles: int = 1,
+                   power: float = 1.0) -> AdapterOptimizer:
+    """AdamW + global-norm clip with the JAX ``make_optimizer`` defaults."""
+    if use_8bit:
+        raise NotImplementedError("8-bit Adam is not ported to PyTorch yet: ROADMAP "
+                                  "Queue 1 item 13")
+    return AdapterOptimizer(params, learning_rate, beta1, beta2, weight_decay, eps,
+                            max_grad_norm, lr_schedule, warmup_steps, total_steps,
+                            grad_accumulation_steps, num_cycles, power)
+
+
+# ---------------------------------------------------------------------------- batch
+
+
+def to_device_batch(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    """A numpy batch of the JAX data pipeline (NHWC images) -> tensors on ``device``
+    in the port's layout (NCHW images, int64 token ids)."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        if t.dim() == 4:
+            t = t.permute(0, 3, 1, 2)
+        if k.startswith("input_ids"):
+            t = t.long()
+        out[k] = t.to(device, non_blocking=True).contiguous()
+    return out
+
+
+# ---------------------------------------------------------------------------- trainer
+
+
+class ControlLoRATrainer:
+    """Owns the models and runs the train/eval steps (the JAX trainer's surface).
+    The ControlLoRA's parameters are made trainable; the frozen modules are used as
+    they are.
+
+    ``adapter_compute_dtype``: the adapter factors and control maps threaded into
+    the UNet are cast to it (fp32 masters stay); ``hint_compute_dtype``: the hint
+    encoder's convolutions compute in it (flax ``ControlLoRA(dtype=)``)."""
+
+    def __init__(self, control_lora, unet, vae=None, text_encoder=None,
+                 scheduler: Optional[DDPMScheduler] = None,
+                 optimizer: Optional[AdapterOptimizer] = None,
+                 prediction_type: Optional[str] = None, snr_gamma: Optional[float] = None,
+                 remat_unet: bool = False,
+                 adapter_compute_dtype: Optional[torch.dtype] = None,
+                 hint_compute_dtype: Optional[torch.dtype] = None):
+        if remat_unet:
+            raise NotImplementedError("UNet remat (--gradient_checkpointing) is not "
+                                      "ported to PyTorch yet: ROADMAP Queue 1 item 9")
+        self.control_lora = control_lora.requires_grad_(True)
+        self.unet, self.vae, self.text_encoder = unet, vae, text_encoder
+        self.params = [p for p in control_lora.parameters()]
+        self.optimizer = optimizer or make_optimizer(self.params)
+        self.scheduler = scheduler or DDPMScheduler()
+        if prediction_type is not None:
+            self.scheduler = DDPMScheduler(dataclasses.replace(
+                self.scheduler.schedule, prediction_type=prediction_type))
+        self.snr_gamma = snr_gamma
+        self.adapter_compute_dtype = adapter_compute_dtype
+        self.hint_compute_dtype = hint_compute_dtype
+
+    def _latents(self, batch, generator, sample_noise):
+        if "latents" in batch:
+            return batch["latents"]
+        if "latent_mean" in batch:
+            mean = batch["latent_mean"].float()
+            std = torch.exp(0.5 * batch["latent_logvar"].float())
+            if sample_noise is None:
+                sample_noise = torch.randn(mean.shape, generator=generator,
+                                           device=mean.device)
+            return (mean + std * sample_noise.float()) * self.vae.config.scaling_factor
+        with torch.no_grad():  # the VAE is frozen
+            return self.vae.encode(batch["pixel_values"], generator, sample_noise)
+
+    def loss(self, batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None,
+             noise: Optional[torch.Tensor] = None, timesteps: Optional[torch.Tensor] = None,
+             sample_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """batch: {"latents" | "latent_mean" + "latent_logvar" | "pixel_values",
+        "guide_values", "input_ids" | "encoder_hidden_states"}, NCHW images in
+        [-1, 1]. Draws the posterior sample, the noise and t from ``generator`` in
+        that order, unless they are given."""
+        sch = self.scheduler
+        latents = self._latents(batch, generator, sample_noise).float()
+        b = latents.shape[0]
+        if noise is None:
+            noise = torch.randn(latents.shape, generator=generator, device=latents.device)
+        if timesteps is None:
+            timesteps = torch.randint(0, sch.schedule.num_train_timesteps, (b,),
+                                      generator=generator, device=latents.device)
+        noisy = sch.schedule.add_noise(latents, noise, timesteps)
+        with torch.no_grad():  # the text encoder is frozen
+            ctx, added = resolve_text_conditioning(batch, self.text_encoder, self.unet.config)
+        adapters = self.control_lora.adapters_for(batch["guide_values"], self.unet.config,
+                                                  self.hint_compute_dtype)
+        if self.adapter_compute_dtype is not None:
+            adapters = cast_adapters(adapters, self.adapter_compute_dtype)
+        pred = self.unet(noisy, timesteps, ctx, adapters=adapters, **added)
+        loss = (pred.float() - sch.training_target(latents, noise, timesteps)) ** 2
+        if self.snr_gamma is not None:
+            snr = sch.schedule.snr(timesteps)
+            w = torch.clamp(snr, max=self.snr_gamma) / torch.clamp(snr, min=1e-8)
+            loss = loss * w[:, None, None, None]
+        return loss.mean()
+
+    def grads(self, loss: torch.Tensor) -> List[torch.Tensor]:
+        """d loss / d ControlLoRA params (zeros for a parameter the step does not use)."""
+        grads = torch.autograd.grad(loss, self.params, allow_unused=True)
+        return [torch.zeros_like(p) if g is None else g for p, g in zip(self.params, grads)]
+
+    def train_step(self, batch: Dict[str, torch.Tensor],
+                   generator: Optional[torch.Generator] = None, **draws
+                   ) -> Dict[str, torch.Tensor]:
+        """One optimizer step (or micro-step under accumulation); returns the loss
+        and the global norm of this step's gradient (before clipping), as tensors on
+        the device: reading them synchronises."""
+        loss = self.loss(batch, generator, **draws)
+        grads = self.grads(loss)
+        grad_norm = global_norm(grads)
+        self.optimizer.step(grads)
+        return {"loss": loss.detach(), "grad_norm": grad_norm}
+
+    @torch.no_grad()
+    def eval_step(self, batch: Dict[str, torch.Tensor],
+                  generator: Optional[torch.Generator] = None, **draws) -> torch.Tensor:
+        return self.loss(batch, generator, **draws)

@@ -22,9 +22,6 @@ from controllora_tpu.utils.torch_compat import (
     flax_to_torch_vae,
 )
 
-# The port's AutoencoderKL is the decode half; the encoder arrives with training.
-VAE_ENCODER_PREFIXES = ("encoder.", "quant_conv.")
-
 
 def load_numpy_state_dict(module: nn.Module, sd: Dict[str, Any]) -> nn.Module:
     """Copy numpy arrays into ``module`` (strict), converting to its dtypes."""
@@ -39,9 +36,7 @@ def load_unet(module: nn.Module, params: Dict[str, Any]) -> nn.Module:
 
 
 def load_vae(module: nn.Module, params: Dict[str, Any]) -> nn.Module:
-    sd = {k: v for k, v in flax_to_torch_vae(params).items()
-          if not k.startswith(VAE_ENCODER_PREFIXES)}
-    return load_numpy_state_dict(module, sd)
+    return load_numpy_state_dict(module, flax_to_torch_vae(params))
 
 
 def load_clip(module: nn.Module, params: Dict[str, Any]) -> nn.Module:

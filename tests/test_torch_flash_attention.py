@@ -1,13 +1,16 @@
-"""The plain versions of the port's flash kernels K1 and K2 against the JAX Pallas
-kernels, which run here in interpret mode (as tests/test_pallas_attention.py runs
-them). Inputs come from a numpy seed; everything is fp32, so atol 2e-5 covers the
-different summation orders (online softmax over blocks vs one softmax).
+"""The plain versions of the port's flash kernels K1-K4, and the ``FlashAttention``
+autograd Function, against the JAX Pallas kernels, which run here in interpret mode
+(as tests/test_pallas_attention.py runs them). Inputs come from a numpy seed; in
+fp32, atol 2e-5 (forward) and 1e-4 * max(1, max|ref|) (gradients) cover the
+different summation orders (online softmax over blocks vs one softmax); bf16 outputs
+get 1e-2 * max(1, max|ref|), about two bf16 ulps.
 
 The kernels themselves run only on the card: tests/test_torch_kernels_gpu.py.
 """
 
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -29,7 +32,8 @@ def interpret_pallas(monkeypatch):
     fa.reset_launch_counts()
     yield
     # on CPU tensors every wrapper takes its plain version: nothing launched
-    assert fa.LAUNCHES == {"k1": 0, "k2": 0}
+    assert set(fa.LAUNCHES) == {"k1", "k2", "k3", "k4"}
+    assert all(n == 0 for n in fa.LAUNCHES.values()), fa.LAUNCHES
 
 
 def rand(shape, seed):
@@ -131,3 +135,80 @@ def test_long_self_attention_stays_plain_on_cpu():
     q = t(rand((1, 2048, 8), 0))
     out = dot_product_attention(q, q, q, heads=1)
     assert out.shape == (1, 2048, 8)
+
+
+def assert_grad_close(out, ref, what, rel):
+    out, ref = np.asarray(out, np.float32), np.asarray(ref, np.float32)
+    assert out.shape == ref.shape, (what, out.shape, ref.shape)
+    err, bound = np.abs(out - ref).max(), rel * max(1.0, float(np.abs(ref).max()))
+    assert err <= bound, f"{what}: max|delta| {err} > {bound}"
+
+
+def jnp_to_np(x):
+    return np.array(jnp.asarray(x, jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [40, 80])
+@pytest.mark.parametrize("l", [256, 300])
+def test_k3_k4_plain_match_jax_bwd(l, d, dtype):
+    """dQ (K4), dK and dV (K3) of the plain versions against the JAX backward: the
+    Pallas `_bwd` kernels straight at L 256 (blocks of 64), and the VJP of
+    `flash_attention_padded` at the ragged L 300 (padded to 320, KV-masked)."""
+    from controllora_tpu.ops.pallas_attention_vjp import _bwd, _fwd, flash_attention_padded
+
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    q, k, v, do = (rand((2, l, d), s) for s in range(4))
+    jq, jk, jv, jdo = (jnp.asarray(x, jdt) for x in (q, k, v, do))
+    if l % 64 == 0:
+        o, lse = _fwd(jq, jk, jv, 64, 64, interpret=True)
+        refs = _bwd(64, 64, True, None, (jq, jk, jv, o, lse), jdo)
+    else:
+        _, vjp = jax.vjp(lambda a, b, c: flash_attention_padded(a, b, c, 64, 64, True),
+                         jq, jk, jv)
+        refs = vjp(jdo)
+    tq, tk, tv, tdo = (torch.from_numpy(jnp_to_np(x)).to(tdt) for x in (jq, jk, jv, jdo))
+    o, lse = fa.flash_attention(tq, tk, tv, heads=1)
+    dcap = fa.attention_dcap(o, tdo, heads=1)
+    dk, dv = fa.flash_bwd_dkv(tq, tk, tv, tdo, lse, dcap, heads=1)
+    dq = fa.flash_bwd_dq(tq, tk, tv, tdo, lse, dcap, heads=1)
+    rel = 1e-4 if dtype == "float32" else 1e-2
+    for name, out, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+        assert out.dtype == tdt, name
+        assert_grad_close(out.float().numpy(), jnp_to_np(ref), name, rel)
+
+
+def test_flash_attention_vjp_matches_jax():
+    """FlashAttention (K2 forward, K3 + K4 backward) on the CPU against jax.vjp of
+    `flash_attention_padded`: (B, L, H*D) layout with 2 heads, ragged L."""
+    from controllora_tpu.ops.pallas_attention_vjp import flash_attention_padded
+
+    b, h, l, d = 2, 2, 300, 40
+    q, k, v, do = (rand((b, l, h * d), s) for s in range(4, 8))
+
+    def bhld(x):  # (B, L, H*D) -> (B*H, L, D)
+        return jnp.asarray(x).reshape(b, l, h, d).transpose(0, 2, 1, 3).reshape(b * h, l, d)
+
+    def blhd(x):  # (B*H, L, D) -> (B, L, H*D)
+        return np.asarray(x).reshape(b, h, l, d).transpose(0, 2, 1, 3).reshape(b, l, h * d)
+
+    ref_o, vjp = jax.vjp(lambda a, c, e: flash_attention_padded(a, c, e, 64, 64, True),
+                         bhld(q), bhld(k), bhld(v))
+    refs = vjp(bhld(do))
+    tq, tk, tv = (t(x).requires_grad_() for x in (q, k, v))
+    out = fa.FlashAttention.apply(tq, tk, tv, h)
+    out.backward(t(do))
+    np.testing.assert_allclose(out.detach().numpy(), blhd(ref_o), atol=ATOL)
+    for name, x, ref in zip("qkv", (tq, tk, tv), refs):
+        assert_grad_close(x.grad.numpy(), blhd(ref), f"d{name}", 1e-4)
+
+
+def test_flash_attention_double_backward_raises():
+    """The backward kernels build no graph: a second-order gradient through
+    FlashAttention raises instead of coming back silently wrong."""
+    q = t(rand((1, 64, 16), 8)).requires_grad_()
+    w = t(rand((1, 64, 16), 9)).requires_grad_()
+    out = fa.FlashAttention.apply(q, q, q, 2)
+    (dq,) = torch.autograd.grad(out, q, grad_outputs=w, create_graph=True)
+    with pytest.raises(RuntimeError, match="twice|once"):
+        dq.sum().backward()

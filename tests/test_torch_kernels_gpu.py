@@ -1,16 +1,18 @@
-"""The hand-written flash kernels K1 and K2 against their plain versions, on the card.
+"""The hand-written flash kernels K1-K4 against their plain versions, on the card.
 
 These need an NVIDIA GPU with nvcc (sm_90a); elsewhere they skip. On the card:
     python -m pytest tests/test_torch_kernels_gpu.py --noconftest -m gpu -q
 bf16 inputs; the plain version runs in fp32 on the same bf16 values (and the same
-bf16 sums with the biases) and its output stays fp32. The bounds (O 1e-2, LSE 1e-3)
-cover the kernel's bf16 rounding of P and of its own output.
+bf16 sums with the biases) and its output stays fp32. The bounds (O 1e-2, LSE 1e-3,
+gradients 1e-2 * max(1, max|ref|)) cover the kernels' bf16 rounding of P (and dS)
+and of their own outputs.
 """
 
 import pytest
 import torch
 
 from controllora_tpu_torch.ops import flash_attention as fa
+from controllora_tpu_torch.ops.attention import dot_product_attention, merge_heads, split_heads
 
 pytestmark = pytest.mark.gpu
 
@@ -48,8 +50,11 @@ def test_k1_matches_plain(cuda, b, heads, l, d, bc):
 
 
 @pytest.mark.parametrize("b,heads,l,d", [(2, 8, 1024, 40), (1, 1, 700, 512),
-                                         (1, 2, 129, 64)])
+                                         (1, 2, 129, 64), (8, 8, 4096, 40),
+                                         (8, 1, 4096, 512)])
 def test_k2_matches_plain(cuda, b, heads, l, d):
+    """Ragged and short shapes, then the training path's at 512², batch 8: the UNet
+    self-attention and the VAE encoder's mid-attention."""
     q, k, v = (randn((b, l, heads * d), s, cuda) for s in range(3))
     o, lse = fa.flash_attention(q, k, v, heads)
     torch.cuda.synchronize()
@@ -69,4 +74,57 @@ def test_wrappers_raise_on_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):
         fa.biased_attention(qh, qh, qh, 1, torch.zeros((3, 64, 40), device=cuda,
                                                               dtype=torch.bfloat16))
-    assert fa.LAUNCHES == {"k1": 0, "k2": 0}
+    do = torch.zeros((1, 64, 8 * 96), device=cuda, dtype=torch.bfloat16)
+    lse = torch.zeros((8, 64), device=cuda)
+    with pytest.raises(ValueError, match="up to 80"):
+        fa.flash_bwd_dkv(do, do, do, do, lse, lse, 8)  # head dim 96
+    with pytest.raises(TypeError):
+        fa.flash_bwd_dq(q, q, q, q, lse[:1], lse[:1], 1)  # fp32
+    assert fa.LAUNCHES == {"k1": 0, "k2": 0, "k3": 0, "k4": 0}
+
+
+def bound(ref):
+    return 1e-2 * max(1.0, ref.abs().max().item())
+
+
+@pytest.mark.parametrize("b,heads,l,d", [(8, 8, 4096, 40), (2, 8, 2304, 80),
+                                         (1, 8, 7744, 40), (2, 8, 4225, 40),
+                                         (1, 8, 300, 80)])
+def test_k3_k4_match_plain(cuda, b, heads, l, d):
+    """dQ, dK, dV from O and LSE of K2, against the plain versions in fp32 on the
+    same bf16 inputs and the same Dcap: the training shape, the 384² and 704²
+    latents, and two ragged L (not a multiple of the 64-row tile: the kernels set
+    P to 0 by index past L)."""
+    q, k, v, do = (randn((b, l, heads * d), s, cuda) for s in range(4))
+    o, lse = fa.flash_attention(q, k, v, heads)
+    dcap = fa.attention_dcap(o, do, heads)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, dcap, heads)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, dcap, heads)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == {"k1": 0, "k2": 1, "k3": 1, "k4": 1}
+    args = [x.float() for x in (q, k, v, do)] + [lse, dcap]
+    ref_dk, ref_dv = fa.flash_bwd_dkv_plain(*args, heads)
+    ref_dq = fa.flash_bwd_dq_plain(*args, heads)
+    for name, out, ref in (("dq", dq, ref_dq), ("dk", dk, ref_dk), ("dv", dv, ref_dv)):
+        assert out.shape == ref.shape and torch.isfinite(out).all(), name
+        assert (out.float() - ref).abs().max().item() <= bound(ref), name
+
+
+@pytest.mark.parametrize("b,heads,l,d", [(8, 8, 4096, 40), (2, 8, 4225, 40)])
+def test_flash_attention_grad_matches_plain_autograd(cuda, b, heads, l, d):
+    """The repaired fault: long self-attention on the card used to return K2's
+    output without a graph, dropping every gradient through it. Through
+    dot_product_attention the gradients of q, k, v now exist and match the autograd
+    of the plain fp32 attention on the same bf16 values: the training shape and a
+    ragged L."""
+    q, k, v, do = (randn((b, l, heads * d), s, cuda) for s in range(4))
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    dot_product_attention(q, k, v, heads).backward(do)
+    assert fa.LAUNCHES == {"k1": 0, "k2": 1, "k3": 1, "k4": 1}
+    ref_in = [x.detach().float().requires_grad_() for x in (q, k, v)]
+    qh, kh, vh = (split_heads(x, heads) for x in ref_in)
+    ref = merge_heads(torch.softmax(qh @ kh.transpose(-1, -2) * d**-0.5, dim=-1) @ vh)
+    ref.backward(do.float())
+    for name, x, r in zip("qkv", (q, k, v), ref_in):
+        assert x.grad is not None and x.grad.abs().max().item() > 0, name
+        assert (x.grad.float() - r.grad).abs().max().item() <= bound(r.grad), name
