@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Quickest proof that the PyTorch port runs its main path on one NVIDIA GPU.
+"""Quickest proof that the PyTorch port runs its main paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -8,10 +8,15 @@ Phases, each of which raises (non-zero exit, no result line) when it fails:
   2. build    nvcc builds the hand-written kernels from controllora_tpu_torch/csrc.
   3. kernels  K1-K4 against their plain PyTorch versions on the card, bf16 inputs,
               at the serving and training paths' shapes, other resolutions' shapes,
-              and (K3/K4) ragged L, not a multiple of the 64-row tile; times of both.
-              Then the gradient of FlashAttention (K2 forward, K3 + K4 backward)
-              through dot_product_attention against autograd of the plain fp32
-              attention, at the training shape and a ragged one.
+              and (K3/K4) ragged L, not a multiple of the 64-row tile; times of both,
+              the bound (operations or bytes at the H100's peaks) and one torch SDPA
+              call on the same inputs as a yardstick. The gradient of FlashAttention
+              (K2 forward, K3 + K4 backward) against autograd of the plain fp32
+              attention, at the training shape and a ragged one. Then K5 (jax's
+              stock flash: forward with m and l, dK/dV, dQ) against its plain
+              versions at the batch-16 training shape, the VAE encoder's D 512, the
+              768² tail and a non-default softmax scale, with times, bounds and SDPA;
+              L 4225 raises; the gradient of FlashStockAttention against autograd.
   4. parity   full-width SD1.5 (random seeded bf16 weights) + the `base` ControlLoRA
               (perturbed so the folded biases are nonzero): one folded UNet eval,
               one VAE decode and the CLIP encoder on the card against the same
@@ -24,18 +29,28 @@ Phases, each of which raises (non-zero exit, no result line) when it fails:
   7. train parity  one ControlLoRA train step's loss and adapter gradient at batch 1
               (same weights, latents, noise, t, ids, guide) on the card (bf16,
               kernels; then again with the adapters cast to bf16 as well) against
-              the CPU (fp32, plain versions); VAE encode_moments.
-  8. train    the training slice: ControlLoRATrainer.train_step on full-width SD1.5
-              + `base` at 512², batch 8 of fill50k, bf16 frozen stack: 2 warm-up and
-              5 timed steps, exact launches per step, finite loss, nonzero gradient,
-              params updated; ms/step, img/s, peak memory, one profiled step.
+              the CPU (fp32, plain versions); VAE encode_moments. 8-bit AdamW: the
+              card's optimizer step against the CPU's on the same gradients, and one
+              8-bit train step's loss card against CPU.
+  8. train    ControlLoRATrainer.train_step on full-width SD1.5 + `base` at 512²,
+              batch 8 of fill50k, bf16 frozen stack, no remat: 2 warm-up and 5
+              timed steps, exact launches per step (K2-K4), finite loss, nonzero
+              gradient, params updated; ms/step, img/s, peak memory, one profiled step.
   9. entry    `python -m controllora_tpu_torch.train` for 2 steps at 512² batch 8;
               its artifact loads back into the port's ControlLoRA strictly.
+ 10. stock train  the K5 path: the same CLI in this process under
+              CONTROLLORA_FLASH_IMPL=stock at 512² batch 16 with remat `dots`: 2
+              warm-up and 5 timed steps, exact K5 launches per step, ms/step, peak
+              memory; then 2 steps each of remat `nothing` and no remat.
+ 11. CLI smoke  the smoke-variant CLI with 8-bit AdamW, remat, checkpoints and the
+              latent cache: 4 steps straight against 2 + resume latest for 2.
 The last lines are the kernel record, the card's name and power limit, and
 {"ok": true, "device": {...}}.
 """
 
+import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -44,9 +59,18 @@ import tempfile
 import time
 
 O_BOUND, LSE_BOUND, GRAD_BOUND, REL_BOUND = 1e-2, 1e-3, 1e-2, 5e-2
+# H100 SXM peaks (NVIDIA data sheet): bf16 dense tensor-core FLOP/s, HBM3 bytes/s
+PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 STEPS, CFG, RES = 20, 9.0, 512
 TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS = 8, 2, 5
 TRAIN_LAUNCHES = {"k1": 0, "k2": 6, "k3": 5, "k4": 5}  # per step: 5 UNet + 1 VAE
+# the K5 path (CONTROLLORA_FLASH_IMPL=stock), batch 16, launches per step by remat
+# policy: 5 UNet self-attentions at L 4096, 5 more where the remat recomputes them,
+# 1 in the VAE encoder
+STOCK_BATCH = 16
+_K5 = {"k1": 0, "k2": 0, "k3": 0, "k4": 0, "k5_dkv": 5, "k5_dq": 5}
+STOCK_LAUNCHES = {"dots": dict(_K5, k5_fwd=11), "nothing": dict(_K5, k5_fwd=11),
+                  None: dict(_K5, k5_fwd=6)}
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -83,6 +107,57 @@ def rel_l2(out, ref):
     return float((out - ref).norm() / ref.norm())
 
 
+def roofline(flops, nbytes):
+    """The least time the card could take: the larger of the operations over the
+    bf16 peak and the bytes (each input read once, each output written once) over
+    the memory rate; and which of the two it is."""
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return ({"bound_ms": t_ops, "bound_by": "operations"} if t_ops >= t_bytes
+            else {"bound_ms": t_bytes, "bound_by": "bytes"})
+
+
+def attention_roofline(products, b, h, lq, lk, d, bf16_q, bf16_k, fp32_rows):
+    """roofline() of an attention kernel: `products` L x L x D products per head
+    (2 flops each); bf16_q / bf16_k tensors of the query / key length read or
+    written (B x L x H*D bf16 each); fp32_rows fp32 values per query row and head
+    (LSE, Dcap, m, l, di)."""
+    flops = 2 * products * b * h * lq * lk * d
+    nbytes = 2 * b * h * d * (bf16_q * lq + bf16_k * lk) + 4 * fp32_rows * b * h * lq
+    return roofline(flops, nbytes)
+
+
+def sdpa_ms(torch, q, k, v, scale=None, do=None):
+    """Time of one torch scaled_dot_product_attention call on (B, H, L, D) inputs
+    (the library yardstick; the port never calls it): the forward, or with `do` the
+    backward of one call, which gives dq, dk and dv together. Backends are tried in
+    the order flash, efficient, cudnn, math; returns {"library_ms", "library_backend"}."""
+    import warnings
+
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with warnings.catch_warnings(), sdpa_kernel([backend]):
+                warnings.simplefilter("ignore")
+                if do is None:
+                    def fn():
+                        return sdpa(q, k, v, scale=scale)
+                else:
+                    qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
+                    out = sdpa(qq, kk, vv, scale=scale)
+
+                    def fn():
+                        return torch.autograd.grad(out, (qq, kk, vv), do, retain_graph=True)
+                fn()
+                torch.cuda.synchronize()
+                return {"library_ms": cuda_ms(fn), "library_backend": backend.name}
+        except RuntimeError:
+            continue
+    return {"library_ms": None, "library_backend": None}
+
+
 def plain_fp32(fa, q, k, v, heads, qb, kb, vb):
     """K1's plain version with an fp32 result: the biases TILED over the batch (row
     i reads bias row i % Bc, the [uncond || cond] CFG layout), the biased sums
@@ -96,7 +171,10 @@ def plain_fp32(fa, q, k, v, heads, qb, kb, vb):
 
 
 def phase_kernels(torch, fa, device):
-    """K1/K2 vs plain; returns {kernel: {"max_abs_err", "ms", "plain_ms"}}."""
+    """K1/K2 vs plain; returns {kernel: {"max_abs_err", "ms", "plain_ms", "bound_ms",
+    "bound_by", "library_ms", "library_backend"}}."""
+    from controllora_tpu_torch.ops.attention import split_heads
+
     gen = torch.Generator(device=device).manual_seed(0)
 
     def rnd(*shape):
@@ -121,8 +199,16 @@ def phase_kernels(torch, fa, device):
         if (l, d) == (4096, 40):
             ms = cuda_ms(lambda: fa.biased_attention(q, k, v, h, qb, kb, vb))
             pms = cuda_ms(lambda: fa.biased_attention_plain(q, k, v, h, qb, kb, vb))
+            bound = attention_roofline(2, b, h, l, l, d, 2 + bc / b, 2 + 2 * bc / b, 0)
+            line += f"  bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}"
             if b == 2:
-                record["k1"].update(ms=ms, plain_ms=pms)
+                record["k1"].update(ms=ms, plain_ms=pms, **bound)
+                biased = [split_heads(x + xb.repeat(b // bc, 1, 1), h)
+                          for x, xb in ((q, qb), (k, kb), (v, vb))]
+                record["k1"].update(sdpa_ms(torch, *biased))
+                line += (f"  SDPA on the biased q/k/v {record['k1']['library_ms']:.4f} ms "
+                         f"({record['k1']['library_backend']})")
+                del biased
             line += f"  kernel {ms:.4f} ms  plain {pms:.4f} ms"
         record["k1"]["max_abs_err"] = max(record["k1"]["max_abs_err"], err)
         log(line)
@@ -143,9 +229,13 @@ def phase_kernels(torch, fa, device):
                 f"max|dLSE| {lerr:.3e} <= {LSE_BOUND}")
         ms = cuda_ms(lambda: fa.flash_attention(q, k, v, h))
         pms = cuda_ms(lambda: fa.attention_lse_plain(q, k, v, h))
-        line += f"  kernel {ms:.4f} ms  plain {pms:.4f} ms"
+        bound = attention_roofline(2, b, h, l, l, d, 2, 2, 1)
+        library = sdpa_ms(torch, *(split_heads(x, h) for x in (q, k, v)))
+        line += (f"  kernel {ms:.4f} ms  plain {pms:.4f} ms  bound {bound['bound_ms']:.4f} "
+                 f"ms by {bound['bound_by']}  SDPA {library['library_ms']:.4f} ms "
+                 f"({library['library_backend']})")
         if (b, d) == (1, 512):
-            record["k2"].update(ms=ms, plain_ms=pms)
+            record["k2"].update(ms=ms, plain_ms=pms, **bound, **library)
         record["k2"]["max_abs_err"] = max(record["k2"]["max_abs_err"], err)
         log(line)
         del q, k, v, o, lse, o_ref, lse_ref
@@ -153,8 +243,8 @@ def phase_kernels(torch, fa, device):
 
 
 def build_stack(torch, device):
-    from controllora_tpu.config import get_preset
-    from controllora_tpu.data.tokenizer import HashTokenizer
+    from controllora_tpu_torch.config import get_preset
+    from controllora_tpu_torch.data.tokenizer import HashTokenizer
     from controllora_tpu_torch.models import zoo
     from controllora_tpu_torch.pipelines import StableDiffusionControlLoRAPipeline
 
@@ -339,7 +429,10 @@ def grad_check(name, out, ref):
 
 def phase_backward_kernels(torch, fa, device):
     """K3/K4 vs plain (fp32 on the same bf16 inputs, O and LSE from K2); returns
-    {kernel: {"max_abs_err", "ms", "plain_ms"}}."""
+    {kernel: {"max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+    "library_backend"}}."""
+    from controllora_tpu_torch.ops.attention import split_heads
+
     gen = torch.Generator(device=device).manual_seed(3)
 
     def rnd(*shape):
@@ -372,10 +465,17 @@ def phase_backward_kernels(torch, fa, device):
             pms3 = cuda_ms(lambda: fa.flash_bwd_dkv_plain(*bwd))
             ms4 = cuda_ms(lambda: fa.flash_bwd_dq(*bwd))
             pms4 = cuda_ms(lambda: fa.flash_bwd_dq_plain(*bwd))
-            record["k3"].update(ms=ms3, plain_ms=pms3)
-            record["k4"].update(ms=ms4, plain_ms=pms4)
-            line += (f"  K3 {ms3:.4f} ms (plain {pms3:.4f})  K4 {ms4:.4f} ms "
-                     f"(plain {pms4:.4f})")
+            # one SDPA backward gives dq, dk and dv: the yardstick of K3 + K4 together
+            library = sdpa_ms(torch, *(split_heads(x, h) for x in (q, k, v)),
+                              do=split_heads(do, h))
+            record["k3"].update(ms=ms3, plain_ms=pms3, **library,
+                                **attention_roofline(4, b, h, l, l, d, 2, 4, 2))
+            record["k4"].update(ms=ms4, plain_ms=pms4, **library,
+                                **attention_roofline(3, b, h, l, l, d, 3, 2, 2))
+            line += (f"  K3 {ms3:.4f} ms (plain {pms3:.4f}, bound "
+                     f"{record['k3']['bound_ms']:.4f})  K4 {ms4:.4f} ms (plain {pms4:.4f}, "
+                     f"bound {record['k4']['bound_ms']:.4f})  SDPA backward (dq, dk, dv) "
+                     f"{library['library_ms']:.4f} ms ({library['library_backend']})")
         record["k3"]["max_abs_err"] = max(record["k3"]["max_abs_err"], errs["dk"], errs["dv"])
         record["k4"]["max_abs_err"] = max(record["k4"]["max_abs_err"], errs["dq"])
         log(line)
@@ -439,7 +539,7 @@ def phase_train_parity(torch, pipe, device):
 
     def run(unet, vae, text, control, dev, hint_dtype, adapter_dtype=None):
         trainer = ControlLoRATrainer(control, unet, vae, text, hint_compute_dtype=hint_dtype,
-                                     adapter_compute_dtype=adapter_dtype)
+                                     adapter_compute_dtype=adapter_dtype, remat_unet=False)
         loss = trainer.loss({k: x.to(dev) for k, x in batch.items()},
                             noise=noise.to(dev), timesteps=steps.to(dev))
         grad = torch.cat([g.detach().float().flatten().cpu() for g in trainer.grads(loss)])
@@ -513,8 +613,8 @@ def device_profile(torch, fn):
 
 def phase_train(torch, fa, pipe, device):
     """The training main path; returns its launch counts."""
-    from controllora_tpu.data.registry import DatasetBase, batch_iterator
-    from controllora_tpu.data.tokenizer import HashTokenizer
+    from controllora_tpu_torch.data.registry import DatasetBase, batch_iterator
+    from controllora_tpu_torch.data.tokenizer import HashTokenizer
     from controllora_tpu_torch.training.trainer import ControlLoRATrainer, to_device_batch
 
     data = batch_iterator(DatasetBase.from_name("process/fill50k")(HashTokenizer(),
@@ -523,7 +623,7 @@ def phase_train(torch, fa, pipe, device):
     batches = [to_device_batch(next(data), device)
                for _ in range(TRAIN_WARMUP + TRAIN_STEPS + 1)]
     trainer = ControlLoRATrainer(pipe.control_lora, pipe.unet, pipe.vae, pipe.text_encoder,
-                                 hint_compute_dtype=torch.bfloat16)
+                                 hint_compute_dtype=torch.bfloat16, remat_unet=False)
     gen = torch.Generator(device=device).manual_seed(0)
     for batch in batches[:TRAIN_WARMUP]:
         trainer.train_step(batch, gen)
@@ -551,8 +651,6 @@ def phase_train(torch, fa, pipe, device):
         + f"; {changed}/{len(before)} params changed; launches per step {per_step[0]}")
     if any(p != TRAIN_LAUNCHES for p in per_step):
         raise AssertionError(f"train launches per step {per_step}, expected {TRAIN_LAUNCHES}")
-    import math
-
     if not all(math.isfinite(x) for x in losses + norms) or min(norms) <= 0:
         raise AssertionError(f"train: losses {losses}, grad norms {norms}")
     if changed == 0:
@@ -594,6 +692,316 @@ def phase_entry_point(torch):
         f"loads strictly ({n / 1e6:.2f}M params)")
 
 
+def phase_stock_kernels(torch, fs, device):
+    """K5 (forward, dK/dV, dQ) vs plain (fp32 on the same bf16 inputs, m and l from
+    the K5 forward) at the training shape, the VAE encoder's (forward only), the 768²
+    tail and a non-default scale; returns {kernel: {"max_abs_err", "ms", ...}}."""
+    from controllora_tpu_torch.ops.attention import split_heads
+
+    gen = torch.Generator(device=device).manual_seed(6)
+
+    def heads(b, h, l, d):  # a head-split view of a (B, L, H*D) projection, as routed
+        x = torch.randn((b, l, h * d), generator=gen, device=device).to(torch.bfloat16)
+        return split_heads(x, h)
+
+    record = {n: {"max_abs_err": 0.0} for n in ("k5_fwd", "k5_dkv", "k5_dq")}
+    for b, h, l, d, scale, grads in ((16, 8, 4096, 40, None, True),
+                                     (16, 1, 4096, 512, None, False),
+                                     (2, 8, 2304, 80, None, True),
+                                     (2, 8, 4096, 40, 0.3, True)):
+        scale = d**-0.5 if scale is None else scale
+        q, k, v, do = (heads(b, h, l, d) for _ in range(4))
+        o, m, lsum = fs.stock_flash_fwd(q, k, v, scale)
+        torch.cuda.synchronize()
+        o_ref, m_ref, l_ref = fs.stock_flash_fwd_plain(q.float(), k.float(), v.float(), scale)
+        err = (o.float() - o_ref).abs().max().item()
+        merr = ((m - m_ref).abs() / m_ref.abs().clamp(min=1.0)).max().item()
+        lerr = ((lsum - l_ref).abs() / l_ref).max().item()
+        del o_ref, m_ref, l_ref
+        tag = f"B={b} H={h} L={l} D={d} scale={scale:.4g}"
+        if not (torch.isfinite(o).all() and err <= O_BOUND and merr <= LSE_BOUND
+                and lerr <= LSE_BOUND):
+            raise AssertionError(f"K5 fwd {tag}: max|dO| {err}, rel m {merr}, rel l {lerr}")
+        record["k5_fwd"]["max_abs_err"] = max(record["k5_fwd"]["max_abs_err"], err)
+        line = (f"K5 fwd {tag}: max|dO| {err:.3e} <= {O_BOUND}, relative m {merr:.3e}, "
+                f"l {lerr:.3e} <= {LSE_BOUND}")
+        if grads:
+            di = (o.float() * do.float()).sum(-1)
+            dk, dv = fs.stock_flash_bwd_dkv(q, k, v, do, m, lsum, di, scale)
+            dq = fs.stock_flash_bwd_dq(q, k, v, do, m, lsum, di, scale)
+            torch.cuda.synchronize()
+            args = [x.float() for x in (q, k, v, do)] + [m, lsum, di, scale]
+            ref_dk, ref_dv = fs.stock_flash_bwd_dkv_plain(*args)
+            errs = {"dk": grad_check(f"K5 dK {tag}", dk, ref_dk),
+                    "dv": grad_check(f"K5 dV {tag}", dv, ref_dv)}
+            del ref_dk, ref_dv
+            errs["dq"] = grad_check(f"K5 dQ {tag}", dq, fs.stock_flash_bwd_dq_plain(*args))
+            record["k5_dkv"]["max_abs_err"] = max(record["k5_dkv"]["max_abs_err"],
+                                                  errs["dk"], errs["dv"])
+            record["k5_dq"]["max_abs_err"] = max(record["k5_dq"]["max_abs_err"], errs["dq"])
+            line += (f"; max|d| dQ {errs['dq']:.3e}, dK {errs['dk']:.3e}, dV {errs['dv']:.3e}"
+                     f" <= {GRAD_BOUND} * max(1, max|ref|)")
+            del args, dk, dv, dq
+        if (b, h, l, d) == (16, 8, 4096, 40):
+            fwd = (q, k, v, scale)
+            bwd = (q, k, v, do, m, lsum, di, scale)
+            plain = [x.float() for x in (q, k, v, do)] + [m, lsum, di, scale]
+            times = {"k5_fwd": (cuda_ms(lambda: fs.stock_flash_fwd(*fwd)),
+                                cuda_ms(lambda: fs.stock_flash_fwd_plain(*plain[:3], scale))),
+                     "k5_dkv": (cuda_ms(lambda: fs.stock_flash_bwd_dkv(*bwd)),
+                                cuda_ms(lambda: fs.stock_flash_bwd_dkv_plain(*plain))),
+                     "k5_dq": (cuda_ms(lambda: fs.stock_flash_bwd_dq(*bwd)),
+                               cuda_ms(lambda: fs.stock_flash_bwd_dq_plain(*plain)))}
+            del plain
+            forward = sdpa_ms(torch, q, k, v, scale=scale)
+            backward = sdpa_ms(torch, q, k, v, scale=scale, do=do)
+            costs = {"k5_fwd": (2, 2, 2, 2), "k5_dkv": (4, 2, 4, 3), "k5_dq": (3, 3, 2, 3)}
+            for name, (ms, pms) in times.items():
+                products, nq, nk, rows = costs[name]
+                record[name].update(ms=ms, plain_ms=pms,
+                                    **(forward if name == "k5_fwd" else backward),
+                                    **attention_roofline(products, b, h, l, l, d, nq, nk, rows))
+                line += (f"\n  {name} {ms:.4f} ms (plain {pms:.4f}, bound "
+                         f"{record[name]['bound_ms']:.4f} by {record[name]['bound_by']})")
+            line += (f"\n  SDPA forward {forward['library_ms']:.4f} ms "
+                     f"({forward['library_backend']}), backward (dq, dk, dv) "
+                     f"{backward['library_ms']:.4f} ms ({backward['library_backend']})")
+        log(line)
+        del q, k, v, do, o, m, lsum
+    q = heads(1, 2, 4225, 40)
+    try:
+        fs.stock_flash_attention(q, q, q, 0.1)
+    except ValueError as e:
+        log(f"K5 at L 4225 (the 520² latent) raises on the card too: ValueError({e})")
+    else:
+        raise AssertionError("K5 took L 4225, which jax's stock kernel refuses")
+    return record
+
+
+def phase_stock_grad(torch, fs, device):
+    """Gradients through FlashStockAttention (K5 forward, dK/dV + dQ backward) against
+    autograd of the plain fp32 attention: the training shape and a non-default scale."""
+    from controllora_tpu_torch.ops.attention import split_heads
+
+    gen = torch.Generator(device=device).manual_seed(7)
+    for b, h, l, d, scale in ((16, 8, 4096, 40, 40**-0.5), (2, 8, 4096, 40, 0.3)):
+        leaves = [torch.randn((b, l, h * d), generator=gen, device=device)
+                  .to(torch.bfloat16).requires_grad_() for _ in range(3)]
+        do = split_heads(torch.randn((b, l, h * d), generator=gen, device=device)
+                         .to(torch.bfloat16), h)
+        before = dict(fs.LAUNCHES)
+        fs.stock_flash_attention(*(split_heads(x, h) for x in leaves), scale).backward(do)
+        torch.cuda.synchronize()
+        used = {n: fs.LAUNCHES[n] - before[n] for n in before}
+        if used != {"k5_fwd": 1, "k5_dkv": 1, "k5_dq": 1}:
+            raise AssertionError(f"FlashStockAttention launches {used}")
+        ref_in = [x.detach().float().requires_grad_() for x in leaves]
+        qh, kh, vh = (split_heads(x, h) for x in ref_in)
+        (torch.softmax(qh @ kh.transpose(-1, -2) * scale, dim=-1) @ vh).backward(do.float())
+        errs = {n: grad_check(f"FlashStockAttention d{n}", x.grad, r.grad)
+                for n, x, r in zip("qkv", leaves, ref_in)}
+        log(f"FlashStockAttention grad B={b} H={h} L={l} D={d} scale={scale:.4g} vs plain "
+            "fp32 autograd: " + ", ".join(f"max|d{n}| {e:.3e}" for n, e in errs.items())
+            + f" <= {GRAD_BOUND} * max(1, max|ref|)")
+        del leaves, do, ref_in, qh, kh, vh
+
+
+def phase_adam8bit(torch, pipe, device):
+    """8-bit AdamW, card against CPU: (a) the optimizer alone on the same fp32
+    gradients (those of one CPU train step at batch 1): params within 1e-6, int8
+    codes equal but for at most one unit at 1e-3 of the elements, scales within 1e-5
+    relative; (b) one train step on the card (bf16 stack, kernels) from the same
+    params: its loss within REL_BOUND of the CPU step's, finite, params updated."""
+    import numpy as np
+
+    from controllora_tpu_torch.models.clip import CLIPTextModel
+    from controllora_tpu_torch.models.control_lora import ControlLoRA
+    from controllora_tpu_torch.models.unet import UNet2DConditionModel
+    from controllora_tpu_torch.models.vae import AutoencoderKL
+    from controllora_tpu_torch.training.trainer import ControlLoRATrainer, make_optimizer
+
+    rng = np.random.default_rng(8)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32))
+
+    batch = {"latents": t(rng.normal(size=(1, 4, RES // 8, RES // 8))),
+             "guide_values": t(rng.uniform(-1, 1, (1, 3, RES, RES))),
+             "input_ids": torch.from_numpy(rng.integers(0, 49408, (1, 77))).long()}
+    draws = dict(noise=t(rng.normal(size=(1, 4, RES // 8, RES // 8))),
+                 timesteps=torch.tensor([300]))
+    c_control = cpu_copy(torch, pipe.control_lora, ControlLoRA, pipe.control_lora.config)
+    start = [p.detach().clone() for p in pipe.control_lora.parameters()]
+    c_trainer = ControlLoRATrainer(
+        c_control, cpu_copy(torch, pipe.unet, UNet2DConditionModel, pipe.unet.config),
+        cpu_copy(torch, pipe.vae, AutoencoderKL, pipe.vae.config),
+        cpu_copy(torch, pipe.text_encoder, CLIPTextModel, pipe.text_encoder.config),
+        optimizer=make_optimizer(c_control.parameters(), use_8bit=True), remat_unet=False)
+    c_loss = c_trainer.loss(batch, **draws)
+    grads = c_trainer.grads(c_loss)
+    c_trainer.optimizer.step(grads)
+
+    params = [torch.nn.Parameter(p.clone()) for p in start]
+    opt = make_optimizer(params, use_8bit=True)
+    opt.step([g.to(device) for g in grads])
+    torch.cuda.synchronize()
+    perr = max((p.detach().cpu() - c).abs().max().item()
+               for p, c in zip(params, c_control.parameters()))
+    n_codes = n_diff = 0
+    max_code = serr = 0.0
+    for p, c in zip(params, c_control.parameters()):
+        st, c_st = opt.adamw.state[p], c_trainer.optimizer.adamw.state[c]
+        for name in ("exp_avg", "exp_avg_sq"):
+            if f"{name}_q" not in st:
+                continue
+            diff = (st[f"{name}_q"].cpu().int() - c_st[f"{name}_q"].int()).abs()
+            n_codes += diff.numel()
+            n_diff += int((diff > 0).sum())
+            max_code = max(max_code, int(diff.max()))
+            scale = c_st[f"{name}_scale"]
+            serr = max(serr, ((st[f"{name}_scale"].cpu() - scale).abs()
+                              / scale.clamp(min=1e-30)).max().item())
+    log(f"8-bit AdamW card vs CPU on the same gradients: max|dparam| {perr:.3e} <= 1e-06; "
+        f"int8 codes differing {n_diff}/{n_codes} (max {max_code} unit); scales relative "
+        f"{serr:.3e} <= 1e-05")
+    if not (perr <= 1e-6 and max_code <= 1 and n_diff <= 1e-3 * n_codes and serr <= 1e-5):
+        raise AssertionError("8-bit AdamW: the card's step differs from the CPU's")
+
+    trainer = ControlLoRATrainer(pipe.control_lora, pipe.unet, pipe.vae, pipe.text_encoder,
+                                 optimizer=make_optimizer(pipe.control_lora.parameters(),
+                                                          use_8bit=True),
+                                 hint_compute_dtype=torch.bfloat16, remat_unet=False)
+    metrics = trainer.train_step({k: x.to(device) for k, x in batch.items()},
+                                 **{k: x.to(device) for k, x in draws.items()})
+    loss = float(metrics["loss"])
+    moved = sum(not torch.equal(a, p.detach())
+                for a, p in zip(start, pipe.control_lora.parameters()))
+    err = abs(loss - c_loss.item()) / abs(c_loss.item())
+    log(f"8-bit AdamW train step on the card: loss {loss:.6f} vs CPU {c_loss.item():.6f} "
+        f"(relative {err:.3e} <= {REL_BOUND}); {moved}/{len(start)} params updated")
+    if not (math.isfinite(loss) and err <= REL_BOUND and moved > 0):
+        raise AssertionError("8-bit AdamW train step on the card failed")
+
+
+def phase_stock_train(torch, fa, fs):
+    """The K5 main path: ``python -m controllora_tpu_torch.train`` (in this process,
+    so that the launch counters are read here) under CONTROLLORA_FLASH_IMPL=stock, on
+    SD1.5 at full width with the `base` ControlLoRA, 512², batch 16,
+    --gradient_checkpointing --remat_policy dots: 2 warm-up and 5 timed steps with
+    exact launches per step; then 2 steps each of `nothing` and no remat, for peak
+    memory. Returns the launch counts of the dots run."""
+    import contextlib
+    import io
+
+    from controllora_tpu_torch import train as cli
+
+    def run(policy, steps, out):
+        args = ["--model_variant", "sd15", "--resolution", str(RES), "--train_batch_size",
+                str(STOCK_BATCH), "--max_train_steps", str(steps), "--log_every", "1",
+                "--checkpointing_steps", "0", "--output_dir", out, "--device", "cuda"]
+        if policy:
+            args += ["--gradient_checkpointing", "--remat_policy", policy]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated() / 2**30
+        buf = io.StringIO()
+        fa.reset_launch_counts()
+        fs.reset_launch_counts()  # the main path starts here
+        with contextlib.redirect_stdout(buf):
+            cli.main(args)
+        counts = {**fa.LAUNCHES, **fs.LAUNCHES}  # the main path ends here
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        steps_out = [ln for ln in buf.getvalue().splitlines() if ln.startswith("step ")]
+        ms = [float(ln.split()[-2]) for ln in steps_out]
+        losses = [float(ln.split("loss=")[1].split()[0]) for ln in steps_out]
+        want = {n: c * steps for n, c in STOCK_LAUNCHES[policy].items()}
+        if counts != want or len(ms) != steps:
+            raise AssertionError(f"stock train ({policy}): launches {counts}, expected "
+                                 f"{want} ({STOCK_LAUNCHES[policy]} per step)\n"
+                                 + buf.getvalue()[-2000:])
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"stock train ({policy}): losses {losses}")
+        return counts, peak - resident, ms, losses
+
+    from controllora_tpu_torch.data.registry import DatasetBase, batch_iterator
+    from controllora_tpu_torch.data.tokenizer import HashTokenizer
+
+    data = batch_iterator(DatasetBase.from_name("process/fill50k")(HashTokenizer(),
+                                                                   resolution=RES),
+                          STOCK_BATCH, seed=1)
+    t0 = time.perf_counter()
+    next(data)
+    log(f"host: one fill50k batch of {STOCK_BATCH} at {RES}² takes "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms to make (inside each CLI step below)")
+    os.environ["CONTROLLORA_FLASH_IMPL"] = "stock"
+    try:
+        with tempfile.TemporaryDirectory() as out:
+            counts, peak, ms, losses = run("dots", TRAIN_WARMUP + TRAIN_STEPS, out)
+            step_ms = statistics.mean(ms[TRAIN_WARMUP:])
+            log(f"stock train (K5) {RES}² batch {STOCK_BATCH}, remat dots, via the CLI: "
+                f"{step_ms:.1f} ms/step (steps " + ", ".join(f"{x:.1f}" for x in ms)
+                + f" ms), {STOCK_BATCH / step_ms * 1e3:.3f} img/s, peak {peak:.2f} GiB "
+                "allocated above what was resident before the run; losses " + ", ".join(f"{x:.4f}" for x in losses)
+                + f"; launches per step {STOCK_LAUNCHES['dots']}")
+            for policy in ("nothing", None):
+                _, p_peak, p_ms, _ = run(policy, 2, out)
+                log(f"stock train remat {policy or 'off'}: peak {p_peak:.2f} GiB allocated, "
+                    f"steps {p_ms[0]:.1f}, {p_ms[1]:.1f} ms; launches per step "
+                    f"{STOCK_LAUNCHES[policy]}")
+    finally:
+        del os.environ["CONTROLLORA_FLASH_IMPL"]
+    return counts
+
+
+def phase_cli_resume(torch):
+    """The smoke-variant CLI on the card with 8-bit AdamW, remat, checkpoints and the
+    latent cache (--cache_latents --max_train_samples 32): 4 steps straight against 2
+    steps, then --resume_from_checkpoint latest for 2 more. The adapters agree within
+    1e-3 (cuDNN's convolution backward is not bitwise reproducible on the card; the
+    CPU test holds the resume bitwise); the second run loads the cache the first
+    wrote; pruning keeps the newest checkpoint."""
+    from controllora_tpu_torch.training.checkpoint import checkpoint_step_dirs, load_control_lora
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        common = [sys.executable, "-m", "controllora_tpu_torch.train", "--model_variant",
+                  "smoke", "--resolution", "64", "--train_batch_size", "4", "--log_every",
+                  "1", "--device", "cuda", "--use_8bit_adam", "--gradient_checkpointing",
+                  "--cache_latents", "--max_train_samples", "32",
+                  "--latent_cache_path", os.path.join(tmp, "cache.npz")]
+        runs = {"straight": ["--max_train_steps", "4", "--checkpointing_steps", "2",
+                             "--checkpoints_total_limit", "1", "--output_dir",
+                             os.path.join(tmp, "a")],
+                "first half": ["--max_train_steps", "2", "--checkpointing_steps", "2",
+                               "--output_dir", os.path.join(tmp, "b")],
+                "resumed": ["--max_train_steps", "4", "--checkpointing_steps", "0",
+                            "--resume_from_checkpoint", "latest", "--output_dir",
+                            os.path.join(tmp, "b")]}
+        outs = {}
+        for name, extra in runs.items():
+            proc = subprocess.run(common + extra, cwd=ROOT, capture_output=True, text=True,
+                                  timeout=600)
+            if proc.returncode != 0 or "nan" in proc.stdout:
+                raise AssertionError(f"CLI {name} ({proc.returncode}):\n{proc.stdout[-1500:]}"
+                                     f"\n{proc.stderr[-3000:]}")
+            outs[name] = proc
+        if not ("latent cache: saved" in outs["straight"].stderr
+                and "latent cache: loaded" in outs["first half"].stderr
+                and "resumed from step 2" in outs["resumed"].stdout
+                and [s for s, _ in checkpoint_step_dirs(os.path.join(tmp, "a"))] == [4]):
+            raise AssertionError("CLI resume: cache, resume or pruning missing:\n"
+                                 + "\n".join(p.stdout[-800:] for p in outs.values()))
+        a, _ = load_control_lora(os.path.join(tmp, "a"))
+        b, _ = load_control_lora(os.path.join(tmp, "b"))
+        err = max((x - y).abs().max().item() for x, y in zip(a.parameters(), b.parameters()))
+    log(f"CLI smoke variant on the card (8-bit AdamW, remat, latent cache of 32, "
+        f"checkpoints): 4 straight vs 2 + resume 2: max|dparam| {err:.3e} <= 1e-3; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not err <= 1e-3:
+        raise AssertionError(f"CLI resume: adapters differ by {err}")
+
+
 def main():
     import torch
 
@@ -608,6 +1016,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     from controllora_tpu_torch.ops import flash_attention as fa
+    from controllora_tpu_torch.ops import flash_stock as fs
 
     t0 = time.perf_counter()
     fa.build_kernels()
@@ -616,20 +1025,30 @@ def main():
     record = phase_kernels(torch, fa, device)
     record.update(phase_backward_kernels(torch, fa, device))
     phase_flash_grad(torch, fa, device)
+    record.update(phase_stock_kernels(torch, fs, device))
+    phase_stock_grad(torch, fs, device)
     pipe = build_stack(torch, device)
     phase_parity(torch, pipe, device)
     phase_breakdown(torch, pipe, device)
     serve = phase_serve(torch, fa, pipe)
     phase_decode(torch, pipe, device)
     phase_train_parity(torch, pipe, device)
+    phase_adam8bit(torch, pipe, device)
     train = phase_train(torch, fa, pipe, device)
+    del pipe
     phase_entry_point(torch)
-    # launches on the two main paths, each counted from 0 (serving, then training)
+    stock = phase_stock_train(torch, fa, fs)
+    phase_cli_resume(torch)
+    # launches on the three main paths, each counted from 0: serving and training
+    # (K1-K4), then training under CONTROLLORA_FLASH_IMPL=stock (K5)
     launches = {n: serve[n] + train[n] for n in serve}
+    launches.update({n: stock[n] for n in fs.LAUNCHES})
 
     fwd = "controllora_tpu_torch/csrc/flash_attn_fwd.cu"
     bwd = "controllora_tpu_torch/csrc/flash_attn_bwd.cu"
+    k5 = "controllora_tpu_torch/csrc/flash_stock.cu"
     vjp = "controllora_tpu/ops/pallas_attention_vjp.py"
+    stock_tpu = "jax/experimental/pallas/ops/tpu/flash_attention.py"  # via attention.py:73
     kernels = [
         dict(name="k1_biased_flash_fwd", route="cuda", source=fwd,
              replaces="controllora_tpu/ops/pallas_attention.py:56", launches=launches["k1"],
@@ -640,6 +1059,12 @@ def main():
              launches=launches["k3"], **record["k3"]),
         dict(name="k4_flash_bwd_dq", route="cuda", source=bwd, replaces=f"{vjp}:165",
              launches=launches["k4"], **record["k4"]),
+        dict(name="k5_stock_flash_fwd", route="cuda", source=k5, replaces=f"{stock_tpu}:331",
+             launches=launches["k5_fwd"], **record["k5_fwd"]),
+        dict(name="k5_stock_flash_bwd_dkv", route="cuda", source=k5,
+             replaces=f"{stock_tpu}:796", launches=launches["k5_dkv"], **record["k5_dkv"]),
+        dict(name="k5_stock_flash_bwd_dq", route="cuda", source=k5,
+             replaces=f"{stock_tpu}:1146", launches=launches["k5_dq"], **record["k5_dq"]),
     ]
     for k in kernels:
         if k["launches"] < 1:

@@ -34,78 +34,15 @@
 //   * ragged L: P is set to 0 by index for query rows >= Lq (their LSE is not
 //     defined: exp(0 - garbage) could be inf, and inf * 0 is NaN) and for KV columns
 //     >= Lk; rows past L are loaded as zeros and never stored.
-// It does not yet pipeline loads (cp.async / TMA) or use wgmma: later work.
+// The fragment helpers (load_a, frag_to_a, mma_rows, store_rows) live in
+// flash_common.cuh, shared with K5's backward (flash_stock.cu). It does not yet
+// pipeline loads (cp.async / TMA) or use wgmma: later work.
 
 #include "flash_common.cuh"
 
 namespace {
 
 using namespace flash;
-
-constexpr int kB = 64;  // rows of every tile (queries and keys)
-
-template <int DP>
-struct BwdTile {
-  static constexpr int kLD = DP + 8;    // bf16 row stride of the shared tiles
-  static constexpr int kNT = kB / 8;    // n-tiles across the 64 columns of S
-  static constexpr int kND = DP / 8;    // n-tiles across the head dim
-  static_assert(DP % 16 == 0, "DP must be a multiple of 16");
-  static constexpr size_t kSmem = 4 * (size_t)kB * kLD * sizeof(bf16) +
-                                  2 * (size_t)kB * sizeof(float);
-};
-
-// A fragment (16 x 16, rows row0.., columns kk..) from a shared tile with stride ld.
-__device__ __forceinline__ void load_a(uint32_t* a, const bf16* base, int ld, int kk,
-                                       int g, int t4) {
-  a[0] = ld32(base + g * ld + kk + t4 * 2);
-  a[1] = ld32(base + (g + 8) * ld + kk + t4 * 2);
-  a[2] = ld32(base + g * ld + kk + 8 + t4 * 2);
-  a[3] = ld32(base + (g + 8) * ld + kk + 8 + t4 * 2);
-}
-
-// A fragment of k-slice j (columns 16j..16j+15) from the fp32 C fragments of
-// n-tiles 2j and 2j+1, rounded to bf16.
-__device__ __forceinline__ void frag_to_a(uint32_t* a, const float* c0, const float* c1) {
-  a[0] = pack2f(c0[0], c0[1]);
-  a[1] = pack2f(c0[2], c0[3]);
-  a[2] = pack2f(c1[0], c1[1]);
-  a[3] = pack2f(c1[2], c1[3]);
-}
-
-// acc (16 x DP) += a (16 x 16) * X[rows 16j.., all DP columns], X a shared tile.
-template <int DP>
-__device__ __forceinline__ void mma_rows(float (*acc)[4], const uint32_t* a,
-                                         const bf16* x, int j, int g, int t4) {
-  using T = BwdTile<DP>;
-#pragma unroll
-  for (int n = 0; n < T::kND; ++n) {
-    const bf16* xb = x + (j * 16 + t4 * 2) * T::kLD + n * 8 + g;
-    mma_bf16(acc[n], a, pack2(xb[0], xb[T::kLD]), pack2(xb[8 * T::kLD], xb[9 * T::kLD]));
-  }
-}
-
-// Store rows (lo, hi = lo + 8) of a warp's 16 x DP fp32 accumulator, times mul,
-// as bf16 into head h of a (B, L, H*D) tensor.
-template <int DP>
-__device__ __forceinline__ void store_rows(bf16* __restrict__ out, float (*acc)[4],
-                                           float mul, int b, int h, int row_lo, int L,
-                                           int H, int D, int t4) {
-  using T = BwdTile<DP>;
-  const size_t row_stride = (size_t)H * D;
-#pragma unroll
-  for (int n = 0; n < T::kND; ++n) {
-    const int col = n * 8 + t4 * 2;
-    if (col >= D) continue;
-    if (row_lo < L)
-      *reinterpret_cast<__nv_bfloat162*>(out + ((size_t)b * L + row_lo) * row_stride +
-                                         (size_t)h * D + col) =
-          __floats2bfloat162_rn(acc[n][0] * mul, acc[n][1] * mul);
-    if (row_lo + 8 < L)
-      *reinterpret_cast<__nv_bfloat162*>(out + ((size_t)b * L + row_lo + 8) * row_stride +
-                                         (size_t)h * D + col) =
-          __floats2bfloat162_rn(acc[n][2] * mul, acc[n][3] * mul);
-  }
-}
 
 // K3: one block per (batch*head, 64 keys); loops over all query tiles.
 template <int DP>
@@ -199,8 +136,10 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  store_rows<DP>(dk, dk_acc, scale, b, h, key_lo, Lk, H, D, t4);
-  store_rows<DP>(dv, dv_acc, 1.f, b, h, key_lo, Lk, H, D, t4);
+  const long long row_stride = (long long)H * D;
+  const size_t head = (size_t)b * Lk * H * D + (size_t)h * D;
+  store_rows<DP>(dk + head, row_stride, dk_acc, scale, key_lo, Lk, D, t4);
+  store_rows<DP>(dv + head, row_stride, dv_acc, 1.f, key_lo, Lk, D, t4);
 }
 
 // K4: one block per (batch*head, 64 queries); loops over all KV tiles.
@@ -289,7 +228,8 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  store_rows<DP>(dq, dq_acc, scale, b, h, row_lo, Lq, H, D, t4);
+  store_rows<DP>(dq + (size_t)b * Lq * H * D + (size_t)h * D, (long long)H * D, dq_acc,
+                 scale, row_lo, Lq, D, t4);
 }
 
 template <int DP>

@@ -29,35 +29,15 @@
 //     the output columns over the 4 warps, so the accumulator is 64 floats a thread;
 //   * ragged L: KV columns past Lk are masked to -1e30 and query rows past Lq are
 //     neither loaded nor stored, so any length works without padding in memory.
-// It does not yet pipeline loads (cp.async / TMA) or use wgmma: later work.
+// The three stages of each KV step (S, online softmax, P V) live in flash_common.cuh,
+// shared with K5's forward (flash_stock.cu). It does not yet pipeline loads
+// (cp.async / TMA) or use wgmma: later work.
 
 #include "flash_common.cuh"
 
 namespace {
 
 using namespace flash;
-
-constexpr int kBN = 64;         // keys per KV tile
-
-template <int DP, int BM>
-struct Tile {
-  static constexpr int kWM = BM / 16;          // warps along query rows
-  static constexpr int kWN = 4 / kWM;          // warps along columns
-  static constexpr int kNTS = (kBN / 8) / kWN; // S n-tiles per warp
-  static constexpr int kNTO = (DP / 8) / kWN;  // O n-tiles per warp
-  static constexpr int kTPR = kThreads / BM;   // softmax threads per row
-  static constexpr int kCPT = kBN / kTPR;      // softmax columns per thread
-  static constexpr int kLDQ = DP + 8;          // bf16 row stride of Q, K, V tiles
-  static constexpr int kLDS = kBN + 4;         // fp32 row stride of S
-  static constexpr int kLDP = kBN + 8;         // bf16 row stride of P
-  static_assert(BM % 16 == 0 && 4 % kWM == 0, "BM must be 16 or 64");
-  static_assert((kBN / 8) % kWN == 0 && (DP / 8) % kWN == 0, "tile split");
-  static_assert(DP % 16 == 0, "DP must be a multiple of 16");
-  static constexpr size_t kSmem = (size_t)(BM + 2 * kBN) * kLDQ * sizeof(bf16) +
-                                  (size_t)BM * kLDS * sizeof(float) +
-                                  (size_t)BM * kLDP * sizeof(bf16) +
-                                  3 * (size_t)BM * sizeof(float);
-};
 
 template <int DP, int BM>
 __global__ void __launch_bounds__(kThreads)
@@ -103,94 +83,11 @@ __global__ void __launch_bounds__(kThreads)
     load_tile<DP>(Vs, T::kLDQ, kBN, v, v_bias, b, v_bias_batch, h, k0, Lk, H, D);
     __syncthreads();
 
-    {  // S = Q K^T * scale: this warp's 16 rows by kNTS * 8 keys
-      float s[T::kNTS][4];
-#pragma unroll
-      for (int nt = 0; nt < T::kNTS; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const bf16* qa = Qs + wm * 16 * T::kLDQ;
-#pragma unroll
-      for (int kk = 0; kk < DP; kk += 16) {
-        uint32_t a[4];
-        a[0] = ld32(qa + g * T::kLDQ + kk + t4 * 2);
-        a[1] = ld32(qa + (g + 8) * T::kLDQ + kk + t4 * 2);
-        a[2] = ld32(qa + g * T::kLDQ + kk + 8 + t4 * 2);
-        a[3] = ld32(qa + (g + 8) * T::kLDQ + kk + 8 + t4 * 2);
-#pragma unroll
-        for (int nt = 0; nt < T::kNTS; ++nt) {
-          const bf16* kb = Ks + ((wn * T::kNTS + nt) * 8 + g) * T::kLDQ + kk + t4 * 2;
-          mma_bf16(s[nt], a, ld32(kb), ld32(kb + 8));
-        }
-      }
-      const int r0 = wm * 16 + g;
-#pragma unroll
-      for (int nt = 0; nt < T::kNTS; ++nt) {
-        const int col = (wn * T::kNTS + nt) * 8 + t4 * 2;
-        const bool ok0 = k0 + col < Lk, ok1 = k0 + col + 1 < Lk;
-        Ss[r0 * T::kLDS + col] = ok0 ? s[nt][0] * scale : kNegInf;
-        Ss[r0 * T::kLDS + col + 1] = ok1 ? s[nt][1] * scale : kNegInf;
-        Ss[(r0 + 8) * T::kLDS + col] = ok0 ? s[nt][2] * scale : kNegInf;
-        Ss[(r0 + 8) * T::kLDS + col + 1] = ok1 ? s[nt][3] * scale : kNegInf;
-      }
-    }
+    fwd_scores<DP, BM>(Ss, Qs, Ks, scale, Lk - k0);
     __syncthreads();
-
-    {  // online softmax; the kTPR threads of one row are neighbours in one warp
-      const int r = tid / T::kTPR;
-      const int c0 = (tid % T::kTPR) * T::kCPT;
-      const float m_old = row_m[r];
-      float mx = kNegInf;
-#pragma unroll 8
-      for (int c = 0; c < T::kCPT; ++c) mx = fmaxf(mx, Ss[r * T::kLDS + c0 + c]);
-#pragma unroll
-      for (int off = T::kTPR / 2; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-#pragma unroll 8
-      for (int c = 0; c < T::kCPT; ++c) {
-        const float p = __expf(Ss[r * T::kLDS + c0 + c] - m_new);
-        Ps[r * T::kLDP + c0 + c] = __float2bfloat16(p);
-        sum += p;
-      }
-#pragma unroll
-      for (int off = T::kTPR / 2; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      __syncwarp();
-      if (tid % T::kTPR == 0) {
-        const float alpha = __expf(m_old - m_new);
-        row_a[r] = alpha;
-        row_l[r] = alpha * row_l[r] + sum;
-        row_m[r] = m_new;
-      }
-    }
+    fwd_softmax<DP, BM>(Ss, Ps, row_m, row_l, row_a);
     __syncthreads();
-
-    {  // O = alpha * O + P V: this warp's 16 rows by kNTO * 8 output columns
-      const float a_lo = row_a[wm * 16 + g], a_hi = row_a[wm * 16 + g + 8];
-#pragma unroll
-      for (int nt = 0; nt < T::kNTO; ++nt) {
-        acc[nt][0] *= a_lo;
-        acc[nt][1] *= a_lo;
-        acc[nt][2] *= a_hi;
-        acc[nt][3] *= a_hi;
-      }
-      const bf16* pa = Ps + wm * 16 * T::kLDP;
-#pragma unroll
-      for (int kk = 0; kk < kBN; kk += 16) {
-        uint32_t a[4];
-        a[0] = ld32(pa + g * T::kLDP + kk + t4 * 2);
-        a[1] = ld32(pa + (g + 8) * T::kLDP + kk + t4 * 2);
-        a[2] = ld32(pa + g * T::kLDP + kk + 8 + t4 * 2);
-        a[3] = ld32(pa + (g + 8) * T::kLDP + kk + 8 + t4 * 2);
-#pragma unroll
-        for (int nt = 0; nt < T::kNTO; ++nt) {
-          const bf16* vb = Vs + (kk + t4 * 2) * T::kLDQ + (wn * T::kNTO + nt) * 8 + g;
-          const uint32_t b0 = pack2(vb[0], vb[T::kLDQ]);
-          const uint32_t b1 = pack2(vb[8 * T::kLDQ], vb[9 * T::kLDQ]);
-          mma_bf16(acc[nt], a, b0, b1);
-        }
-      }
-    }
+    fwd_accumulate<DP, BM>(acc, Ps, Vs, row_a);
   }
   __syncthreads();
 

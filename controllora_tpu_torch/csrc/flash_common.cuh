@@ -1,6 +1,6 @@
-// Helpers shared by the flash-attention kernels (flash_attn_fwd.cu, flash_attn_bwd.cu):
-// the bf16 tensor-core product, fragment packing and the tile loader that reads one
-// head of the (B, L, H*D) projection layout into shared memory.
+// Helpers shared by the flash-attention kernels (flash_attn_fwd.cu, flash_attn_bwd.cu,
+// flash_stock.cu): the bf16 tensor-core product, fragment packing, the tile loaders,
+// the three stages of the forward's KV loop, and the backward's fragment helpers.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -67,6 +67,226 @@ __device__ __forceinline__ void load_tile(bf16* s, int ld, int nrows,
       }
     }
     *reinterpret_cast<uint4*>(s + r * ld + c) = val;
+  }
+}
+
+// Rows [row0, row0 + nrows) of one head given by its first row `x` and its row stride
+// (elements; a multiple of 8) into shared memory laid out [nrows][ld]; columns in
+// [D, DP) are zero. Every row must exist (the caller's length is whole tiles).
+template <int DP>
+__device__ __forceinline__ void load_rows(bf16* s, int ld, int nrows,
+                                          const bf16* __restrict__ x,
+                                          long long row_stride, int row0, int D) {
+  constexpr int kChunks = DP / 8;
+  for (int idx = threadIdx.x; idx < nrows * kChunks; idx += kThreads) {
+    const int r = idx / kChunks;
+    const int c = (idx % kChunks) * 8;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (c < D)
+      val = *reinterpret_cast<const uint4*>(x + (row0 + r) * row_stride + c);
+    *reinterpret_cast<uint4*>(s + r * ld + c) = val;
+  }
+}
+
+// ---------------------------------------------------------------- forward KV loop
+// One block of 4 warps owns BM query rows; every KV step loads a kBN-key tile of K
+// and V, then runs the three stages below, separated by __syncthreads().
+
+constexpr int kBN = 64;         // keys per KV tile
+
+template <int DP, int BM>
+struct Tile {
+  static constexpr int kWM = BM / 16;          // warps along query rows
+  static constexpr int kWN = 4 / kWM;          // warps along columns
+  static constexpr int kNTS = (kBN / 8) / kWN; // S n-tiles per warp
+  static constexpr int kNTO = (DP / 8) / kWN;  // O n-tiles per warp
+  static constexpr int kTPR = kThreads / BM;   // softmax threads per row
+  static constexpr int kCPT = kBN / kTPR;      // softmax columns per thread
+  static constexpr int kLDQ = DP + 8;          // bf16 row stride of Q, K, V tiles
+  static constexpr int kLDS = kBN + 4;         // fp32 row stride of S
+  static constexpr int kLDP = kBN + 8;         // bf16 row stride of P
+  static_assert(BM % 16 == 0 && 4 % kWM == 0, "BM must be 16 or 64");
+  static_assert((kBN / 8) % kWN == 0 && (DP / 8) % kWN == 0, "tile split");
+  static_assert(DP % 16 == 0, "DP must be a multiple of 16");
+  static constexpr size_t kSmem = (size_t)(BM + 2 * kBN) * kLDQ * sizeof(bf16) +
+                                  (size_t)BM * kLDS * sizeof(float) +
+                                  (size_t)BM * kLDP * sizeof(bf16) +
+                                  3 * (size_t)BM * sizeof(float);
+};
+
+// Stage 1. S = Q K^T * scale: this warp's 16 rows by kNTS * 8 keys, into shared S.
+// Keys at or past kv_valid (the ragged tail of the last tile) get kNegInf.
+template <int DP, int BM>
+__device__ __forceinline__ void fwd_scores(float* Ss, const bf16* Qs, const bf16* Ks,
+                                           float scale, int kv_valid) {
+  using T = Tile<DP, BM>;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t4 = lane & 3;  // mma fragment row group / column pair
+  const int wm = warp / T::kWN, wn = warp % T::kWN;
+  float s[T::kNTS][4];
+#pragma unroll
+  for (int nt = 0; nt < T::kNTS; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+  const bf16* qa = Qs + wm * 16 * T::kLDQ;
+#pragma unroll
+  for (int kk = 0; kk < DP; kk += 16) {
+    uint32_t a[4];
+    a[0] = ld32(qa + g * T::kLDQ + kk + t4 * 2);
+    a[1] = ld32(qa + (g + 8) * T::kLDQ + kk + t4 * 2);
+    a[2] = ld32(qa + g * T::kLDQ + kk + 8 + t4 * 2);
+    a[3] = ld32(qa + (g + 8) * T::kLDQ + kk + 8 + t4 * 2);
+#pragma unroll
+    for (int nt = 0; nt < T::kNTS; ++nt) {
+      const bf16* kb = Ks + ((wn * T::kNTS + nt) * 8 + g) * T::kLDQ + kk + t4 * 2;
+      mma_bf16(s[nt], a, ld32(kb), ld32(kb + 8));
+    }
+  }
+  const int r0 = wm * 16 + g;
+#pragma unroll
+  for (int nt = 0; nt < T::kNTS; ++nt) {
+    const int col = (wn * T::kNTS + nt) * 8 + t4 * 2;
+    const bool ok0 = col < kv_valid, ok1 = col + 1 < kv_valid;
+    Ss[r0 * T::kLDS + col] = ok0 ? s[nt][0] * scale : kNegInf;
+    Ss[r0 * T::kLDS + col + 1] = ok1 ? s[nt][1] * scale : kNegInf;
+    Ss[(r0 + 8) * T::kLDS + col] = ok0 ? s[nt][2] * scale : kNegInf;
+    Ss[(r0 + 8) * T::kLDS + col + 1] = ok1 ? s[nt][3] * scale : kNegInf;
+  }
+}
+
+// Stage 2. Online softmax over the S tile: P = exp(S - m_new) as bf16 into shared P;
+// row_m (running max), row_l (normalizer at that max) and row_a (the rescale factor
+// of the accumulator, exp(m_old - m_new)) per row. The kTPR threads of a row are
+// neighbours in one warp.
+template <int DP, int BM>
+__device__ __forceinline__ void fwd_softmax(const float* Ss, bf16* Ps, float* row_m,
+                                            float* row_l, float* row_a) {
+  using T = Tile<DP, BM>;
+  const int tid = threadIdx.x;
+  const int r = tid / T::kTPR;
+  const int c0 = (tid % T::kTPR) * T::kCPT;
+  const float m_old = row_m[r];
+  float mx = kNegInf;
+#pragma unroll 8
+  for (int c = 0; c < T::kCPT; ++c) mx = fmaxf(mx, Ss[r * T::kLDS + c0 + c]);
+#pragma unroll
+  for (int off = T::kTPR / 2; off > 0; off >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  const float m_new = fmaxf(m_old, mx);
+  float sum = 0.f;
+#pragma unroll 8
+  for (int c = 0; c < T::kCPT; ++c) {
+    const float p = __expf(Ss[r * T::kLDS + c0 + c] - m_new);
+    Ps[r * T::kLDP + c0 + c] = __float2bfloat16(p);
+    sum += p;
+  }
+#pragma unroll
+  for (int off = T::kTPR / 2; off > 0; off >>= 1)
+    sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  __syncwarp();
+  if (tid % T::kTPR == 0) {
+    const float alpha = __expf(m_old - m_new);
+    row_a[r] = alpha;
+    row_l[r] = alpha * row_l[r] + sum;
+    row_m[r] = m_new;
+  }
+}
+
+// Stage 3. O = alpha * O + P V: this warp's 16 rows by kNTO * 8 output columns, in
+// the fp32 register accumulator acc.
+template <int DP, int BM>
+__device__ __forceinline__ void fwd_accumulate(float (*acc)[4], const bf16* Ps,
+                                               const bf16* Vs, const float* row_a) {
+  using T = Tile<DP, BM>;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wm = warp / T::kWN, wn = warp % T::kWN;
+  const float a_lo = row_a[wm * 16 + g], a_hi = row_a[wm * 16 + g + 8];
+#pragma unroll
+  for (int nt = 0; nt < T::kNTO; ++nt) {
+    acc[nt][0] *= a_lo;
+    acc[nt][1] *= a_lo;
+    acc[nt][2] *= a_hi;
+    acc[nt][3] *= a_hi;
+  }
+  const bf16* pa = Ps + wm * 16 * T::kLDP;
+#pragma unroll
+  for (int kk = 0; kk < kBN; kk += 16) {
+    uint32_t a[4];
+    a[0] = ld32(pa + g * T::kLDP + kk + t4 * 2);
+    a[1] = ld32(pa + (g + 8) * T::kLDP + kk + t4 * 2);
+    a[2] = ld32(pa + g * T::kLDP + kk + 8 + t4 * 2);
+    a[3] = ld32(pa + (g + 8) * T::kLDP + kk + 8 + t4 * 2);
+#pragma unroll
+    for (int nt = 0; nt < T::kNTO; ++nt) {
+      const bf16* vb = Vs + (kk + t4 * 2) * T::kLDQ + (wn * T::kNTO + nt) * 8 + g;
+      const uint32_t b0 = pack2(vb[0], vb[T::kLDQ]);
+      const uint32_t b1 = pack2(vb[8 * T::kLDQ], vb[9 * T::kLDQ]);
+      mma_bf16(acc[nt], a, b0, b1);
+    }
+  }
+}
+
+// ---------------------------------------------------------------- backward tiles
+
+constexpr int kB = 64;  // rows of every backward tile (queries and keys)
+
+template <int DP>
+struct BwdTile {
+  static constexpr int kLD = DP + 8;    // bf16 row stride of the shared tiles
+  static constexpr int kNT = kB / 8;    // n-tiles across the 64 columns of S
+  static constexpr int kND = DP / 8;    // n-tiles across the head dim
+  static_assert(DP % 16 == 0, "DP must be a multiple of 16");
+  static constexpr size_t kSmem = 4 * (size_t)kB * kLD * sizeof(bf16) +
+                                  3 * (size_t)kB * sizeof(float);
+};
+
+// A fragment (16 x 16, rows row0.., columns kk..) from a shared tile with stride ld.
+__device__ __forceinline__ void load_a(uint32_t* a, const bf16* base, int ld, int kk,
+                                       int g, int t4) {
+  a[0] = ld32(base + g * ld + kk + t4 * 2);
+  a[1] = ld32(base + (g + 8) * ld + kk + t4 * 2);
+  a[2] = ld32(base + g * ld + kk + 8 + t4 * 2);
+  a[3] = ld32(base + (g + 8) * ld + kk + 8 + t4 * 2);
+}
+
+// A fragment of k-slice j (columns 16j..16j+15) from the fp32 C fragments of
+// n-tiles 2j and 2j+1, rounded to bf16.
+__device__ __forceinline__ void frag_to_a(uint32_t* a, const float* c0, const float* c1) {
+  a[0] = pack2f(c0[0], c0[1]);
+  a[1] = pack2f(c0[2], c0[3]);
+  a[2] = pack2f(c1[0], c1[1]);
+  a[3] = pack2f(c1[2], c1[3]);
+}
+
+// acc (16 x DP) += a (16 x 16) * X[rows 16j.., all DP columns], X a shared tile.
+template <int DP>
+__device__ __forceinline__ void mma_rows(float (*acc)[4], const uint32_t* a,
+                                         const bf16* x, int j, int g, int t4) {
+  using T = BwdTile<DP>;
+#pragma unroll
+  for (int n = 0; n < T::kND; ++n) {
+    const bf16* xb = x + (j * 16 + t4 * 2) * T::kLD + n * 8 + g;
+    mma_bf16(acc[n], a, pack2(xb[0], xb[T::kLD]), pack2(xb[8 * T::kLD], xb[9 * T::kLD]));
+  }
+}
+
+// Store rows (lo, hi = lo + 8) of a warp's 16 x DP fp32 accumulator, times mul, as
+// bf16 into one head given by its first row `out` and its row stride (elements).
+// Rows at or past L are not stored.
+template <int DP>
+__device__ __forceinline__ void store_rows(bf16* __restrict__ out, long long row_stride,
+                                           float (*acc)[4], float mul, int row_lo, int L,
+                                           int D, int t4) {
+  using T = BwdTile<DP>;
+#pragma unroll
+  for (int n = 0; n < T::kND; ++n) {
+    const int col = n * 8 + t4 * 2;
+    if (col >= D) continue;
+    if (row_lo < L)
+      *reinterpret_cast<__nv_bfloat162*>(out + row_lo * row_stride + col) =
+          __floats2bfloat162_rn(acc[n][0] * mul, acc[n][1] * mul);
+    if (row_lo + 8 < L)
+      *reinterpret_cast<__nv_bfloat162*>(out + (row_lo + 8) * row_stride + col) =
+          __floats2bfloat162_rn(acc[n][2] * mul, acc[n][3] * mul);
   }
 }
 

@@ -18,7 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
 
-from controllora_tpu.config import ControlLoRAConfig
+from controllora_tpu_torch.config import ControlLoRAConfig
 from controllora_tpu_torch.models import unet as unet_lib
 from controllora_tpu_torch.models.lora import AdapterSpec, AdapterStack, AttnAdapter
 from controllora_tpu_torch.models.unet import GroupNorm, UNetConfig, conv3, to_tokens

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -397,11 +397,15 @@ class UNet2DConditionModel(nn.Module):
                 encoder_hidden_states: torch.Tensor,
                 biases: Optional[Dict[str, Any]] = None,
                 adapters: Optional[Dict[str, AdapterStack]] = None,
-                lora_scale: float = 1.0) -> torch.Tensor:
+                lora_scale: float = 1.0,
+                remat: Optional[Callable[..., torch.Tensor]] = None) -> torch.Tensor:
         """sample (B, 4, H, W) NCHW, timesteps (B,) or scalar, context (B, 77, D);
         ``biases``: {processor name: FoldedBias} of the folded adapters, or
         ``adapters``: {processor name: AdapterStack} threaded at ``lora_scale``; at
-        most one of the two. Returns the fp32 model output (B, 4, H, W)."""
+        most one of the two. ``remat(layer, *inputs)``, when given, runs each resnet
+        and each attention block (the trainer passes a ``torch.utils.checkpoint``
+        wrapper, so that the backward recomputes one block at a time). Returns the
+        fp32 model output (B, 4, H, W)."""
         if biases is not None and adapters is not None:
             raise ValueError("pass folded `biases` or threaded `adapters`, not both")
         stacks = adapters if adapters is not None else biases
@@ -414,29 +418,32 @@ class UNet2DConditionModel(nn.Module):
         temb = self.time_embedding.linear_2(F.silu(self.time_embedding.linear_1(t_emb)))
         ctx = encoder_hidden_states.to(dtype)
 
+        def run(layer, *inputs):
+            return layer(*inputs) if remat is None else remat(layer, *inputs)
+
         h = self.conv_in(sample.to(dtype))
         skips: List[torch.Tensor] = [h]
         for block in self.down_blocks:
             for li, resnet in enumerate(block.resnets):
-                h = resnet(h, temb)
+                h = run(resnet, h, temb)
                 attn = block.attention(li)
                 if attn is not None:
-                    h = attn(h, ctx, stacks, lora_scale)
+                    h = run(attn, h, ctx, stacks, lora_scale)
                 skips.append(h)
             if hasattr(block, "downsamplers"):
                 h = block.downsamplers[0](h)
                 skips.append(h)
 
-        h = self.mid_block.resnets[0](h, temb)
-        h = self.mid_block.attentions[0](h, ctx, stacks, lora_scale)
-        h = self.mid_block.resnets[1](h, temb)
+        h = run(self.mid_block.resnets[0], h, temb)
+        h = run(self.mid_block.attentions[0], h, ctx, stacks, lora_scale)
+        h = run(self.mid_block.resnets[1], h, temb)
 
         for block in self.up_blocks:
             for li, resnet in enumerate(block.resnets):
-                h = resnet(torch.cat([h, skips.pop()], dim=1), temb)
+                h = run(resnet, torch.cat([h, skips.pop()], dim=1), temb)
                 attn = block.attention(li)
                 if attn is not None:
-                    h = attn(h, ctx, stacks, lora_scale)
+                    h = run(attn, h, ctx, stacks, lora_scale)
             if hasattr(block, "upsamplers"):
                 h = block.upsamplers[0](h)
 

@@ -62,7 +62,7 @@ def materialize(cls, config, device, generator: Optional[torch.Generator],
 
 
 def build_models(variant: str = "sd15", dtype: torch.dtype = torch.bfloat16,
-                 device="cpu", generator: Optional[torch.Generator] = None
+                 device="cuda", generator: Optional[torch.Generator] = None
                  ) -> Tuple[UNet2DConditionModel, AutoencoderKL, CLIPTextModel]:
     """(unet, vae, text_encoder) on ``device`` in ``dtype``. With a generator the
     weights are random and seeded (the generator must live on ``device``); without
@@ -77,7 +77,7 @@ def build_models(variant: str = "sd15", dtype: torch.dtype = torch.bfloat16,
 
 
 @torch.no_grad()
-def build_control_lora(config, device="cpu", generator: Optional[torch.Generator] = None,
+def build_control_lora(config, device="cuda", generator: Optional[torch.Generator] = None,
                        dtype: torch.dtype = torch.float32) -> ControlLoRA:
     """A ControlLoRA on ``device``. With a generator: the hint encoder is seeded as
     above and every LoRA pair starts as diffusers' LoRALinearLayer does (down

@@ -133,6 +133,13 @@ def build_kernels() -> ctypes.CDLL:
         lib.k3_flash_bwd_dkv.restype = i
         lib.k4_flash_bwd_dq.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, f, p]
         lib.k4_flash_bwd_dq.restype = i
+        strides = [ctypes.c_longlong] * 6  # (b, h, l) element strides of q, then of k
+        lib.k5_stock_flash_fwd.argtypes = [p] * 6 + [i] * 5 + strides + [f, p]
+        lib.k5_stock_flash_fwd.restype = i
+        lib.k5_stock_flash_bwd_dkv.argtypes = [p] * 9 + [i] * 5 + strides + [f, p]
+        lib.k5_stock_flash_bwd_dkv.restype = i
+        lib.k5_stock_flash_bwd_dq.argtypes = [p] * 8 + [i] * 5 + strides + [f, p]
+        lib.k5_stock_flash_bwd_dq.restype = i
         _lib = lib
         return lib
 

@@ -34,7 +34,7 @@ def _nhwc_to_nchw(x, device, dtype=torch.float32) -> torch.Tensor:
 class StableDiffusionControlLoRAPipeline:
     def __init__(self, unet, vae, text_encoder, tokenizer, control_lora=None,
                  scheduler: Optional[DPMSolverMultistepScheduler] = None,
-                 device="cpu"):
+                 device="cuda"):
         self.device = torch.device(device)
         self.unet = unet.to(self.device)
         self.vae = vae.to(self.device)

@@ -1,21 +1,35 @@
 """ControlLoRA trainer CLI for the PyTorch port (counterpart of ``scripts/train.py``,
-with that script's flag names and defaults for the subset it takes).
+with that script's flag names, defaults and semantics for the flags it takes).
 
     python -m controllora_tpu_torch.train --model_variant smoke --resolution 64 \
         --train_batch_size 2 --max_train_steps 3 --output_dir /tmp/run --device cpu
 
 There are no pretrained weights in the repository: the frozen stack (UNet, VAE,
 CLIP) gets seeded random weights (``models/zoo.py``), and so does the hint encoder.
-Data comes from the JAX package's numpy-only registry (``process/<name>``,
-``batch_iterator``). The run ends by writing the adapter artifact
-(``training/checkpoint.py``) to ``--output_dir``. Flags of ``scripts/train.py`` not
-taken here, and the options that raise, are listed in ROADMAP.md (Queue 1 item 9).
+Data comes from the port's numpy registry (``process/<name>``, ``batch_iterator``),
+optionally behind the VAE latent cache (``--cache_latents``). The UNet can be
+rematerialised (``--gradient_checkpointing``, ``--remat_policy``) and the AdamW
+moments kept in 8 bits (``--use_8bit_adam``).
+
+Every ``--checkpointing_steps`` steps the train state goes to
+``<output_dir>/checkpoint-<step>`` (in a background thread unless
+``--no_async_checkpointing``; the newest ``--checkpoints_total_limit`` are kept).
+``--resume_from_checkpoint latest`` (or a directory holding checkpoints) continues
+a run exactly: params, optimizer and schedule, the noise generator, and the data
+stream fast-forwarded to the step; the seed recorded in ``run_meta.json`` wins over
+``--seed`` for the random weights, data order and noise. SIGTERM or SIGINT finishes the step, saves a
+checkpoint and exits 0 (a second signal aborts). The run ends by writing the
+adapter artifact (``training/checkpoint.py``) to ``--output_dir``. Flags of
+``scripts/train.py`` not taken here are listed in ROADMAP.md (Queue 1 item 9).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import math
+import os
+import signal
 import time
 
 import torch
@@ -36,6 +50,7 @@ def parse_args(argv=None):
     p.add_argument("--snr_gamma", type=float, default=None)
     p.add_argument("--dataset_name", type=str, default="process/fill50k")
     p.add_argument("--resolution", type=int, default=512)
+    p.add_argument("--max_train_samples", type=int, default=None)
     p.add_argument("--train_batch_size", type=int, default=16)
     p.add_argument("--num_train_epochs", type=int, default=100)
     p.add_argument("--max_train_steps", type=int, default=None,
@@ -51,10 +66,25 @@ def parse_args(argv=None):
     p.add_argument("--adam_epsilon", type=float, default=1e-8)
     p.add_argument("--max_grad_norm", type=float, default=1.0)
     p.add_argument("--use_8bit_adam", action="store_true",
-                   help="not ported yet: raises (ROADMAP)")
+                   help="block-wise int8 AdamW moments (training/adam8bit.py)")
     p.add_argument("--gradient_checkpointing", action="store_true",
-                   help="UNet remat; not ported yet: raises (ROADMAP)")
+                   help="rematerialise the UNet in the backward")
+    p.add_argument("--remat_policy", type=str, default="dots",
+                   choices=["nothing", "dots", "dots_all"],
+                   help="what the UNet remat keeps: nothing, the projections' outputs "
+                        "(dots), or also the batched products (dots_all)")
+    p.add_argument("--cache_latents", action="store_true",
+                   help="encode the dataset with the VAE once and skip the per-step "
+                        "encode (deterministic datasets only; data/latent_cache.py)")
+    p.add_argument("--latent_cache_path", type=str, default=None,
+                   help="npz file to persist/load the latent cache")
     p.add_argument("--output_dir", type=str, default="control-lora-model")
+    p.add_argument("--checkpointing_steps", type=int, default=500)
+    p.add_argument("--checkpoints_total_limit", type=int, default=None)
+    p.add_argument("--no_async_checkpointing", action="store_true",
+                   help="block the train loop during checkpoint saves")
+    p.add_argument("--resume_from_checkpoint", type=str, default=None,
+                   help="'latest' (in --output_dir) or a directory of checkpoint-<step>")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--log_every", type=int, default=10)
     p.add_argument("--device", type=str, default="cuda",
@@ -65,7 +95,7 @@ def parse_args(argv=None):
 def build_control_config(args, unet_config):
     """The ControlLoRA config: the named preset, or for the smoke variant the JAX
     CLI's reduced config with slot counts derived from the UNet."""
-    from controllora_tpu.config import ControlLoRAConfig, load_config
+    from controllora_tpu_torch.config import ControlLoRAConfig, load_config
     from controllora_tpu_torch.models.unet import derive_cross_attention_dims
 
     cfg = load_config(args.control_lora_config)
@@ -80,12 +110,45 @@ def build_control_config(args, unet_config):
     return cfg
 
 
+def resume_point(args):
+    """(train state or None, start step, seed): the latest checkpoint under
+    --resume_from_checkpoint, and the seed recorded in run_meta.json, which wins
+    over --seed for data order and noise (scripts/train.py semantics) and, here, for
+    the random frozen stack too, so that the resumed run trains the same model."""
+    from controllora_tpu_torch.training.checkpoint import restore_train_state
+
+    if not args.resume_from_checkpoint:
+        return None, 0, args.seed
+    where = (args.output_dir if args.resume_from_checkpoint == "latest"
+             else args.resume_from_checkpoint)
+    state, at = restore_train_state(where, "latest")
+    if state is None:
+        print("no checkpoint found; starting fresh", flush=True)
+        return None, 0, args.seed
+    print(f"resumed from step {at}", flush=True)
+    seed = args.seed
+    meta_path = os.path.join(args.output_dir, "run_meta.json")
+    if os.path.exists(meta_path):
+        with open(meta_path) as f:
+            meta = json.load(f)
+        seed = meta.get("seed", args.seed)
+        if seed != args.seed:
+            print(f"WARNING: resuming with --seed {args.seed} but the run was started "
+                  f"with seed {seed}; using the recorded seed for the random weights, "
+                  "data order and noise streams", flush=True)
+        if meta.get("global_batch") not in (None, args.train_batch_size):
+            print(f"WARNING: global batch changed ({meta['global_batch']} -> "
+                  f"{args.train_batch_size}); the resumed data stream will not match "
+                  "the original run's", flush=True)
+    return state, at, seed
+
+
 def main(argv=None):
     args = parse_args(argv)
-    from controllora_tpu.data.registry import DatasetBase, batch_iterator
-    from controllora_tpu.data.tokenizer import default_tokenizer
+    from controllora_tpu_torch.data.registry import DatasetBase, batch_iterator
+    from controllora_tpu_torch.data.tokenizer import default_tokenizer
     from controllora_tpu_torch.models import zoo
-    from controllora_tpu_torch.training.checkpoint import save_control_lora
+    from controllora_tpu_torch.training.checkpoint import Checkpointer, save_control_lora
     from controllora_tpu_torch.training.trainer import (
         ControlLoRATrainer,
         make_optimizer,
@@ -94,22 +157,32 @@ def main(argv=None):
 
     device = torch.device(args.device)
     dtype = torch.bfloat16 if args.mixed_precision == "bf16" else torch.float32
-    gen = torch.Generator(device).manual_seed(args.seed)
+    # restored before the models and the data stream exist: the recorded seed makes
+    # the same random frozen stack, and the stream fast-forwards to the step (the
+    # reference's skip_first_batches)
+    state, start_step, seed = resume_point(args)
+    gen = torch.Generator(device).manual_seed(seed)
     unet, vae, text = zoo.build_models(args.model_variant, dtype, device, gen)
     ccfg = build_control_config(args, unet.config)
     control = zoo.build_control_lora(ccfg, device, gen)
     print(f"device {device}; frozen {args.model_variant} stack is random (seed "
-          f"{args.seed}): no pretrained weights in the repository", flush=True)
+          f"{seed}): no pretrained weights in the repository", flush=True)
 
     if not args.dataset_name.startswith("process/"):
         raise NotImplementedError("only process/<name> datasets are ported: ROADMAP "
                                   "Queue 1 item 9")
     dataset = DatasetBase.from_name(args.dataset_name)(default_tokenizer(),
                                                        resolution=args.resolution)
-    batches = batch_iterator(dataset, args.train_batch_size, seed=args.seed)
+    if args.max_train_samples:
+        dataset.size = min(len(dataset), args.max_train_samples)
+    if args.cache_latents:
+        from controllora_tpu_torch.data.latent_cache import LatentCachedDataset
+
+        dataset = LatentCachedDataset(dataset, vae, cache_path=args.latent_cache_path)
     if args.max_train_steps is None:
-        args.max_train_steps = args.num_train_epochs * math.ceil(
-            len(dataset) / args.train_batch_size)
+        steps_per_epoch = max(math.ceil(
+            len(dataset) / args.train_batch_size / args.gradient_accumulation_steps), 1)
+        args.max_train_steps = args.num_train_epochs * steps_per_epoch
 
     lr = args.learning_rate
     if args.scale_lr:
@@ -124,25 +197,79 @@ def main(argv=None):
     trainer = ControlLoRATrainer(
         control, unet, vae, text, optimizer=optimizer,
         prediction_type=args.prediction_type, snr_gamma=args.snr_gamma,
-        remat_unet=args.gradient_checkpointing,
+        remat_unet=args.gradient_checkpointing, remat_policy=args.remat_policy,
         adapter_compute_dtype=torch.bfloat16 if args.adapter_compute_bf16 else None,
         hint_compute_dtype=None if dtype == torch.float32 else dtype)
+
+    step_gen = torch.Generator(device).manual_seed(seed + 1)
+    if state is not None:
+        control.load_state_dict(state["params"])
+        optimizer.load_state_dict(state["optimizer"])
+        step_gen.set_state(state["generator"])
+    else:
+        os.makedirs(args.output_dir, exist_ok=True)
+        with open(os.path.join(args.output_dir, "run_meta.json"), "w") as f:
+            json.dump({"seed": args.seed, "global_batch": args.train_batch_size,
+                       "dataset_name": args.dataset_name,
+                       "resolution": args.resolution}, f)
+    batches = batch_iterator(dataset, args.train_batch_size, seed=seed,
+                             start_step=start_step)
     n_params = sum(p.numel() for p in trainer.params)
     print(f"ControlLoRA params: {n_params / 1e6:.2f}M | batch {args.train_batch_size} | "
           f"lr {lr}", flush=True)
 
-    step_gen = torch.Generator(device).manual_seed(args.seed + 1)
-    t_last = time.perf_counter()
-    for step in range(args.max_train_steps):
-        metrics = trainer.train_step(to_device_batch(next(batches), device), step_gen)
-        done = step + 1
-        if done % args.log_every == 0 or done == args.max_train_steps:
-            loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
-            now = time.perf_counter()
-            n = done % args.log_every or args.log_every
-            print(f"step {done}: loss={loss:.4f} grad_norm={gnorm:.4f} "
-                  f"{n / (now - t_last):.3f} steps/s", flush=True)
-            t_last = now
+    checkpointer = Checkpointer()
+    last_saved = start_step if state is not None else -1
+
+    def save_checkpoint(at_step):
+        nonlocal last_saved
+        last_saved = at_step
+        checkpointer.save(args.output_dir, at_step,
+                          {"step": at_step, "params": control.state_dict(),
+                           "optimizer": optimizer.state_dict(),
+                           "generator": step_gen.get_state()},
+                          ccfg, keep=args.checkpoints_total_limit,
+                          wait=args.no_async_checkpointing)
+        print(f"saved checkpoint-{at_step}", flush=True)
+
+    # SIGTERM / SIGINT (a preemption notice) asks for a graceful stop: finish the
+    # step, save a resumable checkpoint, exit 0; a second signal aborts at once
+    stop = {"sig": None}
+
+    def request_stop(signum, frame):
+        if stop["sig"] is not None:
+            raise KeyboardInterrupt(f"second signal {signum}; aborting")
+        stop["sig"] = signum
+        print(f"received {signal.Signals(signum).name}; checkpointing and exiting "
+              "after the current step", flush=True)
+
+    prev_handlers = {s: signal.signal(s, request_stop) for s in (signal.SIGTERM, signal.SIGINT)}
+    try:
+        t_last = time.perf_counter()
+        for step in range(start_step, args.max_train_steps):
+            metrics = trainer.train_step(to_device_batch(next(batches), device), step_gen)
+            done = step + 1
+            if done % args.log_every == 0 or done == args.max_train_steps:
+                loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+                now = time.perf_counter()
+                n = done % args.log_every or args.log_every
+                print(f"step {done}: loss={loss:.4f} grad_norm={gnorm:.4f} "
+                      f"{n / (now - t_last):.3f} steps/s {(now - t_last) / n * 1e3:.1f} "
+                      "ms/step", flush=True)
+                t_last = now
+            if args.checkpointing_steps and done % args.checkpointing_steps == 0:
+                save_checkpoint(done)
+            if stop["sig"] is not None:
+                if last_saved != done:
+                    save_checkpoint(done)
+                checkpointer.finalize()
+                print(f"preempted at step {done}; relaunch with "
+                      "--resume_from_checkpoint latest to continue", flush=True)
+                return
+        checkpointer.finalize()
+    finally:
+        for s, h in prev_handlers.items():
+            signal.signal(s, h)
     save_control_lora(args.output_dir, control)
     print(f"saved final ControlLoRA to {args.output_dir}", flush=True)
 

@@ -4,34 +4,44 @@
 One step, as the JAX ``_loss_fn`` and ``make_train_step`` run it: VAE encode (a
 posterior sample), DDPM noising at a random t, text encode, hint encoder -> threaded
 adapters, UNet forward, MSE against the training target (optional min-SNR weight),
-adapter-only backward, global-norm clip and AdamW. The frozen stack (UNet, VAE,
-CLIP) runs in its own dtype (bf16 on the card) with no gradients of its own; the
-ControlLoRA master weights and the optimizer state stay fp32. Long self-attention on
-the card runs the flash kernels K2 forward and K3 + K4 backward
-(``ops/flash_attention.py``).
+adapter-only backward, global-norm clip and AdamW (or its 8-bit-moment form,
+``training/adam8bit.py``). The frozen stack (UNet, VAE, CLIP) runs in its own dtype
+(bf16 on the card) with no gradients of its own; the ControlLoRA master weights stay
+fp32. Long self-attention on the card runs the flash kernels: K2 forward and K3 + K4
+backward (``ops/flash_attention.py``), or K5 under ``CONTROLLORA_FLASH_IMPL=stock``
+(``ops/flash_stock.py``). The UNet is rematerialised in the backward block by
+block (``remat_unet``, on by default as in the JAX trainer) under one of the JAX
+``remat_policy`` names.
 
 Randomness comes from an explicit ``torch.Generator``; ``loss`` also takes the
 posterior sample, the noise and the timesteps injected, so a test can feed it the
-JAX trainer's own draws. Not ported yet (ROADMAP): remat of the UNet, 8-bit Adam,
-data parallelism.
+JAX trainer's own draws. Not ported yet (ROADMAP): data parallelism.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
 from torch.optim.lr_scheduler import LambdaLR
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from controllora_tpu_torch.models.lora import cast_adapters
 from controllora_tpu_torch.schedulers import DDPMScheduler
+from controllora_tpu_torch.training.adam8bit import AdamW8bit
 from controllora_tpu_torch.training.conditioning import resolve_text_conditioning
 
 LR_SCHEDULES = ("constant", "constant_with_warmup", "linear", "cosine",
                 "cosine_with_restarts", "polynomial")
+REMAT_POLICIES = ("nothing", "dots", "dots_all")
 
 
 # ---------------------------------------------------------------------------- schedule
@@ -112,18 +122,20 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
 class AdapterOptimizer:
     """optax ``chain(clip_by_global_norm(max_grad_norm), adamw(schedule))``, wrapped
     in ``MultiSteps`` when ``grad_accumulation_steps`` > 1, over torch parameters:
-    ``torch.optim.AdamW`` on its default (non-fused) path, the schedule as a
-    ``LambdaLR`` stepped once per update."""
+    ``torch.optim.AdamW`` on its default (non-fused) path, or ``AdamW8bit``
+    (``use_8bit``, the JAX ``adamw8bit``), the schedule as a ``LambdaLR`` stepped once
+    per update."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter], learning_rate: float = 1e-4,
                  beta1: float = 0.9, beta2: float = 0.999, weight_decay: float = 1e-2,
                  eps: float = 1e-8, max_grad_norm: float = 1.0,
                  lr_schedule: str = "constant", warmup_steps: int = 0,
                  total_steps: int = 30_000, grad_accumulation_steps: int = 1,
-                 num_cycles: int = 1, power: float = 1.0):
+                 num_cycles: int = 1, power: float = 1.0, use_8bit: bool = False):
         self.params = list(params)
-        self.adamw = torch.optim.AdamW(self.params, lr=learning_rate, betas=(beta1, beta2),
-                                       eps=eps, weight_decay=weight_decay)
+        adamw = AdamW8bit if use_8bit else torch.optim.AdamW
+        self.adamw = adamw(self.params, lr=learning_rate, betas=(beta1, beta2), eps=eps,
+                           weight_decay=weight_decay)
         self.schedule = LambdaLR(self.adamw, make_lr_schedule(
             learning_rate, lr_schedule, warmup_steps, total_steps, num_cycles, power))
         self.max_grad_norm = max_grad_norm
@@ -153,6 +165,18 @@ class AdapterOptimizer:
             p.grad = None
         return True
 
+    def state_dict(self) -> Dict:
+        """Moments (8-bit included), schedule position and any pending accumulation."""
+        return {"adamw": self.adamw.state_dict(), "schedule": self.schedule.state_dict(),
+                "accumulated": self._sum, "micro": self._micro}
+
+    def load_state_dict(self, state: Dict) -> None:
+        self.adamw.load_state_dict(state["adamw"])
+        self.schedule.load_state_dict(state["schedule"])
+        acc = state["accumulated"]
+        self._sum = None if acc is None else [t.to(p.device) for t, p in zip(acc, self.params)]
+        self._micro = state["micro"]
+
 
 def make_optimizer(params: Iterable[torch.nn.Parameter], learning_rate: float = 1e-4,
                    beta1: float = 0.9, beta2: float = 0.999, weight_decay: float = 1e-2,
@@ -161,13 +185,39 @@ def make_optimizer(params: Iterable[torch.nn.Parameter], learning_rate: float = 
                    total_steps: int = 30_000, grad_accumulation_steps: int = 1,
                    use_8bit: bool = False, num_cycles: int = 1,
                    power: float = 1.0) -> AdapterOptimizer:
-    """AdamW + global-norm clip with the JAX ``make_optimizer`` defaults."""
-    if use_8bit:
-        raise NotImplementedError("8-bit Adam is not ported to PyTorch yet: ROADMAP "
-                                  "Queue 1 item 13")
+    """AdamW (8-bit moments with ``use_8bit``) + global-norm clip with the JAX
+    ``make_optimizer`` defaults."""
     return AdapterOptimizer(params, learning_rate, beta1, beta2, weight_decay, eps,
                             max_grad_norm, lr_schedule, warmup_steps, total_steps,
-                            grad_accumulation_steps, num_cycles, power)
+                            grad_accumulation_steps, num_cycles, power, use_8bit)
+
+
+# ---------------------------------------------------------------------------- remat
+
+
+def _save_products(products, ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in products
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_context(policy: str):
+    """The ``context_fn`` of ``torch.utils.checkpoint`` for a JAX ``remat_policy``:
+    ``nothing`` saves nothing (None: plain checkpointing); ``dots`` saves the outputs
+    of the products without batch dims (``aten.mm`` / ``aten.addmm``: the
+    projections, as ``dots_with_no_batch_dims_saveable``); ``dots_all`` also the
+    batched ones (``aten.bmm``, as ``dots_saveable``). Everything else, convolutions
+    included, is recomputed; so are the hand-written kernels, which the dispatcher
+    does not see."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {policy!r}; known: {REMAT_POLICIES}")
+    if policy == "nothing":
+        return None
+    aten = torch.ops.aten
+    products = {aten.mm.default, aten.addmm.default}
+    if policy == "dots_all":
+        products.add(aten.bmm.default)
+    return functools.partial(create_selective_checkpoint_contexts,
+                             functools.partial(_save_products, products))
 
 
 # ---------------------------------------------------------------------------- batch
@@ -197,18 +247,25 @@ class ControlLoRATrainer:
 
     ``adapter_compute_dtype``: the adapter factors and control maps threaded into
     the UNet are cast to it (fp32 masters stay); ``hint_compute_dtype``: the hint
-    encoder's convolutions compute in it (flax ``ControlLoRA(dtype=)``)."""
+    encoder's convolutions compute in it (flax ``ControlLoRA(dtype=)``);
+    ``remat_unet`` / ``remat_policy``: the UNet's blocks run under
+    ``torch.utils.checkpoint`` with ``remat_context(remat_policy)``, where the JAX
+    trainer wraps ``unet.apply`` in ``jax.checkpoint`` (its defaults: on, ``dots``).
+    One checkpoint around the whole UNet would save no memory here: PyTorch recomputes
+    a checkpointed segment whole at the start of its backward, so every activation
+    of the UNet would be live again at once (measured on the H100: the same peak as
+    without remat). Each resnet and each attention block is its own segment, so the
+    backward holds one block's activations at a time."""
 
     def __init__(self, control_lora, unet, vae=None, text_encoder=None,
                  scheduler: Optional[DDPMScheduler] = None,
                  optimizer: Optional[AdapterOptimizer] = None,
                  prediction_type: Optional[str] = None, snr_gamma: Optional[float] = None,
-                 remat_unet: bool = False,
+                 remat_unet: bool = True, remat_policy: str = "dots",
                  adapter_compute_dtype: Optional[torch.dtype] = None,
                  hint_compute_dtype: Optional[torch.dtype] = None):
-        if remat_unet:
-            raise NotImplementedError("UNet remat (--gradient_checkpointing) is not "
-                                      "ported to PyTorch yet: ROADMAP Queue 1 item 9")
+        self.remat_unet = remat_unet
+        self.remat_context = remat_context(remat_policy)
         self.control_lora = control_lora.requires_grad_(True)
         self.unet, self.vae, self.text_encoder = unet, vae, text_encoder
         self.params = [p for p in control_lora.parameters()]
@@ -220,6 +277,11 @@ class ControlLoRATrainer:
         self.snr_gamma = snr_gamma
         self.adapter_compute_dtype = adapter_compute_dtype
         self.hint_compute_dtype = hint_compute_dtype
+
+    def _remat(self, layer, *inputs):
+        """One UNet block under ``torch.utils.checkpoint`` with the policy's context."""
+        extra = {} if self.remat_context is None else {"context_fn": self.remat_context}
+        return checkpoint(layer, *inputs, use_reentrant=False, **extra)
 
     def _latents(self, batch, generator, sample_noise):
         if "latents" in batch:
@@ -256,7 +318,8 @@ class ControlLoRATrainer:
                                                   self.hint_compute_dtype)
         if self.adapter_compute_dtype is not None:
             adapters = cast_adapters(adapters, self.adapter_compute_dtype)
-        pred = self.unet(noisy, timesteps, ctx, adapters=adapters, **added)
+        pred = self.unet(noisy, timesteps, ctx, adapters=adapters,
+                         remat=self._remat if self.remat_unet else None, **added)
         loss = (pred.float() - sch.training_target(latents, noise, timesteps)) ** 2
         if self.snr_gamma is not None:
             snr = sch.schedule.snr(timesteps)

@@ -1,4 +1,4 @@
-"""The hand-written flash kernels K1-K4 against their plain versions, on the card.
+"""The hand-written flash kernels K1-K5 against their plain versions, on the card.
 
 These need an NVIDIA GPU with nvcc (sm_90a); elsewhere they skip. On the card:
     python -m pytest tests/test_torch_kernels_gpu.py --noconftest -m gpu -q
@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from controllora_tpu_torch.ops import flash_attention as fa
+from controllora_tpu_torch.ops import flash_stock as fs
 from controllora_tpu_torch.ops.attention import dot_product_attention, merge_heads, split_heads
 
 pytestmark = pytest.mark.gpu
@@ -23,6 +24,7 @@ def cuda():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
     fa.reset_launch_counts()
+    fs.reset_launch_counts()
     return torch.device("cuda")
 
 
@@ -128,3 +130,94 @@ def test_flash_attention_grad_matches_plain_autograd(cuda, b, heads, l, d):
     for name, x, r in zip("qkv", (q, k, v), ref_in):
         assert x.grad is not None and x.grad.abs().max().item() > 0, name
         assert (x.grad.float() - r.grad).abs().max().item() <= bound(r.grad), name
+
+
+# ---------------------------------------------------------------------------- K5
+
+def heads_view(b, heads, l, d, seed, device):
+    """A (B, H, L, D) head-split view of a (B, L, H*D) projection, as
+    dot_product_attention hands it to K5 (no copy)."""
+    return split_heads(randn((b, l, heads * d), seed, device), heads)
+
+
+@pytest.mark.parametrize("b,heads,l,d,scale", [(2, 8, 1024, 40, None), (2, 4, 256, 80, 0.3),
+                                               (1, 1, 1024, 512, None), (2, 8, 4096, 40, 0.3)])
+def test_k5_fwd_matches_plain(cuda, b, heads, l, d, scale):
+    """O, m and l of the stock forward against its plain version in fp32 on the same
+    bf16 inputs, at the default and a non-default softmax scale."""
+    scale = d**-0.5 if scale is None else scale
+    q, k, v = (heads_view(b, heads, l, d, s, cuda) for s in range(3))
+    fs.reset_launch_counts()
+    o, m, lsum = fs.stock_flash_fwd(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES == {"k5_fwd": 1, "k5_dkv": 0, "k5_dq": 0}
+    o_ref, m_ref, l_ref = fs.stock_flash_fwd_plain(q.float(), k.float(), v.float(), scale)
+    assert o.stride() == q.stride()
+    assert (o.float() - o_ref).abs().max().item() <= 1e-2
+    assert ((m - m_ref).abs() / m_ref.abs().clamp(min=1)).max().item() <= 1e-3
+    assert ((lsum - l_ref).abs() / l_ref).max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("b,heads,l,d,scale", [(2, 8, 1024, 40, None), (2, 8, 2304, 80, 0.3),
+                                               (2, 8, 4096, 40, 0.3)])
+def test_k5_bwd_matches_plain(cuda, b, heads, l, d, scale):
+    """dK/dV and dQ of the stock backward from the K5 forward's m and l, against the
+    plain versions in fp32 on the same bf16 inputs and the same di."""
+    scale = d**-0.5 if scale is None else scale
+    q, k, v, do = (heads_view(b, heads, l, d, s, cuda) for s in range(4))
+    fs.reset_launch_counts()
+    o, m, lsum = fs.stock_flash_fwd(q, k, v, scale)
+    di = (o.float() * do.float()).sum(-1)
+    dk, dv = fs.stock_flash_bwd_dkv(q, k, v, do, m, lsum, di, scale)
+    dq = fs.stock_flash_bwd_dq(q, k, v, do, m, lsum, di, scale)
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES == {"k5_fwd": 1, "k5_dkv": 1, "k5_dq": 1}
+    args = [x.float() for x in (q, k, v, do)] + [m, lsum, di, scale]
+    ref_dk, ref_dv = fs.stock_flash_bwd_dkv_plain(*args)
+    ref_dq = fs.stock_flash_bwd_dq_plain(*args)
+    for name, out, ref in (("dq", dq, ref_dq), ("dk", dk, ref_dk), ("dv", dv, ref_dv)):
+        assert out.shape == ref.shape and torch.isfinite(out).all(), name
+        assert (out.float() - ref).abs().max().item() <= bound(ref), name
+
+
+@pytest.mark.parametrize("route", ["backend", "env"])
+def test_k5_grad_through_dot_product_attention(cuda, route, monkeypatch):
+    """backend="flash_stock", or CONTROLLORA_FLASH_IMPL=stock under "auto", sends long
+    self-attention on the card through K5 (and not K2-K4); the gradients match the
+    autograd of the plain fp32 attention."""
+    b, heads, l, d = 2, 8, 4096, 40
+    q, k, v, do = (randn((b, l, heads * d), s, cuda) for s in range(4))
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    fs.reset_launch_counts()
+    if route == "env":
+        monkeypatch.setenv("CONTROLLORA_FLASH_IMPL", "stock")
+        out = dot_product_attention(q, k, v, heads)
+    else:
+        out = dot_product_attention(q, k, v, heads, backend="flash_stock")
+    out.backward(do)
+    assert fs.LAUNCHES == {"k5_fwd": 1, "k5_dkv": 1, "k5_dq": 1}
+    assert fa.LAUNCHES == {"k1": 0, "k2": 0, "k3": 0, "k4": 0}
+    ref_in = [x.detach().float().requires_grad_() for x in (q, k, v)]
+    qh, kh, vh = (split_heads(x, heads) for x in ref_in)
+    ref = merge_heads(torch.softmax(qh @ kh.transpose(-1, -2) * d**-0.5, dim=-1) @ vh)
+    ref.backward(do.float())
+    assert (out.float() - ref).abs().max().item() <= 1e-2
+    for name, x, r in zip("qkv", (q, k, v), ref_in):
+        assert x.grad is not None and x.grad.abs().max().item() > 0, name
+        assert (x.grad.float() - r.grad).abs().max().item() <= bound(r.grad), name
+
+
+def test_k5_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    q = heads_view(1, 2, 4225, 40, 0, cuda)
+    with pytest.raises(ValueError, match="power-of-two"):
+        fs.stock_flash_attention(q, q, q, 0.1)  # L 4225: no stock block
+    q = heads_view(1, 2, 256, 40, 0, cuda)
+    with pytest.raises(TypeError):
+        fs.stock_flash_fwd(q.float(), q.float(), q.float(), 0.1)
+    w = heads_view(1, 2, 256, 96, 1, cuda)
+    rows = torch.zeros((1, 2, 256), device=cuda)
+    with pytest.raises(ValueError, match="<= 80"):
+        fs.stock_flash_bwd_dq(w, w, w, w, rows, rows, rows, 0.1)  # head dim 96
+    with pytest.raises(ValueError, match="strides"):
+        fs.stock_flash_fwd(q, q.contiguous(), q, 0.1)  # k and v in different layouts
+    assert fs.LAUNCHES == {"k5_fwd": 0, "k5_dkv": 0, "k5_dq": 0}

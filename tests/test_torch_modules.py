@@ -64,7 +64,7 @@ def stack():
     unet, vae, text = jzoo.build_models("smoke", dtype=jnp.float32)
     frozen = jzoo.random_frozen(jax.random.PRNGKey(0), unet, vae, text,
                                 latent_size=8, param_dtype=jnp.float32)
-    tu, tv, tc = zoo.build_models("smoke", dtype=torch.float32)
+    tu, tv, tc = zoo.build_models("smoke", dtype=torch.float32, device="cpu")
     convert.load_unet(tu, frozen["unet"])
     convert.load_vae(tv, frozen["vae"])
     convert.load_clip(tc, frozen["text"])
@@ -81,7 +81,7 @@ def controls():
         params = jax.tree.map(lambda x: x + 0.01, cl.init(jax.random.PRNGKey(1),
                                                           image_size=64))
         port = convert.load_control_lora(
-            zoo.build_control_lora(cfg, generator=torch.Generator().manual_seed(0)),
+            zoo.build_control_lora(cfg, "cpu", generator=torch.Generator().manual_seed(0)),
             params)
         out[name] = (cl, params, port)
     return out
@@ -215,7 +215,7 @@ def test_conversion_round_trip_strict(stack, controls):
     assert set(port.state_dict()) == set(ref)
     bad = dict(ref)
     bad.pop(next(iter(bad)))
-    fresh = zoo.build_control_lora(TINY_CONTROL, generator=torch.Generator())
+    fresh = zoo.build_control_lora(TINY_CONTROL, "cpu", generator=torch.Generator())
     with pytest.raises(RuntimeError, match="Missing key"):
         convert.load_numpy_state_dict(fresh, bad)
 

@@ -47,12 +47,13 @@ def pipes():
     cp = jax.tree.map(lambda x: x + 0.01, cl.init(jax.random.PRNGKey(1), image_size=64))
     jpipe = JPipeline(unet, vae, text, HashTokenizer(), frozen, cl, cp)
 
-    tu, tv, tc = zoo.build_models("smoke", dtype=torch.float32)
+    tu, tv, tc = zoo.build_models("smoke", dtype=torch.float32, device="cpu")
     convert.load_unet(tu, frozen["unet"])
     convert.load_vae(tv, frozen["vae"])
     convert.load_clip(tc, frozen["text"])
-    tcl = convert.load_control_lora(zoo.build_control_lora(TINY_CONTROL), cp)
-    return jpipe, StableDiffusionControlLoRAPipeline(tu, tv, tc, HashTokenizer(), tcl)
+    tcl = convert.load_control_lora(zoo.build_control_lora(TINY_CONTROL, "cpu"), cp)
+    return jpipe, StableDiffusionControlLoRAPipeline(tu, tv, tc, HashTokenizer(), tcl,
+                                                     device="cpu")
 
 
 def make_guide():
