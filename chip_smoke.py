@@ -5,17 +5,22 @@
 
 Phases, each of which raises (non-zero exit, no result line) when it fails:
   1. device   the CUDA device, its name and power limit (nvidia-smi); TF32 off.
-  2. build    nvcc builds the hand-written kernels from controllora_tpu_torch/csrc.
+  2. build    nvcc builds the hand-written kernels from controllora_tpu_torch/csrc;
+              the -Xptxas -v report of each kernel (registers, spills, wgmma
+              serialisation).
   3. kernels  K1-K4 against their plain PyTorch versions on the card, bf16 inputs,
               at the serving and training paths' shapes, other resolutions' shapes,
-              and (K3/K4) ragged L, not a multiple of the 64-row tile; times of both,
-              the bound (operations or bytes at the H100's peaks) and one torch SDPA
+              and (K3/K4) ragged L, not a multiple of the 64-row tile; at every
+              main-path shape of K1 (batch-1 and batch-4 renders) and K2 (VAE,
+              unguided UNet, training UNet and VAE encoder) the times of both, the
+              bound (operations or bytes at the H100's peaks) and one torch SDPA
               call on the same inputs as a yardstick. The gradient of FlashAttention
               (K2 forward, K3 + K4 backward) against autograd of the plain fp32
               attention, at the training shape and a ragged one. Then K5 (jax's
               stock flash: forward with m and l, dK/dV, dQ) against its plain
               versions at the batch-16 training shape, the VAE encoder's D 512, the
-              768² tail and a non-default softmax scale, with times, bounds and SDPA;
+              768² tail and a non-default softmax scale, with times, bounds and SDPA
+              (the forward also at the VAE encoder's shape);
               L 4225 raises; the gradient of FlashStockAttention against autograd.
   4. parity   full-width SD1.5 (random seeded bf16 weights) + the `base` ControlLoRA
               (perturbed so the folded biases are nonzero): one folded UNet eval,
@@ -25,7 +30,9 @@ Phases, each of which raises (non-zero exit, no result line) when it fails:
               guided 512² request (20 steps, CFG 9, DPM-Solver++), then 3 guided
               together (one padded batch of 4), then 1 unguided; exact kernel launch
               counts per call, finite 512x512x3 images, latency and img/s.
-  6. decode   VAE decode times at batch 1 and batch 4.
+  6. decode   one guided render at batch 1 and at batch 4 under torch.profiler
+              (device busy time, idle share, time by kernel class); VAE decode
+              times at batch 1 and batch 4.
   7. train parity  one ControlLoRA train step's loss and adapter gradient at batch 1
               (same weights, latents, noise, t, ids, guide) on the card (bf16,
               kernels; then again with the adapters cast to bf16 as well) against
@@ -102,6 +109,19 @@ def cuda_ms(fn, iters=10, warmup=2):
     return statistics.median(times)
 
 
+def device_ms(fn, iters=10):
+    """Mean device milliseconds of fn() over `iters` runs under torch.profiler: the
+    summed durations of the kernels and memory operations it issued. CUDA events
+    around one call (cuda_ms) also take in the host's time to issue the call, which
+    a sub-millisecond kernel does not hide; this time leaves it out."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    _, busy, _ = device_profile(torch, lambda: [fn() for _ in range(iters)])
+    return busy * 1e3 / iters
+
+
 def rel_l2(out, ref):
     out, ref = out.double().cpu(), ref.double().cpu()
     return float((out - ref).norm() / ref.norm())
@@ -129,15 +149,22 @@ def attention_roofline(products, b, h, lq, lk, d, bf16_q, bf16_k, fp32_rows):
 def sdpa_ms(torch, q, k, v, scale=None, do=None):
     """Time of one torch scaled_dot_product_attention call on (B, H, L, D) inputs
     (the library yardstick; the port never calls it): the forward, or with `do` the
-    backward of one call, which gives dq, dk and dv together. Backends are tried in
-    the order flash, efficient, cudnn, math; returns {"library_ms", "library_backend"}."""
+    backward of one call, which gives dq, dk and dv together. Every fused backend that
+    takes the inputs (flash, efficient, cudnn) is timed, math only where none does,
+    by CUDA events (cuda_ms) and by device time (device_ms); returns
+    {"library_ms", "library_backend"} of the fastest by events,
+    {"library_device_ms", "library_device_backend"} of the fastest by device time,
+    and "library_backends": {backend: [ms, device ms]}."""
     import warnings
 
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    times, device = {}, {}
     for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
                     SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        if backend == SDPBackend.MATH and times:
+            break
         try:
             with warnings.catch_warnings(), sdpa_kernel([backend]):
                 warnings.simplefilter("ignore")
@@ -152,10 +179,31 @@ def sdpa_ms(torch, q, k, v, scale=None, do=None):
                         return torch.autograd.grad(out, (qq, kk, vv), do, retain_graph=True)
                 fn()
                 torch.cuda.synchronize()
-                return {"library_ms": cuda_ms(fn), "library_backend": backend.name}
+                times[backend.name] = cuda_ms(fn)
+                device[backend.name] = device_ms(fn)
         except RuntimeError:
             continue
-    return {"library_ms": None, "library_backend": None}
+        finally:
+            fn = out = None
+    if not times:
+        return {"library_ms": None, "library_backend": None, "library_device_ms": None,
+                "library_device_backend": None, "library_backends": {}}
+    best, best_device = min(times, key=times.get), min(device, key=device.get)
+    return {"library_ms": times[best], "library_backend": best,
+            "library_device_ms": device[best_device], "library_device_backend": best_device,
+            "library_backends": {name: [times[name], device[name]] for name in times}}
+
+
+def fmt_sdpa(library):
+    """The fastest SDPA backend's time and name, then every backend's time (events /
+    device)."""
+    if library["library_ms"] is None:
+        return "none ran"
+    each = ", ".join(f"{name.split('_')[0].lower()} {ms:.4f} / {dms:.4f}"
+                     for name, (ms, dms) in library["library_backends"].items())
+    return (f"{library['library_ms']:.4f} ms ({library['library_backend']}), device "
+            f"{library['library_device_ms']:.4f} ms ({library['library_device_backend']}); "
+            f"events / device: {each}")
 
 
 def plain_fp32(fa, q, k, v, heads, qb, kb, vb):
@@ -170,9 +218,56 @@ def plain_fp32(fa, q, k, v, heads, qb, kb, vb):
     return fa.attention_lse_plain(qe.float(), ke.float(), ve.float(), heads)[0]
 
 
+def kernel_label(mangled):
+    """`flash_fwd_kernel<48,64,3,0>` from a mangled kernel name (the identifier that
+    ends in `_kernel`, with its integer template arguments)."""
+    import re
+
+    for start in range(len(mangled)):  # the length prefix may follow a hash's digits
+        m = re.match(r"\d+", mangled[start:])
+        if m is None:
+            continue
+        n, end = int(m.group()), start + m.end()
+        ident = mangled[end:end + n]
+        if len(ident) == n and ident.endswith("_kernel"):
+            args = re.match(r"I((?:L[ib]\d+E)+)E", mangled[end + n:])
+            return ident + (f"<{','.join(re.findall(r'L[ib](\d+)E', args.group(1)))}>"
+                            if args else "")
+    return mangled
+
+
+def ptxas_report(fa):
+    """One line per kernel of the `-Xptxas -v` reports the build keeps beside its
+    objects: registers, spill bytes and whether ptxas serialised its wgmma (warning
+    C7512). Empty where the library was built by an earlier run."""
+    import glob
+    import re
+
+    lines = []
+    pattern = str(fa.BUILD_DIR / f"{fa.library_path().stem}.*.o.log")
+    for path in sorted(glob.glob(pattern)):
+        text = open(path).read()
+        serialised = set(re.findall(r"C7512\).*?function '(\S+?)'", text))
+        for name, stores, loads, regs in re.findall(
+                r"Compiling entry function '(\S+)'.*?(\d+) bytes spill stores, (\d+) bytes "
+                r"spill loads.*?Used (\d+) registers", text, re.S):
+            lines.append(f"{os.path.basename(path).split('.')[-3]}: {kernel_label(name)} "
+                         f"{regs} registers, "
+                         f"spill stores {stores} B, loads {loads} B"
+                         + (", wgmma serialised" if name in serialised else ""))
+    return lines
+
+
+def shape_entry(shape, ms, dms, pms, bound, library):
+    """One main-path shape of a kernel in the kernel record."""
+    return dict(shape=list(shape), ms=ms, device_ms=dms, plain_ms=pms, **bound, **library)
+
+
 def phase_kernels(torch, fa, device):
     """K1/K2 vs plain; returns {kernel: {"max_abs_err", "ms", "plain_ms", "bound_ms",
-    "bound_by", "library_ms", "library_backend"}}."""
+    "bound_by", "library_ms", "library_backend", "shapes"}}: the top-level numbers are
+    those of K1's batch-1 render shape and K2's VAE shape; "shapes" holds every
+    main-path shape's time, plain time, bound and SDPA time."""
     from controllora_tpu_torch.ops.attention import split_heads
 
     gen = torch.Generator(device=device).manual_seed(0)
@@ -180,7 +275,7 @@ def phase_kernels(torch, fa, device):
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
 
-    record = {"k1": {"max_abs_err": 0.0}, "k2": {"max_abs_err": 0.0}}
+    record = {"k1": {"max_abs_err": 0.0, "shapes": []}, "k2": {"max_abs_err": 0.0, "shapes": []}}
     # K1: (B, heads, L, D, bias batch Bc). The main path gives the first two: the
     # 512² batch-1 render (one guide under the CFG pair) and the batch-4 render
     # (per-image biases, every row different, tiled over the 8-row CFG batch).
@@ -196,27 +291,30 @@ def phase_kernels(torch, fa, device):
             raise AssertionError(f"K1 B{b} H{h} L{l} D{d} Bc{bc}: max|dO| {err} > {O_BOUND}")
         line = (f"K1 B={b} H={h} L={l} D={d} (biases batch {bc} -> {b}): "
                 f"max|dO| {err:.3e} <= {O_BOUND}")
-        if (l, d) == (4096, 40):
+        if (l, d) == (4096, 40):  # the batch-1 and batch-4 renders
             ms = cuda_ms(lambda: fa.biased_attention(q, k, v, h, qb, kb, vb))
+            dms = device_ms(lambda: fa.biased_attention(q, k, v, h, qb, kb, vb))
             pms = cuda_ms(lambda: fa.biased_attention_plain(q, k, v, h, qb, kb, vb))
             bound = attention_roofline(2, b, h, l, l, d, 2 + bc / b, 2 + 2 * bc / b, 0)
-            line += f"  bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}"
+            biased = [split_heads(x + xb.repeat(b // bc, 1, 1), h)
+                      for x, xb in ((q, qb), (k, kb), (v, vb))]
+            library = sdpa_ms(torch, *biased)
+            del biased
+            record["k1"]["shapes"].append(
+                shape_entry((b, h, l, d, bc), ms, dms, pms, bound, library))
             if b == 2:
-                record["k1"].update(ms=ms, plain_ms=pms, **bound)
-                biased = [split_heads(x + xb.repeat(b // bc, 1, 1), h)
-                          for x, xb in ((q, qb), (k, kb), (v, vb))]
-                record["k1"].update(sdpa_ms(torch, *biased))
-                line += (f"  SDPA on the biased q/k/v {record['k1']['library_ms']:.4f} ms "
-                         f"({record['k1']['library_backend']})")
-                del biased
-            line += f"  kernel {ms:.4f} ms  plain {pms:.4f} ms"
+                record["k1"].update(ms=ms, device_ms=dms, plain_ms=pms, **bound, **library)
+            line += (f"  kernel {ms:.4f} ms (device {dms:.4f})  plain {pms:.4f} ms  bound {bound['bound_ms']:.4f} "
+                     f"ms by {bound['bound_by']}  SDPA on the biased q/k/v "
+                     f"{fmt_sdpa(library)}")
         record["k1"]["max_abs_err"] = max(record["k1"]["max_abs_err"], err)
         log(line)
         del q, k, v, qb, kb, vb, out, ref
-    # K2: the VAE mid-attention and the unguided UNet self-attention of serving
-    # (batch 1), then the training path's (batch 8): UNet self-attention and VAE encoder
-    for b, h, l, d in ((1, 1, 4096, 512), (2, 8, 4096, 40), (8, 8, 4096, 40),
-                       (8, 1, 4096, 512)):
+    # K2: the VAE mid-attention of serving at batch 1 and 4 (the batch-4 render decodes
+    # its 4 latents in one call) and the unguided UNet self-attention (batch 1), then
+    # the training path's (batch 8): UNet self-attention and VAE encoder
+    for b, h, l, d in ((1, 1, 4096, 512), (4, 1, 4096, 512), (2, 8, 4096, 40),
+                       (8, 8, 4096, 40), (8, 1, 4096, 512)):
         q, k, v = rnd(b, l, h * d), rnd(b, l, h * d), rnd(b, l, h * d)
         o, lse = fa.flash_attention(q, k, v, h)
         torch.cuda.synchronize()
@@ -228,14 +326,36 @@ def phase_kernels(torch, fa, device):
         line = (f"K2 B={b} H={h} L={l} D={d}: max|dO| {err:.3e} <= {O_BOUND}, "
                 f"max|dLSE| {lerr:.3e} <= {LSE_BOUND}")
         ms = cuda_ms(lambda: fa.flash_attention(q, k, v, h))
+        dms = device_ms(lambda: fa.flash_attention(q, k, v, h))
         pms = cuda_ms(lambda: fa.attention_lse_plain(q, k, v, h))
         bound = attention_roofline(2, b, h, l, l, d, 2, 2, 1)
         library = sdpa_ms(torch, *(split_heads(x, h) for x in (q, k, v)))
-        line += (f"  kernel {ms:.4f} ms  plain {pms:.4f} ms  bound {bound['bound_ms']:.4f} "
-                 f"ms by {bound['bound_by']}  SDPA {library['library_ms']:.4f} ms "
-                 f"({library['library_backend']})")
+        line += (f"  kernel {ms:.4f} ms (device {dms:.4f})  plain {pms:.4f} ms  bound "
+                 f"{bound['bound_ms']:.4f} ms by {bound['bound_by']}  SDPA {fmt_sdpa(library)}")
+        entry = shape_entry((b, h, l, d), ms, dms, pms, bound, library)
+        splits = fa.kv_splits(b * h, l, l, fa.fwd_tiles(d),
+                              torch.cuda.get_device_properties(device).multi_processor_count)
+        if splits > 1:  # the same call with the key range in one pass, for its gain
+            plan, fa.kv_splits = fa.kv_splits, lambda *args: 1
+            try:
+                o_one, lse_one = fa.flash_attention(q, k, v, h)
+                one_ms = cuda_ms(lambda: fa.flash_attention(q, k, v, h))
+                one_dms = device_ms(lambda: fa.flash_attention(q, k, v, h))
+            finally:
+                fa.kv_splits = plan
+            oerr = (o_one.float() - o_ref).abs().max().item()
+            lerr1 = (lse_one - lse_ref).abs().max().item()
+            if not (oerr <= O_BOUND and lerr1 <= LSE_BOUND):
+                raise AssertionError(f"K2 B{b} H{h} L{l} D{d} in one pass: max|dO| {oerr}, "
+                                     f"max|dLSE| {lerr1}")
+            entry.update(splits=splits, one_pass_ms=one_ms, one_pass_device_ms=one_dms)
+            line += (f"\n  {splits} key splits {ms:.4f} ms (device {dms:.4f}), one pass "
+                     f"{one_ms:.4f} ms (device {one_dms:.4f}; max|dO| {oerr:.3e}, max|dLSE| "
+                     f"{lerr1:.3e})")
+            del o_one, lse_one
+        record["k2"]["shapes"].append(entry)
         if (b, d) == (1, 512):
-            record["k2"].update(ms=ms, plain_ms=pms, **bound, **library)
+            record["k2"].update(ms=ms, device_ms=dms, plain_ms=pms, **bound, **library)
         record["k2"]["max_abs_err"] = max(record["k2"]["max_abs_err"], err)
         log(line)
         del q, k, v, o, lse, o_ref, lse_ref
@@ -475,7 +595,7 @@ def phase_backward_kernels(torch, fa, device):
             line += (f"  K3 {ms3:.4f} ms (plain {pms3:.4f}, bound "
                      f"{record['k3']['bound_ms']:.4f})  K4 {ms4:.4f} ms (plain {pms4:.4f}, "
                      f"bound {record['k4']['bound_ms']:.4f})  SDPA backward (dq, dk, dv) "
-                     f"{library['library_ms']:.4f} ms ({library['library_backend']})")
+                     f"{fmt_sdpa(library)}")
         record["k3"]["max_abs_err"] = max(record["k3"]["max_abs_err"], errs["dk"], errs["dv"])
         record["k4"]["max_abs_err"] = max(record["k4"]["max_abs_err"], errs["dq"])
         log(line)
@@ -578,7 +698,7 @@ def phase_train_parity(torch, pipe, device):
         raise AssertionError(f"train parity outside {REL_BOUND}: {bad}")
 
 
-KERNEL_CLASSES = (("flash (ours)", ("flash_",)),
+KERNEL_CLASSES = (("flash (ours)", ("flash_", "bias_add_kernel", "combine_splits_kernel")),
                   ("GEMM", ("gemm", "cutlass", "xmma", "sm90_", "cublas")),
                   ("conv + layout", ("conv", "cudnn", "nchwToNhwc", "nhwcToNchw")),
                   ("norms", ("Moments", "norm", "Norm")),
@@ -609,6 +729,31 @@ def device_profile(torch, fn):
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
     return wall, sum(by_name.values()) / 1e3, top
+
+
+def profile_line(name, wall, busy, top):
+    classes = {}
+    for kname, ms in top:
+        classes[kernel_class(kname)] = classes.get(kernel_class(kname), 0.0) + ms
+    return (f"{name}: wall {wall * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms, idle share "
+            f"{1 - busy / wall:.3f}; by class: "
+            + "; ".join(f"{c} {ms:.1f} ms" for c, ms in sorted(classes.items(), key=lambda kv: -kv[1])))
+
+
+def phase_render_profile(torch, pipe):
+    """One guided 512² render at batch 1 and one at batch 4 (per-image guides) through
+    the pipeline under torch.profiler: wall, device busy time, idle share, and device
+    time by kernel class (K1 is in "flash (ours)")."""
+    import numpy as np
+
+    rng = np.random.default_rng(9)
+    guides = rng.uniform(-1, 1, (4, RES, RES, 3)).astype(np.float32)
+    common = dict(num_inference_steps=STEPS, guidance_scale=CFG, height=RES, width=RES)
+    pipe("warm up", guide=guides[:1], **dict(common, num_inference_steps=2))
+    for n in (1, 4):
+        wall, busy, top = device_profile(
+            torch, lambda: pipe([f"prompt {i}" for i in range(n)], guide=guides[:n], **common))
+        log(profile_line(f"render profiled, guided batch {n}", wall, busy, top))
 
 
 def phase_train(torch, fa, pipe, device):
@@ -657,14 +802,9 @@ def phase_train(torch, fa, pipe, device):
         raise AssertionError("train: no adapter parameter changed")
 
     wall, busy, top = device_profile(torch, lambda: trainer.train_step(batches[-1], gen))
-    classes = {}
-    for name, ms in top:
-        classes[kernel_class(name)] = classes.get(kernel_class(name), 0.0) + ms
-    log(f"train profiled step: wall {wall * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms, "
-        f"idle share {1 - busy / wall:.3f} (against the unprofiled step "
-        f"{1 - busy / step_s:.3f}); by class: "
-        + "; ".join(f"{c} {ms:.1f} ms" for c, ms in sorted(classes.items(), key=lambda kv: -kv[1]))
-        + "; top kernels: " + "; ".join(f"{name[:60]} {ms:.1f} ms" for name, ms in top[:10]))
+    log(profile_line("train profiled step", wall, busy, top)
+        + f"; idle share against the unprofiled step {1 - busy / step_s:.3f}; top kernels: "
+        + "; ".join(f"{name[:60]} {ms:.1f} ms" for name, ms in top[:10]))
     return total
 
 
@@ -705,6 +845,7 @@ def phase_stock_kernels(torch, fs, device):
         return split_heads(x, h)
 
     record = {n: {"max_abs_err": 0.0} for n in ("k5_fwd", "k5_dkv", "k5_dq")}
+    record["k5_fwd"]["shapes"] = []
     for b, h, l, d, scale, grads in ((16, 8, 4096, 40, None, True),
                                      (16, 1, 4096, 512, None, False),
                                      (2, 8, 2304, 80, None, True),
@@ -742,6 +883,17 @@ def phase_stock_kernels(torch, fs, device):
             line += (f"; max|d| dQ {errs['dq']:.3e}, dK {errs['dk']:.3e}, dV {errs['dv']:.3e}"
                      f" <= {GRAD_BOUND} * max(1, max|ref|)")
             del args, dk, dv, dq
+        if (b, h, l, d) == (16, 1, 4096, 512):  # the VAE encoder's launch on the stock step
+            fms = cuda_ms(lambda: fs.stock_flash_fwd(q, k, v, scale))
+            fdms = device_ms(lambda: fs.stock_flash_fwd(q, k, v, scale))
+            fpms = cuda_ms(lambda: fs.stock_flash_fwd_plain(q.float(), k.float(), v.float(),
+                                                            scale))
+            bound = attention_roofline(2, b, h, l, l, d, 2, 2, 2)
+            library = sdpa_ms(torch, q, k, v, scale=scale)
+            record["k5_fwd"]["shapes"].append(
+                shape_entry((b, h, l, d), fms, fdms, fpms, bound, library))
+            line += (f"\n  k5_fwd {fms:.4f} ms (device {fdms:.4f}, plain {fpms:.4f}, bound {bound['bound_ms']:.4f} "
+                     f"by {bound['bound_by']})  SDPA forward {fmt_sdpa(library)}")
         if (b, h, l, d) == (16, 8, 4096, 40):
             fwd = (q, k, v, scale)
             bwd = (q, k, v, do, m, lsum, di, scale)
@@ -758,14 +910,17 @@ def phase_stock_kernels(torch, fs, device):
             costs = {"k5_fwd": (2, 2, 2, 2), "k5_dkv": (4, 2, 4, 3), "k5_dq": (3, 3, 2, 3)}
             for name, (ms, pms) in times.items():
                 products, nq, nk, rows = costs[name]
+                if name == "k5_fwd":
+                    record[name]["shapes"].insert(0, shape_entry(
+                        (b, h, l, d), ms, device_ms(lambda: fs.stock_flash_fwd(*fwd)), pms,
+                        attention_roofline(products, b, h, l, l, d, nq, nk, rows), forward))
                 record[name].update(ms=ms, plain_ms=pms,
                                     **(forward if name == "k5_fwd" else backward),
                                     **attention_roofline(products, b, h, l, l, d, nq, nk, rows))
                 line += (f"\n  {name} {ms:.4f} ms (plain {pms:.4f}, bound "
                          f"{record[name]['bound_ms']:.4f} by {record[name]['bound_by']})")
-            line += (f"\n  SDPA forward {forward['library_ms']:.4f} ms "
-                     f"({forward['library_backend']}), backward (dq, dk, dv) "
-                     f"{backward['library_ms']:.4f} ms ({backward['library_backend']})")
+            line += (f"\n  SDPA forward {fmt_sdpa(forward)}, backward (dq, dk, dv) "
+                     f"{fmt_sdpa(backward)}")
         log(line)
         del q, k, v, do, o, m, lsum
     q = heads(1, 2, 4225, 40)
@@ -1021,6 +1176,8 @@ def main():
     t0 = time.perf_counter()
     fa.build_kernels()
     log(f"build: {time.perf_counter() - t0:.1f} s ({fa.library_path().name})")
+    for line in ptxas_report(fa):
+        log(f"  ptxas {line}")
 
     record = phase_kernels(torch, fa, device)
     record.update(phase_backward_kernels(torch, fa, device))
@@ -1031,6 +1188,7 @@ def main():
     phase_parity(torch, pipe, device)
     phase_breakdown(torch, pipe, device)
     serve = phase_serve(torch, fa, pipe)
+    phase_render_profile(torch, pipe)
     phase_decode(torch, pipe, device)
     phase_train_parity(torch, pipe, device)
     phase_adam8bit(torch, pipe, device)

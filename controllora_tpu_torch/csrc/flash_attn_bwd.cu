@@ -68,8 +68,8 @@ __global__ void __launch_bounds__(kThreads)
   const int k0 = blockIdx.x * kB;
   const int key_lo = k0 + warp * 16 + g;  // this thread's key rows: key_lo, key_lo + 8
 
-  load_tile<DP>(Ks, T::kLD, kB, k, nullptr, b, 1, h, k0, Lk, H, D);
-  load_tile<DP>(Vs, T::kLD, kB, v, nullptr, b, 1, h, k0, Lk, H, D);
+  load_tile<DP>(Ks, T::kLD, kB, k, b, h, k0, Lk, H, D);
+  load_tile<DP>(Vs, T::kLD, kB, v, b, h, k0, Lk, H, D);
   float dk_acc[T::kND][4], dv_acc[T::kND][4];
 #pragma unroll
   for (int n = 0; n < T::kND; ++n)
@@ -82,8 +82,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < n_q; ++i) {
     const int q0 = i * kB;
     __syncthreads();  // the previous tile's readers of Q, dO, LSE and Dcap are done
-    load_tile<DP>(Qs, T::kLD, kB, q, nullptr, b, 1, h, q0, Lq, H, D);
-    load_tile<DP>(dOs, T::kLD, kB, dout, nullptr, b, 1, h, q0, Lq, H, D);
+    load_tile<DP>(Qs, T::kLD, kB, q, b, h, q0, Lq, H, D);
+    load_tile<DP>(dOs, T::kLD, kB, dout, b, h, q0, Lq, H, D);
     if (tid < kB) {
       const bool ok = q0 + tid < Lq;
       lse_s[tid] = ok ? lse[(size_t)bh * Lq + q0 + tid] : 0.f;
@@ -164,8 +164,8 @@ __global__ void __launch_bounds__(kThreads)
   const int q0 = blockIdx.x * kB;
   const int row_lo = q0 + warp * 16 + g;  // this thread's query rows: row_lo, row_lo + 8
 
-  load_tile<DP>(Qs, T::kLD, kB, q, nullptr, b, 1, h, q0, Lq, H, D);
-  load_tile<DP>(dOs, T::kLD, kB, dout, nullptr, b, 1, h, q0, Lq, H, D);
+  load_tile<DP>(Qs, T::kLD, kB, q, b, h, q0, Lq, H, D);
+  load_tile<DP>(dOs, T::kLD, kB, dout, b, h, q0, Lq, H, D);
   const bool ok_lo = row_lo < Lq, ok_hi = row_lo + 8 < Lq;
   const float lse_lo = ok_lo ? lse[(size_t)bh * Lq + row_lo] : 0.f;
   const float lse_hi = ok_hi ? lse[(size_t)bh * Lq + row_lo + 8] : 0.f;
@@ -183,8 +183,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int j = 0; j < n_kv; ++j) {
     const int k0 = j * kB;
     __syncthreads();  // the previous tile's readers of K and V are done
-    load_tile<DP>(Ks, T::kLD, kB, k, nullptr, b, 1, h, k0, Lk, H, D);
-    load_tile<DP>(Vs, T::kLD, kB, v, nullptr, b, 1, h, k0, Lk, H, D);
+    load_tile<DP>(Ks, T::kLD, kB, k, b, h, k0, Lk, H, D);
+    load_tile<DP>(Vs, T::kLD, kB, v, b, h, k0, Lk, H, D);
     __syncthreads();
 
     // S = Q K^T and dP = dO V^T: this warp's 16 queries by the tile's 64 keys

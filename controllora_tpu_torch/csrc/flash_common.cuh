@@ -1,6 +1,7 @@
-// Helpers shared by the flash-attention kernels (flash_attn_fwd.cu, flash_attn_bwd.cu,
+// Helpers shared by the mma.sync flash-attention kernels (flash_attn_bwd.cu,
 // flash_stock.cu): the bf16 tensor-core product, fragment packing, the tile loaders,
-// the three stages of the forward's KV loop, and the backward's fragment helpers.
+// the three stages of K5's forward KV loop, and the backward's fragment helpers. K1
+// and K2 (flash_attn_fwd.cu) run on wgmma and TMA instead (hopper.cuh).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -38,14 +39,11 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b
 }
 
 // Rows [row0, row0 + nrows) of head h of a (B, L, H*D) tensor into shared memory
-// laid out [nrows][ld], plus the bias row of batch b % bias_batch when bias is given.
-// Rows at or past L and columns in [D, DP) are zero.
+// laid out [nrows][ld]. Rows at or past L and columns in [D, DP) are zero.
 template <int DP>
 __device__ __forceinline__ void load_tile(bf16* s, int ld, int nrows,
-                                          const bf16* __restrict__ x,
-                                          const bf16* __restrict__ bias, int b,
-                                          int bias_batch, int h, int row0, int L,
-                                          int H, int D) {
+                                          const bf16* __restrict__ x, int b, int h,
+                                          int row0, int L, int H, int D) {
   constexpr int kChunks = DP / 8;  // 16-byte chunks per shared-memory row
   const size_t row_stride = (size_t)H * D;
   for (int idx = threadIdx.x; idx < nrows * kChunks; idx += kThreads) {
@@ -53,19 +51,9 @@ __device__ __forceinline__ void load_tile(bf16* s, int ld, int nrows,
     const int c = (idx % kChunks) * 8;
     const int row = row0 + r;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row < L && c < D) {
+    if (row < L && c < D)
       val = *reinterpret_cast<const uint4*>(
           x + ((size_t)b * L + row) * row_stride + (size_t)h * D + c);
-      if (bias != nullptr) {
-        const uint4 bv = *reinterpret_cast<const uint4*>(
-            bias + ((size_t)(b % bias_batch) * L + row) * row_stride + (size_t)h * D + c);
-        bf16* xv = reinterpret_cast<bf16*>(&val);
-        const bf16* bb = reinterpret_cast<const bf16*>(&bv);
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          xv[e] = __float2bfloat16(__bfloat162float(xv[e]) + __bfloat162float(bb[e]));
-      }
-    }
     *reinterpret_cast<uint4*>(s + r * ld + c) = val;
   }
 }
@@ -89,8 +77,9 @@ __device__ __forceinline__ void load_rows(bf16* s, int ld, int nrows,
 }
 
 // ---------------------------------------------------------------- forward KV loop
-// One block of 4 warps owns BM query rows; every KV step loads a kBN-key tile of K
-// and V, then runs the three stages below, separated by __syncthreads().
+// K5's forward (the design K1 and K2 ran before they moved to wgmma): one
+// block of 4 warps owns BM query rows; every KV step loads a kBN-key tile of K and V,
+// then runs the three stages below, separated by __syncthreads().
 
 constexpr int kBN = 64;         // keys per KV tile
 

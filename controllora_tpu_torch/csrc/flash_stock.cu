@@ -26,10 +26,11 @@
 // What bounds it on the H100: at the training shape (16, 8, 4096, 40) every kernel is
 // compute bound (the forward runs two L x L x D products per head, dK/dV four, dQ
 // three, against ~8 L D bytes per head), so the work is in tensor-core products:
-// mma.sync m16n8k16, bf16 in, fp32 accumulate. The design is that of K2-K4:
+// mma.sync m16n8k16, bf16 in, fp32 accumulate. The design is that of K3/K4 and of
+// K1/K2's first design (since replaced by wgmma kernels, flash_attn_fwd.cu):
 //   * forward: one block of 4 warps per (batch*head, BM query rows), a loop over
 //     64-key tiles with S and P through shared memory (the stages in
-//     flash_common.cuh, shared with K1/K2); BM 64 for D <= 80, and for the VAE's
+//     flash_common.cuh); BM 64 for D <= 80, and for the VAE's
 //     single D = 512 head BM 16 with the output columns split over the warps;
 //   * backward: one block per (batch*head, 64-row tile), S and dP in registers, P and
 //     dS rounded to bf16 straight into the next product's A operand, the dK/dV (or dQ)

@@ -16,11 +16,14 @@ Counterparts of the JAX package's flash-attention Pallas kernels:
 ``FlashAttention`` ties K2 to K3 + K4 as one ``torch.autograd.Function``, the
 counterpart of the JAX ``flash_attention`` ``custom_vjp``.
 
-K1 and K2 live in ``csrc/flash_attn_fwd.cu``, K3 and K4 in ``csrc/flash_attn_bwd.cu``
-(see their headers for the design). All take the projections in the (B, L, H*D)
-layout the attention layers produce, so no head split or padding copy is made. The
-JAX block-size policy (``pick_block``, ``serving_blocks``) does not carry over: each
-kernel sizes its own tiles.
+K1 and K2 live in ``csrc/flash_attn_fwd.cu`` (wgmma, a TMA-fed K/V ring, softmax in
+registers; ``csrc/hopper.cuh``), K3 and K4 in ``csrc/flash_attn_bwd.cu`` (see their
+headers for the design). All take the projections in the (B, L, H*D) layout the
+attention layers produce, so no head split or padding copy is made; K1 and K2 read
+them through TMA tensor maps (``tma_geometry``). The JAX block-size policy
+(``pick_block``, ``serving_blocks``) does not carry over: each kernel sizes its own
+tiles (``fwd_tiles`` reports K1/K2's), and heads wider than 80 split the key range
+where the query tiles alone leave SMs idle (``kv_splits``).
 
 Device rule: a tensor on the CPU takes the plain PyTorch version beside each kernel;
 a CUDA tensor launches the kernel or raises. Every ``csrc/*.cu`` is compiled with
@@ -124,15 +127,19 @@ def build_kernels() -> ctypes.CDLL:
             os.replace(tmp, so)
         lib = ctypes.CDLL(str(so))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.k1_biased_flash_fwd.argtypes = [p, p, p, p, p, p, i, i, i, p,
-                                            i, i, i, i, i, f, p]
+        # q, k, v, biases, bias batches, sums, o, o_part, lse_part, B, H, Lq, Lk, D,
+        # scale, splits, stream
+        lib.k1_biased_flash_fwd.argtypes = [p] * 6 + [i] * 3 + [p] * 6 + [i] * 5 + [f, i, p]
         lib.k1_biased_flash_fwd.restype = i
-        lib.k2_flash_fwd_lse.argtypes = [p, p, p, p, p, i, i, i, i, i, f, p]
+        # q, k, v, o, lse, o_part, lse_part, B, H, Lq, Lk, D, scale, splits, stream
+        lib.k2_flash_fwd_lse.argtypes = [p] * 7 + [i] * 5 + [f, i, p]
         lib.k2_flash_fwd_lse.restype = i
         lib.k3_flash_bwd_dkv.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, f, p]
         lib.k3_flash_bwd_dkv.restype = i
         lib.k4_flash_bwd_dq.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, f, p]
         lib.k4_flash_bwd_dq.restype = i
+        lib.flash_fwd_tiles.argtypes = [i, p, p, p]
+        lib.flash_fwd_tiles.restype = i
         strides = [ctypes.c_longlong] * 6  # (b, h, l) element strides of q, then of k
         lib.k5_stock_flash_fwd.argtypes = [p] * 6 + [i] * 5 + strides + [f, p]
         lib.k5_stock_flash_fwd.restype = i
@@ -145,6 +152,51 @@ def build_kernels() -> ctypes.CDLL:
 
 
 # ---------------------------------------------------------------------------- checks
+
+
+def tma_geometry(x, heads: int, name: str = "x") -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """The 4-D view (D, H, L, B), innermost first, through which the K1/K2 tensor maps
+    read a (B, L, H*D) projection, and the byte strides of its dims 1-3. The copy
+    engine needs a contiguous 16-byte aligned base and strides that are multiples of
+    16 bytes (D a multiple of 8 in bf16); raises ValueError otherwise."""
+    b, length, inner = x.shape
+    d = inner // heads
+    size = x.element_size()
+    dims = (d, heads, length, b)
+    strides = (d * size, inner * size, length * inner * size)
+    if not x.is_contiguous():
+        raise ValueError(f"{name} {tuple(x.shape)} with strides {x.stride()} is not "
+                         "contiguous")
+    if x.data_ptr() % 16 or any(st % 16 for st in strides):
+        raise ValueError(f"{name}: a tensor map needs a 16-byte aligned base (offset "
+                         f"{x.data_ptr() % 16}) and 16-byte multiple strides {strides}")
+    return dims, strides
+
+
+def fwd_tiles(d: int) -> Tuple[int, int, int]:
+    """(query rows a block, keys a tile, most key splits) of the K1/K2 instance that
+    takes head dim `d`, as csrc/flash_attn_fwd.cu sets them (``flash_fwd_tiles``)."""
+    lib = build_kernels()
+    vals = [ctypes.c_int() for _ in range(3)]
+    err = lib.flash_fwd_tiles(d, *(ctypes.byref(x) for x in vals))
+    if err:
+        raise ValueError(f"no K1/K2 instance takes head dim {d} (cudaError {err})")
+    return tuple(x.value for x in vals)
+
+
+def kv_splits(bh: int, lq: int, lk: int, tiles: Tuple[int, int, int], sms: int) -> int:
+    """How many blocks share one query tile's key range in K1/K2, for the instance's
+    `tiles` (``fwd_tiles``). Where the B*H*ceil(Lq/rows) blocks fill fewer than the
+    card's `sms`, each tile's keys go to up to sms // blocks blocks (at most the
+    instance's limit, each with at least four key tiles, none empty), and a combine
+    kernel merges their (O, LSE). Returns 1 for no split."""
+    rows, keys, max_splits = tiles
+    blocks = bh * -(-lq // rows)
+    n_tiles = -(-lk // keys)
+    splits = max(1, min(max_splits, sms // blocks, n_tiles // 4))
+    while splits > 1 and (splits - 1) * -(-n_tiles // splits) >= n_tiles:
+        splits -= 1
+    return splits
 
 
 def _check_cuda_inputs(q, k, v, heads: int, biases=()) -> Tuple[int, int, int, int, int]:
@@ -167,8 +219,7 @@ def _check_cuda_inputs(q, k, v, heads: int, biases=()) -> Tuple[int, int, int, i
             raise ValueError(f"{name} must be on {q.device}, got {t.device}")
         if t.dtype != torch.bfloat16:
             raise TypeError(f"{name} must be bfloat16 for the kernel, got {t.dtype}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+        tma_geometry(t, heads, name)
     return b, heads, lq, k.shape[1], d
 
 
@@ -267,6 +318,17 @@ def flash_bwd_dq_plain(q, k, v, do, lse, dcap, heads: int):
 # ---------------------------------------------------------------------------- wrappers
 
 
+def _split_scratch(q, b, h, lq, lk, d):
+    """(splits, o_part, lse_part): the key-split plan and its fp32 scratch."""
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    splits = kv_splits(b * h, lq, lk, fwd_tiles(d), sms)
+    if splits == 1:
+        return 1, None, None
+    o_part = torch.empty((splits, b * h, lq, d), dtype=torch.float32, device=q.device)
+    return splits, o_part, torch.empty((splits, b * h, lq), dtype=torch.float32,
+                                       device=q.device)
+
+
 def flash_attention(q, k, v, heads: int):
     """K2: softmax(q k^T / sqrt(D)) v over (B, L, H*D) projections.
 
@@ -278,11 +340,12 @@ def flash_attention(q, k, v, heads: int):
     lib = build_kernels()
     o = torch.empty_like(q)
     lse = torch.empty((b * h, lq), dtype=torch.float32, device=q.device)
+    splits, o_part, lse_part = _split_scratch(q, b, h, lq, lk, d)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.k2_flash_fwd_lse(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                   o.data_ptr(), lse.data_ptr(), b, h, lq, lk, d,
-                                   d**-0.5, stream)
+                                   o.data_ptr(), lse.data_ptr(), _ptr(o_part),
+                                   _ptr(lse_part), b, h, lq, lk, d, d**-0.5, splits, stream)
     if err:
         raise RuntimeError(f"k2_flash_fwd_lse launch failed: cudaError {err}")
     LAUNCHES["k2"] += 1
@@ -294,8 +357,9 @@ def biased_attention(q, k, v, heads: int, q_bias=None, k_bias=None, v_bias=None)
 
     Biases are (Bc, L, H*D) with Bc dividing B; batch b reads bias row b % Bc, i.e.
     the bias batch is TILED over the [uncond || cond] CFG batch (JAX
-    ``unet.py`` folded-path ``fit``). The bias adds happen inside the kernel's loads.
-    CPU tensors take the plain version; CUDA tensors launch the kernel or raise."""
+    ``unet.py`` folded-path ``fit``). The kernel's pre-pass writes each biased sum
+    once, rounded to bf16, into scratch allocated here. CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise."""
     if q.device.type == "cpu":
         return biased_attention_plain(q, k, v, heads, q_bias, k_bias, v_bias)
     biases = (("q_bias", q_bias), ("k_bias", k_bias), ("v_bias", v_bias))
@@ -306,12 +370,16 @@ def biased_attention(q, k, v, heads: int, q_bias=None, k_bias=None, v_bias=None)
     vbb = _check_bias("v_bias", v_bias, b, lk, inner)
     lib = build_kernels()
     o = torch.empty_like(q)
+    sums = [None if bias is None else torch.empty_like(x)
+            for x, bias in ((q, q_bias), (k, k_bias), (v, v_bias))]
+    splits, o_part, lse_part = _split_scratch(q, b, h, lq, lk, d)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.k1_biased_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                       _ptr(q_bias), _ptr(k_bias), _ptr(v_bias),
-                                      qbb, kbb, vbb, o.data_ptr(), b, h, lq, lk, d,
-                                      d**-0.5, stream)
+                                      qbb, kbb, vbb, *map(_ptr, sums), o.data_ptr(),
+                                      _ptr(o_part), _ptr(lse_part), b, h, lq, lk, d,
+                                      d**-0.5, splits, stream)
     if err:
         raise RuntimeError(f"k1_biased_flash_fwd launch failed: cudaError {err}")
     LAUNCHES["k1"] += 1

@@ -30,7 +30,8 @@ def interpret_pallas(monkeypatch):
         pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True)
     )
     fa.reset_launch_counts()
-    yield
+    with torch.enable_grad():  # whatever an earlier test file left (see test_torch_flash_stock.py)
+        yield
     # on CPU tensors every wrapper takes its plain version: nothing launched
     assert set(fa.LAUNCHES) == {"k1", "k2", "k3", "k4"}
     assert all(n == 0 for n in fa.LAUNCHES.values()), fa.LAUNCHES
@@ -212,3 +213,50 @@ def test_flash_attention_double_backward_raises():
     (dq,) = torch.autograd.grad(out, q, grad_outputs=w, create_graph=True)
     with pytest.raises(RuntimeError, match="twice|once"):
         dq.sum().backward()
+
+
+@pytest.mark.parametrize("b,l,heads,d", [(2, 4096, 8, 40), (8, 4096, 1, 512), (1, 333, 4, 80)])
+def test_tma_geometry_of_the_projection_layout(b, l, heads, d):
+    """K1/K2's tensor maps read a (B, L, H*D) bf16 projection as (D, H, L, B): the byte
+    strides of H, L and B are 2D, 2HD and 2LHD, all multiples of 16 for D % 8 == 0."""
+    x = torch.zeros((b, l, heads * d), dtype=torch.bfloat16)
+    dims, strides = fa.tma_geometry(x, heads)
+    assert dims == (d, heads, l, b)
+    assert strides == (2 * d, 2 * heads * d, 2 * l * heads * d)
+    # the (d, h, l, b) element sits at the byte offset the strides give
+    flat = torch.arange(x.numel(), dtype=torch.float32).reshape(x.shape)
+    i = (d - 1, heads - 1, l // 2, b - 1)
+    offset = i[0] * 2 + sum(c * s for c, s in zip(i[1:], strides))
+    assert flat[i[3], i[2], i[1] * d + i[0]].item() == offset // 2
+
+
+def test_tma_geometry_refuses_what_a_tensor_map_cannot_read():
+    heads = 2
+    base = torch.zeros(4 * 64 * 80 + 8, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.tma_geometry(base[1:1 + 4 * 64 * 80].view(4, 64, 80), heads)  # 2-byte offset
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.tma_geometry(torch.zeros((4, 80, 64), dtype=torch.bfloat16).transpose(1, 2), heads)
+    with pytest.raises(ValueError, match="multiple"):
+        fa.tma_geometry(torch.zeros((4, 64, 8), dtype=torch.bfloat16), heads)  # D 4: 8 bytes
+
+
+WIDE, NARROW = (64, 32, 8), (128, 64, 1)  # (rows, keys, most splits) of K1/K2's instances
+
+
+@pytest.mark.parametrize("bh,l,tiles,sms,want", [
+    (1, 4096, WIDE, 132, 2),    # the VAE's batch-1 head: 64 query tiles for 132 SMs
+    (8, 4096, WIDE, 132, 1),    # training batch 8: 512 tiles fill the card
+    (16, 4096, NARROW, 132, 1),  # an instance that takes no split never splits
+    (1, 1000, WIDE, 132, 8),    # 16 tiles: at most 8 splits
+    (1, 200, WIDE, 132, 1),     # 7 key tiles: fewer than 4 a split
+    (1, 300, WIDE, 132, 2),     # 10 key tiles: 2 splits of at least 4
+])
+def test_kv_splits_plan(bh, l, tiles, sms, want):
+    splits = fa.kv_splits(bh, l, l, tiles, sms)
+    assert splits == want
+    rows, keys, _ = tiles
+    n_tiles = -(-l // keys)
+    per = -(-n_tiles // splits)
+    assert (splits - 1) * per < n_tiles  # no split is empty
+    assert splits * bh * -(-l // rows) <= max(sms, bh * -(-l // rows))

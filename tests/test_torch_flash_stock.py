@@ -34,7 +34,11 @@ def interpret_pallas(monkeypatch):
     )
     monkeypatch.delenv("CONTROLLORA_FLASH_IMPL", raising=False)
     fs.reset_launch_counts()
-    yield
+    # autograd on whatever the process state: a test file run earlier in the same
+    # worker may have switched it off process-wide (scripts/dump_fixtures_torch.py
+    # does, through tests/test_parity_fixtures.py)
+    with torch.enable_grad():
+        yield
     # on CPU tensors every wrapper takes its plain version: nothing launched
     assert fs.LAUNCHES == {"k5_fwd": 0, "k5_dkv": 0, "k5_dq": 0}
 

@@ -25,7 +25,8 @@ def cuda():
     torch.backends.cuda.matmul.allow_tf32 = False
     fa.reset_launch_counts()
     fs.reset_launch_counts()
-    return torch.device("cuda")
+    with torch.enable_grad():  # whatever an earlier test left (see test_torch_flash_stock.py)
+        yield torch.device("cuda")
 
 
 def randn(shape, seed, device):
@@ -33,30 +34,58 @@ def randn(shape, seed, device):
     return torch.randn(shape, generator=g).to(device=device, dtype=torch.bfloat16)
 
 
+def k1_reference(q, k, v, heads, qb, kb, vb):
+    """The plain version on the same bf16 sums, biases TILED over the batch (row i
+    reads bias row i % Bc), kept in fp32 (no output rounding)."""
+    b = q.shape[0]
+    qe, ke, ve = ((x if xb is None else x + xb.repeat(b // xb.shape[0], 1, 1)).float()
+                  for x, xb in ((q, qb), (k, kb), (v, vb)))
+    return fa.attention_lse_plain(qe, ke, ve, heads)[0]
+
+
 @pytest.mark.parametrize("b,heads,l,d,bc", [(2, 8, 1024, 40, 1), (2, 4, 333, 80, 1),
                                             (1, 1, 1000, 512, 1), (2, 2, 77, 160, 1),
-                                            (8, 8, 1024, 40, 4), (4, 4, 333, 80, 2)])
+                                            (8, 8, 1024, 40, 4), (4, 4, 333, 80, 2),
+                                            (2, 8, 33, 40, 1), (8, 2, 700, 64, 2),
+                                            (8, 8, 4096, 40, 4), (8, 8, 4096, 40, 1),
+                                            (2, 8, 4225, 40, 1), (2, 1, 700, 512, 1)])
 def test_k1_matches_plain(cuda, b, heads, l, d, bc):
     """bc is the bias batch: per-image biases (bc = n under the 2n CFG batch) must
-    TILE, so batch row i reads bias row i % bc; every bias row differs."""
+    TILE, so batch row i reads bias row i % bc; every bias row differs. L shorter
+    than a tile (33), ragged (333, 700, 4225) and the render's 4096; D 40, 64, 80,
+    160 and 512 (the wide design)."""
     q, k, v = (randn((b, l, heads * d), s, cuda) for s in range(3))
     qb, kb, vb = (0.25 * randn((bc, l, heads * d), s, cuda) for s in range(3, 6))
     out = fa.biased_attention(q, k, v, heads, qb, kb, vb)
     torch.cuda.synchronize()
-    # the plain version on the same bf16 sums, kept in fp32 (no output rounding)
-    qe, ke, ve = ((x + xb.repeat(b // bc, 1, 1)).float()
-                  for x, xb in ((q, qb), (k, kb), (v, vb)))
-    ref, _ = fa.attention_lse_plain(qe, ke, ve, heads)
     assert fa.LAUNCHES["k1"] == 1
+    assert (out.float() - k1_reference(q, k, v, heads, qb, kb, vb)).abs().max().item() <= 1e-2
+
+
+@pytest.mark.parametrize("missing", ["q", "k", "v", "all"])
+def test_k1_with_a_bias_left_out(cuda, missing):
+    """Each bias may be None (the kernel's pre-pass skips it): batch 8 under bias
+    batch 2, and all three None."""
+    b, heads, l, d = 8, 4, 300, 40
+    q, k, v = (randn((b, l, heads * d), s, cuda) for s in range(3))
+    biases = {n: 0.25 * randn((2, l, heads * d), s, cuda) for s, n in enumerate("qkv", 3)}
+    for n in ("qkv" if missing == "all" else missing):
+        biases[n] = None
+    out = fa.biased_attention(q, k, v, heads, biases["q"], biases["k"], biases["v"])
+    torch.cuda.synchronize()
+    ref = k1_reference(q, k, v, heads, biases["q"], biases["k"], biases["v"])
     assert (out.float() - ref).abs().max().item() <= 1e-2
 
 
 @pytest.mark.parametrize("b,heads,l,d", [(2, 8, 1024, 40), (1, 1, 700, 512),
                                          (1, 2, 129, 64), (8, 8, 4096, 40),
-                                         (8, 1, 4096, 512)])
+                                         (8, 1, 4096, 512), (1, 1, 4096, 512),
+                                         (2, 8, 33, 40), (1, 4, 333, 80), (2, 2, 4225, 160),
+                                         (1, 8, 700, 64)])
 def test_k2_matches_plain(cuda, b, heads, l, d):
-    """Ragged and short shapes, then the training path's at 512², batch 8: the UNet
-    self-attention and the VAE encoder's mid-attention."""
+    """Ragged and short shapes, the serving VAE (1, 1, 4096, 512, split keys), then
+    the training path's at 512², batch 8: the UNet self-attention and the VAE
+    encoder's mid-attention."""
     q, k, v = (randn((b, l, heads * d), s, cuda) for s in range(3))
     o, lse = fa.flash_attention(q, k, v, heads)
     torch.cuda.synchronize()
@@ -64,6 +93,56 @@ def test_k2_matches_plain(cuda, b, heads, l, d):
     assert fa.LAUNCHES["k2"] == 1
     assert (o.float() - o_ref).abs().max().item() <= 1e-2
     assert (lse - lse_ref).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("l", [4096, 1000])
+def test_k2_key_split_equals_one_pass(cuda, l, monkeypatch):
+    """At batch 1 and D 512 the plan splits the key range (2 splits at L 4096, 8 at
+    1000); the combined result agrees with the one-pass kernel's (the plan forced to
+    1) within the bf16 rounding of O, and their LSE within fp32 rounding."""
+    q, k, v = (randn((1, l, 512), s, cuda) for s in range(3))
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert fa.kv_splits(1, l, l, fa.fwd_tiles(512), sms) > 1
+    o_split, lse_split = fa.flash_attention(q, k, v, 1)
+    monkeypatch.setattr(fa, "kv_splits", lambda *args: 1)
+    o_one, lse_one = fa.flash_attention(q, k, v, 1)
+    torch.cuda.synchronize()
+    assert (o_split.float() - o_one.float()).abs().max().item() <= 8e-3
+    assert (lse_split - lse_one).abs().max().item() <= 1e-4
+    o_ref, _ = fa.attention_lse_plain(q.float(), k.float(), v.float(), 1)
+    assert (o_split.float() - o_ref).abs().max().item() <= 1e-2
+
+
+@pytest.mark.parametrize("d", [8, 40, 64, 80, 88, 160, 512])
+def test_fwd_tiles_of_each_instance(cuda, d):
+    """The library reports the tiles the split plan reads: whole 64-row warpgroup
+    tiles, 32- or 64-key tiles, and key splits in the wide design (D > 80) only."""
+    rows, keys, max_splits = fa.fwd_tiles(d)
+    assert rows % 64 == 0 and keys in (32, 64)
+    assert (max_splits > 1) == (d > 80)
+
+
+@pytest.mark.parametrize("d", [0, 4, 516, 520])
+def test_fwd_tiles_refuse_a_head_dim_no_instance_takes(cuda, d):
+    with pytest.raises(ValueError, match="no K1/K2 instance"):
+        fa.fwd_tiles(d)
+
+
+def test_k1_k2_raise_on_misaligned_or_strided_inputs(cuda):
+    """The tensor maps need a contiguous, 16-byte aligned projection: a view at a
+    2-byte offset and a transposed view raise before any launch."""
+    b, l, inner = 1, 256, 80
+    flat = torch.zeros(b * l * inner + 8, device=cuda, dtype=torch.bfloat16)
+    shifted = flat[1:1 + b * l * inner].view(b, l, inner)
+    good = torch.zeros((b, l, inner), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention(shifted, good, good, 2)
+    strided = torch.zeros((b, inner, l), device=cuda, dtype=torch.bfloat16).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.biased_attention(good, strided, good, 2)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.biased_attention(good, good, good, 2, q_bias=shifted)
+    assert fa.LAUNCHES == {"k1": 0, "k2": 0, "k3": 0, "k4": 0}
 
 
 def test_wrappers_raise_on_what_the_kernel_does_not_take(cuda):

@@ -37,7 +37,7 @@ from controllora_tpu_torch.training.checkpoint import (
     restore_train_state,
 )
 from test_torch_modules import assert_close, make_guides, nchw
-from test_torch_training import controls, stack  # noqa: F401  (module fixtures)
+from test_torch_training import controls, grad_enabled, stack  # noqa: F401  (fixtures)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -49,6 +49,15 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCALE = 0.7
 
 
+@pytest.fixture(autouse=True)
+def grad_enabled():
+    """Autograd on for every test, whatever the process state: a test file run earlier
+    in the same worker may have switched it off process-wide
+    (scripts/dump_fixtures_torch.py does, through tests/test_parity_fixtures.py)."""
+    with torch.enable_grad():
+        yield
+
+
 def rand(shape, seed, low=None):
     rng = np.random.default_rng(seed)
     if low is not None:
