@@ -10,7 +10,7 @@ Phases, each of which raises (non-zero exit, no result line) when it fails:
               serialisation).
   3. kernels  K1-K4 against their plain PyTorch versions on the card, bf16 inputs,
               at the serving and training paths' shapes, other resolutions' shapes,
-              and (K3/K4) ragged L, not a multiple of the 64-row tile; at every
+              and (K3/K4) D 64 and ragged L, not a multiple of the 64-row tile; at every
               main-path shape of K1 (batch-1 and batch-4 renders) and K2 (VAE,
               unguided UNet, training UNet and VAE encoder) the times of both, the
               bound (operations or bytes at the H100's peaks) and one torch SDPA
@@ -562,8 +562,9 @@ def phase_backward_kernels(torch, fa, device):
     # the training path's shape (5 UNet self-attentions at 512², batch 8), the 384²
     # and 704² latents (L a multiple of the kernels' 64-row tile), then ragged L: the
     # 520² latent (4225 = 66 * 64 + 1) and a short one, where the kernels mask P by index
+    # and D 64 (K3's third instance), and L 40, under one tile of either kernel
     for b, h, l, d in ((8, 8, 4096, 40), (2, 8, 2304, 80), (1, 8, 7744, 40),
-                       (2, 8, 4225, 40), (1, 8, 300, 80)):
+                       (2, 8, 4225, 40), (1, 8, 300, 80), (2, 8, 1024, 64), (2, 4, 40, 40)):
         q, k, v, do = (rnd(b, l, h * d) for _ in range(4))
         o, lse = fa.flash_attention(q, k, v, h)
         dcap = fa.attention_dcap(o, do, h)
@@ -582,20 +583,22 @@ def phase_backward_kernels(torch, fa, device):
         if (b, l, d) == (8, 4096, 40):
             bwd = (q, k, v, do, lse, dcap, h)
             ms3 = cuda_ms(lambda: fa.flash_bwd_dkv(*bwd))
+            dms3 = device_ms(lambda: fa.flash_bwd_dkv(*bwd))
             pms3 = cuda_ms(lambda: fa.flash_bwd_dkv_plain(*bwd))
             ms4 = cuda_ms(lambda: fa.flash_bwd_dq(*bwd))
+            dms4 = device_ms(lambda: fa.flash_bwd_dq(*bwd))
             pms4 = cuda_ms(lambda: fa.flash_bwd_dq_plain(*bwd))
             # one SDPA backward gives dq, dk and dv: the yardstick of K3 + K4 together
             library = sdpa_ms(torch, *(split_heads(x, h) for x in (q, k, v)),
                               do=split_heads(do, h))
-            record["k3"].update(ms=ms3, plain_ms=pms3, **library,
+            record["k3"].update(ms=ms3, device_ms=dms3, plain_ms=pms3, **library,
                                 **attention_roofline(4, b, h, l, l, d, 2, 4, 2))
-            record["k4"].update(ms=ms4, plain_ms=pms4, **library,
+            record["k4"].update(ms=ms4, device_ms=dms4, plain_ms=pms4, **library,
                                 **attention_roofline(3, b, h, l, l, d, 3, 2, 2))
-            line += (f"  K3 {ms3:.4f} ms (plain {pms3:.4f}, bound "
-                     f"{record['k3']['bound_ms']:.4f})  K4 {ms4:.4f} ms (plain {pms4:.4f}, "
-                     f"bound {record['k4']['bound_ms']:.4f})  SDPA backward (dq, dk, dv) "
-                     f"{fmt_sdpa(library)}")
+            line += (f"  K3 {ms3:.4f} ms (device {dms3:.4f}, plain {pms3:.4f}, bound "
+                     f"{record['k3']['bound_ms']:.4f})  K4 {ms4:.4f} ms (device {dms4:.4f}, "
+                     f"plain {pms4:.4f}, bound {record['k4']['bound_ms']:.4f})  SDPA "
+                     f"backward (dq, dk, dv) {fmt_sdpa(library)}")
         record["k3"]["max_abs_err"] = max(record["k3"]["max_abs_err"], errs["dk"], errs["dv"])
         record["k4"]["max_abs_err"] = max(record["k4"]["max_abs_err"], errs["dq"])
         log(line)
@@ -898,27 +901,28 @@ def phase_stock_kernels(torch, fs, device):
             fwd = (q, k, v, scale)
             bwd = (q, k, v, do, m, lsum, di, scale)
             plain = [x.float() for x in (q, k, v, do)] + [m, lsum, di, scale]
-            times = {"k5_fwd": (cuda_ms(lambda: fs.stock_flash_fwd(*fwd)),
-                                cuda_ms(lambda: fs.stock_flash_fwd_plain(*plain[:3], scale))),
-                     "k5_dkv": (cuda_ms(lambda: fs.stock_flash_bwd_dkv(*bwd)),
-                                cuda_ms(lambda: fs.stock_flash_bwd_dkv_plain(*plain))),
-                     "k5_dq": (cuda_ms(lambda: fs.stock_flash_bwd_dq(*bwd)),
-                               cuda_ms(lambda: fs.stock_flash_bwd_dq_plain(*plain)))}
+            calls = {"k5_fwd": (lambda: fs.stock_flash_fwd(*fwd),
+                                lambda: fs.stock_flash_fwd_plain(*plain[:3], scale)),
+                     "k5_dkv": (lambda: fs.stock_flash_bwd_dkv(*bwd),
+                                lambda: fs.stock_flash_bwd_dkv_plain(*plain)),
+                     "k5_dq": (lambda: fs.stock_flash_bwd_dq(*bwd),
+                               lambda: fs.stock_flash_bwd_dq_plain(*plain))}
+            times = {name: (cuda_ms(kernel), device_ms(kernel), cuda_ms(ref))
+                     for name, (kernel, ref) in calls.items()}
             del plain
             forward = sdpa_ms(torch, q, k, v, scale=scale)
             backward = sdpa_ms(torch, q, k, v, scale=scale, do=do)
             costs = {"k5_fwd": (2, 2, 2, 2), "k5_dkv": (4, 2, 4, 3), "k5_dq": (3, 3, 2, 3)}
-            for name, (ms, pms) in times.items():
+            for name, (ms, dms, pms) in times.items():
                 products, nq, nk, rows = costs[name]
+                bound = attention_roofline(products, b, h, l, l, d, nq, nk, rows)
                 if name == "k5_fwd":
                     record[name]["shapes"].insert(0, shape_entry(
-                        (b, h, l, d), ms, device_ms(lambda: fs.stock_flash_fwd(*fwd)), pms,
-                        attention_roofline(products, b, h, l, l, d, nq, nk, rows), forward))
-                record[name].update(ms=ms, plain_ms=pms,
-                                    **(forward if name == "k5_fwd" else backward),
-                                    **attention_roofline(products, b, h, l, l, d, nq, nk, rows))
-                line += (f"\n  {name} {ms:.4f} ms (plain {pms:.4f}, bound "
-                         f"{record[name]['bound_ms']:.4f} by {record[name]['bound_by']})")
+                        (b, h, l, d), ms, dms, pms, bound, forward))
+                record[name].update(ms=ms, device_ms=dms, plain_ms=pms,
+                                    **(forward if name == "k5_fwd" else backward), **bound)
+                line += (f"\n  {name} {ms:.4f} ms (device {dms:.4f}, plain {pms:.4f}, bound "
+                         f"{bound['bound_ms']:.4f} by {bound['bound_by']})")
             line += (f"\n  SDPA forward {fmt_sdpa(forward)}, backward (dq, dk, dv) "
                      f"{fmt_sdpa(backward)}")
         log(line)
@@ -1204,7 +1208,7 @@ def main():
 
     fwd = "controllora_tpu_torch/csrc/flash_attn_fwd.cu"
     bwd = "controllora_tpu_torch/csrc/flash_attn_bwd.cu"
-    k5 = "controllora_tpu_torch/csrc/flash_stock.cu"
+    k5 = "controllora_tpu_torch/csrc/flash_stock.cu"  # K5's backward; its forward is in fwd
     vjp = "controllora_tpu/ops/pallas_attention_vjp.py"
     stock_tpu = "jax/experimental/pallas/ops/tpu/flash_attention.py"  # via attention.py:73
     kernels = [
@@ -1217,7 +1221,7 @@ def main():
              launches=launches["k3"], **record["k3"]),
         dict(name="k4_flash_bwd_dq", route="cuda", source=bwd, replaces=f"{vjp}:165",
              launches=launches["k4"], **record["k4"]),
-        dict(name="k5_stock_flash_fwd", route="cuda", source=k5, replaces=f"{stock_tpu}:331",
+        dict(name="k5_stock_flash_fwd", route="cuda", source=fwd, replaces=f"{stock_tpu}:331",
              launches=launches["k5_fwd"], **record["k5_fwd"]),
         dict(name="k5_stock_flash_bwd_dkv", route="cuda", source=k5,
              replaces=f"{stock_tpu}:796", launches=launches["k5_dkv"], **record["k5_dkv"]),

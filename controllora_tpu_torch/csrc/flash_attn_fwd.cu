@@ -1,17 +1,25 @@
 // Non-causal dense flash attention, forward only, for NVIDIA Hopper (sm_90a).
 //
-// Replaces two Pallas TPU kernels of the JAX package:
+// Replaces three Pallas TPU kernels, each the forward of one flash attention:
 //   K1  controllora_tpu/ops/pallas_attention.py::_attn_kernel (flash_attention_fwd),
 //       reached through biased_attention: attention over (q + q_bias, k + k_bias,
 //       v + v_bias) with the folded ControlLoRA biases. Entry point k1_biased_flash_fwd.
 //   K2  controllora_tpu/ops/pallas_attention_vjp.py::_fwd_kernel (_fwd): the same
 //       attention, also writing LSE = m + log(l) per query row. Entry point
 //       k2_flash_fwd_lse.
+//   K5  the forward of jax's stock TPU flash attention, which
+//       controllora_tpu/ops/attention.py::_flash_stock reaches
+//       (jax/experimental/pallas/ops/tpu/flash_attention.py::_flash_attention_kernel):
+//       a runtime softmax scale, and the residuals m (the row max of S * scale) and l
+//       (the normaliser at m) in place of LSE. Entry point k5_stock_flash_fwd; its
+//       backward is in flash_stock.cu.
 //
-// Both read and write the (B, L, H*D) projection layout directly: a TMA tensor map
-// views it as the 4-D tensor (D, H, L, B), so a box is one head's rows of one batch,
-// and the copy engine fills columns past D and rows past L with zeros. No head split,
-// merge, pad or slice copy goes through device memory.
+// All three are one kernel. It reads (B, H, L, D) tensors by their strides (D
+// contiguous): a TMA tensor map views each as the 4-D tensor (D, H, L, B), so a box is
+// one head's rows of one batch, and the copy engine fills columns past D and rows past
+// L with zeros. K1 and K2 pass the (B, L, H*D) projection layout as one such view, and
+// K5 the head-split views its caller hands it, so no head split, merge, pad or slice
+// copy goes through device memory. O is written by q's strides.
 //
 // What bounds it on the H100: at the main path's shapes (L 4096, D 40 or 512) the work
 // is 4*L*L*D flops against 8*L*D bytes per head, so it is bound by operations: the
@@ -73,12 +81,16 @@ constexpr int kChunkCols = 64;             // columns of one swizzle span
 constexpr int kRowBytes = kChunkCols * 2;  // 128
 
 struct Params {
-  bf16* o;          // (B, Lq, H*D), written when splits == 1
+  bf16* o;          // (B, H, Lq, D) by the strides o_sb, o_sh, o_sl; when splits == 1
   float* lse;       // (B*H, Lq) or null, written when splits == 1
+  float* m;         // K5's residuals (B*H, Lq) or null (then l is null too): the row max
+  float* l;         //   of S * scale and the normaliser at it; only when splits == 1
   float* o_part;    // (splits, B*H, Lq, D) fp32, normalised per split, when splits > 1
   float* lse_part;  // (splits, B*H, Lq), when splits > 1
+  long long o_sb, o_sh, o_sl;
   int B, H, Lq, Lk, D, splits;
-  float scale_log2;  // softmax scale * log2(e): the kernel works in powers of 2
+  float scale_log2;  // |softmax scale| * log2(e): the kernel works in powers of 2
+  int negate;        // the scale is negative: S is negated, so that S * scale keeps its max
 };
 
 // DS: head dim rounded up to 16 (the depth of S); WIDE: the wide-head design.
@@ -106,38 +118,6 @@ struct Cfg {
   static_assert(!WIDE || DS == 512, "the wide design covers 512 columns");
   static_assert(WIDE || DS <= 80, "the narrow design covers head dims up to 80");
 };
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// One k-step (16 columns of the head) of S = Q K^T: both operands K-major, 128-byte
-// swizzled, 64 columns per chunk; kk = 0 overwrites the accumulator.
-template <int BN>
-__device__ __forceinline__ void s_step(float* sacc, const unsigned char* q_tile,
-                                       const unsigned char* ks, int kk, int q_chunk,
-                                       int kv_chunk) {
-  const int off = (kk & 3) * 32;
-  const uint64_t da = desc_sw128(q_tile + (kk >> 2) * q_chunk + off, 16, 1024);
-  const uint64_t db = desc_sw128(ks + (kk >> 2) * kv_chunk + off, 16, 1024);
-  if constexpr (BN == 64) wgmma_ss_n64(sacc, da, db, kk > 0);
-  else wgmma_ss_n32(sacc, da, db, kk > 0);
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* a, uint64_t db) {
-  if constexpr (N == 48) wgmma_rs_n48(o, a, db);
-  else if constexpr (N == 64) wgmma_rs_n64(o, a, db);
-  else if constexpr (N == 80) wgmma_rs_n80(o, a, db);
-  else wgmma_rs_n256(o, a, db);
-}
 
 template <int DS, int BN, int STAGES, bool WIDE>
 __global__ void __launch_bounds__(Cfg<DS, BN, STAGES, WIDE>::kThreads, (WIDE || DS > 64) ? 1 : 2)
@@ -232,10 +212,14 @@ __global__ void __launch_bounds__(Cfg<DS, BN, STAGES, WIDE>::kThreads, (WIDE || 
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < DS / 16; ++kk)
-      s_step<BN>(sacc, q_tile, ks, kk, C::kQChunk, C::kKVChunk);
+      ss_step<BN>(sacc, q_tile, ks, kk, C::kQChunk, C::kKVChunk);
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs<C::kS>(sacc);
+    if (p.negate) {
+#pragma unroll
+      for (int i = 0; i < C::kS; ++i) sacc[i] = -sacc[i];
+    }
 
     const int key0 = (t_begin + j) * BN;
     if (key0 + BN > p.Lk) {  // the ragged tail: keys at or past Lk do not exist
@@ -276,12 +260,7 @@ __global__ void __launch_bounds__(Cfg<DS, BN, STAGES, WIDE>::kThreads, (WIDE || 
     // O = alpha O + P V, P from registers (A fragment of k-step t: n-tiles 2t, 2t + 1)
     uint32_t pa[BN / 16][4];
 #pragma unroll
-    for (int t = 0; t < BN / 16; ++t) {
-      pa[t][0] = pack_bf16(sacc[8 * t], sacc[8 * t + 1]);
-      pa[t][1] = pack_bf16(sacc[8 * t + 2], sacc[8 * t + 3]);
-      pa[t][2] = pack_bf16(sacc[8 * t + 4], sacc[8 * t + 5]);
-      pa[t][3] = pack_bf16(sacc[8 * t + 6], sacc[8 * t + 7]);
-    }
+    for (int t = 0; t < BN / 16; ++t) acc_to_a(pa[t], sacc, t);
 #pragma unroll
     for (int i = 0; i < C::kO; i += 4) {
       o[i] *= a0;
@@ -295,10 +274,10 @@ __global__ void __launch_bounds__(Cfg<DS, BN, STAGES, WIDE>::kThreads, (WIDE || 
       // 16 keys (2 x 1024 bytes) further along K; the next 64 columns C::kKVChunk on
       const uint64_t db =
           desc_sw128(vs + (col_base / kChunkCols) * C::kKVChunk + t * 2048, C::kKVChunk, 1024);
-      wgmma_pv<C::kN>(o, pa[t], db);
+      rs_step<C::kN>(o, pa[t], db);
     }
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs<C::kO>(o);
     fence_regs<4 * (BN / 16)>(&pa[0][0]);
     __syncwarp();
@@ -317,24 +296,26 @@ __global__ void __launch_bounds__(Cfg<DS, BN, STAGES, WIDE>::kThreads, (WIDE || 
   const float lse0 = l0 > 0.f ? (m0 + __log2f(l0)) * kLn2 : -INFINITY;
   const float lse1 = l1 > 0.f ? (m1 + __log2f(l1)) * kLn2 : -INFINITY;
   const size_t bh = (size_t)b * p.H + h;
-  const bool write_lse = t4 == 0 && (!WIDE || wg == 0);
+  const bool write_rows = t4 == 0 && (!WIDE || wg == 0);
   if (p.splits == 1) {
-    const size_t row_stride = (size_t)p.H * p.D;
-    bf16* out = p.o + (size_t)b * p.Lq * row_stride + (size_t)h * p.D;
-#pragma unroll
-    for (int n = 0; n < C::kO / 4; ++n) {
-      const int col = col_base + n * 8 + t4 * 2;
-      if (col >= p.D) continue;
-      if (r0 < p.Lq)
-        *reinterpret_cast<__nv_bfloat162*>(out + r0 * row_stride + col) =
-            __floats2bfloat162_rn(o[4 * n] * inv0, o[4 * n + 1] * inv0);
-      if (r0 + 8 < p.Lq)
-        *reinterpret_cast<__nv_bfloat162*>(out + (r0 + 8) * row_stride + col) =
-            __floats2bfloat162_rn(o[4 * n + 2] * inv1, o[4 * n + 3] * inv1);
-    }
-    if (p.lse != nullptr && write_lse) {
-      if (r0 < p.Lq) p.lse[bh * p.Lq + r0] = lse0;
-      if (r0 + 8 < p.Lq) p.lse[bh * p.Lq + r0 + 8] = lse1;
+    store_acc_bf16<C::kN>(p.o + b * p.o_sb + h * p.o_sh, p.o_sl, o, inv0, inv1, r0, p.Lq,
+                          col_base, p.D, t4);
+    if (write_rows) {
+      const size_t row0 = bh * p.Lq + r0;
+      if (p.lse != nullptr) {
+        if (r0 < p.Lq) p.lse[row0] = lse0;
+        if (r0 + 8 < p.Lq) p.lse[row0 + 8] = lse1;
+      }
+      if (p.m != nullptr) {  // m back from base 2; l is the same sum in either base
+        if (r0 < p.Lq) {
+          p.m[row0] = m0 * kLn2;
+          p.l[row0] = l0;
+        }
+        if (r0 + 8 < p.Lq) {
+          p.m[row0 + 8] = m1 * kLn2;
+          p.l[row0 + 8] = l1;
+        }
+      }
     }
   } else {
     const size_t part = (size_t)split * p.B * p.H + bh;  // (split, b*H + h)
@@ -350,7 +331,7 @@ __global__ void __launch_bounds__(Cfg<DS, BN, STAGES, WIDE>::kThreads, (WIDE || 
         *reinterpret_cast<float2*>(out + (size_t)(r0 + 8) * p.D + col) =
             make_float2(o[4 * n + 2] * inv1, o[4 * n + 3] * inv1);
     }
-    if (write_lse) {
+    if (write_rows) {
       if (r0 < p.Lq) p.lse_part[part * p.Lq + r0] = lse0;
       if (r0 + 8 < p.Lq) p.lse_part[part * p.Lq + r0 + 8] = lse1;
     }
@@ -423,12 +404,11 @@ cudaError_t bias_add(const bf16* x, const bf16* bias, bf16* out, int B, int L, i
 }
 
 template <class C>
-cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, const Params& p,
-                   cudaStream_t stream) {
+cudaError_t launch(HeadView q, HeadView k, HeadView v, const Params& p, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  cudaError_t err = encode_projection(&tq, q, p.B, p.Lq, p.H, p.D, 64);
-  if (err == cudaSuccess) err = encode_projection(&tk, k, p.B, p.Lk, p.H, p.D, C::kBN);
-  if (err == cudaSuccess) err = encode_projection(&tv, v, p.B, p.Lk, p.H, p.D, C::kBN);
+  cudaError_t err = encode_heads(&tq, q, p.B, p.H, p.Lq, p.D, 64);
+  if (err == cudaSuccess) err = encode_heads(&tk, k, p.B, p.H, p.Lk, p.D, C::kBN);
+  if (err == cudaSuccess) err = encode_heads(&tv, v, p.B, p.H, p.Lk, p.D, C::kBN);
   if (err != cudaSuccess) return err;
   auto kernel = flash_fwd_kernel<C::kDS, C::kBN, C::kStages, C::kWide>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -458,10 +438,10 @@ cudaError_t with_instance(int D, F&& f) {
   return f(Cfg<512, 32, 2, true>{});
 }
 
-cudaError_t dispatch(const bf16* q, const bf16* k, const bf16* v, Params p,
-                     cudaStream_t stream) {
+cudaError_t dispatch(HeadView q, HeadView k, HeadView v, Params p, cudaStream_t stream) {
   if (p.B < 1 || p.H < 1 || p.Lq < 1 || p.Lk < 1 || p.splits < 1 ||
-      (p.splits > 1 && (p.o_part == nullptr || p.lse_part == nullptr)))
+      (p.splits > 1 && (p.o_part == nullptr || p.lse_part == nullptr || p.m != nullptr)) ||
+      (p.m == nullptr) != (p.l == nullptr))
     return cudaErrorInvalidValue;
   return with_instance(p.D, [&](auto cfg) {
     using C = decltype(cfg);
@@ -470,20 +450,27 @@ cudaError_t dispatch(const bf16* q, const bf16* k, const bf16* v, Params p,
   });
 }
 
+// O in the (B, L, H*D) projection layout (K1, K2); K5 sets its own strides.
 Params make_params(void* o, void* lse, void* o_part, void* lse_part, int B, int H, int Lq,
                    int Lk, int D, float scale, int splits) {
   Params p;
   p.o = (bf16*)o;
   p.lse = (float*)lse;
+  p.m = p.l = nullptr;
   p.o_part = (float*)o_part;
   p.lse_part = (float*)lse_part;
+  const HeadView ov = projection_view(o, Lq, H, D);
+  p.o_sb = ov.sb;
+  p.o_sh = ov.sh;
+  p.o_sl = ov.sl;
   p.B = B;
   p.H = H;
   p.Lq = Lq;
   p.Lk = Lk;
   p.D = D;
   p.splits = splits;
-  p.scale_log2 = scale * 1.4426950408889634f;
+  p.scale_log2 = fabsf(scale) * 1.4426950408889634f;
+  p.negate = scale < 0.f;
   return p;
 }
 
@@ -528,7 +515,8 @@ extern "C" int k1_biased_flash_fwd(const void* q, const void* k, const void* v,
     if (err != cudaSuccess) return (int)err;
     in[i] = sum[i];
   }
-  return (int)dispatch((const bf16*)in[0], (const bf16*)in[1], (const bf16*)in[2],
+  return (int)dispatch(projection_view(in[0], Lq, H, D), projection_view(in[1], Lk, H, D),
+                       projection_view(in[2], Lk, H, D),
                        make_params(o, nullptr, o_part, lse_part, B, H, Lq, Lk, D, scale, splits),
                        st);
 }
@@ -537,7 +525,29 @@ extern "C" int k1_biased_flash_fwd(const void* q, const void* k, const void* v,
 extern "C" int k2_flash_fwd_lse(const void* q, const void* k, const void* v, void* o,
                                 void* lse, void* o_part, void* lse_part, int B, int H, int Lq,
                                 int Lk, int D, float scale, int splits, void* stream) {
-  return (int)dispatch((const bf16*)q, (const bf16*)k, (const bf16*)v,
+  return (int)dispatch(projection_view(q, Lq, H, D), projection_view(k, Lk, H, D),
+                       projection_view(v, Lk, H, D),
                        make_params(o, lse, o_part, lse_part, B, H, Lq, Lk, D, scale, splits),
                        (cudaStream_t)stream);
+}
+
+// K5 forward over (B, H, L, D) tensors given by element strides (b, h, l; D
+// contiguous): q and o share q's, k and v share k's. O = softmax(q k^T * scale) v, and
+// m, l (B, H, Lq) fp32: m the row max of the scaled logits, l = sum exp(S * scale - m).
+// One pass over the keys (no split, so no merge of (m, l) is needed: the stock
+// training batch gives enough query tiles). Returns the cudaError_t of the launch.
+extern "C" int k5_stock_flash_fwd(const void* q, const void* k, const void* v, void* o,
+                                  void* m, void* l, int B, int H, int Lq, int Lk, int D,
+                                  long long q_sb, long long q_sh, long long q_sl,
+                                  long long k_sb, long long k_sh, long long k_sl,
+                                  float scale, void* stream) {
+  if (m == nullptr || l == nullptr) return (int)cudaErrorInvalidValue;
+  Params p = make_params(o, nullptr, nullptr, nullptr, B, H, Lq, Lk, D, scale, 1);
+  p.m = (float*)m;
+  p.l = (float*)l;
+  p.o_sb = q_sb;
+  p.o_sh = q_sh;
+  p.o_sl = q_sl;
+  return (int)dispatch({q, q_sb, q_sh, q_sl}, {k, k_sb, k_sh, k_sl}, {v, k_sb, k_sh, k_sl},
+                       p, (cudaStream_t)stream);
 }

@@ -1,7 +1,7 @@
-// Helpers shared by the mma.sync flash-attention kernels (flash_attn_bwd.cu,
-// flash_stock.cu): the bf16 tensor-core product, fragment packing, the tile loaders,
-// the three stages of K5's forward KV loop, and the backward's fragment helpers. K1
-// and K2 (flash_attn_fwd.cu) run on wgmma and TMA instead (hopper.cuh).
+// Helpers shared by the mma.sync flash-attention backward kernels (K4 in
+// flash_attn_bwd.cu, K5's backward in flash_stock.cu): the bf16 tensor-core product,
+// fragment packing, the tile loaders and the fragment helpers. The forward kernels
+// (flash_attn_fwd.cu) and K3 run on wgmma and TMA instead (hopper.cuh).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -12,8 +12,7 @@ namespace flash {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kThreads = 128;   // 4 warps per block
-constexpr float kNegInf = -1e30f;
+constexpr int kThreads = 128;  // 4 warps per block
 
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -73,144 +72,6 @@ __device__ __forceinline__ void load_rows(bf16* s, int ld, int nrows,
     if (c < D)
       val = *reinterpret_cast<const uint4*>(x + (row0 + r) * row_stride + c);
     *reinterpret_cast<uint4*>(s + r * ld + c) = val;
-  }
-}
-
-// ---------------------------------------------------------------- forward KV loop
-// K5's forward (the design K1 and K2 ran before they moved to wgmma): one
-// block of 4 warps owns BM query rows; every KV step loads a kBN-key tile of K and V,
-// then runs the three stages below, separated by __syncthreads().
-
-constexpr int kBN = 64;         // keys per KV tile
-
-template <int DP, int BM>
-struct Tile {
-  static constexpr int kWM = BM / 16;          // warps along query rows
-  static constexpr int kWN = 4 / kWM;          // warps along columns
-  static constexpr int kNTS = (kBN / 8) / kWN; // S n-tiles per warp
-  static constexpr int kNTO = (DP / 8) / kWN;  // O n-tiles per warp
-  static constexpr int kTPR = kThreads / BM;   // softmax threads per row
-  static constexpr int kCPT = kBN / kTPR;      // softmax columns per thread
-  static constexpr int kLDQ = DP + 8;          // bf16 row stride of Q, K, V tiles
-  static constexpr int kLDS = kBN + 4;         // fp32 row stride of S
-  static constexpr int kLDP = kBN + 8;         // bf16 row stride of P
-  static_assert(BM % 16 == 0 && 4 % kWM == 0, "BM must be 16 or 64");
-  static_assert((kBN / 8) % kWN == 0 && (DP / 8) % kWN == 0, "tile split");
-  static_assert(DP % 16 == 0, "DP must be a multiple of 16");
-  static constexpr size_t kSmem = (size_t)(BM + 2 * kBN) * kLDQ * sizeof(bf16) +
-                                  (size_t)BM * kLDS * sizeof(float) +
-                                  (size_t)BM * kLDP * sizeof(bf16) +
-                                  3 * (size_t)BM * sizeof(float);
-};
-
-// Stage 1. S = Q K^T * scale: this warp's 16 rows by kNTS * 8 keys, into shared S.
-// Keys at or past kv_valid (the ragged tail of the last tile) get kNegInf.
-template <int DP, int BM>
-__device__ __forceinline__ void fwd_scores(float* Ss, const bf16* Qs, const bf16* Ks,
-                                           float scale, int kv_valid) {
-  using T = Tile<DP, BM>;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t4 = lane & 3;  // mma fragment row group / column pair
-  const int wm = warp / T::kWN, wn = warp % T::kWN;
-  float s[T::kNTS][4];
-#pragma unroll
-  for (int nt = 0; nt < T::kNTS; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-  const bf16* qa = Qs + wm * 16 * T::kLDQ;
-#pragma unroll
-  for (int kk = 0; kk < DP; kk += 16) {
-    uint32_t a[4];
-    a[0] = ld32(qa + g * T::kLDQ + kk + t4 * 2);
-    a[1] = ld32(qa + (g + 8) * T::kLDQ + kk + t4 * 2);
-    a[2] = ld32(qa + g * T::kLDQ + kk + 8 + t4 * 2);
-    a[3] = ld32(qa + (g + 8) * T::kLDQ + kk + 8 + t4 * 2);
-#pragma unroll
-    for (int nt = 0; nt < T::kNTS; ++nt) {
-      const bf16* kb = Ks + ((wn * T::kNTS + nt) * 8 + g) * T::kLDQ + kk + t4 * 2;
-      mma_bf16(s[nt], a, ld32(kb), ld32(kb + 8));
-    }
-  }
-  const int r0 = wm * 16 + g;
-#pragma unroll
-  for (int nt = 0; nt < T::kNTS; ++nt) {
-    const int col = (wn * T::kNTS + nt) * 8 + t4 * 2;
-    const bool ok0 = col < kv_valid, ok1 = col + 1 < kv_valid;
-    Ss[r0 * T::kLDS + col] = ok0 ? s[nt][0] * scale : kNegInf;
-    Ss[r0 * T::kLDS + col + 1] = ok1 ? s[nt][1] * scale : kNegInf;
-    Ss[(r0 + 8) * T::kLDS + col] = ok0 ? s[nt][2] * scale : kNegInf;
-    Ss[(r0 + 8) * T::kLDS + col + 1] = ok1 ? s[nt][3] * scale : kNegInf;
-  }
-}
-
-// Stage 2. Online softmax over the S tile: P = exp(S - m_new) as bf16 into shared P;
-// row_m (running max), row_l (normalizer at that max) and row_a (the rescale factor
-// of the accumulator, exp(m_old - m_new)) per row. The kTPR threads of a row are
-// neighbours in one warp.
-template <int DP, int BM>
-__device__ __forceinline__ void fwd_softmax(const float* Ss, bf16* Ps, float* row_m,
-                                            float* row_l, float* row_a) {
-  using T = Tile<DP, BM>;
-  const int tid = threadIdx.x;
-  const int r = tid / T::kTPR;
-  const int c0 = (tid % T::kTPR) * T::kCPT;
-  const float m_old = row_m[r];
-  float mx = kNegInf;
-#pragma unroll 8
-  for (int c = 0; c < T::kCPT; ++c) mx = fmaxf(mx, Ss[r * T::kLDS + c0 + c]);
-#pragma unroll
-  for (int off = T::kTPR / 2; off > 0; off >>= 1)
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-  const float m_new = fmaxf(m_old, mx);
-  float sum = 0.f;
-#pragma unroll 8
-  for (int c = 0; c < T::kCPT; ++c) {
-    const float p = __expf(Ss[r * T::kLDS + c0 + c] - m_new);
-    Ps[r * T::kLDP + c0 + c] = __float2bfloat16(p);
-    sum += p;
-  }
-#pragma unroll
-  for (int off = T::kTPR / 2; off > 0; off >>= 1)
-    sum += __shfl_xor_sync(0xffffffffu, sum, off);
-  __syncwarp();
-  if (tid % T::kTPR == 0) {
-    const float alpha = __expf(m_old - m_new);
-    row_a[r] = alpha;
-    row_l[r] = alpha * row_l[r] + sum;
-    row_m[r] = m_new;
-  }
-}
-
-// Stage 3. O = alpha * O + P V: this warp's 16 rows by kNTO * 8 output columns, in
-// the fp32 register accumulator acc.
-template <int DP, int BM>
-__device__ __forceinline__ void fwd_accumulate(float (*acc)[4], const bf16* Ps,
-                                               const bf16* Vs, const float* row_a) {
-  using T = Tile<DP, BM>;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int wm = warp / T::kWN, wn = warp % T::kWN;
-  const float a_lo = row_a[wm * 16 + g], a_hi = row_a[wm * 16 + g + 8];
-#pragma unroll
-  for (int nt = 0; nt < T::kNTO; ++nt) {
-    acc[nt][0] *= a_lo;
-    acc[nt][1] *= a_lo;
-    acc[nt][2] *= a_hi;
-    acc[nt][3] *= a_hi;
-  }
-  const bf16* pa = Ps + wm * 16 * T::kLDP;
-#pragma unroll
-  for (int kk = 0; kk < kBN; kk += 16) {
-    uint32_t a[4];
-    a[0] = ld32(pa + g * T::kLDP + kk + t4 * 2);
-    a[1] = ld32(pa + (g + 8) * T::kLDP + kk + t4 * 2);
-    a[2] = ld32(pa + g * T::kLDP + kk + 8 + t4 * 2);
-    a[3] = ld32(pa + (g + 8) * T::kLDP + kk + 8 + t4 * 2);
-#pragma unroll
-    for (int nt = 0; nt < T::kNTO; ++nt) {
-      const bf16* vb = Vs + (kk + t4 * 2) * T::kLDQ + (wn * T::kNTO + nt) * 8 + g;
-      const uint32_t b0 = pack2(vb[0], vb[T::kLDQ]);
-      const uint32_t b1 = pack2(vb[8 * T::kLDQ], vb[9 * T::kLDQ]);
-      mma_bf16(acc[nt], a, b0, b1);
-    }
   }
 }
 

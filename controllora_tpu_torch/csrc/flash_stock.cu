@@ -1,11 +1,12 @@
-// K5: the stock flash attention, forward and backward, for NVIDIA Hopper (sm_90a).
+// K5: the stock flash attention's backward for NVIDIA Hopper (sm_90a).
 //
-// Replaces the three Pallas TPU kernels that the JAX package reaches through
+// Replaces the Pallas TPU kernels that the JAX package reaches through
 // controllora_tpu/ops/attention.py::_flash_stock (jax's bundled
 // jax/experimental/pallas/ops/tpu/flash_attention.py):
-//   forward  _flash_attention_kernel      -> k5_stock_flash_fwd     (O, m, l)
-//   dK, dV   _flash_attention_dkv_kernel  -> k5_stock_flash_bwd_dkv
-//   dQ       _flash_attention_dq_kernel   -> k5_stock_flash_bwd_dq
+//   forward  _flash_attention_kernel      -> k5_stock_flash_fwd, the wgmma forward
+//                                            kernel of K1/K2 (flash_attn_fwd.cu)
+//   dK, dV   _flash_attention_dkv_kernel  -> k5_stock_flash_bwd_dkv (here)
+//   dQ       _flash_attention_dq_kernel   -> k5_stock_flash_bwd_dq (here)
 //
 // The stock contract, which differs from K2-K4 (flash_attn_*.cu):
 //   * a runtime softmax scale, applied after Q K^T (not fixed to D^-1/2);
@@ -19,23 +20,15 @@
 //   * whole tiles: L is a multiple of the stock block (>= 128), so nothing is masked;
 //   * (B, H, L, D) tensors given by element strides (D contiguous), so the caller's
 //     head-split views of the (B, L, H*D) projections need no copy.
-// The stock forward rescales its accumulator to the running normalizer on every KV
-// step; here the accumulator stays unnormalised and is divided by l once at the end,
-// which is the same function with one division a row instead of one per step.
 //
-// What bounds it on the H100: at the training shape (16, 8, 4096, 40) every kernel is
-// compute bound (the forward runs two L x L x D products per head, dK/dV four, dQ
-// three, against ~8 L D bytes per head), so the work is in tensor-core products:
-// mma.sync m16n8k16, bf16 in, fp32 accumulate. The design is that of K3/K4 and of
-// K1/K2's first design (since replaced by wgmma kernels, flash_attn_fwd.cu):
-//   * forward: one block of 4 warps per (batch*head, BM query rows), a loop over
-//     64-key tiles with S and P through shared memory (the stages in
-//     flash_common.cuh); BM 64 for D <= 80, and for the VAE's
-//     single D = 512 head BM 16 with the output columns split over the warps;
-//   * backward: one block per (batch*head, 64-row tile), S and dP in registers, P and
-//     dS rounded to bf16 straight into the next product's A operand, the dK/dV (or dQ)
-//     accumulators in fp32 registers written once, without atomics (deterministic).
-// It does not yet pipeline loads (cp.async / TMA) or use wgmma: later work.
+// What bounds it on the H100: at the training shape (16, 8, 4096, 40) both kernels are
+// compute bound (dK/dV runs four L x L x D products per head, dQ three, against ~8 L D
+// bytes per head), so the work is in tensor-core products: mma.sync m16n8k16, bf16
+// in, fp32 accumulate. The design is K4's (flash_attn_bwd.cu): one block per
+// (batch*head, 64-row tile), S and dP in registers, P and dS rounded to bf16 straight
+// into the next product's A operand, the dK/dV (or dQ) accumulators in fp32 registers
+// written once, without atomics (deterministic). It does not yet pipeline loads or
+// use wgmma: K3's Hopper design (flash_attn_bwd.cu) is the template for dK/dV.
 
 #include "flash_common.cuh"
 
@@ -50,75 +43,6 @@ struct Strides {
 
 __device__ __forceinline__ long long head_offset(Strides s, int b, int h) {
   return b * s.b + h * s.h;
-}
-
-// ---------------------------------------------------------------- forward
-
-template <int DP, int BM>
-__global__ void __launch_bounds__(kThreads)
-    k5_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, bf16* __restrict__ o,
-                  float* __restrict__ m_out, float* __restrict__ l_out, int H, int Lq,
-                  int Lk, int D, Strides qs, Strides ks, float scale) {
-  using T = Tile<DP, BM>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + BM * T::kLDQ;
-  bf16* Vs = Ks + kBN * T::kLDQ;
-  float* Ss = reinterpret_cast<float*>(Vs + kBN * T::kLDQ);
-  bf16* Ps = reinterpret_cast<bf16*>(Ss + BM * T::kLDS);
-  float* row_m = reinterpret_cast<float*>(Ps + BM * T::kLDP);
-  float* row_l = row_m + BM;
-  float* row_a = row_l + BM;
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int wm = warp / T::kWN, wn = warp % T::kWN;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * BM;
-  const long long qoff = head_offset(qs, b, h), koff = head_offset(ks, b, h);
-
-  load_rows<DP>(Qs, T::kLDQ, BM, q + qoff, qs.l, q0, D);
-  if (tid < BM) {
-    row_m[tid] = kNegInf;
-    row_l[tid] = 0.f;
-  }
-  float acc[T::kNTO][4];
-#pragma unroll
-  for (int nt = 0; nt < T::kNTO; ++nt)
-    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-
-  for (int k0 = 0; k0 < Lk; k0 += kBN) {
-    __syncthreads();  // the previous tile's readers of K, V and P are done
-    load_rows<DP>(Ks, T::kLDQ, kBN, k + koff, ks.l, k0, D);
-    load_rows<DP>(Vs, T::kLDQ, kBN, v + koff, ks.l, k0, D);
-    __syncthreads();
-    fwd_scores<DP, BM>(Ss, Qs, Ks, scale, kBN);
-    __syncthreads();
-    fwd_softmax<DP, BM>(Ss, Ps, row_m, row_l, row_a);
-    __syncthreads();
-    fwd_accumulate<DP, BM>(acc, Ps, Vs, row_a);
-  }
-  __syncthreads();
-
-  const int r0 = wm * 16 + g;
-  const float inv_lo = 1.f / row_l[r0], inv_hi = 1.f / row_l[r0 + 8];
-  bf16* o_lo = o + qoff + (q0 + r0) * qs.l;
-  bf16* o_hi = o_lo + 8 * qs.l;
-#pragma unroll
-  for (int nt = 0; nt < T::kNTO; ++nt) {
-    const int col = (wn * T::kNTO + nt) * 8 + t4 * 2;
-    if (col >= D) continue;
-    *reinterpret_cast<__nv_bfloat162*>(o_lo + col) =
-        __floats2bfloat162_rn(acc[nt][0] * inv_lo, acc[nt][1] * inv_lo);
-    *reinterpret_cast<__nv_bfloat162*>(o_hi + col) =
-        __floats2bfloat162_rn(acc[nt][2] * inv_hi, acc[nt][3] * inv_hi);
-  }
-  if (tid < BM) {
-    m_out[(size_t)bh * Lq + q0 + tid] = row_m[tid];
-    l_out[(size_t)bh * Lq + q0 + tid] = row_l[tid];
-  }
 }
 
 // ---------------------------------------------------------------- dK, dV
@@ -316,18 +240,6 @@ cudaError_t set_smem(Kernel kernel, size_t smem) {
                               (int)smem);
 }
 
-template <int DP, int BM>
-cudaError_t launch_fwd(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* m,
-                       float* l, int B, int H, int Lq, int Lk, int D, Strides qs,
-                       Strides ks, float scale, cudaStream_t stream) {
-  const size_t smem = Tile<DP, BM>::kSmem;
-  cudaError_t err = set_smem(k5_fwd_kernel<DP, BM>, smem);
-  if (err != cudaSuccess) return err;
-  k5_fwd_kernel<DP, BM><<<dim3(Lq / BM, B * H), kThreads, smem, stream>>>(
-      q, k, v, o, m, l, H, Lq, Lk, D, qs, ks, scale);
-  return cudaGetLastError();
-}
-
 template <int DP>
 cudaError_t launch_dkv(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
                        const float* m, const float* l, const float* di, bf16* dk,
@@ -356,36 +268,18 @@ cudaError_t launch_dq(const bf16* q, const bf16* k, const bf16* v, const bf16* d
 
 // Whole 64-row tiles on both sides, head dims the instances take, one grid row per
 // (batch, head).
-bool valid_shape(int B, int H, int Lq, int Lk, int D, int max_d) {
+bool valid_shape(int B, int H, int Lq, int Lk, int D) {
   return B >= 1 && H >= 1 && Lq >= kB && Lk >= kB && Lq % kB == 0 && Lk % kB == 0 &&
-         D >= 8 && D % 8 == 0 && D <= max_d && B * H <= 65535;
+         D >= 8 && D % 8 == 0 && D <= 80 && B * H <= 65535;
 }
 
 }  // namespace
 
-// One instance per head dim the ported models give on this path: DP 48 (SD1.5's
-// D = 40), 80 (its 768² tail) and, in the forward only, 512 (the VAE encoder's single
-// head, whose attention is frozen and never differentiated). Any other D (a multiple
-// of 8) is zero padded to the next instance; wider heads are refused
-// (cudaErrorInvalidValue). Each entry point returns the cudaError_t of its launch.
-
-// Forward: o (strides of q), m and l (B, H, Lq) fp32.
-extern "C" int k5_stock_flash_fwd(const void* q, const void* k, const void* v, void* o,
-                                  void* m, void* l, int B, int H, int Lq, int Lk, int D,
-                                  long long q_sb, long long q_sh, long long q_sl,
-                                  long long k_sb, long long k_sh, long long k_sl,
-                                  float scale, void* stream) {
-  if (!valid_shape(B, H, Lq, Lk, D, 512)) return (int)cudaErrorInvalidValue;
-  const Strides qs{q_sb, q_sh, q_sl}, ks{k_sb, k_sh, k_sl};
-#define CL_LAUNCH(DP, BM)                                                              \
-  return (int)launch_fwd<DP, BM>((const bf16*)q, (const bf16*)k, (const bf16*)v,       \
-                                 (bf16*)o, (float*)m, (float*)l, B, H, Lq, Lk, D, qs,  \
-                                 ks, scale, (cudaStream_t)stream)
-  if (D <= 48) CL_LAUNCH(48, 64);
-  if (D <= 80) CL_LAUNCH(80, 64);
-  CL_LAUNCH(512, 16);
-#undef CL_LAUNCH
-}
+// One instance per head dim the trained UNet gives on this path: DP 48 (SD1.5's
+// D = 40) and 80 (its 768² tail); any other D (a multiple of 8) is zero padded to the
+// next instance; wider heads are refused (cudaErrorInvalidValue): the VAE encoder's
+// D = 512 attention is frozen and never differentiated. Each entry point returns the
+// cudaError_t of its launch.
 
 // dK, dV with the strides of k (v, dk and dv share them); dout shares q's.
 extern "C" int k5_stock_flash_bwd_dkv(const void* q, const void* k, const void* v,
@@ -395,7 +289,7 @@ extern "C" int k5_stock_flash_bwd_dkv(const void* q, const void* k, const void* 
                                       long long q_sh, long long q_sl, long long k_sb,
                                       long long k_sh, long long k_sl, float scale,
                                       void* stream) {
-  if (!valid_shape(B, H, Lq, Lk, D, 80)) return (int)cudaErrorInvalidValue;
+  if (!valid_shape(B, H, Lq, Lk, D)) return (int)cudaErrorInvalidValue;
   const Strides qs{q_sb, q_sh, q_sl}, ks{k_sb, k_sh, k_sl};
 #define CL_LAUNCH(DP)                                                                  \
   return (int)launch_dkv<DP>((const bf16*)q, (const bf16*)k, (const bf16*)v,           \
@@ -414,7 +308,7 @@ extern "C" int k5_stock_flash_bwd_dq(const void* q, const void* k, const void* v
                                      int Lk, int D, long long q_sb, long long q_sh,
                                      long long q_sl, long long k_sb, long long k_sh,
                                      long long k_sl, float scale, void* stream) {
-  if (!valid_shape(B, H, Lq, Lk, D, 80)) return (int)cudaErrorInvalidValue;
+  if (!valid_shape(B, H, Lq, Lk, D)) return (int)cudaErrorInvalidValue;
   const Strides qs{q_sb, q_sh, q_sl}, ks{k_sb, k_sh, k_sl};
 #define CL_LAUNCH(DP)                                                                  \
   return (int)launch_dq<DP>((const bf16*)q, (const bf16*)k, (const bf16*)v,            \

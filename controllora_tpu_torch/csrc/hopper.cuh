@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks of the forward flash kernels (flash_attn_fwd.cu):
-// mbarriers, TMA loads through a tensor map of the (B, L, H*D) projection layout,
-// wgmma shared-memory descriptors for 128-byte swizzled tiles, and the wgmma
-// instructions the kernels issue.
+// Hopper (sm_90a) building blocks of the wgmma flash kernels (flash_attn_fwd.cu, and
+// K3 in flash_attn_bwd.cu): mbarriers, TMA loads through tensor maps of (B, H, L, D)
+// bf16 views given by their strides, wgmma shared-memory descriptors for 128-byte
+// swizzled tiles, the wgmma instructions the kernels issue, and the steps and epilogue
+// they share.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is reached through the runtime
@@ -89,23 +90,37 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A (B, L, H*D) bf16 projection as the 4-D tensor (D, H, L, B), innermost first. A box
-// is 64 columns (one 128-byte swizzle span) of `rows` rows of one head of one batch;
-// columns past D and rows past L are filled with zeros by the copy engine. Needs a
-// 16-byte aligned base and D a multiple of 8 (every stride a multiple of 16 bytes).
-inline cudaError_t encode_projection(CUtensorMap* map, const void* base, int B, int L, int H,
-                                     int D, int rows) {
+// A (B, H, L, D) bf16 tensor, given by its base and the element strides of B, H and L
+// (D is contiguous). The (B, L, H*D) projection is the view (L*H*D, D, H*D).
+struct HeadView {
+  const void* base;
+  long long sb, sh, sl;
+};
+
+inline HeadView projection_view(const void* base, int L, int H, int D) {
+  return {base, (long long)L * H * D, D, (long long)H * D};
+}
+
+// The view as the 4-D tensor (D, H, L, B), innermost first. A box is 64 columns (one
+// 128-byte swizzle span) of `rows` rows of one head of one batch; columns past D and
+// rows past L are filled with zeros by the copy engine. Needs a 16-byte aligned base,
+// D and every stride a multiple of 8 elements (16 bytes); ops/flash_attention.py's
+// head_geometry makes the same checks on the host.
+inline cudaError_t encode_heads(CUtensorMap* map, HeadView x, int B, int H, int L, int D,
+                                int rows) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
-  if (reinterpret_cast<uintptr_t>(base) % 16 || D % 8) return cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(x.base) % 16 || D % 8 || x.sb % 8 || x.sh % 8 || x.sl % 8 ||
+      x.sb < 0 || x.sh < 0 || x.sl < 0)
+    return cudaErrorInvalidValue;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)L, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
-                                 (cuuint64_t)L * H * D * 2};
+  const cuuint64_t strides[3] = {(cuuint64_t)x.sh * 2, (cuuint64_t)x.sl * 2,
+                                 (cuuint64_t)x.sb * 2};
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   const CUresult r =
-      fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
-         elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x.base), dims, strides,
+         box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
          CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
@@ -130,8 +145,10 @@ __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// Wait until at most N committed wgmma groups are still in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // Keep the compiler from moving register reads or writes across an asynchronous wgmma.
@@ -293,6 +310,73 @@ __device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t* a, uint6
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
         "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
+}
+
+// ------------------------------------------------------------------------ shared steps
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// One k-step (16 columns of the head) of d = A B^T over 64 rows of A and N = 64 or 32
+// rows of B, both K-major tiles (a row per token, the head's columns contiguous), 128-
+// byte swizzled, 64 columns per chunk of a_chunk / b_chunk bytes; kk = 0 overwrites d.
+template <int N>
+__device__ __forceinline__ void ss_step(float* d, const unsigned char* a_tile,
+                                        const unsigned char* b_tile, int kk, int a_chunk,
+                                        int b_chunk) {
+  const int off = (kk & 3) * 32;
+  const uint64_t da = desc_sw128(a_tile + (kk >> 2) * a_chunk + off, 16, 1024);
+  const uint64_t db = desc_sw128(b_tile + (kk >> 2) * b_chunk + off, 16, 1024);
+  if constexpr (N == 64) wgmma_ss_n64(d, da, db, kk > 0);
+  else wgmma_ss_n32(d, da, db, kk > 0);
+}
+
+// d (64 x N) += A (64 x 16, registers) * B (16 x N), B rows of a token-major tile read
+// through the transpose bit (MN-major descriptor db).
+template <int N>
+__device__ __forceinline__ void rs_step(float* d, const uint32_t* a, uint64_t db) {
+  if constexpr (N == 48) wgmma_rs_n48(d, a, db);
+  else if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  else if constexpr (N == 80) wgmma_rs_n80(d, a, db);
+  else wgmma_rs_n256(d, a, db);
+}
+
+// The A operand of k-step t (columns 16t..16t+15) from a 64-row fp32 accumulator,
+// rounded to bf16: n-tiles 2t and 2t + 1 of the accumulator are that fragment.
+__device__ __forceinline__ void acc_to_a(uint32_t* a, const float* acc, int t) {
+  a[0] = pack_bf16(acc[8 * t], acc[8 * t + 1]);
+  a[1] = pack_bf16(acc[8 * t + 2], acc[8 * t + 3]);
+  a[2] = pack_bf16(acc[8 * t + 4], acc[8 * t + 5]);
+  a[3] = pack_bf16(acc[8 * t + 6], acc[8 * t + 7]);
+}
+
+// Store a warp's rows r0 and r0 + 8 of a 64 x N fp32 accumulator (n-tile n holds
+// columns col0 + 8n + 2 t4, +1; registers 4n, 4n + 1 of row r0, 4n + 2, 4n + 3 of
+// r0 + 8), times mul0 / mul1, as bf16 at out + row * row_stride + column. Columns at
+// or past D and rows at or past L are not stored.
+template <int N>
+__device__ __forceinline__ void store_acc_bf16(__nv_bfloat16* out, long long row_stride,
+                                               const float* acc, float mul0, float mul1,
+                                               int r0, int L, int col0, int D, int t4) {
+#pragma unroll
+  for (int n = 0; n < N / 8; ++n) {
+    const int col = col0 + n * 8 + t4 * 2;
+    if (col >= D) continue;
+    if (r0 < L)
+      *reinterpret_cast<__nv_bfloat162*>(out + r0 * row_stride + col) =
+          __floats2bfloat162_rn(acc[4 * n] * mul0, acc[4 * n + 1] * mul0);
+    if (r0 + 8 < L)
+      *reinterpret_cast<__nv_bfloat162*>(out + (r0 + 8) * row_stride + col) =
+          __floats2bfloat162_rn(acc[4 * n + 2] * mul1, acc[4 * n + 3] * mul1);
+  }
 }
 
 }  // namespace hopper

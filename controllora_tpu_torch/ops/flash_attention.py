@@ -17,11 +17,12 @@ Counterparts of the JAX package's flash-attention Pallas kernels:
 counterpart of the JAX ``flash_attention`` ``custom_vjp``.
 
 K1 and K2 live in ``csrc/flash_attn_fwd.cu`` (wgmma, a TMA-fed K/V ring, softmax in
-registers; ``csrc/hopper.cuh``), K3 and K4 in ``csrc/flash_attn_bwd.cu`` (see their
-headers for the design). All take the projections in the (B, L, H*D) layout the
-attention layers produce, so no head split or padding copy is made; K1 and K2 read
-them through TMA tensor maps (``tma_geometry``). The JAX block-size policy
-(``pick_block``, ``serving_blocks``) does not carry over: each kernel sizes its own
+registers; ``csrc/hopper.cuh``), K3 and K4 in ``csrc/flash_attn_bwd.cu`` (K3 on
+wgmma with a TMA-fed ring of query tiles, K4 on mma.sync; see their headers for the
+design). All take the projections in the (B, L, H*D) layout the attention layers
+produce, so no head split or padding copy is made; K1, K2 and K3 read them through
+TMA tensor maps (``tma_geometry``, one case of ``head_geometry``). The JAX block-size
+policy (``pick_block``, ``serving_blocks``) does not carry over: each kernel sizes its own
 tiles (``fwd_tiles`` reports K1/K2's), and heads wider than 80 split the key range
 where the query tiles alone leave SMs idle (``kv_splits``).
 
@@ -55,7 +56,7 @@ BUILD_DIR = CSRC / "_build"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAX_HEAD_DIM = 512
-MAX_BWD_HEAD_DIM = 80  # K3/K4 instances: DP 48 and 80
+MAX_BWD_HEAD_DIM = 80  # K3 instances: DS 48, 64, 80; K4: DP 48 and 80
 
 LAUNCHES: Dict[str, int] = {"k1": 0, "k2": 0, "k3": 0, "k4": 0}
 
@@ -154,23 +155,35 @@ def build_kernels() -> ctypes.CDLL:
 # ---------------------------------------------------------------------------- checks
 
 
-def tma_geometry(x, heads: int, name: str = "x") -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
-    """The 4-D view (D, H, L, B), innermost first, through which the K1/K2 tensor maps
-    read a (B, L, H*D) projection, and the byte strides of its dims 1-3. The copy
-    engine needs a contiguous 16-byte aligned base and strides that are multiples of
-    16 bytes (D a multiple of 8 in bf16); raises ValueError otherwise."""
-    b, length, inner = x.shape
-    d = inner // heads
+def head_geometry(x, name: str = "x") -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """The 4-D view (D, H, L, B), innermost first, through which a tensor map reads a
+    (B, H, L, D) tensor by its strides (``encode_heads`` in csrc/hopper.cuh), and the
+    byte strides of its dims 1-3 (those of H, L and B). The copy engine needs a
+    contiguous last dim, a 16-byte aligned base and strides that are multiples of 16
+    bytes (D and every stride a multiple of 8 in bf16); raises ValueError otherwise."""
+    if x.dim() != 4:
+        raise ValueError(f"{name} must be (B, H, L, D), got {tuple(x.shape)}")
+    b, h, length, d = x.shape
     size = x.element_size()
-    dims = (d, heads, length, b)
-    strides = (d * size, inner * size, length * inner * size)
+    sb, sh, sl, sd = x.stride()
+    if sd != 1 and d > 1:
+        raise ValueError(f"{name} {tuple(x.shape)} with strides {x.stride()} needs a "
+                         "contiguous last dim")
+    strides = (sh * size, sl * size, sb * size)
+    if x.data_ptr() % 16 or (d * size) % 16 or any(st % 16 for st in strides):
+        raise ValueError(f"{name}: a tensor map needs a 16-byte aligned base (offset "
+                         f"{x.data_ptr() % 16}), D a multiple of {16 // size} and 16-byte "
+                         f"multiple strides, got D {d}, strides {strides}")
+    return (d, h, length, b), strides
+
+
+def tma_geometry(x, heads: int, name: str = "x") -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """``head_geometry`` of a contiguous (B, L, H*D) projection, read as its head-split
+    view: dims (D, H, L, B) and byte strides (2D, 2HD, 2LHD) in bf16."""
     if not x.is_contiguous():
         raise ValueError(f"{name} {tuple(x.shape)} with strides {x.stride()} is not "
                          "contiguous")
-    if x.data_ptr() % 16 or any(st % 16 for st in strides):
-        raise ValueError(f"{name}: a tensor map needs a 16-byte aligned base (offset "
-                         f"{x.data_ptr() % 16}) and 16-byte multiple strides {strides}")
-    return dims, strides
+    return head_geometry(split_heads(x, heads), name)
 
 
 def fwd_tiles(d: int) -> Tuple[int, int, int]:

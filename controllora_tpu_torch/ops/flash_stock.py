@@ -13,8 +13,11 @@ bundled ``jax/experimental/pallas/ops/tpu/flash_attention.py``: the forward
   * ``FlashStockAttention`` (``torch.autograd.Function``) ties them together, and
     ``stock_flash_attention`` is the entry point with ``_flash_stock``'s block rule.
 
-All kernels live in ``csrc/flash_stock.cu`` and take (B, H, L, D) tensors by their
-strides, so the head-split views of the (B, L, H*D) projections go in without a copy.
+The forward runs on K1/K2's wgmma kernel (``csrc/flash_attn_fwd.cu``, which writes m
+and l in place of LSE), the backward kernels live in ``csrc/flash_stock.cu``. All take
+(B, H, L, D) tensors by their strides, so the head-split views of the (B, L, H*D)
+projections go in without a copy; the forward reads them through TMA tensor maps
+(``head_geometry``) and writes O by q's strides.
 The softmax scale is a runtime argument. Lengths are whole blocks: ``pick_block``
 (copied from ``controllora_tpu/ops/pallas_attention.py``) picks the block as
 ``_flash_stock`` does, and the same exception types are raised where jax's kernel
@@ -31,7 +34,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from controllora_tpu_torch.ops.flash_attention import build_kernels
+from controllora_tpu_torch.ops.flash_attention import build_kernels, head_geometry
 
 MIN_BLOCK_SIZE = 128  # the stock kernel's smallest block (jax NUM_LANES)
 MAX_HEAD_DIM = 512
@@ -100,9 +103,7 @@ def _check_cuda(q, k, v, max_d: int, q_side=(), k_side=()) -> Tuple[int, int, in
             if t.shape != ref.shape or t.stride() != ref.stride():
                 raise ValueError(f"{name} {tuple(t.shape)} {t.stride()} must have the shape "
                                  f"and strides of {tuple(ref.shape)} {ref.stride()}")
-            if t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
-                raise ValueError(f"{name} needs a contiguous last dim, strides that are "
-                                 f"multiples of 8 and 16-byte alignment, got {t.stride()}")
+            head_geometry(t, name)
     return b, h, lq, k.shape[2], d
 
 
@@ -169,7 +170,7 @@ def stock_flash_bwd_dq_plain(q, k, v, do, m, l, di, sm_scale: float):
 
 def stock_flash_fwd(q, k, v, sm_scale: float):
     """K5 forward over (B, H, L, D): (O with q's strides, m, l). CPU tensors take the
-    plain version; CUDA tensors launch the kernel (bf16, whole 64-row tiles) or raise."""
+    plain version; CUDA tensors launch the kernel (bf16) or raise."""
     if q.device.type == "cpu":
         return stock_flash_fwd_plain(q, k, v, sm_scale)
     b, h, lq, lk, d = _check_cuda(q, k, v, MAX_HEAD_DIM)

@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from controllora_tpu_torch.ops import flash_attention as fa
-from controllora_tpu_torch.ops.attention import dot_product_attention
+from controllora_tpu_torch.ops.attention import dot_product_attention, split_heads
 
 ATOL = 2e-5
 
@@ -239,6 +239,51 @@ def test_tma_geometry_refuses_what_a_tensor_map_cannot_read():
         fa.tma_geometry(torch.zeros((4, 80, 64), dtype=torch.bfloat16).transpose(1, 2), heads)
     with pytest.raises(ValueError, match="multiple"):
         fa.tma_geometry(torch.zeros((4, 64, 8), dtype=torch.bfloat16), heads)  # D 4: 8 bytes
+
+
+@pytest.mark.parametrize("layout,shape", [("contiguous", (2, 8, 256, 40)),
+                                          ("projection", (2, 8, 256, 40)),
+                                          ("contiguous", (16, 1, 64, 512)),
+                                          ("projection", (3, 4, 333, 80))])
+def test_head_geometry_of_k5_views(layout, shape):
+    """K5 hands its (B, H, L, D) inputs to the stride-general tensor-map encoder by
+    their strides: a contiguous tensor (strides of H above those of L) or the head-split
+    view of a (B, L, H*D) projection, for which head_geometry gives tma_geometry's
+    numbers. The (d, h, l, b) element sits at the byte offset the strides give."""
+    b, h, length, d = shape
+    if layout == "contiguous":
+        flat = torch.arange(b * h * length * d, dtype=torch.float32).reshape(shape)
+    else:
+        flat = split_heads(torch.arange(b * h * length * d, dtype=torch.float32)
+                           .reshape(b, length, h * d), h)
+        proj = torch.zeros((b, length, h * d), dtype=torch.bfloat16)
+        assert fa.head_geometry(split_heads(proj, h)) == fa.tma_geometry(proj, h)
+    x = torch.zeros_like(flat, dtype=torch.bfloat16)  # the same strides in bf16
+    assert x.stride() == flat.stride()
+    dims, strides = fa.head_geometry(x)
+    assert dims == (d, h, length, b)
+    sb, sh, sl, _ = flat.stride()
+    assert strides == (2 * sh, 2 * sl, 2 * sb)
+    i = (d - 1, h - 1, length // 2, b - 1)
+    offset = i[0] * 2 + sum(c * st for c, st in zip(i[1:], strides))
+    assert flat[i[3], i[1], i[2], i[0]].item() == offset // 2
+
+
+def test_head_geometry_refuses_what_a_tensor_map_cannot_read():
+    """What the K5 wrapper refuses with ValueError before any launch: a strided last
+    dim, a head dim or stride that is no multiple of 16 bytes, a base off 16 bytes, a
+    tensor that is not (B, H, L, D)."""
+    with pytest.raises(ValueError, match="contiguous last dim"):
+        fa.head_geometry(torch.zeros((1, 2, 64, 64), dtype=torch.bfloat16).transpose(2, 3))
+    with pytest.raises(ValueError, match="multiple"):  # rows 44 wide: 88-byte strides
+        fa.head_geometry(torch.zeros((1, 2, 64, 44), dtype=torch.bfloat16)[..., :40])
+    with pytest.raises(ValueError, match="multiple"):  # D 4: 8 bytes
+        fa.head_geometry(torch.zeros((1, 2, 64, 4), dtype=torch.bfloat16))
+    base = torch.zeros(2 * 64 * 40 + 8, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.head_geometry(base[1:1 + 2 * 64 * 40].view(1, 2, 64, 40))
+    with pytest.raises(ValueError, match=r"\(B, H, L, D\)"):
+        fa.head_geometry(torch.zeros((2, 64, 40), dtype=torch.bfloat16))
 
 
 WIDE, NARROW = (64, 32, 8), (128, 64, 1)  # (rows, keys, most splits) of K1/K2's instances

@@ -170,12 +170,14 @@ def bound(ref):
 
 @pytest.mark.parametrize("b,heads,l,d", [(8, 8, 4096, 40), (2, 8, 2304, 80),
                                          (1, 8, 7744, 40), (2, 8, 4225, 40),
-                                         (1, 8, 300, 80)])
+                                         (1, 8, 300, 80), (2, 8, 1024, 64),
+                                         (2, 4, 40, 40), (1, 2, 40, 64)])
 def test_k3_k4_match_plain(cuda, b, heads, l, d):
     """dQ, dK, dV from O and LSE of K2, against the plain versions in fp32 on the
     same bf16 inputs and the same Dcap: the training shape, the 384² and 704²
-    latents, and two ragged L (not a multiple of the 64-row tile: the kernels set
-    P to 0 by index past L)."""
+    latents, D 64 (K3's third instance), two ragged L (not a multiple of the 64-row
+    tile: the kernels set P to 0 by index past L) and L 40, under one query tile and
+    one 128-key tile of K3."""
     q, k, v, do = (randn((b, l, heads * d), s, cuda) for s in range(4))
     o, lse = fa.flash_attention(q, k, v, heads)
     dcap = fa.attention_dcap(o, do, heads)
@@ -220,16 +222,47 @@ def heads_view(b, heads, l, d, seed, device):
 
 
 @pytest.mark.parametrize("b,heads,l,d,scale", [(2, 8, 1024, 40, None), (2, 4, 256, 80, 0.3),
-                                               (1, 1, 1024, 512, None), (2, 8, 4096, 40, 0.3)])
+                                               (1, 1, 1024, 512, None), (2, 8, 4096, 40, 0.3),
+                                               (16, 1, 4096, 512, None), (2, 8, 1024, 64, None),
+                                               (2, 4, 256, 40, -0.2)])
 def test_k5_fwd_matches_plain(cuda, b, heads, l, d, scale):
     """O, m and l of the stock forward against its plain version in fp32 on the same
-    bf16 inputs, at the default and a non-default softmax scale."""
+    bf16 inputs, at the default, a non-default and a negative softmax scale, at the
+    stock step's VAE encoder shape (D 512) and at D 64."""
     scale = d**-0.5 if scale is None else scale
     q, k, v = (heads_view(b, heads, l, d, s, cuda) for s in range(3))
     fs.reset_launch_counts()
     o, m, lsum = fs.stock_flash_fwd(q, k, v, scale)
     torch.cuda.synchronize()
     assert fs.LAUNCHES == {"k5_fwd": 1, "k5_dkv": 0, "k5_dq": 0}
+    o_ref, m_ref, l_ref = fs.stock_flash_fwd_plain(q.float(), k.float(), v.float(), scale)
+    assert o.stride() == q.stride()
+    assert (o.float() - o_ref).abs().max().item() <= 1e-2
+    assert ((m - m_ref).abs() / m_ref.abs().clamp(min=1)).max().item() <= 1e-3
+    assert ((lsum - l_ref).abs() / l_ref).max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("q_layout,lq,lk,d", [("contiguous", 1024, 1024, 40),
+                                              ("contiguous", 512, 2048, 80),
+                                              ("projection", 2048, 512, 64),
+                                              ("contiguous", 256, 1024, 512)])
+def test_k5_fwd_takes_any_layout(cuda, q_layout, lq, lk, d):
+    """The forward reads (B, H, L, D) tensors by their strides: q as a contiguous
+    tensor (strides of H above those of L) or a projection's head-split view, k and v
+    in the other layout, Lq != Lk. O comes back with q's strides."""
+    b, heads, scale = 2, 4, 0.125
+
+    def make(length, layout, seed):
+        x = heads_view(b, heads, length, d, seed, cuda)
+        return x.contiguous() if layout == "contiguous" else x
+
+    k_layout = "projection" if q_layout == "contiguous" else "contiguous"
+    q = make(lq, q_layout, 0)
+    k, v = make(lk, k_layout, 1), make(lk, k_layout, 2)
+    assert q.stride() != k.stride()
+    o, m, lsum = fs.stock_flash_fwd(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES["k5_fwd"] == 1
     o_ref, m_ref, l_ref = fs.stock_flash_fwd_plain(q.float(), k.float(), v.float(), scale)
     assert o.stride() == q.stride()
     assert (o.float() - o_ref).abs().max().item() <= 1e-2
