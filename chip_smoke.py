@@ -7,7 +7,7 @@ Phases, each of which raises (non-zero exit, no result line) when it fails:
   1. device   the CUDA device, its name and power limit (nvidia-smi); TF32 off.
   2. build    nvcc builds the hand-written kernels from controllora_tpu_torch/csrc;
               the -Xptxas -v report of each kernel (registers, spills, wgmma
-              serialisation).
+              serialisation); a spill or a serialised wgmma fails the phase.
   3. kernels  K1-K4 against their plain PyTorch versions on the card, bf16 inputs,
               at the serving and training paths' shapes, other resolutions' shapes,
               and (K3/K4) D 64 and ragged L, not a multiple of the 64-row tile; at every
@@ -17,11 +17,13 @@ Phases, each of which raises (non-zero exit, no result line) when it fails:
               call on the same inputs as a yardstick. The gradient of FlashAttention
               (K2 forward, K3 + K4 backward) against autograd of the plain fp32
               attention, at the training shape and a ragged one. Then K5 (jax's
-              stock flash: forward with m and l, dK/dV, dQ) against its plain
-              versions at the batch-16 training shape, the VAE encoder's D 512, the
-              768² tail and a non-default softmax scale, with times, bounds and SDPA
-              (the forward also at the VAE encoder's shape);
-              L 4225 raises; the gradient of FlashStockAttention against autograd.
+              stock flash: forward with m and l, dK/dV and dQ on K3's and K4's
+              kernels) against its plain versions at the batch-16 training shape, the
+              VAE encoder's D 512, the 768² tail, D 64, a non-default and a negative
+              softmax scale, and contiguous (B, H, L, D) tensors beside the head-split
+              views, with times, bounds and SDPA (the forward also at the VAE
+              encoder's shape); L 4225 raises; the gradient of FlashStockAttention
+              against autograd.
   4. parity   full-width SD1.5 (random seeded bf16 weights) + the `base` ControlLoRA
               (perturbed so the folded biases are nonzero): one folded UNet eval,
               one VAE decode and the CLIP encoder on the card against the same
@@ -51,8 +53,8 @@ Phases, each of which raises (non-zero exit, no result line) when it fails:
               memory; then 2 steps each of remat `nothing` and no remat.
  11. CLI smoke  the smoke-variant CLI with 8-bit AdamW, remat, checkpoints and the
               latent cache: 4 steps straight against 2 + resume latest for 2.
-The last lines are the kernel record, the card's name and power limit, and
-{"ok": true, "device": {...}}.
+The last lines are the kernel record (each route with the CUDA kernel it launches),
+the card's name and power limit, and {"ok": true, "device": {...}}.
 """
 
 import gc
@@ -113,13 +115,25 @@ def device_ms(fn, iters=10):
     """Mean device milliseconds of fn() over `iters` runs under torch.profiler: the
     summed durations of the kernels and memory operations it issued. CUDA events
     around one call (cuda_ms) also take in the host's time to issue the call, which
-    a sub-millisecond kernel does not hide; this time leaves it out."""
+    a sub-millisecond kernel does not hide; this time leaves it out. Where a window
+    records no device activity, one more window of 3 * iters calls is profiled; None
+    if that records none either (logged with the names the profiler did record)."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    _, busy, _ = device_profile(torch, lambda: [fn() for _ in range(iters)])
-    return busy * 1e3 / iters
+    for n in (iters, 3 * iters):
+        _, busy, top = device_profile(torch, lambda: [fn() for _ in range(n)])
+        if busy > 0:
+            return busy * 1e3 / n
+    log(f"  device_ms: no device activity in {iters} + {3 * iters} profiled calls; "
+        f"events recorded: {sorted(top)[:8]}")
+    return None
+
+
+def num(ms):
+    """A time for the log: 4 decimals, or "not measured" for None."""
+    return "not measured" if ms is None else f"{ms:.4f}"
 
 
 def rel_l2(out, ref):
@@ -188,9 +202,11 @@ def sdpa_ms(torch, q, k, v, scale=None, do=None):
     if not times:
         return {"library_ms": None, "library_backend": None, "library_device_ms": None,
                 "library_device_backend": None, "library_backends": {}}
-    best, best_device = min(times, key=times.get), min(device, key=device.get)
+    best = min(times, key=times.get)
+    measured = {name: ms for name, ms in device.items() if ms is not None}
+    best_device = min(measured, key=measured.get) if measured else None
     return {"library_ms": times[best], "library_backend": best,
-            "library_device_ms": device[best_device], "library_device_backend": best_device,
+            "library_device_ms": measured.get(best_device), "library_device_backend": best_device,
             "library_backends": {name: [times[name], device[name]] for name in times}}
 
 
@@ -199,10 +215,10 @@ def fmt_sdpa(library):
     device)."""
     if library["library_ms"] is None:
         return "none ran"
-    each = ", ".join(f"{name.split('_')[0].lower()} {ms:.4f} / {dms:.4f}"
+    each = ", ".join(f"{name.split('_')[0].lower()} {ms:.4f} / {num(dms)}"
                      for name, (ms, dms) in library["library_backends"].items())
     return (f"{library['library_ms']:.4f} ms ({library['library_backend']}), device "
-            f"{library['library_device_ms']:.4f} ms ({library['library_device_backend']}); "
+            f"{num(library['library_device_ms'])} ms ({library['library_device_backend']}); "
             f"events / device: {each}")
 
 
@@ -237,13 +253,14 @@ def kernel_label(mangled):
 
 
 def ptxas_report(fa):
-    """One line per kernel of the `-Xptxas -v` reports the build keeps beside its
-    objects: registers, spill bytes and whether ptxas serialised its wgmma (warning
-    C7512). Empty where the library was built by an earlier run."""
+    """The `-Xptxas -v` reports the build keeps beside its objects, one dict per
+    kernel instance: its source, label, registers, spill bytes and whether ptxas
+    serialised its wgmma (warning C7512). Empty where the library was built by an
+    earlier run."""
     import glob
     import re
 
-    lines = []
+    entries = []
     pattern = str(fa.BUILD_DIR / f"{fa.library_path().stem}.*.o.log")
     for path in sorted(glob.glob(pattern)):
         text = open(path).read()
@@ -251,11 +268,17 @@ def ptxas_report(fa):
         for name, stores, loads, regs in re.findall(
                 r"Compiling entry function '(\S+)'.*?(\d+) bytes spill stores, (\d+) bytes "
                 r"spill loads.*?Used (\d+) registers", text, re.S):
-            lines.append(f"{os.path.basename(path).split('.')[-3]}: {kernel_label(name)} "
-                         f"{regs} registers, "
-                         f"spill stores {stores} B, loads {loads} B"
-                         + (", wgmma serialised" if name in serialised else ""))
-    return lines
+            entries.append(dict(source=os.path.basename(path).split('.')[-3],
+                                kernel=kernel_label(name), registers=int(regs),
+                                spill_stores=int(stores), spill_loads=int(loads),
+                                serialised=name in serialised))
+    return entries
+
+
+def ptxas_line(e):
+    return (f"{e['source']}: {e['kernel']} {e['registers']} registers, spill stores "
+            f"{e['spill_stores']} B, loads {e['spill_loads']} B"
+            + (", wgmma serialised" if e["serialised"] else ""))
 
 
 def shape_entry(shape, ms, dms, pms, bound, library):
@@ -304,7 +327,7 @@ def phase_kernels(torch, fa, device):
                 shape_entry((b, h, l, d, bc), ms, dms, pms, bound, library))
             if b == 2:
                 record["k1"].update(ms=ms, device_ms=dms, plain_ms=pms, **bound, **library)
-            line += (f"  kernel {ms:.4f} ms (device {dms:.4f})  plain {pms:.4f} ms  bound {bound['bound_ms']:.4f} "
+            line += (f"  kernel {ms:.4f} ms (device {num(dms)})  plain {pms:.4f} ms  bound {bound['bound_ms']:.4f} "
                      f"ms by {bound['bound_by']}  SDPA on the biased q/k/v "
                      f"{fmt_sdpa(library)}")
         record["k1"]["max_abs_err"] = max(record["k1"]["max_abs_err"], err)
@@ -330,7 +353,7 @@ def phase_kernels(torch, fa, device):
         pms = cuda_ms(lambda: fa.attention_lse_plain(q, k, v, h))
         bound = attention_roofline(2, b, h, l, l, d, 2, 2, 1)
         library = sdpa_ms(torch, *(split_heads(x, h) for x in (q, k, v)))
-        line += (f"  kernel {ms:.4f} ms (device {dms:.4f})  plain {pms:.4f} ms  bound "
+        line += (f"  kernel {ms:.4f} ms (device {num(dms)})  plain {pms:.4f} ms  bound "
                  f"{bound['bound_ms']:.4f} ms by {bound['bound_by']}  SDPA {fmt_sdpa(library)}")
         entry = shape_entry((b, h, l, d), ms, dms, pms, bound, library)
         splits = fa.kv_splits(b * h, l, l, fa.fwd_tiles(d),
@@ -349,8 +372,8 @@ def phase_kernels(torch, fa, device):
                 raise AssertionError(f"K2 B{b} H{h} L{l} D{d} in one pass: max|dO| {oerr}, "
                                      f"max|dLSE| {lerr1}")
             entry.update(splits=splits, one_pass_ms=one_ms, one_pass_device_ms=one_dms)
-            line += (f"\n  {splits} key splits {ms:.4f} ms (device {dms:.4f}), one pass "
-                     f"{one_ms:.4f} ms (device {one_dms:.4f}; max|dO| {oerr:.3e}, max|dLSE| "
+            line += (f"\n  {splits} key splits {ms:.4f} ms (device {num(dms)}), one pass "
+                     f"{one_ms:.4f} ms (device {num(one_dms)}; max|dO| {oerr:.3e}, max|dLSE| "
                      f"{lerr1:.3e})")
             del o_one, lse_one
         record["k2"]["shapes"].append(entry)
@@ -595,8 +618,8 @@ def phase_backward_kernels(torch, fa, device):
                                 **attention_roofline(4, b, h, l, l, d, 2, 4, 2))
             record["k4"].update(ms=ms4, device_ms=dms4, plain_ms=pms4, **library,
                                 **attention_roofline(3, b, h, l, l, d, 3, 2, 2))
-            line += (f"  K3 {ms3:.4f} ms (device {dms3:.4f}, plain {pms3:.4f}, bound "
-                     f"{record['k3']['bound_ms']:.4f})  K4 {ms4:.4f} ms (device {dms4:.4f}, "
+            line += (f"  K3 {ms3:.4f} ms (device {num(dms3)}, plain {pms3:.4f}, bound "
+                     f"{record['k3']['bound_ms']:.4f})  K4 {ms4:.4f} ms (device {num(dms4)}, "
                      f"plain {pms4:.4f}, bound {record['k4']['bound_ms']:.4f})  SDPA "
                      f"backward (dq, dk, dv) {fmt_sdpa(library)}")
         record["k3"]["max_abs_err"] = max(record["k3"]["max_abs_err"], errs["dk"], errs["dv"])
@@ -838,23 +861,30 @@ def phase_entry_point(torch):
 def phase_stock_kernels(torch, fs, device):
     """K5 (forward, dK/dV, dQ) vs plain (fp32 on the same bf16 inputs, m and l from
     the K5 forward) at the training shape, the VAE encoder's (forward only), the 768²
-    tail and a non-default scale; returns {kernel: {"max_abs_err", "ms", ...}}."""
+    tail, D 64, a non-default and a negative scale, and contiguous (B, H, L, D)
+    tensors; returns {kernel: {"max_abs_err", "ms", ...}}."""
     from controllora_tpu_torch.ops.attention import split_heads
 
     gen = torch.Generator(device=device).manual_seed(6)
 
-    def heads(b, h, l, d):  # a head-split view of a (B, L, H*D) projection, as routed
-        x = torch.randn((b, l, h * d), generator=gen, device=device).to(torch.bfloat16)
-        return split_heads(x, h)
+    def heads(b, h, l, d, contiguous):
+        """A head-split view of a (B, L, H*D) projection, as routed, or a contiguous
+        (B, H, L, D) copy of one."""
+        x = split_heads(torch.randn((b, l, h * d), generator=gen, device=device)
+                        .to(torch.bfloat16), h)
+        return x.contiguous() if contiguous else x
 
     record = {n: {"max_abs_err": 0.0} for n in ("k5_fwd", "k5_dkv", "k5_dq")}
     record["k5_fwd"]["shapes"] = []
-    for b, h, l, d, scale, grads in ((16, 8, 4096, 40, None, True),
-                                     (16, 1, 4096, 512, None, False),
-                                     (2, 8, 2304, 80, None, True),
-                                     (2, 8, 4096, 40, 0.3, True)):
+    for b, h, l, d, scale, grads, contiguous in ((16, 8, 4096, 40, None, True, False),
+                                                 (16, 1, 4096, 512, None, False, False),
+                                                 (2, 8, 2304, 80, None, True, False),
+                                                 (2, 8, 4096, 40, 0.3, True, False),
+                                                 (2, 8, 4096, 40, -0.3, True, False),
+                                                 (2, 8, 1024, 64, None, True, False),
+                                                 (2, 8, 1024, 40, 0.3, True, True)):
         scale = d**-0.5 if scale is None else scale
-        q, k, v, do = (heads(b, h, l, d) for _ in range(4))
+        q, k, v, do = (heads(b, h, l, d, contiguous) for _ in range(4))
         o, m, lsum = fs.stock_flash_fwd(q, k, v, scale)
         torch.cuda.synchronize()
         o_ref, m_ref, l_ref = fs.stock_flash_fwd_plain(q.float(), k.float(), v.float(), scale)
@@ -862,7 +892,8 @@ def phase_stock_kernels(torch, fs, device):
         merr = ((m - m_ref).abs() / m_ref.abs().clamp(min=1.0)).max().item()
         lerr = ((lsum - l_ref).abs() / l_ref).max().item()
         del o_ref, m_ref, l_ref
-        tag = f"B={b} H={h} L={l} D={d} scale={scale:.4g}"
+        tag = (f"B={b} H={h} L={l} D={d} scale={scale:.4g}"
+               + (" contiguous (B, H, L, D)" if contiguous else ""))
         if not (torch.isfinite(o).all() and err <= O_BOUND and merr <= LSE_BOUND
                 and lerr <= LSE_BOUND):
             raise AssertionError(f"K5 fwd {tag}: max|dO| {err}, rel m {merr}, rel l {lerr}")
@@ -895,7 +926,7 @@ def phase_stock_kernels(torch, fs, device):
             library = sdpa_ms(torch, q, k, v, scale=scale)
             record["k5_fwd"]["shapes"].append(
                 shape_entry((b, h, l, d), fms, fdms, fpms, bound, library))
-            line += (f"\n  k5_fwd {fms:.4f} ms (device {fdms:.4f}, plain {fpms:.4f}, bound {bound['bound_ms']:.4f} "
+            line += (f"\n  k5_fwd {fms:.4f} ms (device {num(fdms)}, plain {fpms:.4f}, bound {bound['bound_ms']:.4f} "
                      f"by {bound['bound_by']})  SDPA forward {fmt_sdpa(library)}")
         if (b, h, l, d) == (16, 8, 4096, 40):
             fwd = (q, k, v, scale)
@@ -921,13 +952,13 @@ def phase_stock_kernels(torch, fs, device):
                         (b, h, l, d), ms, dms, pms, bound, forward))
                 record[name].update(ms=ms, device_ms=dms, plain_ms=pms,
                                     **(forward if name == "k5_fwd" else backward), **bound)
-                line += (f"\n  {name} {ms:.4f} ms (device {dms:.4f}, plain {pms:.4f}, bound "
+                line += (f"\n  {name} {ms:.4f} ms (device {num(dms)}, plain {pms:.4f}, bound "
                          f"{bound['bound_ms']:.4f} by {bound['bound_by']})")
             line += (f"\n  SDPA forward {fmt_sdpa(forward)}, backward (dq, dk, dv) "
                      f"{fmt_sdpa(backward)}")
         log(line)
         del q, k, v, do, o, m, lsum
-    q = heads(1, 2, 4225, 40)
+    q = heads(1, 2, 4225, 40, False)
     try:
         fs.stock_flash_attention(q, q, q, 0.1)
     except ValueError as e:
@@ -1180,8 +1211,13 @@ def main():
     t0 = time.perf_counter()
     fa.build_kernels()
     log(f"build: {time.perf_counter() - t0:.1f} s ({fa.library_path().name})")
-    for line in ptxas_report(fa):
-        log(f"  ptxas {line}")
+    report = ptxas_report(fa)
+    for e in report:
+        log(f"  ptxas {ptxas_line(e)}")
+    bad = [ptxas_line(e) for e in report
+           if e["spill_stores"] or e["spill_loads"] or e["serialised"]]
+    if bad:
+        raise AssertionError("ptxas spilled or serialised wgmma: " + "; ".join(bad))
 
     record = phase_kernels(torch, fa, device)
     record.update(phase_backward_kernels(torch, fa, device))
@@ -1208,25 +1244,29 @@ def main():
 
     fwd = "controllora_tpu_torch/csrc/flash_attn_fwd.cu"
     bwd = "controllora_tpu_torch/csrc/flash_attn_bwd.cu"
-    k5 = "controllora_tpu_torch/csrc/flash_stock.cu"  # K5's backward; its forward is in fwd
     vjp = "controllora_tpu/ops/pallas_attention_vjp.py"
     stock_tpu = "jax/experimental/pallas/ops/tpu/flash_attention.py"  # via attention.py:73
+
+    def route(name, source, replaces, counter, cuda_kernels):
+        """One kernel's record: the CUDA kernels its route launches, with the ptxas
+        report of their instances."""
+        ptxas = [ptxas_line(e) for e in report if e["kernel"].split("<")[0] in cuda_kernels]
+        return dict(name=name, route="cuda", source=source, replaces=replaces,
+                    launches=launches[counter], cuda_kernels=cuda_kernels, ptxas=ptxas,
+                    **record[counter])
+
     kernels = [
-        dict(name="k1_biased_flash_fwd", route="cuda", source=fwd,
-             replaces="controllora_tpu/ops/pallas_attention.py:56", launches=launches["k1"],
-             **record["k1"]),
-        dict(name="k2_flash_fwd_lse", route="cuda", source=fwd, replaces=f"{vjp}:46",
-             launches=launches["k2"], **record["k2"]),
-        dict(name="k3_flash_bwd_dkv", route="cuda", source=bwd, replaces=f"{vjp}:126",
-             launches=launches["k3"], **record["k3"]),
-        dict(name="k4_flash_bwd_dq", route="cuda", source=bwd, replaces=f"{vjp}:165",
-             launches=launches["k4"], **record["k4"]),
-        dict(name="k5_stock_flash_fwd", route="cuda", source=fwd, replaces=f"{stock_tpu}:331",
-             launches=launches["k5_fwd"], **record["k5_fwd"]),
-        dict(name="k5_stock_flash_bwd_dkv", route="cuda", source=k5,
-             replaces=f"{stock_tpu}:796", launches=launches["k5_dkv"], **record["k5_dkv"]),
-        dict(name="k5_stock_flash_bwd_dq", route="cuda", source=k5,
-             replaces=f"{stock_tpu}:1146", launches=launches["k5_dq"], **record["k5_dq"]),
+        route("k1_biased_flash_fwd", fwd, "controllora_tpu/ops/pallas_attention.py:56", "k1",
+              ["bias_add_kernel", "flash_fwd_kernel", "combine_splits_kernel"]),
+        route("k2_flash_fwd_lse", fwd, f"{vjp}:46", "k2",
+              ["flash_fwd_kernel", "combine_splits_kernel"]),
+        route("k3_flash_bwd_dkv", bwd, f"{vjp}:126", "k3", ["flash_bwd_dkv_kernel"]),
+        route("k4_flash_bwd_dq", bwd, f"{vjp}:165", "k4", ["flash_bwd_dq_kernel"]),
+        route("k5_stock_flash_fwd", fwd, f"{stock_tpu}:331", "k5_fwd", ["flash_fwd_kernel"]),
+        route("k5_stock_flash_bwd_dkv", bwd, f"{stock_tpu}:796", "k5_dkv",
+              ["flash_bwd_dkv_kernel"]),
+        route("k5_stock_flash_bwd_dq", bwd, f"{stock_tpu}:1146", "k5_dq",
+              ["flash_bwd_dq_kernel"]),
     ]
     for k in kernels:
         if k["launches"] < 1:

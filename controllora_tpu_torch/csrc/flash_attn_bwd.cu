@@ -1,82 +1,107 @@
 // Non-causal dense flash attention, backward, for NVIDIA Hopper (sm_90a).
 //
-// Replaces two Pallas TPU kernels of the JAX package, the backward of its
-// differentiable flash attention (controllora_tpu/ops/pallas_attention_vjp.py, _bwd):
-//   K3  _bwd_dkv_kernel: dK and dV, one program per KV tile looping over query tiles.
-//       Entry point k3_flash_bwd_dkv.
-//   K4  _bwd_dq_kernel: dQ, one program per query tile looping over KV tiles.
-//       Entry point k4_flash_bwd_dq.
-// Both take O's LSE from the forward kernel K2 (flash_attn_fwd.cu) and
-// Dcap = rowsum(dO * O), which the caller computes (as the JAX _bwd does outside its
-// kernels), both (B*H, Lq) fp32. With P = exp(S*scale - LSE) recomputed from Q and K:
+// Replaces four Pallas TPU kernels of the JAX package, the backward halves of its two
+// flash attentions:
+//   K3  controllora_tpu/ops/pallas_attention_vjp.py::_bwd_dkv_kernel (via _bwd): dK and
+//       dV, one program per KV tile looping over query tiles. Entry point
+//       k3_flash_bwd_dkv.
+//   K4  pallas_attention_vjp.py::_bwd_dq_kernel: dQ, one program per query tile looping
+//       over KV tiles. Entry point k4_flash_bwd_dq.
+//   K5  the backward of jax's stock TPU flash attention, which
+//       controllora_tpu/ops/attention.py::_flash_stock reaches
+//       (jax/experimental/pallas/ops/tpu/flash_attention.py):
+//       _flash_attention_dkv_kernel -> k5_stock_flash_bwd_dkv, and
+//       _flash_attention_dq_kernel  -> k5_stock_flash_bwd_dq.
+// Two kernels serve all four: flash_bwd_dkv_kernel (dK, dV) and flash_bwd_dq_kernel
+// (dQ). With P = exp(S * scale - LSE) recomputed from Q and K:
 //   dV = P^T dO,   dP = dO V^T,   dS = P * (dP - Dcap),
 //   dK = dS^T Q * scale,   dQ = dS K * scale.
+// K3/K4 take O's LSE from the forward kernel K2 (flash_attn_fwd.cu). K5 takes the
+// stock residuals m (the row max of S * scale) and l (the normaliser at m), and the
+// kernels form LSE = m + log(l) as they read a row, since exp(S * scale - m) / l =
+// exp(S * scale - LSE). Dcap = rowsum(dO * O) (K5's di) comes from the caller, as the
+// JAX backwards compute it outside their kernels. Every row term is (B*H, Lq) fp32.
+// The softmax scale is a runtime argument of either sign: P = 2^(S * scale * log2(e) -
+// LSE * log2(e)) needs no running max, so unlike the forward nothing is negated.
 //
-// Layout: q, k, v, dO, dQ, dK, dV are the (B, L, H*D) projections (head h of row l is
-// the D-wide slice at column h*D), so the caller makes no head split, merge, pad or
-// slice copies.
+// Layout: (B, H, L, D) tensors read by their element strides (D contiguous) through
+// 4-D TMA tensor maps (hopper.cuh::encode_heads). K3/K4 pass the (B, L, H*D)
+// projections as one such view, K5 the head-split views its caller hands it, so no
+// head split, merge, pad or slice copy is made. dO shares q's strides and dQ is written
+// by them; dK and dV are written by k's.
 //
-// What bounds them on the H100: at the training shapes (L = 4096, D = 40) each kernel
-// is compute bound (K3 runs four L x L x D products per head, K4 three), so the work
-// is in the tensor-core products, and in K3 also in the exponentials of P (one per
-// score, against 4 x 48 multiply-adds).
+// What bounds them on the H100: at the training shapes (L = 4096, D = 40) both are
+// compute bound (dK/dV runs four L x L x D products per head, dQ three, against ~8 L D
+// bytes), so the work is in the tensor-core products and in the exponentials of P (one
+// per score, against 3-4 x 48 multiply-adds). Both are built like the forward
+// (flash_attn_fwd.cu; hopper.cuh):
+//   * one stationary tile a block, 64 rows for each of two consumer warpgroups: dK/dV
+//     keeps 128 keys (their K and V rows), dQ 128 queries (their Q and dO rows), each
+//     loaded once by TMA, 128-byte swizzled;
+//   * a ring of the other side's 64-row tiles: a producer warpgroup keeps them in flight
+//     through 3 stages with a full and an empty mbarrier each, and gives its registers
+//     to the consumers (setmaxnreg 40 / 232: its one working warp keeps a loop of loads);
+//   * wgmma for every product: S (S^T for dK/dV) and dP (dP^T) with both operands from
+//     shared memory (K-major), issued back to back; then the accumulating products with
+//     P and dS rounded to bf16 from the accumulators straight into the A operand, and
+//     the B operand (dO, Q or K: a row per token) read through the transpose bit of
+//     bf16 wgmma, as the forward reads V. S, P and dS never touch shared memory;
+//   * head dims up to 80 (the UNet's 40, 64 and 80; 40 runs its products at depth 48
+//     and is padded to 64 in shared memory by TMA zero fill);
+//   * no atomics: each block writes its own rows of dK and dV, or of dQ, once
+//     (deterministic);
+//   * ragged L: TMA zero-fills rows past L. P (and so dS) is set to 0 by index for the
+//     ring's rows at or past their length: queries past Lq for dK/dV, whose LSE is not
+//     defined (exp(0 - garbage) could be inf, and inf * 0 is NaN), keys past Lk for dQ,
+//     where S = 0 is not P = 0. The stationary rows past L are computed on zeros and
+//     never stored.
 //
-// K3 is built like the forward kernels (flash_attn_fwd.cu; hopper.cuh):
-//   * one block per (batch*head, 128 keys): two consumer warpgroups own 64 keys each,
-//     whose K and V rows TMA loads once, 128-byte swizzled, through the same 4-D
-//     tensor map of the projection as the forward;
-//   * a ring of query tiles: one producer warp keeps tiles of 64 queries of Q and dO
-//     (TMA), with those queries' LSE and Dcap (fp32; plain loads, since a head's row
-//     of them starts at any element and a TMA box needs 16 bytes), in flight through a
-//     ring of 3 stages with a full and an empty mbarrier each;
-//   * four wgmma a query tile: S^T = K Q^T and dP^T = V dO^T with both operands from
-//     shared memory (K-major), issued back to back; then dV += P^T dO and
-//     dK += dS^T Q with P^T and dS^T rounded to bf16 from the accumulators straight
-//     into the A operand, and dO and Q read through the transpose bit of bf16 wgmma,
-//     as the forward reads V. S, P and dS never touch shared memory. P's columns are
-//     queries, so each thread reads the LSE and Dcap of its 16 columns from the stage
-//     once a tile;
-//   * head dims up to 80 (the UNet's 40, 64 and 80; 40 padded to 48 in the products,
-//     to 64 in shared memory by TMA zero fill). Four accumulators are live (S^T, dP^T
-//     and, across all query tiles, dK and dV: up to 144 registers a thread at D 80),
-//     so the producer is a whole warpgroup that gives its registers to the consumers
-//     (setmaxnreg 40 / 232: its one working warp keeps a loop of loads), as the
-//     forward's wide design does;
-//   * no atomics: each block writes its keys' dK and dV rows once (deterministic);
-//   * ragged L: TMA zero-fills rows past L; P (and so dS) is set to 0 by index for
-//     queries at or past Lq, whose LSE is not defined (exp(0 - garbage) could be inf,
-//     and inf * 0 is NaN); keys past Lk are computed on zeros and never stored.
+// dK/dV (flash_bwd_dkv_kernel): P^T's columns are queries, so each thread needs the LSE
+// and Dcap of its 16 columns. They ride in the ring stage beside Q and dO: the producer
+// warp's lanes copy them with plain loads (a head's row of them starts at any element,
+// and a TMA box needs 16 bytes; 1-D boxes stopped the kernel at ragged Lq) and arrive on
+// the stage's full barrier. Four accumulators are live: S^T, dP^T and, across all query
+// tiles, dK and dV (up to 144 registers a thread at D 80).
 //
-// K4 still runs the first design: one block of 4 warps per (batch*head, 64 queries),
-// each warp 16 rows against all 64 keys of a tile with mma.sync m16n8k16, the tiles
-// loaded through registers into shared memory (load_tile), the accumulators in fp32
-// registers written once. Its fragment helpers live in flash_common.cuh, shared with
-// K5's backward (flash_stock.cu).
+// dQ (flash_bwd_dq_kernel): rows are queries, so each thread keeps the LSE and Dcap of
+// its two rows in registers for the whole block, and the ring carries K and V only. The
+// K tile that fed S is also the B operand of dQ += dS K.
 
 #include <climits>
+#include <type_traits>
 
-#include "flash_common.cuh"
 #include "hopper.cuh"
 
 namespace {
 
-using namespace flash;
 using namespace hopper;
+typedef __nv_bfloat16 bf16;
 
-// ---------------------------------------------------------------- K3 (wgmma)
+constexpr int kConsumerWarps = 8;                      // two consumer warpgroups
+constexpr int kThreads = 32 * kConsumerWarps + 128;    // and a producer warpgroup
+constexpr int kRowBytes = 128;                         // one 64-column swizzle span of bf16
+constexpr float kLog2e = 1.4426950408889634f;
 
-constexpr int kConsumerWarps = 8;  // two consumer warpgroups
-constexpr int kRowBytes = 128;     // one 64-column swizzle span of bf16
-
-struct DkvParams {
-  const float* lse;   // (B*H, Lq)
+// What both kernels read besides their four tensor maps.
+struct BwdParams {
+  const float* lse;   // (B*H, Lq): LSE, or K5's m when l is set
+  const float* l;     // K5's normaliser (B*H, Lq), or null
   const float* dcap;  // (B*H, Lq)
-  bf16* dk;
-  bf16* dv;
+  bf16* out0;         // dK, or dQ
+  bf16* out1;         // dV, or null
+  long long sb, sh, sl;  // element strides of the outputs: k's for dK/dV, q's for dQ
   int B, H, Lq, Lk, D;
-  float scale;       // softmax scale: dK = dS^T Q * scale
+  float scale;       // softmax scale: dK = dS^T Q * scale, dQ = dS K * scale
   float scale_log2;  // scale * log2(e): P = 2^(S * scale_log2 - LSE * log2(e))
 };
+
+// The LSE of row i: lse[i], or K5's m + log(l) where l is set (l >= 1: the row max's
+// own term).
+__device__ __forceinline__ float row_lse(const float* lse, const float* l, size_t i) {
+  return l == nullptr ? lse[i] : lse[i] + __logf(l[i]);
+}
+
+// ---------------------------------------------------------------- dK, dV
 
 // DS: head dim rounded up to 16 (the depth of S^T and the width of dK, dV).
 template <int DS, int STAGES>
@@ -90,18 +115,18 @@ struct DkvCfg {
   static constexpr int kQBytes = kCh * kQChunk;     // one of Q, dO at one stage
   static constexpr int kStage = 2 * kQBytes + 1024; // Q, dO, LSE and Dcap (256 bytes each)
   static constexpr int kAcc = DS / 2;               // dK or dV accumulator registers
-  static constexpr int kThreads = 32 * kConsumerWarps + 128;
+  static constexpr int kQTileRows = kQRows, kKTileRows = kKeys;  // TMA box rows
   static constexpr size_t kSmem =
       1024 + 2 * (size_t)kKBytes + (size_t)STAGES * kStage + 8 * (2 * STAGES + 1);
-  static_assert(DS % 16 == 0 && DS <= 80, "K3 covers head dims up to 80");
+  static_assert(DS % 16 == 0 && DS <= 80, "the backward covers head dims up to 80");
 };
 
 template <int DS, int STAGES>
-__global__ void __launch_bounds__(DkvCfg<DS, STAGES>::kThreads, 1)
+__global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tdo,
                          const __grid_constant__ CUtensorMap tk,
-                         const __grid_constant__ CUtensorMap tv, const DkvParams p) {
+                         const __grid_constant__ CUtensorMap tv, const BwdParams p) {
   using C = DkvCfg<DS, STAGES>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -133,8 +158,7 @@ __global__ void __launch_bounds__(DkvCfg<DS, STAGES>::kThreads, 1)
   if (warp >= kConsumerWarps) {
     // ---------------------------------------------------------------- producer
     // One warp: lane 0 issues the TMA copies of K, V, Q and dO; the 32 lanes copy
-    // the stage's LSE and Dcap values (a head's row of them starts at any element, not
-    // on the 16 bytes a TMA box needs) and arrive once each.
+    // the stage's LSE and Dcap values and arrive once each.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (warp == kConsumerWarps) {
       if (lane == 0) {
@@ -144,8 +168,7 @@ __global__ void __launch_bounds__(DkvCfg<DS, STAGES>::kThreads, 1)
           tma_load_4d(v_smem + c * C::kKChunk, &tv, kv_full, c * 64, h, key0, b);
         }
       }
-      const float* lse = p.lse + (size_t)bh * p.Lq;
-      const float* dcap = p.dcap + (size_t)bh * p.Lq;
+      const size_t row0 = (size_t)bh * p.Lq;
       for (int j = 0; j < n_q; ++j) {
         const int s = j % STAGES;
         mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);
@@ -162,8 +185,8 @@ __global__ void __launch_bounds__(DkvCfg<DS, STAGES>::kThreads, 1)
         float* rows = reinterpret_cast<float*>(stage + 2 * C::kQBytes);
         for (int i = lane; i < C::kQRows; i += 32) {  // 0 past Lq: masked by index below
           const bool ok = q0 + i < p.Lq;
-          rows[i] = ok ? lse[q0 + i] : 0.f;
-          rows[C::kQRows + i] = ok ? dcap[q0 + i] : 0.f;
+          rows[i] = ok ? row_lse(p.lse, p.l, row0 + q0 + i) : 0.f;
+          rows[C::kQRows + i] = ok ? p.dcap[row0 + q0 + i] : 0.f;
         }
         mbar_arrive(&full[s]);
       }
@@ -177,7 +200,6 @@ __global__ void __launch_bounds__(DkvCfg<DS, STAGES>::kThreads, 1)
   const int g = lane >> 2, t4 = lane & 3;
   const unsigned char* k_tile = k_smem + wg * 64 * kRowBytes;  // this warpgroup's keys
   const unsigned char* v_tile = v_smem + wg * 64 * kRowBytes;
-  constexpr float kLog2e = 1.4426950408889634f;
 
   float dk[C::kAcc], dv[C::kAcc];
 #pragma unroll
@@ -259,178 +281,312 @@ __global__ void __launch_bounds__(DkvCfg<DS, STAGES>::kThreads, 1)
 
   // ------------------------------------------------------------------ epilogue
   const int r0 = key0 + wg * 64 + wl * 16 + g;
-  const long long row_stride = (long long)p.H * p.D;
-  const size_t head = (size_t)b * p.Lk * row_stride + (size_t)h * p.D;
-  store_acc_bf16<DS>(p.dk + head, row_stride, dk, p.scale, p.scale, r0, p.Lk, 0, p.D, t4);
-  store_acc_bf16<DS>(p.dv + head, row_stride, dv, 1.f, 1.f, r0, p.Lk, 0, p.D, t4);
+  const long long head = b * p.sb + h * p.sh;
+  store_acc_bf16<DS>(p.out0 + head, p.sl, dk, p.scale, p.scale, r0, p.Lk, 0, p.D, t4);
+  store_acc_bf16<DS>(p.out1 + head, p.sl, dv, 1.f, 1.f, r0, p.Lk, 0, p.D, t4);
 }
 
-// K4: one block per (batch*head, 64 queries); loops over all KV tiles.
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ dcap,
-                        bf16* __restrict__ dq, int H, int Lq, int Lk, int D,
-                        float scale) {
-  using T = BwdTile<DP>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dOs = Qs + kB * T::kLD;
-  bf16* Ks = dOs + kB * T::kLD;
-  bf16* Vs = Ks + kB * T::kLD;
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * kB;
-  const int row_lo = q0 + warp * 16 + g;  // this thread's query rows: row_lo, row_lo + 8
-
-  load_tile<DP>(Qs, T::kLD, kB, q, b, h, q0, Lq, H, D);
-  load_tile<DP>(dOs, T::kLD, kB, dout, b, h, q0, Lq, H, D);
-  const bool ok_lo = row_lo < Lq, ok_hi = row_lo + 8 < Lq;
-  const float lse_lo = ok_lo ? lse[(size_t)bh * Lq + row_lo] : 0.f;
-  const float lse_hi = ok_hi ? lse[(size_t)bh * Lq + row_lo + 8] : 0.f;
-  const float dcap_lo = ok_lo ? dcap[(size_t)bh * Lq + row_lo] : 0.f;
-  const float dcap_hi = ok_hi ? dcap[(size_t)bh * Lq + row_lo + 8] : 0.f;
-  float dq_acc[T::kND][4];
-#pragma unroll
-  for (int n = 0; n < T::kND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq_acc[n][e] = 0.f;
-
-  const bf16* qa = Qs + warp * 16 * T::kLD;
-  const bf16* oa = dOs + warp * 16 * T::kLD;
-  const int n_kv = (Lk + kB - 1) / kB;
-  for (int j = 0; j < n_kv; ++j) {
-    const int k0 = j * kB;
-    __syncthreads();  // the previous tile's readers of K and V are done
-    load_tile<DP>(Ks, T::kLD, kB, k, b, h, k0, Lk, H, D);
-    load_tile<DP>(Vs, T::kLD, kB, v, b, h, k0, Lk, H, D);
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T: this warp's 16 queries by the tile's 64 keys
-    float s[T::kNT][4], dp[T::kNT][4];
-#pragma unroll
-    for (int nt = 0; nt < T::kNT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DP; kk += 16) {
-      uint32_t a[4], ao[4];
-      load_a(a, qa, T::kLD, kk, g, t4);
-      load_a(ao, oa, T::kLD, kk, g, t4);
-#pragma unroll
-      for (int nt = 0; nt < T::kNT; ++nt) {
-        const bf16* kb = Ks + (nt * 8 + g) * T::kLD + kk + t4 * 2;
-        mma_bf16(s[nt], a, ld32(kb), ld32(kb + 8));
-        const bf16* vb = Vs + (nt * 8 + g) * T::kLD + kk + t4 * 2;
-        mma_bf16(dp[nt], ao, ld32(vb), ld32(vb + 8));
-      }
-    }
-
-    // dS = P * (dP - Dcap), P = exp(S * scale - LSE), into s
-#pragma unroll
-    for (int nt = 0; nt < T::kNT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool hi = e >= 2;
-        const bool ok = (hi ? ok_hi : ok_lo) && k0 + nt * 8 + t4 * 2 + (e & 1) < Lk;
-        const float p = ok ? __expf(s[nt][e] * scale - (hi ? lse_hi : lse_lo)) : 0.f;
-        s[nt][e] = p * (dp[nt][e] - (hi ? dcap_hi : dcap_lo));
-      }
-    }
-
-    // dQ += dS K over the tile's 64 keys
-#pragma unroll
-    for (int jj = 0; jj < T::kNT / 2; ++jj) {
-      uint32_t ads[4];
-      frag_to_a(ads, s[2 * jj], s[2 * jj + 1]);
-      mma_rows<DP>(dq_acc, ads, Ks, jj, g, t4);
-    }
-  }
-
-  store_rows<DP>(dq + (size_t)b * Lq * H * D + (size_t)h * D, (long long)H * D, dq_acc,
-                 scale, row_lo, Lq, D, t4);
-}
+// ---------------------------------------------------------------- dQ
 
 template <int DS, int STAGES>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-                       const DkvParams& p, cudaStream_t stream) {
-  using C = DkvCfg<DS, STAGES>;
-  const long long blocks = (long long)p.B * p.H * ((p.Lk + C::kKeys - 1) / C::kKeys);
+struct DqCfg {
+  static constexpr int kCh = (DS + 63) / 64;        // 64-column chunks
+  static constexpr int kQueries = 128;              // queries a block, 64 a warpgroup
+  static constexpr int kKeys = 64;                  // keys a stage
+  static constexpr int kChunk = 64 * kRowBytes;     // 64 rows of one 64-column chunk
+  static constexpr int kTileBytes = kCh * kChunk;   // 64 rows, every chunk
+  static constexpr int kQBytes = 2 * kTileBytes;    // one of Q, dO: both warpgroups' rows
+  static constexpr int kStage = 2 * kTileBytes;     // K and V
+  static constexpr int kAcc = DS / 2;               // dQ accumulator registers
+  static constexpr int kQTileRows = 64, kKTileRows = kKeys;  // TMA box rows
+  static constexpr size_t kSmem =
+      1024 + 2 * (size_t)kQBytes + (size_t)STAGES * kStage + 8 * (2 * STAGES + 1);
+  static_assert(DS % 16 == 0 && DS <= 80, "the backward covers head dims up to 80");
+};
+
+template <int DS, int STAGES>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tdo,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv, const BwdParams p) {
+  using C = DqCfg<DS, STAGES>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* q_smem = base;  // warpgroup r's 64 rows at r * kTileBytes
+  unsigned char* do_smem = base + C::kQBytes;
+  unsigned char* ring = do_smem + C::kQBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + (size_t)STAGES * C::kStage);
+  uint64_t* empty = full + STAGES;
+  uint64_t* q_full = empty + STAGES;
+
+  // block -> (batch*head, query tile)
+  const int q_tiles = (p.Lq + C::kQueries - 1) / C::kQueries;
+  const int qt = blockIdx.x % q_tiles, bh = blockIdx.x / q_tiles;
+  const int b = bh / p.H, h = bh % p.H;
+  const int q0 = qt * C::kQueries;
+  const int n_k = (p.Lk + C::kKeys - 1) / C::kKeys;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    mbar_init(q_full, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= kConsumerWarps) {
+    // ---------------------------------------------------------------- producer
+    // One thread issues every TMA copy: Q and dO once, then K and V by stage.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (warp == kConsumerWarps && lane == 0) {
+      mbar_expect_tx(q_full, 2 * C::kQBytes);
+      for (int r = 0; r < 2; ++r)
+        for (int c = 0; c < C::kCh; ++c) {
+          const int off = r * C::kTileBytes + c * C::kChunk;
+          tma_load_4d(q_smem + off, &tq, q_full, c * 64, h, q0 + r * 64, b);
+          tma_load_4d(do_smem + off, &tdo, q_full, c * 64, h, q0 + r * 64, b);
+        }
+      for (int j = 0; j < n_k; ++j) {
+        const int s = j % STAGES;
+        mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);
+        mbar_expect_tx(&full[s], C::kStage);
+        unsigned char* stage = ring + (size_t)s * C::kStage;
+        for (int c = 0; c < C::kCh; ++c) {
+          tma_load_4d(stage + c * C::kChunk, &tk, &full[s], c * 64, h, j * C::kKeys, b);
+          tma_load_4d(stage + C::kTileBytes + c * C::kChunk, &tv, &full[s], c * 64, h,
+                      j * C::kKeys, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // ------------------------------------------------------------------ consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int wg = warp / 4, wl = warp % 4;
+  const int g = lane >> 2, t4 = lane & 3;
+  const unsigned char* q_tile = q_smem + wg * C::kTileBytes;  // this warpgroup's queries
+  const unsigned char* do_tile = do_smem + wg * C::kTileBytes;
+
+  // this thread's query rows r0 and r0 + 8 (accumulator registers 4n, 4n + 1 and
+  // 4n + 2, 4n + 3): their LSE * log2(e) and Dcap, 0 past Lq (never stored)
+  const int r0 = q0 + wg * 64 + wl * 16 + g;
+  float lse2[2], dc[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + 8 * i;
+    const size_t row = (size_t)bh * p.Lq + r;
+    lse2[i] = r < p.Lq ? row_lse(p.lse, p.l, row) * kLog2e : 0.f;
+    dc[i] = r < p.Lq ? p.dcap[row] : 0.f;
+  }
+
+  float dq[C::kAcc];
+#pragma unroll
+  for (int i = 0; i < C::kAcc; ++i) dq[i] = 0.f;
+
+  mbar_wait(q_full, 0);
+  for (int j = 0; j < n_k; ++j) {
+    const int s = j % STAGES;
+    mbar_wait(&full[s], (j / STAGES) & 1);
+    const unsigned char* k_tile = ring + (size_t)s * C::kStage;
+    const unsigned char* v_tile = k_tile + C::kTileBytes;
+
+    // S = Q K^T and dP = dO V^T: 64 queries x 64 keys each, unscaled
+    float sc[32], dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DS / 16; ++kk)
+      ss_step<64>(sc, q_tile, k_tile, kk, C::kChunk, C::kChunk);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < DS / 16; ++kk)
+      ss_step<64>(dp, do_tile, v_tile, kk, C::kChunk, C::kChunk);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs<32>(sc);
+
+    // P = exp(S * scale - LSE) by query row; 0 for keys at or past Lk
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      sc[4 * n] = ex2(fmaf(sc[4 * n], p.scale_log2, -lse2[0]));
+      sc[4 * n + 1] = ex2(fmaf(sc[4 * n + 1], p.scale_log2, -lse2[0]));
+      sc[4 * n + 2] = ex2(fmaf(sc[4 * n + 2], p.scale_log2, -lse2[1]));
+      sc[4 * n + 3] = ex2(fmaf(sc[4 * n + 3], p.scale_log2, -lse2[1]));
+    }
+    const int key0 = j * C::kKeys;
+    if (key0 + C::kKeys > p.Lk) {  // the ragged tail
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        if (key0 + (i / 4) * 8 + t4 * 2 + (i & 1) >= p.Lk) sc[i] = 0.f;
+    }
+    wgmma_wait<0>();
+    fence_regs<32>(dp);
+
+    // dS = P * (dP - Dcap), by query row
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      dp[4 * n] = sc[4 * n] * (dp[4 * n] - dc[0]);
+      dp[4 * n + 1] = sc[4 * n + 1] * (dp[4 * n + 1] - dc[0]);
+      dp[4 * n + 2] = sc[4 * n + 2] * (dp[4 * n + 2] - dc[1]);
+      dp[4 * n + 3] = sc[4 * n + 3] * (dp[4 * n + 3] - dc[1]);
+    }
+
+    // dQ += dS K over the tile's 64 keys (4 k-steps of 16), K read through the
+    // transpose bit
+    uint32_t da[4][4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) acc_to_a(da[t], dp, t);
+    wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < 4; ++t)  // 16 keys (2 x 1024 bytes) further along K
+      rs_step<DS>(dq, da[t], desc_sw128(k_tile + t * 2048, C::kChunk, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<C::kAcc>(dq);
+    fence_regs<16>(&da[0][0]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+  // ------------------------------------------------------------------ epilogue
+  store_acc_bf16<DS>(p.out0 + b * p.sb + h * p.sh, p.sl, dq, p.scale, p.scale, r0, p.Lq, 0,
+                     p.D, t4);
+}
+
+// ---------------------------------------------------------------- launches
+
+struct Views {
+  HeadView q, dout, k, v;  // dout shares q's length, v k's
+};
+
+// Encode the four tensor maps (q and dO in boxes of C::kQTileRows rows, k and v of
+// C::kKTileRows) and launch `kernel` over `blocks` blocks.
+template <class C, class Kernel>
+cudaError_t launch(Kernel kernel, long long blocks, const Views& x, const BwdParams& p,
+                   cudaStream_t stream) {
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
   CUtensorMap tq, tdo, tk, tv;
-  cudaError_t err = encode_heads(&tq, projection_view(q, p.Lq, p.H, p.D), p.B, p.H, p.Lq,
-                                 p.D, C::kQRows);
+  cudaError_t err = encode_heads(&tq, x.q, p.B, p.H, p.Lq, p.D, C::kQTileRows);
   if (err == cudaSuccess)
-    err = encode_heads(&tdo, projection_view(dout, p.Lq, p.H, p.D), p.B, p.H, p.Lq, p.D,
-                       C::kQRows);
+    err = encode_heads(&tdo, x.dout, p.B, p.H, p.Lq, p.D, C::kQTileRows);
+  if (err == cudaSuccess) err = encode_heads(&tk, x.k, p.B, p.H, p.Lk, p.D, C::kKTileRows);
+  if (err == cudaSuccess) err = encode_heads(&tv, x.v, p.B, p.H, p.Lk, p.D, C::kKTileRows);
   if (err == cudaSuccess)
-    err = encode_heads(&tk, projection_view(k, p.Lk, p.H, p.D), p.B, p.H, p.Lk, p.D, C::kKeys);
-  if (err == cudaSuccess)
-    err = encode_heads(&tv, projection_view(v, p.Lk, p.H, p.D), p.B, p.H, p.Lk, p.D, C::kKeys);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)C::kSmem);
   if (err != cudaSuccess) return err;
-  auto kernel = flash_bwd_dkv_kernel<DS, STAGES>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)C::kSmem);
-  if (err != cudaSuccess) return err;
-  kernel<<<(unsigned)blocks, C::kThreads, C::kSmem, stream>>>(tq, tdo, tk, tv, p);
+  kernel<<<(unsigned)blocks, kThreads, C::kSmem, stream>>>(tq, tdo, tk, tv, p);
   return cudaGetLastError();
 }
 
-template <int DP>
-cudaError_t launch_dq(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
-                      const float* lse, const float* dcap, bf16* dq, int B, int H,
-                      int Lq, int Lk, int D, float scale, cudaStream_t stream) {
-  const size_t smem = BwdTile<DP>::kSmem;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<DP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Lq + kB - 1) / kB, B * H);
-  flash_bwd_dq_kernel<DP><<<grid, kThreads, smem, stream>>>(q, k, v, dout, lse, dcap, dq,
-                                                            H, Lq, Lk, D, scale);
-  return cudaGetLastError();
+// Instances: D <= 48 (the UNet's 40) runs its products at depth 48, D <= 64 and
+// D <= 80 as they are; f is called with the instance's DS.
+template <class F>
+cudaError_t with_ds(int D, F&& f) {
+  if (D <= 48) return f(std::integral_constant<int, 48>{});
+  if (D <= 64) return f(std::integral_constant<int, 64>{});
+  return f(std::integral_constant<int, 80>{});
+}
+
+cudaError_t run_dkv(const Views& x, const BwdParams& p, cudaStream_t stream) {
+  return with_ds(p.D, [&](auto ds) {
+    using C = DkvCfg<decltype(ds)::value, 3>;
+    const long long blocks = (long long)p.B * p.H * ((p.Lk + C::kKeys - 1) / C::kKeys);
+    return launch<C>(flash_bwd_dkv_kernel<decltype(ds)::value, 3>, blocks, x, p, stream);
+  });
+}
+
+cudaError_t run_dq(const Views& x, const BwdParams& p, cudaStream_t stream) {
+  return with_ds(p.D, [&](auto ds) {
+    using C = DqCfg<decltype(ds)::value, 3>;
+    const long long blocks = (long long)p.B * p.H * ((p.Lq + C::kQueries - 1) / C::kQueries);
+    return launch<C>(flash_bwd_dq_kernel<decltype(ds)::value, 3>, blocks, x, p, stream);
+  });
 }
 
 bool valid_shape(int B, int H, int Lq, int Lk, int D) {
-  return B >= 1 && H >= 1 && Lq >= 1 && Lk >= 1 && D >= 8 && D % 8 == 0 && D <= 80 &&
-         B * H <= 65535;
+  return B >= 1 && H >= 1 && Lq >= 1 && Lk >= 1 && D >= 8 && D % 8 == 0 && D <= 80;
+}
+
+// out: the view whose strides the outputs take.
+BwdParams make_params(const void* lse, const void* l, const void* dcap, void* out0,
+                      void* out1, HeadView out, int B, int H, int Lq, int Lk, int D,
+                      float scale) {
+  return {(const float*)lse, (const float*)l, (const float*)dcap, (bf16*)out0, (bf16*)out1,
+          out.sb, out.sh, out.sl, B, H, Lq, Lk, D, scale, scale * kLog2e};
+}
+
+Views projections(const void* q, const void* k, const void* v, const void* dout, int H,
+                  int Lq, int Lk, int D) {
+  return {projection_view(q, Lq, H, D), projection_view(dout, Lq, H, D),
+          projection_view(k, Lk, H, D), projection_view(v, Lk, H, D)};
+}
+
+Views strided(const void* q, const void* k, const void* v, const void* dout, long long q_sb,
+              long long q_sh, long long q_sl, long long k_sb, long long k_sh, long long k_sl) {
+  return {{q, q_sb, q_sh, q_sl}, {dout, q_sb, q_sh, q_sl}, {k, k_sb, k_sh, k_sl},
+          {v, k_sb, k_sh, k_sl}};
 }
 
 }  // namespace
 
 // Head dims up to 80 (the UNet's 40, 64 and 80; the VAE's D = 512 attention is frozen
 // and never differentiated, and wider heads are refused with cudaErrorInvalidValue).
-// K3's instances: D <= 48 (40 pads to 48), <= 64 and <= 80; K4's: DP 48 and 80.
+// Each entry point returns the cudaError_t of its launch (0 = success).
 
-// K3: dK, dV (B, Lk, H*D) bf16. Returns the cudaError_t of the launches (0 = success).
+// K3: dK, dV (B, Lk, H*D) bf16 from the (B, L, H*D) projections and K2's LSE.
 extern "C" int k3_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse, const void* dcap,
                                 void* dk, void* dv, int B, int H, int Lq, int Lk, int D,
                                 float scale, void* stream) {
   if (!valid_shape(B, H, Lq, Lk, D)) return (int)cudaErrorInvalidValue;
-  const DkvParams p{(const float*)lse, (const float*)dcap, (bf16*)dk, (bf16*)dv, B, H,
-                    Lq, Lk, D, scale, scale * 1.4426950408889634f};
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (D <= 48) return (int)launch_dkv<48, 3>(q, k, v, dout, p, st);
-  if (D <= 64) return (int)launch_dkv<64, 3>(q, k, v, dout, p, st);
-  return (int)launch_dkv<80, 3>(q, k, v, dout, p, st);
+  const Views x = projections(q, k, v, dout, H, Lq, Lk, D);
+  const BwdParams p = make_params(lse, nullptr, dcap, dk, dv, x.k, B, H, Lq, Lk, D, scale);
+  return (int)run_dkv(x, p, (cudaStream_t)stream);
 }
 
-// K4: dQ (B, Lq, H*D) bf16. Returns the cudaError_t of the launch (0 = success).
+// K4: dQ (B, Lq, H*D) bf16.
 extern "C" int k4_flash_bwd_dq(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse, const void* dcap,
                                void* dq, int B, int H, int Lq, int Lk, int D, float scale,
                                void* stream) {
   if (!valid_shape(B, H, Lq, Lk, D)) return (int)cudaErrorInvalidValue;
-#define CL_LAUNCH(DP)                                                                   \
-  return (int)launch_dq<DP>((const bf16*)q, (const bf16*)k, (const bf16*)v,            \
-                            (const bf16*)dout, (const float*)lse, (const float*)dcap,  \
-                            (bf16*)dq, B, H, Lq, Lk, D, scale, (cudaStream_t)stream)
-  if (D <= 48) CL_LAUNCH(48);
-  CL_LAUNCH(80);
-#undef CL_LAUNCH
+  const Views x = projections(q, k, v, dout, H, Lq, Lk, D);
+  const BwdParams p = make_params(lse, nullptr, dcap, dq, nullptr, x.q, B, H, Lq, Lk, D, scale);
+  return (int)run_dq(x, p, (cudaStream_t)stream);
+}
+
+// K5 over (B, H, L, D) tensors given by element strides (b, h, l; D contiguous): q and
+// dout share q's, k and v k's. m, l and di are (B, H, Lq) fp32. dK and dV are written
+// with k's strides.
+extern "C" int k5_stock_flash_bwd_dkv(const void* q, const void* k, const void* v,
+                                      const void* dout, const void* m, const void* l,
+                                      const void* di, void* dk, void* dv, int B, int H,
+                                      int Lq, int Lk, int D, long long q_sb,
+                                      long long q_sh, long long q_sl, long long k_sb,
+                                      long long k_sh, long long k_sl, float scale,
+                                      void* stream) {
+  if (!valid_shape(B, H, Lq, Lk, D) || m == nullptr || l == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const Views x = strided(q, k, v, dout, q_sb, q_sh, q_sl, k_sb, k_sh, k_sl);
+  const BwdParams p = make_params(m, l, di, dk, dv, x.k, B, H, Lq, Lk, D, scale);
+  return (int)run_dkv(x, p, (cudaStream_t)stream);
+}
+
+// K5 dQ, written with q's strides.
+extern "C" int k5_stock_flash_bwd_dq(const void* q, const void* k, const void* v,
+                                     const void* dout, const void* m, const void* l,
+                                     const void* di, void* dq, int B, int H, int Lq,
+                                     int Lk, int D, long long q_sb, long long q_sh,
+                                     long long q_sl, long long k_sb, long long k_sh,
+                                     long long k_sl, float scale, void* stream) {
+  if (!valid_shape(B, H, Lq, Lk, D) || m == nullptr || l == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const Views x = strided(q, k, v, dout, q_sb, q_sh, q_sl, k_sb, k_sh, k_sl);
+  const BwdParams p = make_params(m, l, di, dq, nullptr, x.q, B, H, Lq, Lk, D, scale);
+  return (int)run_dq(x, p, (cudaStream_t)stream);
 }

@@ -12,7 +12,7 @@
 //       (jax/experimental/pallas/ops/tpu/flash_attention.py::_flash_attention_kernel):
 //       a runtime softmax scale, and the residuals m (the row max of S * scale) and l
 //       (the normaliser at m) in place of LSE. Entry point k5_stock_flash_fwd; its
-//       backward is in flash_stock.cu.
+//       backward is in flash_attn_bwd.cu, with K3 and K4.
 //
 // All three are one kernel. It reads (B, H, L, D) tensors by their strides (D
 // contiguous): a TMA tensor map views each as the 4-D tensor (D, H, L, B), so a box is
@@ -24,9 +24,10 @@
 // What bounds it on the H100: at the main path's shapes (L 4096, D 40 or 512) the work
 // is 4*L*L*D flops against 8*L*D bytes per head, so it is bound by operations: the
 // two products S = Q K^T and O = P V, and at D 40 also the exponentials of the softmax
-// (one per score, against 88 multiply-adds). The first design ran both products through
-// the Ampere mma.sync, put S and P through shared memory with four block barriers per
-// key tile, and loaded K/V through registers between those barriers. This design:
+// (one per score, against 88 multiply-adds). The first design ran both products on
+// Ampere's warp-level tensor-core product, put S and P through shared memory with four
+// block barriers per key tile, and loaded K/V through registers between those
+// barriers. This design:
 //   * wgmma: consumer warpgroups each own 64 query rows and issue wgmma.mma_async for
 //     S = Q K^T with Q and K read from shared memory, and for O += P V with P in
 //     registers and V read from shared memory in its row-per-key layout through the

@@ -1,8 +1,8 @@
-// Hopper (sm_90a) building blocks of the wgmma flash kernels (flash_attn_fwd.cu, and
-// K3 in flash_attn_bwd.cu): mbarriers, TMA loads through tensor maps of (B, H, L, D)
-// bf16 views given by their strides, wgmma shared-memory descriptors for 128-byte
-// swizzled tiles, the wgmma instructions the kernels issue, and the steps and epilogue
-// they share.
+// Hopper (sm_90a) building blocks of the wgmma flash kernels (the forward in
+// flash_attn_fwd.cu, the backward in flash_attn_bwd.cu): mbarriers, TMA loads through
+// tensor maps of (B, H, L, D) bf16 views given by their strides, wgmma shared-memory
+// descriptors for 128-byte swizzled tiles, the wgmma instructions the kernels issue,
+// and the steps and epilogue they share.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is reached through the runtime

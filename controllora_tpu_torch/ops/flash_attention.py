@@ -17,14 +17,15 @@ Counterparts of the JAX package's flash-attention Pallas kernels:
 counterpart of the JAX ``flash_attention`` ``custom_vjp``.
 
 K1 and K2 live in ``csrc/flash_attn_fwd.cu`` (wgmma, a TMA-fed K/V ring, softmax in
-registers; ``csrc/hopper.cuh``), K3 and K4 in ``csrc/flash_attn_bwd.cu`` (K3 on
-wgmma with a TMA-fed ring of query tiles, K4 on mma.sync; see their headers for the
-design). All take the projections in the (B, L, H*D) layout the attention layers
-produce, so no head split or padding copy is made; K1, K2 and K3 read them through
-TMA tensor maps (``tma_geometry``, one case of ``head_geometry``). The JAX block-size
-policy (``pick_block``, ``serving_blocks``) does not carry over: each kernel sizes its own
-tiles (``fwd_tiles`` reports K1/K2's), and heads wider than 80 split the key range
-where the query tiles alone leave SMs idle (``kv_splits``).
+registers; ``csrc/hopper.cuh``), K3 and K4 in ``csrc/flash_attn_bwd.cu`` (wgmma: K3's
+kernel keeps 128 keys a block and streams query tiles through a TMA ring, K4's keeps
+128 queries and streams key tiles; K5's backward runs on the same two kernels; see
+the headers for the design). All take the projections in the (B, L, H*D) layout the
+attention layers produce, so no head split or padding copy is made; they read them
+through TMA tensor maps (``tma_geometry``, one case of ``head_geometry``). The JAX
+block-size policy (``pick_block``, ``serving_blocks``) does not carry over: each
+kernel sizes its own tiles (``fwd_tiles`` reports K1/K2's), and heads wider than 80
+split the key range where the query tiles alone leave SMs idle (``kv_splits``).
 
 Device rule: a tensor on the CPU takes the plain PyTorch version beside each kernel;
 a CUDA tensor launches the kernel or raises. Every ``csrc/*.cu`` is compiled with
@@ -55,8 +56,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "_build"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-MAX_HEAD_DIM = 512
-MAX_BWD_HEAD_DIM = 80  # K3 instances: DS 48, 64, 80; K4: DP 48 and 80
+MAX_HEAD_DIM = 512  # the forward's instances (K1, K2, K5): D <= 48, 64, 80, 512
+MAX_BWD_HEAD_DIM = 80  # the backward's (K3, K4, K5): DS 48, 64, 80
 
 LAUNCHES: Dict[str, int] = {"k1": 0, "k2": 0, "k3": 0, "k4": 0}
 
@@ -301,12 +302,13 @@ def attention_dcap(o, do, heads: int):
     return prod.permute(0, 2, 1).reshape(b * heads, lq).contiguous()
 
 
-def _bwd_terms(q, k, v, do, lse, dcap, heads: int):
+def _bwd_terms(q, k, v, do, lse, dcap, heads: int, scale: Optional[float]):
     """The shared part of the plain K3/K4, line by line as the JAX ``_bwd`` kernels
-    compute it, in fp32: P = exp(S * scale - LSE), dP = dO V^T, dS = P (dP - Dcap)."""
+    compute it, in fp32: P = exp(S * scale - LSE), dP = dO V^T, dS = P (dP - Dcap).
+    The scale defaults to D^-1/2."""
     qh, kh, vh, doh = (split_heads(x.float(), heads) for x in (q, k, v, do))
     b, h, lq, d = qh.shape
-    scale = d**-0.5
+    scale = d**-0.5 if scale is None else scale
     s = torch.matmul(qh, kh.transpose(-1, -2)) * scale
     p = torch.exp(s - lse.reshape(b, h, lq, 1))
     dp = torch.matmul(doh, vh.transpose(-1, -2))
@@ -314,17 +316,18 @@ def _bwd_terms(q, k, v, do, lse, dcap, heads: int):
     return qh, kh, doh, p, ds, scale
 
 
-def flash_bwd_dkv_plain(q, k, v, do, lse, dcap, heads: int):
-    """Plain version of K3: (dK, dV) in k.dtype / v.dtype, (B, Lk, H*D)."""
-    qh, _, doh, p, ds, scale = _bwd_terms(q, k, v, do, lse, dcap, heads)
+def flash_bwd_dkv_plain(q, k, v, do, lse, dcap, heads: int, scale: Optional[float] = None):
+    """Plain version of K3: (dK, dV) in k.dtype / v.dtype, (B, Lk, H*D). With K5's
+    residuals (LSE = m + log l) and its scale it is K5's dK/dV, as the kernel runs it."""
+    qh, _, doh, p, ds, scale = _bwd_terms(q, k, v, do, lse, dcap, heads, scale)
     dv = torch.matmul(p.transpose(-1, -2), doh)
     dk = torch.matmul(ds.transpose(-1, -2), qh) * scale
     return merge_heads(dk).to(k.dtype), merge_heads(dv).to(v.dtype)
 
 
-def flash_bwd_dq_plain(q, k, v, do, lse, dcap, heads: int):
-    """Plain version of K4: dQ in q.dtype, (B, Lq, H*D)."""
-    _, kh, _, _, ds, scale = _bwd_terms(q, k, v, do, lse, dcap, heads)
+def flash_bwd_dq_plain(q, k, v, do, lse, dcap, heads: int, scale: Optional[float] = None):
+    """Plain version of K4: dQ in q.dtype, (B, Lq, H*D); with K5's residuals, K5's dQ."""
+    _, kh, _, _, ds, scale = _bwd_terms(q, k, v, do, lse, dcap, heads, scale)
     return merge_heads(torch.matmul(ds, kh) * scale).to(q.dtype)
 
 

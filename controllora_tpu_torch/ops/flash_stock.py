@@ -14,10 +14,11 @@ bundled ``jax/experimental/pallas/ops/tpu/flash_attention.py``: the forward
     ``stock_flash_attention`` is the entry point with ``_flash_stock``'s block rule.
 
 The forward runs on K1/K2's wgmma kernel (``csrc/flash_attn_fwd.cu``, which writes m
-and l in place of LSE), the backward kernels live in ``csrc/flash_stock.cu``. All take
-(B, H, L, D) tensors by their strides, so the head-split views of the (B, L, H*D)
-projections go in without a copy; the forward reads them through TMA tensor maps
-(``head_geometry``) and writes O by q's strides.
+and l in place of LSE), the backward on K3's and K4's (``csrc/flash_attn_bwd.cu``,
+which form LSE = m + log l as they read a row). All take (B, H, L, D) tensors by their
+strides, so the head-split views of the (B, L, H*D) projections go in without a copy:
+they read them through TMA tensor maps (``head_geometry``) and write O, dQ by q's
+strides and dK, dV by k's.
 The softmax scale is a runtime argument. Lengths are whole blocks: ``pick_block``
 (copied from ``controllora_tpu/ops/pallas_attention.py``) picks the block as
 ``_flash_stock`` does, and the same exception types are raised where jax's kernel
@@ -34,11 +35,10 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from controllora_tpu_torch.ops.flash_attention import build_kernels, head_geometry
+from controllora_tpu_torch.ops.flash_attention import (MAX_BWD_HEAD_DIM, MAX_HEAD_DIM,
+                                                       build_kernels, head_geometry)
 
 MIN_BLOCK_SIZE = 128  # the stock kernel's smallest block (jax NUM_LANES)
-MAX_HEAD_DIM = 512
-MAX_BWD_HEAD_DIM = 80  # the backward instances: DP 48 and 80
 
 LAUNCHES: Dict[str, int] = {"k5_fwd": 0, "k5_dkv": 0, "k5_dq": 0}
 

@@ -171,13 +171,13 @@ def bound(ref):
 @pytest.mark.parametrize("b,heads,l,d", [(8, 8, 4096, 40), (2, 8, 2304, 80),
                                          (1, 8, 7744, 40), (2, 8, 4225, 40),
                                          (1, 8, 300, 80), (2, 8, 1024, 64),
-                                         (2, 4, 40, 40), (1, 2, 40, 64)])
+                                         (1, 4, 333, 64), (2, 4, 40, 40), (1, 2, 40, 64)])
 def test_k3_k4_match_plain(cuda, b, heads, l, d):
     """dQ, dK, dV from O and LSE of K2, against the plain versions in fp32 on the
     same bf16 inputs and the same Dcap: the training shape, the 384² and 704²
-    latents, D 64 (K3's third instance), two ragged L (not a multiple of the 64-row
-    tile: the kernels set P to 0 by index past L) and L 40, under one query tile and
-    one 128-key tile of K3."""
+    latents, D 64 (the third instance of both kernels), ragged L (not a multiple of
+    the 64-row tile: the kernels set P to 0 by index past L) and L 40, under one tile
+    of 64 rows on the ring side and one 128-row stationary tile."""
     q, k, v, do = (randn((b, l, heads * d), s, cuda) for s in range(4))
     o, lse = fa.flash_attention(q, k, v, heads)
     dcap = fa.attention_dcap(o, do, heads)
@@ -270,13 +270,21 @@ def test_k5_fwd_takes_any_layout(cuda, q_layout, lq, lk, d):
     assert ((lsum - l_ref).abs() / l_ref).max().item() <= 1e-3
 
 
-@pytest.mark.parametrize("b,heads,l,d,scale", [(2, 8, 1024, 40, None), (2, 8, 2304, 80, 0.3),
-                                               (2, 8, 4096, 40, 0.3)])
-def test_k5_bwd_matches_plain(cuda, b, heads, l, d, scale):
-    """dK/dV and dQ of the stock backward from the K5 forward's m and l, against the
-    plain versions in fp32 on the same bf16 inputs and the same di."""
+@pytest.mark.parametrize("b,heads,l,d,scale,layout", [
+    (2, 8, 1024, 40, None, "projection"), (2, 8, 2304, 80, 0.3, "projection"),
+    (2, 8, 4096, 40, 0.3, "projection"), (2, 8, 1024, 40, -0.3, "projection"),
+    (2, 4, 1024, 64, None, "projection"), (2, 8, 1024, 40, 0.3, "contiguous"),
+    (2, 4, 512, 80, -0.2, "contiguous")])
+def test_k5_bwd_matches_plain(cuda, b, heads, l, d, scale, layout):
+    """dK/dV and dQ of the stock backward (K3's and K4's kernels, forming m + log l)
+    from the K5 forward's m and l, against the plain versions in fp32 on the same bf16
+    inputs and the same di: the default, a non-default and a negative scale, D 40, 64
+    and 80, head-split views of the projections and contiguous (B, H, L, D) tensors.
+    The gradients come back with the strides of their inputs."""
     scale = d**-0.5 if scale is None else scale
     q, k, v, do = (heads_view(b, heads, l, d, s, cuda) for s in range(4))
+    if layout == "contiguous":
+        q, k, v, do = (x.contiguous() for x in (q, k, v, do))
     fs.reset_launch_counts()
     o, m, lsum = fs.stock_flash_fwd(q, k, v, scale)
     di = (o.float() * do.float()).sum(-1)
@@ -284,6 +292,7 @@ def test_k5_bwd_matches_plain(cuda, b, heads, l, d, scale):
     dq = fs.stock_flash_bwd_dq(q, k, v, do, m, lsum, di, scale)
     torch.cuda.synchronize()
     assert fs.LAUNCHES == {"k5_fwd": 1, "k5_dkv": 1, "k5_dq": 1}
+    assert dq.stride() == q.stride() and dk.stride() == dv.stride() == k.stride()
     args = [x.float() for x in (q, k, v, do)] + [m, lsum, di, scale]
     ref_dk, ref_dv = fs.stock_flash_bwd_dkv_plain(*args)
     ref_dq = fs.stock_flash_bwd_dq_plain(*args)
@@ -332,4 +341,36 @@ def test_k5_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         fs.stock_flash_bwd_dq(w, w, w, w, rows, rows, rows, 0.1)  # head dim 96
     with pytest.raises(ValueError, match="strides"):
         fs.stock_flash_fwd(q, q.contiguous(), q, 0.1)  # k and v in different layouts
+    with pytest.raises(ValueError, match="<= 80"):
+        fs.stock_flash_bwd_dkv(w, w, w, w, rows, rows, rows, 0.1)  # head dim 96
+    with pytest.raises(TypeError):
+        qf = q.float()
+        fs.stock_flash_bwd_dkv(qf, qf, qf, qf, rows, rows, rows, 0.1)  # fp32
+    with pytest.raises(ValueError, match="strides"):
+        fs.stock_flash_bwd_dq(q, q, q, q.contiguous(), rows, rows, rows, 0.1)  # dO's layout
+    assert fs.LAUNCHES == {"k5_fwd": 0, "k5_dkv": 0, "k5_dq": 0}
+
+
+def test_bwd_wrappers_raise_on_misaligned_views(cuda):
+    """The backward's tensor maps need 16-byte aligned bases and strides: a projection
+    at a 2-byte offset (K3/K4) and a head-split view at one (K5) raise before any
+    launch, as do fp32 rows for K3/K4."""
+    b, heads, l, d = 1, 2, 256, 40
+    flat = torch.zeros(b * l * heads * d + 8, device=cuda, dtype=torch.bfloat16)
+    shifted = flat[1:1 + b * l * heads * d].view(b, l, heads * d)
+    good = torch.zeros((b, l, heads * d), device=cuda, dtype=torch.bfloat16)
+    rows = torch.zeros((b * heads, l), device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_bwd_dkv(good, shifted, good, good, rows, rows, heads)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_bwd_dq(good, good, good, shifted, rows, rows, heads)
+    with pytest.raises(ValueError, match="fp32"):
+        fa.flash_bwd_dq(good, good, good, good, rows.double(), rows, heads)
+    sq, gq = split_heads(shifted, heads), split_heads(good, heads)
+    stock_rows = rows.view(b, heads, l)
+    with pytest.raises(ValueError, match="aligned"):
+        fs.stock_flash_bwd_dkv(sq, sq, sq, sq, stock_rows, stock_rows, stock_rows, 0.1)
+    with pytest.raises(ValueError, match="aligned"):
+        fs.stock_flash_bwd_dq(gq, sq, sq, gq, stock_rows, stock_rows, stock_rows, 0.1)
+    assert fa.LAUNCHES == {"k1": 0, "k2": 0, "k3": 0, "k4": 0}
     assert fs.LAUNCHES == {"k5_fwd": 0, "k5_dkv": 0, "k5_dq": 0}
