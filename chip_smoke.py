@@ -32,26 +32,37 @@ Phases, each of which raises (non-zero exit, no result line) when it fails:
               guided 512² request (20 steps, CFG 9, DPM-Solver++), then 3 guided
               together (one padded batch of 4), then 1 unguided; exact kernel launch
               counts per call, finite 512x512x3 images, latency and img/s.
-  6. decode   one guided render at batch 1 and at batch 4 under torch.profiler
-              (device busy time, idle share, time by kernel class); VAE decode
-              times at batch 1 and batch 4.
-  7. train parity  one ControlLoRA train step's loss and adapter gradient at batch 1
+  6. presets  the serving deployment: K1 at (2, 8, 2048, 40) and (8, 8, 2048, 40) with
+              biases merged per CFG row (bias batch = B) and K2 at (2, 8, 2048, 40), the
+              level ToMe 0.5 leaves, against their plain versions with times, bounds and
+              SDPA; DeepCache's shallow(cache_of(full)) == full and a ToMe UNet eval
+              with K1 against its plain version, at full width; then guided renders
+              through the engine at bucket 1 and 4 under the exact, tome and turbo
+              presets (turbo: 10 full and 10 shallow UNet evals) and an unguided tome
+              render, one guided render each with DDIM, PNDM, Euler and UniPC, and the
+              HTTP server (turbo, buckets 1,4, --warmup) answering 4 concurrent
+              /generate requests with PNG guides in one batch; exact launches and
+              wall seconds of each.
+  7. decode   one guided render at batch 1 and at batch 4 under torch.profiler,
+              under each preset (device busy time, idle share, time by kernel
+              class); VAE decode times at batch 1 and batch 4.
+  8. train parity  one ControlLoRA train step's loss and adapter gradient at batch 1
               (same weights, latents, noise, t, ids, guide) on the card (bf16,
               kernels; then again with the adapters cast to bf16 as well) against
               the CPU (fp32, plain versions); VAE encode_moments. 8-bit AdamW: the
               card's optimizer step against the CPU's on the same gradients, and one
               8-bit train step's loss card against CPU.
-  8. train    ControlLoRATrainer.train_step on full-width SD1.5 + `base` at 512²,
+  9. train    ControlLoRATrainer.train_step on full-width SD1.5 + `base` at 512²,
               batch 8 of fill50k, bf16 frozen stack, no remat: 2 warm-up and 5
               timed steps, exact launches per step (K2-K4), finite loss, nonzero
               gradient, params updated; ms/step, img/s, peak memory, one profiled step.
-  9. entry    `python -m controllora_tpu_torch.train` for 2 steps at 512² batch 8;
+ 10. entry    `python -m controllora_tpu_torch.train` for 2 steps at 512² batch 8;
               its artifact loads back into the port's ControlLoRA strictly.
- 10. stock train  the K5 path: the same CLI in this process under
+ 11. stock train  the K5 path: the same CLI in this process under
               CONTROLLORA_FLASH_IMPL=stock at 512² batch 16 with remat `dots`: 2
               warm-up and 5 timed steps, exact K5 launches per step, ms/step, peak
               memory; then 2 steps each of remat `nothing` and no remat.
- 11. CLI smoke  the smoke-variant CLI with 8-bit AdamW, remat, checkpoints and the
+ 12. CLI smoke  the smoke-variant CLI with 8-bit AdamW, remat, checkpoints and the
               latent cache: 4 steps straight against 2 + resume latest for 2.
 The last lines are the kernel record (each route with the CUDA kernel it launches),
 the card's name and power limit, and {"ok": true, "device": {...}}.
@@ -68,6 +79,10 @@ import tempfile
 import time
 
 O_BOUND, LSE_BOUND, GRAD_BOUND, REL_BOUND = 1e-2, 1e-3, 1e-2, 5e-2
+# a ToMe eval's K1-vs-plain gap, on shared merge maps, within this many times the
+# exact eval's (the bf16 noise of the same five self-attentions), and each merged
+# self-attention's own gap (relative L2) within TOME_LAYER_BOUND
+TOME_NOISE_FACTOR, TOME_LAYER_BOUND = 2, 1e-2
 # H100 SXM peaks (NVIDIA data sheet): bf16 dense tensor-core FLOP/s, HBM3 bytes/s
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 STEPS, CFG, RES = 20, 9.0, 512
@@ -550,6 +565,333 @@ def phase_serve(torch, fa, pipe):
     return total
 
 
+def phase_merged_kernels(torch, fa, device, record):
+    """K1 and K2 on the 2048-token level ToMe 0.5 leaves of the 4096 at 512², against
+    their plain versions, with times, bounds and SDPA, added to `record`'s shapes. K1's
+    biases are merged per CFG row, so their batch is the full batch (bc = B)."""
+    from controllora_tpu_torch.ops.attention import split_heads
+
+    gen = torch.Generator(device=device).manual_seed(10)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+
+    for name, (b, h, l, d) in (("k1", (2, 8, 2048, 40)), ("k1", (8, 8, 2048, 40)),
+                               ("k2", (2, 8, 2048, 40))):
+        q, k, v = rnd(b, l, h * d), rnd(b, l, h * d), rnd(b, l, h * d)
+        if name == "k1":
+            qb, kb, vb = (0.25 * rnd(b, l, h * d) for _ in range(3))
+            args = (q, k, v, h, qb, kb, vb)
+            out = fa.biased_attention(*args)
+            ref = plain_fp32(fa, *args)
+            kernel, plain = (lambda: fa.biased_attention(*args),
+                             lambda: fa.biased_attention_plain(*args))
+            bound = attention_roofline(2, b, h, l, l, d, 3, 4, 0)
+            library = sdpa_ms(torch, *(split_heads(x + xb, h)
+                                       for x, xb in ((q, qb), (k, kb), (v, vb))))
+            tag, shape = f"K1 B={b} H={h} L={l} D={d} (biases batch {b}, merged)", (b, h, l, d, b)
+        else:
+            out, lse = fa.flash_attention(q, k, v, h)
+            ref, lse_ref = fa.attention_lse_plain(q.float(), k.float(), v.float(), h)
+            if not (lse - lse_ref).abs().max().item() <= LSE_BOUND:
+                raise AssertionError(f"K2 B{b} L{l}: LSE off by more than {LSE_BOUND}")
+            kernel, plain = (lambda: fa.flash_attention(q, k, v, h),
+                             lambda: fa.attention_lse_plain(q, k, v, h))
+            bound = attention_roofline(2, b, h, l, l, d, 2, 2, 1)
+            library = sdpa_ms(torch, *(split_heads(x, h) for x in (q, k, v)))
+            tag, shape = f"K2 B={b} H={h} L={l} D={d} (unguided, merged)", (b, h, l, d)
+        torch.cuda.synchronize()
+        err = (out.float() - ref).abs().max().item()
+        if not (out.shape == ref.shape and torch.isfinite(out).all() and err <= O_BOUND):
+            raise AssertionError(f"{tag}: max|dO| {err} > {O_BOUND}")
+        ms, dms, pms = cuda_ms(kernel), device_ms(kernel), cuda_ms(plain)
+        splits = fa.kv_splits(b * h, l, l, fa.fwd_tiles(d), sms)
+        record[name]["shapes"].append(dict(shape_entry(shape, ms, dms, pms, bound, library),
+                                           splits=splits))
+        record[name]["max_abs_err"] = max(record[name]["max_abs_err"], err)
+        log(f"{tag}: max|dO| {err:.3e} <= {O_BOUND}; {splits} key split(s) on {sms} SMs  "
+            f"kernel {ms:.4f} ms (device {num(dms)}, {bound['bound_ms'] / dms * 100 if dms else 0:.1f}% "
+            f"of bound)  plain {pms:.4f} ms  bound {bound['bound_ms']:.4f} ms by "
+            f"{bound['bound_by']}  SDPA {fmt_sdpa(library)}")
+        del q, k, v, out, ref
+
+
+def tome_shared_maps(fa, net, weights, unet, tome_kw):
+    """K1 against its plain version inside a ToMe UNet eval, both evals on the same
+    merge maps: the eval with K1 records each block's maps and the eval with the
+    plain version replays them in order. (A later block's merge reads the block input,
+    which depends on the earlier attention outputs, so two evals that built their own
+    maps could move a whole token on a near-tie.) Also the exact eval with the plain
+    version, whose gap to the exact eval with K1 is the bf16 noise of the same
+    self-attentions unmerged, and each merged self-attention on its own, on the
+    inputs the eval with K1 gave it (under ``weights``, the folded parameters).
+    ``unet(**kw)`` runs ``net``. Returns (with K1, with plain, exact with plain,
+    relative L2 of each merged self-attention, number of merges)."""
+    from torch.func import functional_call
+
+    from controllora_tpu_torch.ops import tome as tome_ops
+
+    maps, layers, real_build = [], [], tome_ops.build_merge
+
+    def recording(*a, **k):
+        maps.append(real_build(*a, **k))
+        return maps[-1]
+
+    def keep_merged(module, a, out):  # each merge is followed by its block's attn1
+        if len(layers) < len(maps):
+            layers.append((module, a, out))
+
+    names = {m: n for n, m in net.named_modules()}
+    hooks = [m.register_forward_hook(keep_merged) for m, n in names.items()
+             if n.endswith(".attn1")]
+    tome_ops.build_merge = recording
+    try:
+        with_kernel = unet(**tome_kw)
+    finally:
+        tome_ops.build_merge = real_build
+        for hook in hooks:
+            hook.remove()
+    if len(layers) != len(maps):
+        raise AssertionError(f"{len(maps)} merges but {len(layers)} merged attn1 calls")
+    replay = iter(maps)
+    kernel, fa.biased_attention = fa.biased_attention, fa.biased_attention_plain
+    tome_ops.build_merge = lambda *a, **k: next(replay)
+    try:
+        with_plain = unet(**tome_kw)
+        exact_plain = unet()
+        layer_errs = []
+        for module, a, out in layers:
+            prefix = names[module] + "."
+            own = {k[len(prefix):]: v for k, v in weights.items() if k.startswith(prefix)}
+            layer_errs.append(rel_l2(out, functional_call(module, own, a)))
+    finally:
+        fa.biased_attention, tome_ops.build_merge = kernel, real_build
+    return with_kernel, with_plain, exact_plain, layer_errs, len(maps)
+
+
+PRESETS = {"exact": {}, "tome": {"tome_ratio": 0.5},
+           "turbo": {"tome_ratio": 0.5, "deepcache_interval": 2}}
+GUIDED_LAUNCHES = {"k1": 5 * STEPS, "k2": 1, "k3": 0, "k4": 0}
+UNGUIDED_LAUNCHES = {"k1": 0, "k2": 5 * STEPS + 1, "k3": 0, "k4": 0}
+
+
+def phase_presets(torch, fa, pipe, device, card):
+    """The serving deployment's speed presets and samplers at full width. First the
+    checks beside the main path: shallow(cache_of(full)) equals full on the card, and
+    a ToMe UNet eval with K1 against the same eval, on the same merge maps, with K1's
+    plain version. Then the main path, its launches counted from 0: guided 512²
+    renders through the BatchingEngine at bucket 1 and 4 under exact, tome and turbo
+    (turbo: 10 full and 10 shallow UNet evals), an unguided tome render, one guided
+    render with each of DDIM, PNDM, Euler and UniPC, and the HTTP server (turbo,
+    buckets 1 and 4, --warmup) answering 4 concurrent /generate requests. Returns the
+    launch counts."""
+    import base64
+    import threading
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from torch.func import functional_call
+
+    from controllora_tpu_torch import schedulers, serve
+    from controllora_tpu_torch.ops.folding import fold_adapters
+    from controllora_tpu_torch.ops.tome import ToMeConfig, build_merge, window_choice
+    from controllora_tpu_torch.serving import BatchingEngine
+    from controllora_tpu_torch.training.checkpoint import save_control_lora
+    from controllora_tpu_torch.utils.png import decode_png, encode_png
+
+    rng = np.random.default_rng(12)
+    guides = [rng.uniform(-1, 1, (RES, RES, 3)).astype(np.float32) for _ in range(4)]
+    with torch.inference_mode():
+        weights, biases = fold_adapters(pipe.unet, pipe.control_lora.adapters_for(
+            torch.from_numpy(guides[0]).permute(2, 0, 1)[None].to(device), pipe.unet.config))
+        biases = {k: b.to(torch.bfloat16) for k, b in biases.items()}
+        lat = torch.from_numpy(rng.normal(size=(2, 4, RES // 8, RES // 8))
+                               .astype(np.float32)).to(device)
+        args = (lat, torch.full((2,), 500.0, device=device), pipe.encode_prompt("a photo"))
+
+        def unet(**kw):
+            return functional_call(pipe.unet, weights, args, dict(kw, biases=biases))
+
+        plain = unet()
+        full, cache = unet(deepcache="full")
+        shallow = unet(deepcache="shallow", deepcache_feat=cache)
+        dc_err = max((full - plain).abs().max().item(), (shallow - full).abs().max().item())
+        log(f"DeepCache at full width on the card: full == plain eval and "
+            f"shallow(cache_of(full)) == full: max|d| {dc_err:.3e} (must be 0); cache "
+            f"{tuple(cache.shape)}")
+        if dc_err != 0:
+            raise AssertionError(f"DeepCache: shallow or full eval differs by {dc_err}")
+        tome_kw = dict(tome=ToMeConfig(ratio=0.5), tome_step=(0, 500, 3))
+        before = fa.LAUNCHES["k1"]
+        with_kernel, with_plain, exact_plain, layer_errs, n_maps = tome_shared_maps(
+            fa, pipe.unet, weights, unet, tome_kw)
+        if fa.LAUNCHES["k1"] - before != GUIDED_LAUNCHES["k1"] // STEPS or n_maps != 5:
+            raise AssertionError(f"ToMe eval: K1 launched {fa.LAUNCHES['k1'] - before} "
+                                 f"times, {n_maps} merges")
+        tome_err, noise = rel_l2(with_kernel, with_plain), rel_l2(plain, exact_plain)
+        tome_bound = min(REL_BOUND, TOME_NOISE_FACTOR * noise)
+        log(f"ToMe 0.5 merged self-attentions (L 2048, biases batch 2) on the ToMe eval's "
+            f"own inputs, K1 vs its plain version: relative L2 "
+            f"{', '.join(f'{e:.4e}' for e in layer_errs)} <= {TOME_LAYER_BOUND}")
+        log(f"ToMe 0.5 UNet eval (5 merged L 2048 self-attentions, biases batch 2, one set "
+            f"of merge maps) with K1 vs with K1's plain version: relative L2 "
+            f"{tome_err:.4e} <= {tome_bound:.4e} ({TOME_NOISE_FACTOR}x the exact eval's "
+            f"K1 vs plain {noise:.4e}); vs the exact eval {rel_l2(with_kernel, plain):.4e}")
+        if not (torch.isfinite(with_kernel).all() and tome_err <= tome_bound
+                and max(layer_errs) <= TOME_LAYER_BOUND):
+            raise AssertionError(f"ToMe eval with K1 off its plain version by {tome_err}, "
+                                 f"its merged layers by {layer_errs}")
+        del weights, biases, plain, full, cache, shallow, with_kernel, with_plain, exact_plain
+
+        x = torch.randn((2, 4096, 320), device=device).to(torch.bfloat16)
+
+        def merge_once():  # one block's ToMe bookkeeping at the batch-1 render's level 0
+            merge, unmerge, _ = build_merge(x, 64, 64, ToMeConfig(ratio=0.5),
+                                            window_choice(0, 500, 3, "p", 0, 32, 32))
+            return unmerge(merge(x))
+
+        merge_once()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            merge_once()
+        host_ms = (time.perf_counter() - t0) / 20 * 1e3
+        torch.cuda.synchronize()
+        log(f"ToMe window draw + build_merge + merge + unmerge at (2, 4096, 320): host "
+            f"{host_ms:.3f} ms a call to issue, device {num(device_ms(merge_once))} ms "
+            f"(100 a render)")
+        for kw in PRESETS.values():  # first calls of the new code paths, before timing
+            pipe("warm up", guide=guides[0], num_inference_steps=2, **kw)
+
+    evals = []
+    hook = pipe.unet.register_forward_pre_hook(
+        lambda module, a, kw: evals.append(kw.get("deepcache")), with_kwargs=True)
+    common = dict(num_inference_steps=STEPS, guidance_scale=CFG, height=RES, width=RES,
+                  return_array=True)
+
+    def check(name, images, per_call, want, n):
+        if per_call != want:
+            raise AssertionError(f"{name}: launches {per_call}, expected {want}")
+        if len(images) != n or any(img.shape != (RES, RES, 3) or not np.isfinite(img).all()
+                                   for img in images):
+            raise AssertionError(f"{name}: bad images {[img.shape for img in images]}")
+
+    walls = []
+    fa.reset_launch_counts()  # the presets' main path starts here
+    try:
+        for preset, kw in PRESETS.items():
+            eng = BatchingEngine(pipe, max_wait_ms=100.0, buckets=(1, 4), pipe_kwargs=kw)
+            try:
+                runs = [(1, guides[:1]), (4, guides)]
+                if preset == "tome":
+                    runs.append((1, [None]))
+                for bucket, reqs in runs:
+                    before = dict(fa.LAUNCHES)
+                    evals.clear()
+                    t0 = time.perf_counter()
+                    futs = [eng.submit(f"prompt {i}", guide=g, seed=20 + i, **common)
+                            for i, g in enumerate(reqs)]
+                    images = [f.result(timeout=900) for f in futs]
+                    wall = time.perf_counter() - t0
+                    per_call = {n: fa.LAUNCHES[n] - before[n] for n in before}
+                    guided = reqs[0] is not None
+                    name = f"{preset} {'guided' if guided else 'unguided'} batch {bucket}"
+                    check(name, images, per_call,
+                          GUIDED_LAUNCHES if guided else UNGUIDED_LAUNCHES, bucket)
+                    full = sum(e in (None, "full") for e in evals)
+                    want = ({"full": STEPS // 2, "shallow": STEPS // 2} if preset == "turbo"
+                            else {"full": STEPS, "shallow": 0})
+                    if {"full": full, "shallow": evals.count("shallow")} != want:
+                        raise AssertionError(f"{name}: UNet evals {evals}, expected {want}")
+                    walls.append((name, wall))
+                    log(f"preset {name}: {wall:.3f} s wall ({eng.stats['last_batch_seconds']:.3f}"
+                        f" s in the pipeline), {bucket / wall:.3f} img/s; launches {per_call}; "
+                        f"UNet evals {want}; {card}")
+            finally:
+                eng.stop()
+            if eng.stats["errors"]:
+                raise AssertionError(f"preset {preset}: {eng.stats['errors']} failed batches")
+
+        for cls in (schedulers.DDIMScheduler, schedulers.PNDMScheduler,
+                    schedulers.EulerDiscreteScheduler, schedulers.UniPCMultistepScheduler):
+            dpm, pipe.scheduler = pipe.scheduler, cls()
+            try:
+                before = dict(fa.LAUNCHES)
+                t0 = time.perf_counter()
+                images = pipe("a photo", guide=guides[1], **common)
+                wall = time.perf_counter() - t0
+            finally:
+                pipe.scheduler = dpm
+            per_call = {n: fa.LAUNCHES[n] - before[n] for n in before}
+            check(cls.__name__, images, per_call, GUIDED_LAUNCHES, 1)
+            log(f"sampler {cls.__name__}: guided batch 1 {wall:.3f} s, finite "
+                f"{RES}x{RES}x3; launches {per_call}")
+
+        with tempfile.TemporaryDirectory() as control_dir:
+            save_control_lora(control_dir, pipe.control_lora)
+            args = serve.parse_args(["--preset", "turbo", "--buckets", "1,4", "--warmup",
+                                     "--host", "127.0.0.1", "--port", "0", "--max_wait_ms",
+                                     "500", "--control_lora_dir", control_dir])
+            t0 = time.perf_counter()
+            spipe = serve.build_pipeline(args)
+        eng = BatchingEngine(spipe, max_wait_ms=args.max_wait_ms,
+                             buckets=tuple(int(b) for b in args.buckets.split(",")),
+                             pipe_kwargs=serve.speed_kwargs(args))
+        server = None
+        try:
+            serve.warmup(eng)
+            warm_s = time.perf_counter() - t0
+            server = serve.build_server(eng, args.host, args.port, args.result_timeout_s)
+            threading.Thread(target=server.serve_forever, daemon=True).start()
+            base = f"http://127.0.0.1:{server.server_address[1]}"
+
+            def call(path, payload=None):
+                data = None if payload is None else json.dumps(payload).encode()
+                with urllib.request.urlopen(urllib.request.Request(base + path, data=data),
+                                            timeout=600) as r:
+                    return r.status, r.read()
+
+            if call("/healthz") != (200, b"ok"):
+                raise AssertionError("server: /healthz")
+            stats0 = json.loads(call("/stats")[1])
+            pngs = [base64.b64encode(encode_png(((g + 1) * 127.5).astype(np.uint8))).decode()
+                    for g in guides]
+            before = dict(fa.LAUNCHES)
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(4) as pool:
+                replies = list(pool.map(lambda i: call("/generate", dict(
+                    prompt=f"request {i}", steps=STEPS, seed=i, guide=pngs[i], height=RES,
+                    width=RES)), range(4)))
+            wall = time.perf_counter() - t0
+            per_call = {n: fa.LAUNCHES[n] - before[n] for n in before}
+            images = [decode_png(base64.b64decode(json.loads(raw)["image"]))
+                      for code, raw in replies if code == 200]
+            stats = json.loads(call("/stats")[1])
+        finally:
+            if server is not None:
+                server.shutdown()
+                server.server_close()
+            eng.stop()
+        batches4 = stats["batch_sizes"].get("4", 0) - stats0["batch_sizes"].get("4", 0)
+        if (len(images) != 4 or any(img.shape != (RES, RES, 3) for img in images)
+                or batches4 != 1 or per_call != GUIDED_LAUNCHES or stats["errors"]):
+            raise AssertionError(f"server: {len(images)} images, {batches4} new batches of "
+                                 f"4, launches {per_call}, stats {stats}")
+        log(f"server (python -m controllora_tpu_torch.serve --preset turbo --buckets 1,4 "
+            f"--warmup): built and warmed in {warm_s:.1f} s; 4 concurrent /generate with PNG "
+            f"guides in {wall:.3f} s, one batch of 4 ({stats['last_batch_seconds']:.3f} s in "
+            f"the pipeline), each {RES}x{RES}x3; launches {per_call}; /stats {stats}")
+        del spipe
+    finally:
+        hook.remove()
+    total = dict(fa.LAUNCHES)  # the presets' main path ends here
+    log("preset render walls (s): " + ", ".join(f"{n} {w:.3f}" for n, w in walls)
+        + f"; {card}; main-path launches {total}")
+    return total
+
+
 def phase_decode(torch, pipe, device):
     lat1 = torch.randn((1, 4, RES // 8, RES // 8), device=device)
     lat4 = torch.randn((4, 4, RES // 8, RES // 8), device=device)
@@ -768,18 +1110,20 @@ def profile_line(name, wall, busy, top):
 
 def phase_render_profile(torch, pipe):
     """One guided 512² render at batch 1 and one at batch 4 (per-image guides) through
-    the pipeline under torch.profiler: wall, device busy time, idle share, and device
-    time by kernel class (K1 is in "flash (ours)")."""
+    the pipeline under torch.profiler, under each preset: wall, device busy time,
+    idle share, and device time by kernel class (K1 is in "flash (ours)")."""
     import numpy as np
 
     rng = np.random.default_rng(9)
     guides = rng.uniform(-1, 1, (4, RES, RES, 3)).astype(np.float32)
     common = dict(num_inference_steps=STEPS, guidance_scale=CFG, height=RES, width=RES)
     pipe("warm up", guide=guides[:1], **dict(common, num_inference_steps=2))
-    for n in (1, 4):
-        wall, busy, top = device_profile(
-            torch, lambda: pipe([f"prompt {i}" for i in range(n)], guide=guides[:n], **common))
-        log(profile_line(f"render profiled, guided batch {n}", wall, busy, top))
+    for preset, kw in PRESETS.items():
+        for n in (1, 4):
+            wall, busy, top = device_profile(torch, lambda: pipe(
+                [f"prompt {i}" for i in range(n)], guide=guides[:n], **common, **kw))
+            label = "" if preset == "exact" else f" ({preset})"
+            log(profile_line(f"render profiled{label}, guided batch {n}", wall, busy, top))
 
 
 def phase_train(torch, fa, pipe, device):
@@ -1228,6 +1572,10 @@ def main():
     phase_parity(torch, pipe, device)
     phase_breakdown(torch, pipe, device)
     serve = phase_serve(torch, fa, pipe)
+    t0 = time.perf_counter()
+    phase_merged_kernels(torch, fa, device, record)
+    presets = phase_presets(torch, fa, pipe, device, card)
+    log(f"presets phase {time.perf_counter() - t0:.1f} s")
     phase_render_profile(torch, pipe)
     phase_decode(torch, pipe, device)
     phase_train_parity(torch, pipe, device)
@@ -1237,9 +1585,9 @@ def main():
     phase_entry_point(torch)
     stock = phase_stock_train(torch, fa, fs)
     phase_cli_resume(torch)
-    # launches on the three main paths, each counted from 0: serving and training
-    # (K1-K4), then training under CONTROLLORA_FLASH_IMPL=stock (K5)
-    launches = {n: serve[n] + train[n] for n in serve}
+    # launches on the main paths, each counted from 0: serving, the serving presets
+    # and training (K1-K4), then training under CONTROLLORA_FLASH_IMPL=stock (K5)
+    launches = {n: serve[n] + presets[n] + train[n] for n in serve}
     launches.update({n: stock[n] for n in fs.LAUNCHES})
 
     fwd = "controllora_tpu_torch/csrc/flash_attn_fwd.cu"

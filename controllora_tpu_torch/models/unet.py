@@ -14,8 +14,15 @@ Attention layers run one of three paths, keyed by diffusers processor name:
   * THREADED (training): each layer runs its ``AdapterStack`` chain
     (``models/lora.py`` ``adapt_*``), so gradients reach the adapter factors; long
     self-attention on the card goes through ``FlashAttention`` (K2, K3 + K4).
-Left out for now: ToMe, DeepCache, tensor parallelism, SDXL text_time and SD2 linear
-projections.
+
+Two serving accelerations, both off by default (``forward``):
+  * ToMe (``ops/tome.py``): each self-attention on a long enough grid runs on merged
+    tokens; on the folded path the per-position biases merge with the same map
+    (JAX ``unet.py`` :348-416). Threaded adapter stacks are not merged.
+  * DeepCache: a "full" eval also returns the feature entering the last up block; a
+    "shallow" eval recomputes only the level-0 ops around a cached one
+    (JAX ``unet.py`` :532-733).
+Left out for now: tensor parallelism, SDXL text_time and SD2 linear projections.
 """
 
 from __future__ import annotations
@@ -38,7 +45,9 @@ from controllora_tpu_torch.models.lora import (
     adapt_query,
     adapt_value,
 )
+from controllora_tpu_torch.ops import tome as tome_ops
 from controllora_tpu_torch.ops.attention import dot_product_attention, use_flash
+from controllora_tpu_torch.ops.folding import FoldedBias
 
 
 @dataclasses.dataclass(frozen=True)
@@ -271,13 +280,38 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = LayerNorm(dim)
         self.ff = FeedForward(dim)
 
-    def forward(self, x, ctx, stacks=None, lora_scale=1.0):
+    def forward(self, x, ctx, stacks=None, lora_scale=1.0, tome=None, choice=None,
+                grid=None):
         def stack_for(attn):
             return stacks.get(f"{self.proc_prefix}.{attn}.processor") if stacks else None
 
-        x = x + self.attn1(self.norm1(x), None, stack_for("attn1"), lora_scale)
+        h = self.norm1(x)
+        if tome is not None:
+            # tomesd's placement: match on the block input, attend over the merged
+            # tokens, unmerge before the residual add
+            merge, unmerge, _ = tome_ops.build_merge(x, grid[0], grid[1], tome, choice)
+            stack1 = _merge_folded_bias(stack_for("attn1"), merge, x.shape[0])
+            x = x + unmerge(self.attn1(merge(h), None, stack1, lora_scale))
+        else:
+            x = x + self.attn1(h, None, stack_for("attn1"), lora_scale)
         x = x + self.attn2(self.norm2(x), ctx, stack_for("attn2"), lora_scale)
         return x + self.ff(self.norm3(x))
+
+
+def _merge_folded_bias(bias: Optional[FoldedBias], merge, b_h: int) -> Optional[FoldedBias]:
+    """A ToMe merge map applied to the per-position biases of a folded layer; per-image
+    biases (batch n under the 2n CFG batch) tile first (JAX ``_merge_stack_tokens``)."""
+    if bias is None:
+        return None
+    if not isinstance(bias, FoldedBias):
+        raise ValueError("ToMe merges folded adapter biases only; threaded adapter "
+                         "stacks are not merged by the port")
+
+    def fit(t):
+        return None if t is None else merge(_match_batch(t, b_h) if t.shape[0] != 1 else t)
+
+    return FoldedBias(fit(bias.q_bias), fit(bias.k_bias), fit(bias.v_bias),
+                      fit(bias.out_bias))
 
 
 class Transformer2DModel(nn.Module):
@@ -285,6 +319,7 @@ class Transformer2DModel(nn.Module):
                  depth: int, groups: int, proc_prefix: str):
         super().__init__()
         inner = heads * dim_head
+        self.proc_prefix = proc_prefix
         self.norm = GroupNorm(groups, channels, 1e-6)
         self.proj_in = nn.Conv2d(channels, inner, 1)
         self.transformer_blocks = nn.ModuleList([
@@ -294,12 +329,22 @@ class Transformer2DModel(nn.Module):
         ])
         self.proj_out = nn.Conv2d(inner, channels, 1)
 
-    def forward(self, x, ctx, stacks=None, lora_scale=1.0):
+    def forward(self, x, ctx, stacks=None, lora_scale=1.0, tome=None, tome_step=None):
+        """``tome``: a ToMeConfig, applied where ``maybe_tome`` admits this grid;
+        ``tome_step``: (seed, timestep, index) of the denoising step, which with the
+        processor prefix and the block index seeds ``window_choice``."""
         _, _, hh, ww = x.shape
         residual = x
         h = to_tokens(self.proj_in(self.norm(x)))
-        for block in self.transformer_blocks:
-            h = block(h, ctx, stacks, lora_scale)
+        block_tome = tome if tome_ops.maybe_tome(tome, hh, ww) else None
+        for i, block in enumerate(self.transformer_blocks):
+            choice = None
+            if block_tome is not None:
+                # looked up on the module at call time, so a test can substitute the
+                # JAX package's draws
+                choice = tome_ops.window_choice(*tome_step, self.proc_prefix, i,
+                                                hh // tome_ops.WINDOW, ww // tome_ops.WINDOW)
+            h = block(h, ctx, stacks, lora_scale, block_tome, choice, (hh, ww))
         return self.proj_out(from_tokens(h, hh, ww)) + residual
 
 
@@ -398,16 +443,37 @@ class UNet2DConditionModel(nn.Module):
                 biases: Optional[Dict[str, Any]] = None,
                 adapters: Optional[Dict[str, AdapterStack]] = None,
                 lora_scale: float = 1.0,
-                remat: Optional[Callable[..., torch.Tensor]] = None) -> torch.Tensor:
+                remat: Optional[Callable[..., torch.Tensor]] = None,
+                tome: Optional[tome_ops.ToMeConfig] = None,
+                tome_step: Optional[Tuple[int, Any, int]] = None,
+                deepcache: Optional[str] = None,
+                deepcache_feat: Optional[torch.Tensor] = None):
         """sample (B, 4, H, W) NCHW, timesteps (B,) or scalar, context (B, 77, D);
         ``biases``: {processor name: FoldedBias} of the folded adapters, or
         ``adapters``: {processor name: AdapterStack} threaded at ``lora_scale``; at
         most one of the two. ``remat(layer, *inputs)``, when given, runs each resnet
         and each attention block (the trainer passes a ``torch.utils.checkpoint``
         wrapper, so that the backward recomputes one block at a time). Returns the
-        fp32 model output (B, 4, H, W)."""
+        fp32 model output (B, 4, H, W).
+
+        ``tome``: token merging (``ops/tome.py``) in the self-attentions whose grid
+        ``maybe_tome`` admits; ``tome_step`` (seed, timestep, index) of the denoising
+        step seeds the window draws and is required with ``tome``.
+
+        ``deepcache`` (DeepCache, Ma et al. 2023): "full" also returns the feature
+        entering the last up block, as ``(eps, cache)``; "shallow" skips everything
+        below level 0 (down blocks 1.., mid, up blocks ..-2) and takes
+        ``deepcache_feat`` for that feature. The shallow path runs exactly the level-0
+        modules of the full path, so ``shallow(cache_of(full(x))) == full(x)``."""
         if biases is not None and adapters is not None:
             raise ValueError("pass folded `biases` or threaded `adapters`, not both")
+        if deepcache not in (None, "full", "shallow"):
+            raise ValueError(f"deepcache must be None|'full'|'shallow', got {deepcache!r}")
+        if tome is not None and tome_step is None:
+            raise ValueError("tome requires tome_step=(seed, timestep, index)")
+        shallow = deepcache == "shallow"
+        if shallow and deepcache_feat is None:
+            raise ValueError("deepcache='shallow' requires deepcache_feat")
         stacks = adapters if adapters is not None else biases
         cfg = self.config
         dtype = self.conv_in.weight.dtype
@@ -421,34 +487,55 @@ class UNet2DConditionModel(nn.Module):
         def run(layer, *inputs):
             return layer(*inputs) if remat is None else remat(layer, *inputs)
 
+        attn_args = (ctx, stacks, lora_scale, tome, tome_step)
         h = self.conv_in(sample.to(dtype))
         skips: List[torch.Tensor] = [h]
-        for block in self.down_blocks:
+        for bi, block in enumerate(self.down_blocks):
+            if shallow and bi > 0:
+                break  # the deep levels come from the cache
             for li, resnet in enumerate(block.resnets):
                 h = run(resnet, h, temb)
                 attn = block.attention(li)
                 if attn is not None:
-                    h = run(attn, h, ctx, stacks, lora_scale)
+                    h = run(attn, h, *attn_args)
                 skips.append(h)
-            if hasattr(block, "downsamplers"):
+            if hasattr(block, "downsamplers") and not shallow:
                 h = block.downsamplers[0](h)
                 skips.append(h)
 
-        h = run(self.mid_block.resnets[0], h, temb)
-        h = run(self.mid_block.attentions[0], h, ctx, stacks, lora_scale)
-        h = run(self.mid_block.resnets[1], h, temb)
+        if not shallow:
+            h = run(self.mid_block.resnets[0], h, temb)
+            h = run(self.mid_block.attentions[0], h, *attn_args)
+            h = run(self.mid_block.resnets[1], h, temb)
 
-        for block in self.up_blocks:
+        cache = None
+        last = len(self.up_blocks) - 1
+        for bi, block in enumerate(self.up_blocks):
+            if shallow and bi < last:
+                continue
+            if bi == last:
+                if shallow:
+                    h = deepcache_feat.to(dtype)
+                elif deepcache == "full":
+                    cache = h
             for li, resnet in enumerate(block.resnets):
                 h = run(resnet, torch.cat([h, skips.pop()], dim=1), temb)
                 attn = block.attention(li)
                 if attn is not None:
-                    h = run(attn, h, ctx, stacks, lora_scale)
+                    h = run(attn, h, *attn_args)
             if hasattr(block, "upsamplers"):
                 h = block.upsamplers[0](h)
 
-        h = self.conv_out(F.silu(self.conv_norm_out(h)))
-        return h.float()
+        h = self.conv_out(F.silu(self.conv_norm_out(h))).float()
+        return (h, cache) if deepcache == "full" else h
+
+
+def deepcache_feat_shape(config: UNetConfig, batch: int, lh: int, lw: int) -> Tuple[int, ...]:
+    """Shape of the DeepCache feature, the input of the last up block: (batch, the
+    second block width, lh, lw), NCHW (the JAX package's is the NHWC (batch, lh, lw,
+    width))."""
+    chans = config.block_out_channels
+    return (batch, chans[1] if len(chans) > 1 else chans[0], lh, lw)
 
 
 # ------------------------------------------------------------------ processor inventory

@@ -2,15 +2,27 @@
 ``controllora_tpu/pipelines/text_to_image.py``).
 
 Order of work: tokenizer -> CLIP -> hint encoder -> ``fold_adapters`` -> a plain
-Python loop of CFG UNet evals and DPM-Solver++ updates -> one batched VAE decode.
+Python loop of CFG UNet evals and scheduler updates -> one batched VAE decode.
 The CFG batch is the block layout [uncond * n || cond * n]; a batch-1 guide's biases
 broadcast over it and per-image guides tile to it.
+
+The samplers are the JAX package's five (DPM-Solver++, DDIM, PNDM, Euler, UniPC).
+Each keeps its grid after ``set_timesteps(n)`` (``ts``) and offers the same four
+calls, which the loop makes directly: ``init_state(noise)``, ``model_input(state,
+i)`` (what the UNet sees at step i: the sample, or Euler's 1 / sqrt(sigma^2 + 1)
+rescale), ``step(state, eps, i)`` and ``get_sample(state)``. The scheduler holds the
+grid of the render in progress, so one pipeline renders one request batch at a time
+(the serving engine's single worker). Two serving accelerations are off by default:
+``tome_ratio`` (token merging in the level-0 self-attentions, ``ops/tome.py``) and
+``deepcache_interval`` (the deep UNet levels run every interval-th step; between,
+a cached deep feature stands in for them).
 
 The public layout is the JAX package's: guides (H, W, 3) or (n, H, W, 3) in [-1, 1],
 ``latents=`` (n, H/8, W/8, 4), results HWC uint8 images or float arrays in [-1, 1]
 with ``return_array=True``. Inside, tensors are NCHW on ``device``.
-Not ported yet: img2img, inpaint, the SDXL refiner, ToMe, DeepCache, extra LoRAs and
-controls, meshes, and the other schedulers.
+Not ported yet: img2img, inpaint and ``denoising_start``/``denoising_end``, the
+SDXL refiner and ``hires``, extra LoRAs and controls, threaded (unfoldable) adapter
+stacks, and meshes.
 """
 
 from __future__ import annotations
@@ -23,6 +35,7 @@ from torch.func import functional_call
 
 from controllora_tpu_torch.models.lora import is_foldable
 from controllora_tpu_torch.ops.folding import fold_adapters
+from controllora_tpu_torch.ops.tome import ToMeConfig
 from controllora_tpu_torch.schedulers import DPMSolverMultistepScheduler
 
 
@@ -33,8 +46,8 @@ def _nhwc_to_nchw(x, device, dtype=torch.float32) -> torch.Tensor:
 
 class StableDiffusionControlLoRAPipeline:
     def __init__(self, unet, vae, text_encoder, tokenizer, control_lora=None,
-                 scheduler: Optional[DPMSolverMultistepScheduler] = None,
-                 device="cuda"):
+                 scheduler=None, device="cuda"):
+        """``scheduler``: one of the five samplers (default DPM-Solver++)."""
         self.device = torch.device(device)
         self.unet = unet.to(self.device)
         self.vae = vae.to(self.device)
@@ -85,10 +98,34 @@ class StableDiffusionControlLoRAPipeline:
         lora_scale: float = 1.0,
         latents=None,
         return_array: bool = False,
+        tome_ratio: float = 0.0,
+        tome_min_tokens: int = 4096,
+        deepcache_interval: int = 1,
     ) -> List[np.ndarray]:
         """Returns a list of HWC uint8 images (float arrays in [-1, 1] with
         ``return_array``). Without ``latents=`` the initial noise is drawn from
-        ``generator`` (a CPU generator; default seed 0)."""
+        ``generator`` (a CPU generator; default seed 0).
+
+        ``tome_ratio`` (0 = the exact path): before each self-attention on a grid of
+        at least ``tome_min_tokens`` tokens (level 0 at 512²), that fraction of the
+        tokens merges into their most similar neighbours and the output unmerges;
+        the folded per-position biases merge with the same map. 0.5 is tomesd's
+        published setting.
+
+        ``deepcache_interval`` (1 = the exact path): the deep UNet levels run on
+        every interval-th step only (``i % interval == 0``, so step 0 always); the
+        steps between run the level-0 modules around the deep feature cached by the
+        last full step. Composes with ``tome_ratio``."""
+        tome = None
+        if tome_ratio:
+            if not 0.0 < tome_ratio <= 0.75:
+                raise ValueError(f"tome_ratio must be in (0, 0.75] (max merge = the 3/4 "
+                                 f"src fraction of the 2x2 dst grid), got {tome_ratio}")
+            tome = ToMeConfig(ratio=float(tome_ratio), min_tokens=int(tome_min_tokens))
+        deepcache_interval = int(deepcache_interval)
+        if deepcache_interval < 1:
+            raise ValueError(f"deepcache_interval must be >= 1 (1 = exact path), "
+                             f"got {deepcache_interval}")
         if isinstance(prompt, (list, tuple)):
             if num_images not in (1, len(prompt)):
                 raise ValueError(f"{len(prompt)} per-image prompts conflict with "
@@ -145,19 +182,33 @@ class StableDiffusionControlLoRAPipeline:
             biases = {k: b.to(dtype) for k, b in biases.items()}
 
         sch = self.scheduler
-        tables = sch.tables(num_inference_steps)
+        sch.set_timesteps(num_inference_steps)
         state = sch.init_state(lat)
+        # DeepCache: step 0 is a full eval, so the cache is set before any shallow
+        # step reads it (the JAX loop's zeros are only the initial lax.cond carry)
+        cache = None
         for i in range(num_inference_steps):
-            lat2 = torch.cat([state.sample, state.sample])
-            t = torch.full((lat2.shape[0],), int(tables[0][i]), dtype=torch.long,
-                           device=self.device)
-            eps = functional_call(self.unet, weights, (lat2, t, ctx_n),
-                                  {"biases": biases})
+            x = sch.model_input(state, i)
+            t_i = sch.ts[i]
+            kw = {"biases": biases}
+            if tome is not None:
+                kw.update(tome=tome, tome_step=(0, t_i, i))
+            args = (torch.cat([x, x]),
+                    torch.full((2 * n,), float(t_i), dtype=torch.float32, device=self.device),
+                    ctx_n)
+            if deepcache_interval == 1:
+                eps = functional_call(self.unet, weights, args, kw)
+            elif i % deepcache_interval == 0:
+                eps, cache = functional_call(self.unet, weights, args,
+                                             dict(kw, deepcache="full"))
+            else:
+                eps = functional_call(self.unet, weights, args,
+                                      dict(kw, deepcache="shallow", deepcache_feat=cache))
             eps_u, eps_c = eps.chunk(2)
-            eps_g = eps_u + guidance_scale * (eps_c - eps_u)
-            state = sch.step(state, eps_g, i, num_inference_steps, tables)
+            state = sch.step(state, eps_u + guidance_scale * (eps_c - eps_u), i)
 
-        img = self.vae.decode(state.sample).float().permute(0, 2, 3, 1).cpu().numpy()
+        img = (self.vae.decode(sch.get_sample(state)).float().permute(0, 2, 3, 1)
+               .cpu().numpy())
         if return_array:
             return [img[i] for i in range(n)]
         return [np.clip((img[i] + 1.0) * 127.5, 0, 255).astype(np.uint8) for i in range(n)]

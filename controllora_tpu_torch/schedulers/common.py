@@ -95,3 +95,12 @@ def linspace_timesteps(num_train_timesteps: int, num_inference_steps: int) -> np
     ts = (np.linspace(0, num_train_timesteps - 1, num_inference_steps + 1)
           .round()[::-1][:-1].astype(np.int32))
     return ts.copy()
+
+
+def leading_timesteps(num_train_timesteps: int, num_inference_steps: int,
+                      steps_offset: int = 1) -> np.ndarray:
+    """DDIM/PNDM 'leading' grid with steps_offset, descending (diffusers
+    DDIMScheduler)."""
+    step_ratio = num_train_timesteps // num_inference_steps
+    ts = (np.arange(0, num_inference_steps) * step_ratio).round()[::-1].astype(np.int32)
+    return ts + steps_offset

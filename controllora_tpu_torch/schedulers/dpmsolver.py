@@ -22,13 +22,8 @@ class DPMSolverState:
 
 
 class DPMSolverMultistepScheduler:
-    def __init__(self, schedule: DiffusionSchedule | None = None, solver_order: int = 2,
-                 lower_order_final: bool = True):
-        if solver_order not in (1, 2):
-            raise ValueError(f"solver_order must be 1 or 2, got {solver_order}")
+    def __init__(self, schedule: DiffusionSchedule | None = None):
         self.schedule = schedule or DiffusionSchedule.create()
-        self.solver_order = solver_order
-        self.lower_order_final = lower_order_final
 
     def timesteps(self, num_inference_steps: int) -> np.ndarray:
         return linspace_timesteps(self.schedule.num_train_timesteps, num_inference_steps)
@@ -44,24 +39,33 @@ class DPMSolverMultistepScheduler:
         lam = np.log(alpha) - np.log(sigma)
         return ts, alpha.astype(np.float32), sigma.astype(np.float32), lam.astype(np.float32)
 
+    def set_timesteps(self, num_inference_steps: int) -> None:
+        self.num_inference_steps = num_inference_steps
+        self._tables = self.tables(num_inference_steps)
+        self.ts = self._tables[0]
+
     def init_state(self, sample: torch.Tensor) -> DPMSolverState:
         return DPMSolverState(sample=sample, prev_x0=torch.zeros_like(sample))
 
+    def get_sample(self, state: DPMSolverState) -> torch.Tensor:
+        return state.sample
+
+    def model_input(self, state: DPMSolverState, i: int) -> torch.Tensor:
+        return state.sample
+
     def step(self, state: DPMSolverState, model_output: torch.Tensor, i: int,
-             num_inference_steps: int, tables=None, first_index: int = 0) -> DPMSolverState:
-        """One multistep update at grid index ``i`` in [0, steps)."""
-        ts, alpha, sigma, lam = tables if tables is not None else self.tables(
-            num_inference_steps)
+             first_index: int = 0) -> DPMSolverState:
+        """One multistep update at grid index ``i`` in [0, steps). Order 1 at
+        ``first_index`` and, below 15 steps, at the last step (lower_order_final)."""
+        ts, alpha, sigma, lam = self._tables
+        n = self.num_inference_steps
         x0 = self.schedule.pred_original_sample(state.sample, model_output, ts[i])
         a_t, s_t, l_t = alpha[i + 1], sigma[i + 1], lam[i + 1]
         s_s, l_s = sigma[i], lam[i]
         h = l_t - l_s
         ratio = float(s_t / s_s)
         coef = float(a_t * (np.exp(-h) - np.float32(1.0)))
-        use_first = self.solver_order == 1 or i == first_index or (
-            self.lower_order_final and num_inference_steps < 15
-            and i == num_inference_steps - 1)
-        if use_first:  # DPM-Solver++ 1S
+        if i == first_index or (n < 15 and i == n - 1):  # DPM-Solver++ 1S
             new = ratio * state.sample - coef * x0
         else:  # 2M midpoint with the previous x0
             r0 = float((l_s - lam[max(i - 1, 0)]) / h)

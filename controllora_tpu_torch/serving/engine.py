@@ -8,7 +8,9 @@ Concurrent requests coalesce into per-image-prompt batches over one pipeline:
 * **Composition-independent results.** Each request's initial latents come from its
   own seed at submit time, ``torch.Generator().manual_seed(seed)`` drawing an
   (1, H/8, W/8, 4) standard normal, and ride the pipeline's ``latents=`` argument, so
-  a request renders the same image in a batch of 1 or 8 (up to fp reassociation).
+  a request renders the same image in a batch of 1 or 8 (up to fp reassociation),
+  under ToMe too: its merge maps are per row and its window draws do not depend on
+  the batch.
   The torch generator is not ``jax.random``: the same seed gives DIFFERENT latents,
   hence different images, than the JAX engine.
 * **Compatibility groups.** Only requests with identical (steps, resolution,

@@ -1,0 +1,109 @@
+"""PNG encode and decode with the standard library (zlib) and numpy, for the HTTP
+server (counterpart of ``apps/_webui.py`` ``_png_bytes`` / ``_decode_image``, which
+use PIL; the card's machine has no PIL).
+
+Encodes 8-bit RGB. Decodes 8-bit grayscale, RGB and RGBA, non-interlaced, with any of
+the five filter types, to (H, W, 3) uint8 RGB (grayscale is replicated, alpha is
+dropped, as PIL's ``convert("RGB")``). Anything else raises ValueError.
+"""
+
+from __future__ import annotations
+
+import struct
+import zlib
+
+import numpy as np
+
+SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_CHANNELS = {0: 1, 2: 3, 6: 4}  # colour type -> samples per pixel
+
+
+def _chunk(kind: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+
+def encode_png(image: np.ndarray) -> bytes:
+    """(H, W, 3) uint8 RGB -> PNG bytes (filter type 0 on every row)."""
+    img = np.asarray(image)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"encode_png takes (H, W, 3) uint8, got {img.shape} {img.dtype}")
+    h, w, _ = img.shape
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * 3)], axis=1)
+    header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    return (SIGNATURE + _chunk(b"IHDR", header)
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)) + _chunk(b"IEND", b""))
+
+
+def _paeth(a: int, b: int, c: int) -> int:
+    p = a + b - c
+    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+    return a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+
+
+def _unfilter(data: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo the per-row filters (None, Sub, Up, Average, Paeth) -> (h, stride) uint8.
+    None, Up and Sub are numpy over the row; Average and Paeth depend on the byte
+    just decoded to their left, so they run byte by byte."""
+    if len(data) != h * (stride + 1):
+        raise ValueError(f"PNG image data is {len(data)} bytes, expected {h * (stride + 1)}")
+    rows = np.frombuffer(data, np.uint8).reshape(h, stride + 1)
+    out = np.zeros((h, stride), np.uint8)
+    prev = np.zeros(stride, np.uint8)
+    for y in range(h):
+        kind, line = int(rows[y, 0]), rows[y, 1:]
+        if kind == 0:
+            cur = line
+        elif kind == 1:
+            cur = np.cumsum(line.reshape(-1, bpp), axis=0, dtype=np.uint8).reshape(-1)
+        elif kind == 2:
+            cur = line + prev  # uint8 arithmetic wraps mod 256
+        elif kind in (3, 4):
+            cur, up = bytearray(line.tobytes()), prev.tobytes()
+            for x in range(stride):
+                a = cur[x - bpp] if x >= bpp else 0
+                if kind == 3:
+                    pred = (a + up[x]) >> 1
+                else:
+                    pred = _paeth(a, up[x], up[x - bpp] if x >= bpp else 0)
+                cur[x] = (cur[x] + pred) & 0xFF
+            cur = np.frombuffer(bytes(cur), np.uint8)
+        else:
+            raise ValueError(f"PNG row {y} has unknown filter type {kind}")
+        out[y] = cur
+        prev = out[y]
+    return out
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes -> (H, W, 3) uint8 RGB."""
+    if not data.startswith(SIGNATURE):
+        raise ValueError("not a PNG (bad signature)")
+    pos, header, idat = len(SIGNATURE), None, []
+    while pos + 8 <= len(data):
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        if len(body) != length or pos + 12 + length > len(data):
+            raise ValueError(f"PNG chunk {kind!r} is truncated")
+        (crc,) = struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])
+        if zlib.crc32(kind + body) & 0xFFFFFFFF != crc:
+            raise ValueError(f"PNG chunk {kind!r} fails its CRC")
+        pos += 12 + length
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if header is None or not idat:
+        raise ValueError("PNG without IHDR or IDAT")
+    w, h, depth, colour, compression, filt, interlace = header
+    if depth != 8 or colour not in _CHANNELS or compression or filt or interlace:
+        raise ValueError(f"unsupported PNG: bit depth {depth}, colour type {colour}, "
+                         f"interlace {interlace} (8-bit gray, RGB or RGBA, "
+                         "non-interlaced only)")
+    ch = _CHANNELS[colour]
+    pixels = _unfilter(zlib.decompress(b"".join(idat)), h, w * ch, ch).reshape(h, w, ch)
+    if ch == 1:
+        return np.repeat(pixels, 3, axis=2)
+    return np.ascontiguousarray(pixels[..., :3])

@@ -48,12 +48,14 @@ def k1_reference(q, k, v, heads, qb, kb, vb):
                                             (8, 8, 1024, 40, 4), (4, 4, 333, 80, 2),
                                             (2, 8, 33, 40, 1), (8, 2, 700, 64, 2),
                                             (8, 8, 4096, 40, 4), (8, 8, 4096, 40, 1),
-                                            (2, 8, 4225, 40, 1), (2, 1, 700, 512, 1)])
+                                            (2, 8, 4225, 40, 1), (2, 1, 700, 512, 1),
+                                            (2, 8, 2048, 40, 2), (8, 8, 2048, 40, 8)])
 def test_k1_matches_plain(cuda, b, heads, l, d, bc):
     """bc is the bias batch: per-image biases (bc = n under the 2n CFG batch) must
     TILE, so batch row i reads bias row i % bc; every bias row differs. L shorter
-    than a tile (33), ragged (333, 700, 4225) and the render's 4096; D 40, 64, 80,
-    160 and 512 (the wide design)."""
+    than a tile (33), ragged (333, 700, 4225), the render's 4096 and ToMe's merged
+    2048, whose biases are merged per CFG row (bc = b); D 40, 64, 80, 160 and 512
+    (the wide design)."""
     q, k, v = (randn((b, l, heads * d), s, cuda) for s in range(3))
     qb, kb, vb = (0.25 * randn((bc, l, heads * d), s, cuda) for s in range(3, 6))
     out = fa.biased_attention(q, k, v, heads, qb, kb, vb)
@@ -81,7 +83,7 @@ def test_k1_with_a_bias_left_out(cuda, missing):
                                          (1, 2, 129, 64), (8, 8, 4096, 40),
                                          (8, 1, 4096, 512), (1, 1, 4096, 512),
                                          (2, 8, 33, 40), (1, 4, 333, 80), (2, 2, 4225, 160),
-                                         (1, 8, 700, 64)])
+                                         (1, 8, 700, 64), (2, 8, 2048, 40)])
 def test_k2_matches_plain(cuda, b, heads, l, d):
     """Ragged and short shapes, the serving VAE (1, 1, 4096, 512, split keys), then
     the training path's at 512², batch 8: the UNet self-attention and the VAE

@@ -195,10 +195,11 @@ def test_dpm_tables_and_steps():
     x = rng.normal(size=(2, 8, 8, 4)).astype(np.float32)
     js, ts = jd.init_state(jnp.asarray(x)), td.init_state(torch.from_numpy(x))
     tables = jd.tables(3)
+    td.set_timesteps(3)
     for i in range(3):
         eps = rng.normal(size=x.shape).astype(np.float32)
         js = jd.step(js, jnp.asarray(eps), jnp.int32(i), 3, tables)
-        ts = td.step(ts, torch.from_numpy(eps), i, 3)
+        ts = td.step(ts, torch.from_numpy(eps), i)
         assert_close(ts.sample, js.sample, f"step {i}")
 
 

@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``controllora_tpu_torch`` and not
-``chip_smoke.py`` imports the JAX package, jax, flax or optax. The numpy modules the
+``chip_smoke.py`` imports the JAX package, jax, flax or optax (nor PIL, which the
+card's machine lacks). The numpy modules the
 port keeps its own copies of (config, tokenizer, dataset registry and fill50k,
 batch_iterator, the state-dict key maps) give what the JAX package's originals give.
 All comparisons here are exact.
@@ -26,7 +27,7 @@ from controllora_tpu_torch.models.unet import derive_cross_attention_dims
 from controllora_tpu_torch.utils import convert
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BANNED = ("controllora_tpu", "jax", "flax", "optax")
+BANNED = ("controllora_tpu", "jax", "flax", "optax", "PIL")
 
 IMPORT_EVERY_MODULE = """
 import importlib, pkgutil, sys
@@ -46,6 +47,7 @@ names = [m.name for m in pkgutil.walk_packages(controllora_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 print(len(names), "modules")
+print(" ".join(names))
 """
 
 
@@ -56,7 +58,11 @@ def test_port_imports_nothing_of_jax():
     proc = subprocess.run([sys.executable, "-c", IMPORT_EVERY_MODULE.format(banned=BANNED)],
                           cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.split()[0]) >= 30, proc.stdout
+    count, names = proc.stdout.splitlines()[:2]
+    assert int(count.split()[0]) >= 30, proc.stdout
+    for module in ("ops.tome", "serve", "utils.png", "schedulers.ddim", "schedulers.pndm",
+                   "schedulers.euler", "schedulers.unipc"):
+        assert f"controllora_tpu_torch.{module}" in names.split(), module
 
 
 def test_chip_smoke_imports_nothing_of_jax():
