@@ -14,7 +14,10 @@ Phases, each of which raises (non-zero exit, no result line) when it fails:
               main-path shape of K1 (batch-1 and batch-4 renders) and K2 (VAE,
               unguided UNet, training UNet and VAE encoder) the times of both, the
               bound (operations or bytes at the H100's peaks) and one torch SDPA
-              call on the same inputs as a yardstick. The gradient of FlashAttention
+              call on the same inputs as a yardstick (a profiler device time under
+              the bound means lost events: retried, else "not measured"); the same
+              for K1 at the other families' head-dim-64 self-attentions (bias batch
+              1 and 4) and K2 at their VAE decodes. The gradient of FlashAttention
               (K2 forward, K3 + K4 backward) against autograd of the plain fp32
               attention, at the training shape and a ragged one. Then K5 (jax's
               stock flash: forward with m and l, dK/dV and dQ on K3's and K4's
@@ -64,6 +67,17 @@ Phases, each of which raises (non-zero exit, no result line) when it fails:
               memory; then 2 steps each of remat `nothing` and no remat.
  12. CLI smoke  the smoke-variant CLI with 8-bit AdamW, remat, checkpoints and the
               latent cache: 4 steps straight against 2 + resume latest for 2.
+ 13. families  SD2.1 (768², v-prediction DPM-Solver++) and SDXL (1024², dual text
+              towers, text_time) at full width on seeded random bf16 weights with the
+              `base` ControlLoRA re-derived per family, and the SDXL refiner's UNet
+              (their kernel shapes are checked in phase 3): per family a folded CFG
+              UNet eval, the text encoder and a VAE decode on the
+              card in bf16 (kernels) against an fp32 copy on the card with every
+              attention plain; a guided 20-step render through the BatchingEngine
+              with exact launches (derived from the configs) and a profiled render;
+              `python -m controllora_tpu_torch.serve --model_variant sdxl` answering
+              one 1024² /generate with a PNG guide; the refiner's UNet (5 ids) and
+              text tower against fp32.
 The last lines are the kernel record (each route with the CUDA kernel it launches),
 the card's name and power limit, and {"ok": true, "device": {...}}.
 """
@@ -126,22 +140,27 @@ def cuda_ms(fn, iters=10, warmup=2):
     return statistics.median(times)
 
 
-def device_ms(fn, iters=10):
+def device_ms(fn, iters=10, floor_ms=None):
     """Mean device milliseconds of fn() over `iters` runs under torch.profiler: the
     summed durations of the kernels and memory operations it issued. CUDA events
     around one call (cuda_ms) also take in the host's time to issue the call, which
     a sub-millisecond kernel does not hide; this time leaves it out. Where a window
-    records no device activity, one more window of 3 * iters calls is profiled; None
-    if that records none either (logged with the names the profiler did record)."""
+    records no device activity, or less than `floor_ms` a call (the least time the
+    card could take, so the profiler lost events), one more window of 3 * iters
+    calls is profiled; None if that fails too (logged with the names the profiler
+    did record)."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     for n in (iters, 3 * iters):
         _, busy, top = device_profile(torch, lambda: [fn() for _ in range(n)])
-        if busy > 0:
+        if busy > 0 and (floor_ms is None or busy * 1e3 / n >= floor_ms):
             return busy * 1e3 / n
-    log(f"  device_ms: no device activity in {iters} + {3 * iters} profiled calls; "
+        if busy > 0:
+            log(f"  device_ms: {busy * 1e3 / n:.4f} ms a call over {n} profiled calls is "
+                f"under the {floor_ms:.4f} ms bound: the profiler lost events")
+    log(f"  device_ms: not measured in {iters} + {3 * iters} profiled calls; "
         f"events recorded: {sorted(top)[:8]}")
     return None
 
@@ -175,7 +194,7 @@ def attention_roofline(products, b, h, lq, lk, d, bf16_q, bf16_k, fp32_rows):
     return roofline(flops, nbytes)
 
 
-def sdpa_ms(torch, q, k, v, scale=None, do=None):
+def sdpa_ms(torch, q, k, v, scale=None, do=None, floor_ms=None):
     """Time of one torch scaled_dot_product_attention call on (B, H, L, D) inputs
     (the library yardstick; the port never calls it): the forward, or with `do` the
     backward of one call, which gives dq, dk and dv together. Every fused backend that
@@ -183,7 +202,8 @@ def sdpa_ms(torch, q, k, v, scale=None, do=None):
     by CUDA events (cuda_ms) and by device time (device_ms); returns
     {"library_ms", "library_backend"} of the fastest by events,
     {"library_device_ms", "library_device_backend"} of the fastest by device time,
-    and "library_backends": {backend: [ms, device ms]}."""
+    and "library_backends": {backend: [ms, device ms]}. `floor_ms` (the bound)
+    goes to device_ms."""
     import warnings
 
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -209,7 +229,7 @@ def sdpa_ms(torch, q, k, v, scale=None, do=None):
                 fn()
                 torch.cuda.synchronize()
                 times[backend.name] = cuda_ms(fn)
-                device[backend.name] = device_ms(fn)
+                device[backend.name] = device_ms(fn, floor_ms=floor_ms)
         except RuntimeError:
             continue
         finally:
@@ -301,13 +321,105 @@ def shape_entry(shape, ms, dms, pms, bound, library):
     return dict(shape=list(shape), ms=ms, device_ms=dms, plain_ms=pms, **bound, **library)
 
 
+def k1_case(torch, fa, rnd, record, b, h, l, d, bc, timed, label=""):
+    """K1 at (B, H, L, D) with biases of batch Bc against its plain version; with
+    `timed`, the kernel's time (events and device), the plain version's, the bound
+    and SDPA on the biased q/k/v, appended to record["k1"]["shapes"]. Returns the
+    entry (None untimed)."""
+    from controllora_tpu_torch.ops.attention import split_heads
+
+    q, k, v = rnd(b, l, h * d), rnd(b, l, h * d), rnd(b, l, h * d)
+    qb, kb, vb = (0.25 * rnd(bc, l, h * d) for _ in range(3))
+    out = fa.biased_attention(q, k, v, h, qb, kb, vb)
+    torch.cuda.synchronize()
+    ref = plain_fp32(fa, q, k, v, h, qb, kb, vb)
+    err = (out.float() - ref).abs().max().item()
+    del ref
+    if not (out.shape == q.shape and torch.isfinite(out).all() and err <= O_BOUND):
+        raise AssertionError(f"K1 B{b} H{h} L{l} D{d} Bc{bc}: max|dO| {err} > {O_BOUND}")
+    line = (f"K1{label} B={b} H={h} L={l} D={d} (biases batch {bc} -> {b}): "
+            f"max|dO| {err:.3e} <= {O_BOUND}")
+    record["k1"]["max_abs_err"] = max(record["k1"]["max_abs_err"], err)
+    entry = None
+    if timed:
+        bound = attention_roofline(2, b, h, l, l, d, 2 + bc / b, 2 + 2 * bc / b, 0)
+        ms = cuda_ms(lambda: fa.biased_attention(q, k, v, h, qb, kb, vb))
+        dms = device_ms(lambda: fa.biased_attention(q, k, v, h, qb, kb, vb),
+                        floor_ms=bound["bound_ms"])
+        pms = cuda_ms(lambda: fa.biased_attention_plain(q, k, v, h, qb, kb, vb))
+        biased = [split_heads(x + xb.repeat(b // bc, 1, 1), h)
+                  for x, xb in ((q, qb), (k, kb), (v, vb))]
+        library = sdpa_ms(torch, *biased, floor_ms=bound["bound_ms"])
+        del biased
+        entry = shape_entry((b, h, l, d, bc), ms, dms, pms, bound, library)
+        if label:
+            entry["path"] = label.strip(" ()")
+        record["k1"]["shapes"].append(entry)
+        line += (f"  kernel {ms:.4f} ms (device {num(dms)})  plain {pms:.4f} ms  bound "
+                 f"{bound['bound_ms']:.4f} ms by {bound['bound_by']}  SDPA on the biased "
+                 f"q/k/v {fmt_sdpa(library)}")
+    log(line)
+    return entry
+
+
+def k2_case(torch, fa, device, rnd, record, b, h, l, d, label=""):
+    """K2 at (B, H, L, D) against its plain version (O and LSE), timed as k1_case;
+    where the plan splits the key range, also the same call in one pass (both held to
+    the plain version). Returns the entry appended to record["k2"]["shapes"]."""
+    from controllora_tpu_torch.ops.attention import split_heads
+
+    q, k, v = rnd(b, l, h * d), rnd(b, l, h * d), rnd(b, l, h * d)
+    o, lse = fa.flash_attention(q, k, v, h)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = fa.attention_lse_plain(q.float(), k.float(), v.float(), h)
+    err = (o.float() - o_ref).abs().max().item()
+    lerr = (lse - lse_ref).abs().max().item()
+    if not (torch.isfinite(o).all() and err <= O_BOUND and lerr <= LSE_BOUND):
+        raise AssertionError(f"K2 B{b} H{h} L{l} D{d}: max|dO| {err}, max|dLSE| {lerr}")
+    line = (f"K2{label} B={b} H={h} L={l} D={d}: max|dO| {err:.3e} <= {O_BOUND}, "
+            f"max|dLSE| {lerr:.3e} <= {LSE_BOUND}")
+    bound = attention_roofline(2, b, h, l, l, d, 2, 2, 1)
+    ms = cuda_ms(lambda: fa.flash_attention(q, k, v, h))
+    dms = device_ms(lambda: fa.flash_attention(q, k, v, h), floor_ms=bound["bound_ms"])
+    pms = cuda_ms(lambda: fa.attention_lse_plain(q, k, v, h))
+    library = sdpa_ms(torch, *(split_heads(x, h) for x in (q, k, v)),
+                      floor_ms=bound["bound_ms"])
+    line += (f"  kernel {ms:.4f} ms (device {num(dms)})  plain {pms:.4f} ms  bound "
+             f"{bound['bound_ms']:.4f} ms by {bound['bound_by']}  SDPA {fmt_sdpa(library)}")
+    entry = shape_entry((b, h, l, d), ms, dms, pms, bound, library)
+    if label:
+        entry["path"] = label.strip(" ()")
+    splits = fa.kv_splits(b * h, l, l, fa.fwd_tiles(d),
+                          torch.cuda.get_device_properties(device).multi_processor_count)
+    if splits > 1:  # the same call with the key range in one pass, for its gain
+        plan, fa.kv_splits = fa.kv_splits, lambda *args: 1
+        try:
+            o_one, lse_one = fa.flash_attention(q, k, v, h)
+            one_ms = cuda_ms(lambda: fa.flash_attention(q, k, v, h))
+            one_dms = device_ms(lambda: fa.flash_attention(q, k, v, h),
+                                floor_ms=bound["bound_ms"])
+        finally:
+            fa.kv_splits = plan
+        oerr = (o_one.float() - o_ref).abs().max().item()
+        lerr1 = (lse_one - lse_ref).abs().max().item()
+        if not (oerr <= O_BOUND and lerr1 <= LSE_BOUND):
+            raise AssertionError(f"K2 B{b} H{h} L{l} D{d} in one pass: max|dO| {oerr}, "
+                                 f"max|dLSE| {lerr1}")
+        entry.update(splits=splits, one_pass_ms=one_ms, one_pass_device_ms=one_dms)
+        line += (f"\n  {splits} key splits {ms:.4f} ms (device {num(dms)}), one pass "
+                 f"{one_ms:.4f} ms (device {num(one_dms)}; max|dO| {oerr:.3e}, max|dLSE| "
+                 f"{lerr1:.3e})")
+    record["k2"]["shapes"].append(entry)
+    record["k2"]["max_abs_err"] = max(record["k2"]["max_abs_err"], err)
+    log(line)
+    return entry
+
+
 def phase_kernels(torch, fa, device):
     """K1/K2 vs plain; returns {kernel: {"max_abs_err", "ms", "plain_ms", "bound_ms",
     "bound_by", "library_ms", "library_backend", "shapes"}}: the top-level numbers are
     those of K1's batch-1 render shape and K2's VAE shape; "shapes" holds every
     main-path shape's time, plain time, bound and SDPA time."""
-    from controllora_tpu_torch.ops.attention import split_heads
-
     gen = torch.Generator(device=device).manual_seed(0)
 
     def rnd(*shape):
@@ -319,107 +431,64 @@ def phase_kernels(torch, fa, device):
     # (per-image biases, every row different, tiled over the 8-row CFG batch).
     for b, h, l, d, bc in ((2, 8, 4096, 40, 1), (8, 8, 4096, 40, 4),
                            (2, 8, 2304, 80, 1), (2, 8, 7744, 40, 1)):
-        q, k, v = rnd(b, l, h * d), rnd(b, l, h * d), rnd(b, l, h * d)
-        qb, kb, vb = (0.25 * rnd(bc, l, h * d) for _ in range(3))
-        out = fa.biased_attention(q, k, v, h, qb, kb, vb)
-        torch.cuda.synchronize()
-        ref = plain_fp32(fa, q, k, v, h, qb, kb, vb)
-        err = (out.float() - ref).abs().max().item()
-        if not (out.shape == ref.shape and torch.isfinite(out).all() and err <= O_BOUND):
-            raise AssertionError(f"K1 B{b} H{h} L{l} D{d} Bc{bc}: max|dO| {err} > {O_BOUND}")
-        line = (f"K1 B={b} H={h} L={l} D={d} (biases batch {bc} -> {b}): "
-                f"max|dO| {err:.3e} <= {O_BOUND}")
-        if (l, d) == (4096, 40):  # the batch-1 and batch-4 renders
-            ms = cuda_ms(lambda: fa.biased_attention(q, k, v, h, qb, kb, vb))
-            dms = device_ms(lambda: fa.biased_attention(q, k, v, h, qb, kb, vb))
-            pms = cuda_ms(lambda: fa.biased_attention_plain(q, k, v, h, qb, kb, vb))
-            bound = attention_roofline(2, b, h, l, l, d, 2 + bc / b, 2 + 2 * bc / b, 0)
-            biased = [split_heads(x + xb.repeat(b // bc, 1, 1), h)
-                      for x, xb in ((q, qb), (k, kb), (v, vb))]
-            library = sdpa_ms(torch, *biased)
-            del biased
-            record["k1"]["shapes"].append(
-                shape_entry((b, h, l, d, bc), ms, dms, pms, bound, library))
-            if b == 2:
-                record["k1"].update(ms=ms, device_ms=dms, plain_ms=pms, **bound, **library)
-            line += (f"  kernel {ms:.4f} ms (device {num(dms)})  plain {pms:.4f} ms  bound {bound['bound_ms']:.4f} "
-                     f"ms by {bound['bound_by']}  SDPA on the biased q/k/v "
-                     f"{fmt_sdpa(library)}")
-        record["k1"]["max_abs_err"] = max(record["k1"]["max_abs_err"], err)
-        log(line)
-        del q, k, v, qb, kb, vb, out, ref
+        entry = k1_case(torch, fa, rnd, record, b, h, l, d, bc, timed=(l, d) == (4096, 40))
+        if entry is not None and b == 2:
+            record["k1"].update({k: v for k, v in entry.items() if k != "shape"})
     # K2: the VAE mid-attention of serving at batch 1 and 4 (the batch-4 render decodes
     # its 4 latents in one call) and the unguided UNet self-attention (batch 1), then
     # the training path's (batch 8): UNet self-attention and VAE encoder
     for b, h, l, d in ((1, 1, 4096, 512), (4, 1, 4096, 512), (2, 8, 4096, 40),
                        (8, 8, 4096, 40), (8, 1, 4096, 512)):
-        q, k, v = rnd(b, l, h * d), rnd(b, l, h * d), rnd(b, l, h * d)
-        o, lse = fa.flash_attention(q, k, v, h)
-        torch.cuda.synchronize()
-        o_ref, lse_ref = fa.attention_lse_plain(q.float(), k.float(), v.float(), h)
-        err = (o.float() - o_ref).abs().max().item()
-        lerr = (lse - lse_ref).abs().max().item()
-        if not (torch.isfinite(o).all() and err <= O_BOUND and lerr <= LSE_BOUND):
-            raise AssertionError(f"K2 B{b} H{h} L{l} D{d}: max|dO| {err}, max|dLSE| {lerr}")
-        line = (f"K2 B={b} H={h} L={l} D={d}: max|dO| {err:.3e} <= {O_BOUND}, "
-                f"max|dLSE| {lerr:.3e} <= {LSE_BOUND}")
-        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, h))
-        dms = device_ms(lambda: fa.flash_attention(q, k, v, h))
-        pms = cuda_ms(lambda: fa.attention_lse_plain(q, k, v, h))
-        bound = attention_roofline(2, b, h, l, l, d, 2, 2, 1)
-        library = sdpa_ms(torch, *(split_heads(x, h) for x in (q, k, v)))
-        line += (f"  kernel {ms:.4f} ms (device {num(dms)})  plain {pms:.4f} ms  bound "
-                 f"{bound['bound_ms']:.4f} ms by {bound['bound_by']}  SDPA {fmt_sdpa(library)}")
-        entry = shape_entry((b, h, l, d), ms, dms, pms, bound, library)
-        splits = fa.kv_splits(b * h, l, l, fa.fwd_tiles(d),
-                              torch.cuda.get_device_properties(device).multi_processor_count)
-        if splits > 1:  # the same call with the key range in one pass, for its gain
-            plan, fa.kv_splits = fa.kv_splits, lambda *args: 1
-            try:
-                o_one, lse_one = fa.flash_attention(q, k, v, h)
-                one_ms = cuda_ms(lambda: fa.flash_attention(q, k, v, h))
-                one_dms = device_ms(lambda: fa.flash_attention(q, k, v, h))
-            finally:
-                fa.kv_splits = plan
-            oerr = (o_one.float() - o_ref).abs().max().item()
-            lerr1 = (lse_one - lse_ref).abs().max().item()
-            if not (oerr <= O_BOUND and lerr1 <= LSE_BOUND):
-                raise AssertionError(f"K2 B{b} H{h} L{l} D{d} in one pass: max|dO| {oerr}, "
-                                     f"max|dLSE| {lerr1}")
-            entry.update(splits=splits, one_pass_ms=one_ms, one_pass_device_ms=one_dms)
-            line += (f"\n  {splits} key splits {ms:.4f} ms (device {num(dms)}), one pass "
-                     f"{one_ms:.4f} ms (device {num(one_dms)}; max|dO| {oerr:.3e}, max|dLSE| "
-                     f"{lerr1:.3e})")
-            del o_one, lse_one
-        record["k2"]["shapes"].append(entry)
+        entry = k2_case(torch, fa, device, rnd, record, b, h, l, d)
         if (b, d) == (1, 512):
-            record["k2"].update(ms=ms, device_ms=dms, plain_ms=pms, **bound, **library)
-        record["k2"]["max_abs_err"] = max(record["k2"]["max_abs_err"], err)
-        log(line)
-        del q, k, v, o, lse, o_ref, lse_ref
+            record["k2"].update({k: v for k, v in entry.items()
+                                 if k not in ("shape", "splits", "one_pass_ms",
+                                              "one_pass_device_ms")})
     return record
 
 
-def build_stack(torch, device):
+def base_control(torch, unet_config, device, gen):
+    """The `base` ControlLoRA re-derived for a UNet family, every parameter +0.01
+    (fresh `up` factors are zero: the fold would be a no-op)."""
     from controllora_tpu_torch.config import get_preset
+    from controllora_tpu_torch.models import zoo
+    from controllora_tpu_torch.models.control_lora import config_for_unet
+
+    control = zoo.build_control_lora(config_for_unet(get_preset("base"), unet_config),
+                                     device, gen)
+    with torch.no_grad():
+        for p in control.parameters():
+            p.add_(0.01)
+    return control
+
+
+def build_stack(torch, device, variant="sd15", scheduler=None):
+    """A full-width stack of `variant` with seeded random bf16 weights and the
+    re-derived `base` ControlLoRA, as a pipeline."""
     from controllora_tpu_torch.data.tokenizer import HashTokenizer
     from controllora_tpu_torch.models import zoo
     from controllora_tpu_torch.pipelines import StableDiffusionControlLoRAPipeline
 
     gen = torch.Generator(device=device).manual_seed(0)
-    unet, vae, text = zoo.build_models("sd15", torch.bfloat16, device, gen)
-    control = zoo.build_control_lora(get_preset("base"), device, gen)
-    with torch.no_grad():
-        for p in control.parameters():  # fresh `up` factors are zero: fold would be a no-op
-            p.add_(0.01)
+    unet, vae, text = zoo.build_models(variant, torch.bfloat16, device, gen)
+    control = base_control(torch, unet.config, device, gen)
     return StableDiffusionControlLoRAPipeline(unet, vae, text, HashTokenizer(), control,
-                                              device=device)
+                                              scheduler=scheduler, device=device)
 
 
 def cpu_copy(torch, module, cls, config):
     from controllora_tpu_torch.models import zoo
 
     copy = zoo.materialize(cls, config, torch.device("cpu"), None, torch.float32)
+    copy.load_state_dict(module.state_dict())
+    return copy
+
+
+def fp32_copy(torch, module, device):
+    """An fp32 copy of `module` (of any of the port's model classes) on `device`."""
+    from controllora_tpu_torch.models import zoo
+
+    copy = zoo.materialize(type(module), module.config, device, None, torch.float32)
     copy.load_state_dict(module.state_dict())
     return copy
 
@@ -1536,6 +1605,280 @@ def phase_cli_resume(torch):
         raise AssertionError(f"CLI resume: adapters differ by {err}")
 
 
+# the other model families, each rendered guided at its own size: SD2.1 (768², v-
+# prediction DPM-Solver++) and SDXL (1024², dual text towers, text_time); the
+# refiner's UNet is evaluated once at 1024²
+FAMILIES = {"sd21": (768, "v_prediction"), "sdxl": (1024, "epsilon")}
+HTTP_FAMILY = "sdxl"  # the family the HTTP server is driven with
+REFINER, REFINER_RES = "sdxl-refiner", 1024
+# K1 at the families' self-attentions, (B, heads, L, D) under a batch-1 render (bias
+# batch 1) and a batch-4 one (bias batch 4 under B 8), and K2 at their VAE decodes
+FAMILY_K1 = (((2, 5, 9216, 64), "SD2.1 768² level 0"), ((2, 10, 2304, 64), "SD2.1 768² level 1"),
+             ((2, 10, 4096, 64), "SDXL 1024² level 1"), ((2, 12, 4096, 64), "refiner 1024² level 1"))
+FAMILY_K2 = (((1, 1, 9216, 512), "SD2.1 768² VAE"), ((1, 1, 16384, 512), "SDXL 1024² VAE"))
+
+
+def k1_per_eval(unet_config, res):
+    """K1 launches of one guided CFG UNet eval at `res`: the self-attentions (attn1;
+    every one carries folded biases) of the levels whose token count reaches the
+    flash route's FLASH_MIN_LEN."""
+    from controllora_tpu_torch.models.unet import attention_processor_names, processor_bucket
+    from controllora_tpu_torch.ops.attention import FLASH_MIN_LEN
+
+    n, side = len(unet_config.block_out_channels), res // 8
+    return sum(".attn1." in name and (side >> processor_bucket(name, n)) ** 2 >= FLASH_MIN_LEN
+               for name in attention_processor_names(unet_config))
+
+
+def render_launches(unet_config, res):
+    """Launches of one guided batch-1 render of STEPS steps at `res`: K1 at every
+    long self-attention of every step, K2 once in the VAE decode's mid-attention."""
+    from controllora_tpu_torch.ops.attention import FLASH_MIN_LEN
+
+    return {"k1": STEPS * k1_per_eval(unet_config, res),
+            "k2": int((res // 8) ** 2 >= FLASH_MIN_LEN), "k3": 0, "k4": 0}
+
+
+def launched(fa, before):
+    return {n: fa.LAUNCHES[n] - before[n] for n in before}
+
+
+def family_parity(torch, fa, pipe, res, device, label, modules=("unet", "text", "vae")):
+    """One folded CFG UNet eval (batch 2, guide at `res`), the text encoder and one
+    VAE decode of the card's bf16 stack with the kernels against an fp32 copy on the
+    card with every attention on its plain version (attention_backend "xla");
+    relative L2 within REL_BOUND. Every kernel launch is checked: the bf16 eval
+    launches K1 k1_per_eval times, the decode K2 once where its L reaches the flash
+    route, the fp32 side none. The fp32 copies are freed before returning."""
+    import numpy as np
+    from torch.func import functional_call
+
+    from controllora_tpu_torch.ops.folding import fold_adapters
+
+    rng = np.random.default_rng(5)
+    side = res // 8
+    guide = torch.from_numpy(rng.uniform(-1, 1, (1, 3, res, res)).astype(np.float32)).to(device)
+    lat = torch.from_numpy(rng.normal(size=(2, 4, side, side)).astype(np.float32)).to(device)
+    ids = torch.from_numpy(rng.integers(0, 49407, (2, 77))).to(device)
+    t = torch.tensor([500.0, 500.0], device=device)
+    unet, cfg = pipe.unet, pipe.unet.config
+    errs, t0 = {}, time.perf_counter()
+    with torch.inference_mode():
+        enc = pipe.text_encoder(ids)
+        ctx, pooled = enc if isinstance(enc, tuple) else (enc, None)
+        added = {}
+        if cfg.addition_embed_type == "text_time":
+            added = dict(added_text_embeds=pooled,
+                         added_time_ids=pipe.text_time_ids(pooled, res, res, 6.0, 2.5))
+        if "text" in modules:
+            text32 = fp32_copy(torch, pipe.text_encoder, device)
+            enc32 = text32(ids)
+            enc32 = enc32 if isinstance(enc32, tuple) else (enc32,)
+            for name, a, b in zip(("context", "pooled"), (ctx, pooled), enc32):
+                errs[f"text encoder {name}"] = rel_l2(a, b)
+            del text32, enc32
+        adapters = pipe.control_lora.adapters_for(guide, cfg)
+        weights, biases = fold_adapters(unet, adapters)
+        biases = {k: b.to(torch.bfloat16) for k, b in biases.items()}
+        before = dict(fa.LAUNCHES)
+        eps = functional_call(unet, weights, (lat, t, ctx), dict(biases=biases, **added))
+        torch.cuda.synchronize()
+        used = launched(fa, before)
+        del weights, biases
+        unet32 = fp32_copy(torch, unet, device)
+        weights, biases = fold_adapters(unet32, adapters)
+        before = dict(fa.LAUNCHES)
+        eps32 = functional_call(unet32, weights, (lat, t, ctx), dict(
+            biases=biases, attention_backend="xla", **added))
+        torch.cuda.synchronize()
+        used32 = launched(fa, before)
+        errs["folded UNet eval"] = rel_l2(eps, eps32)
+        del unet32, weights, biases, adapters, eps32
+        want = {"k1": k1_per_eval(cfg, res), "k2": 0, "k3": 0, "k4": 0}
+        if "vae" in modules:
+            before = dict(fa.LAUNCHES)
+            img = pipe.vae.decode(lat[:1])
+            torch.cuda.synchronize()
+            used = {n: used[n] + c for n, c in launched(fa, before).items()}
+            want["k2"] = render_launches(cfg, res)["k2"]
+            vae32 = fp32_copy(torch, pipe.vae, device)
+            before = dict(fa.LAUNCHES)
+            img32 = vae32.decode(lat[:1], attention_backend="xla")
+            torch.cuda.synchronize()
+            used32 = {n: used32[n] + c for n, c in launched(fa, before).items()}
+            errs[f"VAE decode {res}²"] = rel_l2(img, img32)
+            del vae32, img32
+            if not torch.isfinite(img).all():
+                raise AssertionError(f"{label}: non-finite VAE decode")
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, err in errs.items():
+        log(f"{label} parity {name}: card bf16 (kernels) vs card fp32 (plain versions) "
+            f"relative L2 {err:.4e} <= {REL_BOUND}")
+    log(f"{label} parity: launches bf16 {used}, fp32 {used32}; {time.perf_counter() - t0:.1f} s")
+    if used != want or any(used32.values()):
+        raise AssertionError(f"{label} parity launches: bf16 {used} (want {want}), fp32 {used32}")
+    if not torch.isfinite(eps).all():
+        raise AssertionError(f"{label}: non-finite UNet eval")
+    bad = {k: v for k, v in errs.items() if not v <= REL_BOUND}
+    if bad:
+        raise AssertionError(f"{label} parity outside {REL_BOUND}: {bad}")
+
+
+def family_render(torch, fa, pipe, res, label, card):
+    """The family's main path: one guided batch-1 render of STEPS steps at CFG through
+    the BatchingEngine (after a 2-step warm-up), its launches counted from 0 and held
+    to render_launches; then one render under torch.profiler. Returns the launches."""
+    import numpy as np
+
+    from controllora_tpu_torch.serving import BatchingEngine
+
+    guide = np.random.default_rng(6).uniform(-1, 1, (res, res, 3)).astype(np.float32)
+    common = dict(guide=guide, num_inference_steps=STEPS, guidance_scale=CFG, height=res,
+                  width=res, return_array=True)
+    eng = BatchingEngine(pipe, max_wait_ms=5.0, buckets=(1,))
+    try:
+        eng.submit("warm up", **dict(common, num_inference_steps=2)).result(timeout=900)
+        fa.reset_launch_counts()  # this render's main path starts here
+        t0 = time.perf_counter()
+        img = eng.submit("a red square on a blue field", seed=7, **common).result(timeout=900)
+        wall = time.perf_counter() - t0
+        used = dict(fa.LAUNCHES)  # and ends here
+    finally:
+        eng.stop()
+    want = render_launches(pipe.unet.config, res)
+    if used != want or eng.stats["errors"]:
+        raise AssertionError(f"{label} render: launches {used}, expected {want}; "
+                             f"stats {eng.stats}")
+    if img.shape != (res, res, 3) or not np.isfinite(img).all():
+        raise AssertionError(f"{label} render: bad image {img.shape}")
+    log(f"{label} render (guided, batch 1, {STEPS} steps, CFG {CFG}, through the "
+        f"BatchingEngine): {wall:.3f} s wall ({eng.stats['last_batch_seconds']:.3f} s in the "
+        f"pipeline), finite {res}x{res}x3; launches {used}; {card}")
+    wall, busy, top = device_profile(torch, lambda: pipe(
+        "a red square on a blue field", **dict(common, return_array=False)))
+    log(profile_line(f"{label} render profiled, guided batch 1", wall, busy, top))
+    return used
+
+
+def family_http(torch, fa, pipe, variant, res, device, card):
+    """`python -m controllora_tpu_torch.serve --model_variant sdxl` (its parse_args,
+    build_pipeline and build_server in this process) with the family's ControlLoRA
+    saved as an artifact, answering one /generate at res² with a PNG guide; the
+    request's launches counted from 0. Returns them."""
+    import base64
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from controllora_tpu_torch import serve
+    from controllora_tpu_torch.serving import BatchingEngine
+    from controllora_tpu_torch.training.checkpoint import save_control_lora
+    from controllora_tpu_torch.utils.png import decode_png, encode_png
+
+    guide = np.random.default_rng(8).integers(0, 256, (res, res, 3), dtype=np.uint8)
+    with tempfile.TemporaryDirectory() as control_dir:
+        save_control_lora(control_dir, pipe.control_lora)
+        args = serve.parse_args(["--model_variant", variant, "--buckets", "1", "--host",
+                                 "127.0.0.1", "--port", "0", "--device", str(device),
+                                 "--control_lora_dir", control_dir])
+        t0 = time.perf_counter()
+        spipe = serve.build_pipeline(args)
+    build_s = time.perf_counter() - t0
+    eng = BatchingEngine(spipe, max_wait_ms=args.max_wait_ms, buckets=(1,))
+    server = serve.build_server(eng, args.host, args.port, args.result_timeout_s)
+    try:
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        payload = json.dumps(dict(prompt="a red square", steps=STEPS, seed=3, width=res,
+                                  height=res, guide=base64.b64encode(encode_png(guide))
+                                  .decode())).encode()
+        fa.reset_launch_counts()  # the request's main path starts here
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(urllib.request.Request(
+                f"http://127.0.0.1:{server.server_address[1]}/generate", data=payload),
+                timeout=900) as r:
+            code, raw = r.status, r.read()
+        wall = time.perf_counter() - t0
+        used = dict(fa.LAUNCHES)  # and ends here
+    finally:
+        server.shutdown()
+        server.server_close()
+        eng.stop()
+    reply = json.loads(raw)
+    img = decode_png(base64.b64decode(reply["image"]))
+    want = render_launches(spipe.unet.config, res)
+    if code != 200 or img.shape != (res, res, 3) or used != want:
+        raise AssertionError(f"{variant} server: {code}, image {img.shape}, launches {used} "
+                             f"(want {want})")
+    log(f"server (python -m controllora_tpu_torch.serve --model_variant {variant}): built in "
+        f"{build_s:.1f} s; one /generate at {res}² with a PNG guide in {wall:.3f} s "
+        f"(server says {reply['seconds']} s), {res}x{res}x3 PNG; launches {used}; {card}")
+    return used
+
+
+def phase_family_kernels(torch, fa, device, record):
+    """K1 and K2 at the other families' shapes (FAMILY_K1, FAMILY_K2) against their
+    plain versions, timed with bounds and SDPA as phase_kernels times SD1.5's, into
+    `record`'s shapes."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(11)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+
+    for (b, h, l, d), label in FAMILY_K1:
+        for batch, bc in ((b, 1), (4 * b, 4)):
+            k1_case(torch, fa, rnd, record, batch, h, l, d, bc, timed=True,
+                    label=f" ({label})")
+            gc.collect()
+            torch.cuda.empty_cache()
+    for (b, h, l, d), label in FAMILY_K2:
+        k2_case(torch, fa, device, rnd, record, b, h, l, d, label=f" ({label})")
+        torch.cuda.empty_cache()
+    log(f"families kernels {time.perf_counter() - t0:.1f} s")
+
+
+def phase_families(torch, fa, device, card):
+    """SD2.1 and SDXL served at full width on seeded random bf16 weights, and the
+    refiner's UNet: per family, parity of the card's bf16 stack with an fp32 copy on
+    the plain versions, a guided render through the BatchingEngine with exact
+    launches and a profiled render; SDXL's HTTP server; the refiner's folded UNet
+    eval (5 ids) and text tower against their fp32 copies. The stacks are built one
+    at a time and freed. Returns the launches of the main paths (renders and the
+    request), each counted from 0."""
+    from controllora_tpu_torch.schedulers import DPMSolverMultistepScheduler
+    from controllora_tpu_torch.schedulers.common import DiffusionSchedule
+
+    t_phase = time.perf_counter()
+    total = {n: 0 for n in fa.LAUNCHES}
+    for variant, (res, prediction) in FAMILIES.items():
+        t0 = time.perf_counter()
+        scheduler = DPMSolverMultistepScheduler(DiffusionSchedule.create(
+            prediction_type=prediction))
+        pipe = build_stack(torch, device, variant, scheduler)
+        log(f"{variant}: stack built in {time.perf_counter() - t0:.1f} s, UNet "
+            f"{sum(p.numel() for p in pipe.unet.parameters()) / 1e9:.3f} B parameters; "
+            f"K1 {k1_per_eval(pipe.unet.config, res)} a UNet eval at {res}²")
+        family_parity(torch, fa, pipe, res, device, variant)
+        paths = [family_render(torch, fa, pipe, res, variant, card)]
+        if variant == HTTP_FAMILY:
+            paths.append(family_http(torch, fa, pipe, variant, res, device, card))
+        for used in paths:
+            total = {n: total[n] + used[n] for n in total}
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    refiner = build_stack(torch, device, REFINER)
+    family_parity(torch, fa, refiner, REFINER_RES, device, "refiner", ("unet", "text"))
+    del refiner
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"families phase {time.perf_counter() - t_phase:.1f} s; main-path launches {total}")
+    return total
+
+
 def main():
     import torch
 
@@ -1564,6 +1907,7 @@ def main():
         raise AssertionError("ptxas spilled or serialised wgmma: " + "; ".join(bad))
 
     record = phase_kernels(torch, fa, device)
+    phase_family_kernels(torch, fa, device, record)
     record.update(phase_backward_kernels(torch, fa, device))
     phase_flash_grad(torch, fa, device)
     record.update(phase_stock_kernels(torch, fs, device))
@@ -1585,9 +1929,11 @@ def main():
     phase_entry_point(torch)
     stock = phase_stock_train(torch, fa, fs)
     phase_cli_resume(torch)
-    # launches on the main paths, each counted from 0: serving, the serving presets
-    # and training (K1-K4), then training under CONTROLLORA_FLASH_IMPL=stock (K5)
-    launches = {n: serve[n] + presets[n] + train[n] for n in serve}
+    families = phase_families(torch, fa, device, card)
+    # launches on the main paths, each counted from 0: serving, the serving presets,
+    # training (K1-K4) and the other families' renders and request, then training
+    # under CONTROLLORA_FLASH_IMPL=stock (K5)
+    launches = {n: serve[n] + presets[n] + train[n] + families[n] for n in serve}
     launches.update({n: stock[n] for n in fs.LAUNCHES})
 
     fwd = "controllora_tpu_torch/csrc/flash_attn_fwd.cu"

@@ -11,6 +11,7 @@ are views of its ``Parameter``s, so gradients through the threaded UNet reach th
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -128,6 +129,24 @@ class HintEncoder(nn.Module):
             c = h if self.config.lora_pre_conv_skipped else self.pre_lora_layers[i](h)
             controls.append(to_tokens(c).float())
         return tuple(controls)
+
+
+def config_for_unet(config: ControlLoRAConfig, unet_config: UNetConfig) -> ControlLoRAConfig:
+    """``config`` re-derived for a UNet family (JAX ``scripts/train.py`` :164-181):
+    one bucket a level, each as wide as its level, the hint encoder's per-bucket
+    channels cut to the number of levels, and one adapter slot for each of the
+    UNet's attention layers (``derive_cross_attention_dims``). A level without
+    attention (SDXL's level 0) gets an adapter-free bucket. SD1.5 keeps the
+    reference configs' layout; SD2.1 keeps its 32 slots with a 1024-d context; SDXL
+    has 140."""
+    n = len(unet_config.block_out_channels)
+    return dataclasses.replace(
+        config,
+        lora_block_out_channels=unet_config.block_out_channels,
+        lora_block_in_channels=config.lora_block_in_channels[:n],
+        lora_control_channels=config.lora_control_channels[:n],
+        lora_cross_attention_dims=unet_lib.derive_cross_attention_dims(unet_config),
+    )
 
 
 def adapter_spec_for(cfg: ControlLoRAConfig, bucket: int) -> AdapterSpec:

@@ -1,4 +1,5 @@
-"""SD1.5 UNet2DConditionModel in PyTorch (counterpart of ``controllora_tpu/models/unet.py``).
+"""UNet2DConditionModel of SD1.5, SD2.1, SDXL and the SDXL refiner in PyTorch
+(counterpart of ``controllora_tpu/models/unet.py``).
 
 NCHW inside; parameter names follow diffusers' state-dict keys, so
 ``load_state_dict(strict=True)`` takes ``utils/torch_compat.flax_to_torch_unet``
@@ -22,7 +23,14 @@ Two serving accelerations, both off by default (``forward``):
   * DeepCache: a "full" eval also returns the feature entering the last up block; a
     "shallow" eval recomputes only the level-0 ops around a cached one
     (JAX ``unet.py`` :532-733).
-Left out for now: tensor parallelism, SDXL text_time and SD2 linear projections.
+The families differ by ``UNetConfig`` only: per-level heads and transformer depth,
+attention-free levels (``DownBlock2D``/``UpBlock2D``), Linear ``proj_in``/``proj_out``
+on the flattened tokens (SD2.x, SDXL) and SDXL's ``text_time`` micro-conditioning
+(``add_embedding``, fed ``added_text_embeds`` and ``added_time_ids``).
+``attention_backend`` (``ops/attention.py`` names) picks the attention route for a
+whole eval: ``"xla"`` keeps every attention on its plain version, so an fp32 eval on
+the card can stand as the reference of a bf16 one.
+Left out for now: tensor parallelism.
 """
 
 from __future__ import annotations
@@ -52,7 +60,8 @@ from controllora_tpu_torch.ops.folding import FoldedBias
 
 @dataclasses.dataclass(frozen=True)
 class UNetConfig:
-    """SD1.5 architecture (runwayml/stable-diffusion-v1-5 unet/config.json)."""
+    """SD1.5 architecture (runwayml/stable-diffusion-v1-5 unet/config.json) by
+    default; ``models/zoo.py`` holds the other families'."""
 
     sample_size: int = 64
     in_channels: int = 4
@@ -74,7 +83,18 @@ class UNetConfig:
     cross_attention_dim: int = 768
     # number of heads (diffusers naming quirk): an int, or one per down block
     attention_head_dim: Any = 8
+    # SD2.x/SDXL: Linear proj_in/proj_out on the flattened tokens instead of 1x1 convs
+    use_linear_projection: bool = False
+    # transformer depth per down block (int or tuple; up blocks mirror in reverse,
+    # mid uses the last). SDXL: (1, 2, 10)
     transformer_layers_per_block: Any = 1
+    # SDXL micro-conditioning: "text_time" feeds [pooled text || sinusoidal
+    # embeddings of the size ids] through add_embedding into the time embedding
+    addition_embed_type: Optional[str] = None
+    addition_time_embed_dim: int = 256
+    # add_embedding's input width (pooled_dim + n_ids * addition_time_embed_dim);
+    # a mismatch in forward is an error. SDXL: 2816, the refiner: 2560
+    projection_class_embeddings_input_dim: Optional[int] = None
     norm_num_groups: int = 32
     norm_eps: float = 1e-5
     flip_sin_to_cos: bool = True
@@ -201,19 +221,19 @@ class CrossAttention(nn.Module):
         self.to_v = nn.Linear(cross_attention_dim or query_dim, inner, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
 
-    def forward(self, hidden, ctx=None, stack=None, lora_scale=1.0):
+    def forward(self, hidden, ctx=None, stack=None, lora_scale=1.0, backend="auto"):
         if isinstance(stack, AdapterStack):
-            return self._threaded(hidden, ctx, stack, lora_scale)
+            return self._threaded(hidden, ctx, stack, lora_scale, backend)
         bias = stack
         q = self.to_q(hidden)
         ctx_in = hidden if ctx is None else ctx
         k = self.to_k(ctx_in)
         v = self.to_v(ctx_in)
         if bias is None:
-            attn = dot_product_attention(q, k, v, self.heads)
+            attn = dot_product_attention(q, k, v, self.heads, backend)
             return self.to_out[0](attn)
         b_h, L = hidden.shape[:2]
-        if ctx is None and use_flash(L, L, q.device):
+        if ctx is None and use_flash(L, L, q.device, backend):
             from controllora_tpu_torch.ops.flash_attention import biased_attention
 
             # K1 tiles the bias batch over the CFG batch inside the kernel
@@ -229,19 +249,19 @@ class CrossAttention(nn.Module):
                 k = k + _fit(bias.k_bias, b_h, k.dtype)
             if bias.v_bias is not None:
                 v = v + _fit(bias.v_bias, b_h, v.dtype)
-            attn = dot_product_attention(q, k, v, self.heads)
+            attn = dot_product_attention(q, k, v, self.heads, backend)
         out = self.to_out[0](attn)
         if bias.out_bias is not None:
             out = out + _fit(bias.out_bias, b_h, out.dtype)
         return out
 
-    def _threaded(self, hidden, ctx, stack: AdapterStack, scale):
+    def _threaded(self, hidden, ctx, stack: AdapterStack, scale, backend):
         hidden = adapt_hidden_pre_q(stack, hidden, scale)
         q = adapt_query(stack, self.to_q(hidden), hidden, scale)
         ctx_in = hidden if ctx is None else ctx
         k = adapt_key(stack, self.to_k(ctx_in), ctx_in, scale)
         v = adapt_value(stack, self.to_v(ctx_in), ctx_in, scale)
-        attn = dot_product_attention(q, k, v, self.heads)
+        attn = dot_product_attention(q, k, v, self.heads, backend)
         attn = adapt_hidden_post_attn(stack, attn, scale)
         return adapt_output(stack, self.to_out[0](attn), attn, scale)
 
@@ -281,7 +301,7 @@ class BasicTransformerBlock(nn.Module):
         self.ff = FeedForward(dim)
 
     def forward(self, x, ctx, stacks=None, lora_scale=1.0, tome=None, choice=None,
-                grid=None):
+                grid=None, backend="auto"):
         def stack_for(attn):
             return stacks.get(f"{self.proc_prefix}.{attn}.processor") if stacks else None
 
@@ -291,10 +311,10 @@ class BasicTransformerBlock(nn.Module):
             # tokens, unmerge before the residual add
             merge, unmerge, _ = tome_ops.build_merge(x, grid[0], grid[1], tome, choice)
             stack1 = _merge_folded_bias(stack_for("attn1"), merge, x.shape[0])
-            x = x + unmerge(self.attn1(merge(h), None, stack1, lora_scale))
+            x = x + unmerge(self.attn1(merge(h), None, stack1, lora_scale, backend))
         else:
-            x = x + self.attn1(h, None, stack_for("attn1"), lora_scale)
-        x = x + self.attn2(self.norm2(x), ctx, stack_for("attn2"), lora_scale)
+            x = x + self.attn1(h, None, stack_for("attn1"), lora_scale, backend)
+        x = x + self.attn2(self.norm2(x), ctx, stack_for("attn2"), lora_scale, backend)
         return x + self.ff(self.norm3(x))
 
 
@@ -316,26 +336,34 @@ def _merge_folded_bias(bias: Optional[FoldedBias], merge, b_h: int) -> Optional[
 
 class Transformer2DModel(nn.Module):
     def __init__(self, channels: int, heads: int, dim_head: int, cross_attention_dim: int,
-                 depth: int, groups: int, proc_prefix: str):
+                 depth: int, groups: int, proc_prefix: str, linear_projection: bool = False):
         super().__init__()
         inner = heads * dim_head
         self.proc_prefix = proc_prefix
+        self.linear_projection = linear_projection
         self.norm = GroupNorm(groups, channels, 1e-6)
-        self.proj_in = nn.Conv2d(channels, inner, 1)
+        # SD2.x/SDXL: Linear on the tokens (a 2-D weight); SD1.x: a 1x1 conv
+        self.proj_in = (nn.Linear(channels, inner) if linear_projection
+                        else nn.Conv2d(channels, inner, 1))
         self.transformer_blocks = nn.ModuleList([
             BasicTransformerBlock(inner, heads, dim_head, cross_attention_dim,
                                   f"{proc_prefix}.transformer_blocks.{i}")
             for i in range(depth)
         ])
-        self.proj_out = nn.Conv2d(inner, channels, 1)
+        self.proj_out = (nn.Linear(inner, channels) if linear_projection
+                         else nn.Conv2d(inner, channels, 1))
 
-    def forward(self, x, ctx, stacks=None, lora_scale=1.0, tome=None, tome_step=None):
+    def forward(self, x, ctx, stacks=None, lora_scale=1.0, tome=None, tome_step=None,
+                backend="auto"):
         """``tome``: a ToMeConfig, applied where ``maybe_tome`` admits this grid;
         ``tome_step``: (seed, timestep, index) of the denoising step, which with the
         processor prefix and the block index seeds ``window_choice``."""
         _, _, hh, ww = x.shape
         residual = x
-        h = to_tokens(self.proj_in(self.norm(x)))
+        if self.linear_projection:
+            h = self.proj_in(to_tokens(self.norm(x)))
+        else:
+            h = to_tokens(self.proj_in(self.norm(x)))
         block_tome = tome if tome_ops.maybe_tome(tome, hh, ww) else None
         for i, block in enumerate(self.transformer_blocks):
             choice = None
@@ -344,7 +372,9 @@ class Transformer2DModel(nn.Module):
                 # JAX package's draws
                 choice = tome_ops.window_choice(*tome_step, self.proc_prefix, i,
                                                 hh // tome_ops.WINDOW, ww // tome_ops.WINDOW)
-            h = block(h, ctx, stacks, lora_scale, block_tome, choice, (hh, ww))
+            h = block(h, ctx, stacks, lora_scale, block_tome, choice, (hh, ww), backend)
+        if self.linear_projection:
+            return from_tokens(self.proj_out(h), hh, ww) + residual
         return self.proj_out(from_tokens(h, hh, ww)) + residual
 
 
@@ -386,12 +416,22 @@ class UNet2DConditionModel(nn.Module):
 
         def transformer(ch, bi, prefix):
             return Transformer2DModel(ch, heads[bi], ch // heads[bi], xdim, depths[bi],
-                                      groups, prefix)
+                                      groups, prefix, cfg.use_linear_projection)
 
         self.conv_in = conv3(cfg.in_channels, ch0)
         self.time_embedding = nn.Module()
         self.time_embedding.linear_1 = nn.Linear(ch0, temb_dim)
         self.time_embedding.linear_2 = nn.Linear(temb_dim, temb_dim)
+        if cfg.addition_embed_type == "text_time":
+            if cfg.projection_class_embeddings_input_dim is None:
+                raise ValueError("addition_embed_type='text_time' needs "
+                                 "projection_class_embeddings_input_dim")
+            self.add_embedding = nn.Module()
+            self.add_embedding.linear_1 = nn.Linear(
+                cfg.projection_class_embeddings_input_dim, temb_dim)
+            self.add_embedding.linear_2 = nn.Linear(temb_dim, temb_dim)
+        elif cfg.addition_embed_type is not None:
+            raise ValueError(f"unknown addition_embed_type {cfg.addition_embed_type!r}")
 
         self.down_blocks = nn.ModuleList()
         out_ch = ch0
@@ -447,7 +487,10 @@ class UNet2DConditionModel(nn.Module):
                 tome: Optional[tome_ops.ToMeConfig] = None,
                 tome_step: Optional[Tuple[int, Any, int]] = None,
                 deepcache: Optional[str] = None,
-                deepcache_feat: Optional[torch.Tensor] = None):
+                deepcache_feat: Optional[torch.Tensor] = None,
+                added_text_embeds: Optional[torch.Tensor] = None,
+                added_time_ids: Optional[torch.Tensor] = None,
+                attention_backend: str = "auto"):
         """sample (B, 4, H, W) NCHW, timesteps (B,) or scalar, context (B, 77, D);
         ``biases``: {processor name: FoldedBias} of the folded adapters, or
         ``adapters``: {processor name: AdapterStack} threaded at ``lora_scale``; at
@@ -464,7 +507,12 @@ class UNet2DConditionModel(nn.Module):
         entering the last up block, as ``(eps, cache)``; "shallow" skips everything
         below level 0 (down blocks 1.., mid, up blocks ..-2) and takes
         ``deepcache_feat`` for that feature. The shallow path runs exactly the level-0
-        modules of the full path, so ``shallow(cache_of(full(x))) == full(x)``."""
+        modules of the full path, so ``shallow(cache_of(full(x))) == full(x)``.
+
+        ``added_text_embeds`` (B, pooled_dim) and ``added_time_ids`` (B, n_ids): the
+        ``text_time`` conditioning, required by such a UNet (SDXL: 6 size ids, the
+        refiner: 5). ``attention_backend``: ``dot_product_attention``'s ``backend``
+        for every attention of the eval (``"xla"``: the plain versions only)."""
         if biases is not None and adapters is not None:
             raise ValueError("pass folded `biases` or threaded `adapters`, not both")
         if deepcache not in (None, "full", "shallow"):
@@ -482,12 +530,14 @@ class UNet2DConditionModel(nn.Module):
         t_emb = timestep_embedding(timesteps, cfg.block_out_channels[0],
                                    cfg.flip_sin_to_cos, cfg.freq_shift).to(dtype)
         temb = self.time_embedding.linear_2(F.silu(self.time_embedding.linear_1(t_emb)))
+        if cfg.addition_embed_type == "text_time":
+            temb = temb + self._text_time(added_text_embeds, added_time_ids, dtype)
         ctx = encoder_hidden_states.to(dtype)
 
         def run(layer, *inputs):
             return layer(*inputs) if remat is None else remat(layer, *inputs)
 
-        attn_args = (ctx, stacks, lora_scale, tome, tome_step)
+        attn_args = (ctx, stacks, lora_scale, tome, tome_step, attention_backend)
         h = self.conv_in(sample.to(dtype))
         skips: List[torch.Tensor] = [h]
         for bi, block in enumerate(self.down_blocks):
@@ -528,6 +578,27 @@ class UNet2DConditionModel(nn.Module):
 
         h = self.conv_out(F.silu(self.conv_norm_out(h))).float()
         return (h, cache) if deepcache == "full" else h
+
+    def _text_time(self, pooled, time_ids, dtype):
+        """SDXL micro-conditioning (JAX ``unet.py`` :575-608): each size id gets the
+        timestep's sinusoidal embedding, flattened after the pooled text vector
+        (fp32), then add_embedding maps it into the time embedding."""
+        cfg = self.config
+        if pooled is None or time_ids is None:
+            raise ValueError("addition_embed_type='text_time' requires added_text_embeds "
+                             "(pooled text, (B, pooled_dim)) and added_time_ids ((B, n_ids))")
+        b = time_ids.shape[0]
+        id_emb = timestep_embedding(time_ids.reshape(-1), cfg.addition_time_embed_dim,
+                                    cfg.flip_sin_to_cos, cfg.freq_shift).reshape(b, -1)
+        aug = torch.cat([pooled.float(), id_emb], dim=-1)
+        want = cfg.projection_class_embeddings_input_dim
+        if aug.shape[-1] != want:
+            raise ValueError(
+                f"text_time embedding input is {aug.shape[-1]}-d (pooled {pooled.shape[-1]} "
+                f"+ {time_ids.shape[-1]}*{cfg.addition_time_embed_dim}) but "
+                f"projection_class_embeddings_input_dim={want}")
+        emb = self.add_embedding
+        return emb.linear_2(F.silu(emb.linear_1(aug.to(dtype))))
 
 
 def deepcache_feat_shape(config: UNetConfig, batch: int, lh: int, lw: int) -> Tuple[int, ...]:

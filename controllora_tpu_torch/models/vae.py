@@ -1,10 +1,12 @@
-"""SD1.5 VAE in PyTorch (counterpart of ``controllora_tpu/models/vae.py``).
+"""The SD VAE in PyTorch (counterpart of ``controllora_tpu/models/vae.py``); SDXL's
+differs by its ``scaling_factor`` only.
 
 Parameter names follow diffusers' AutoencoderKL (the 0.13 AttentionBlock naming
 ``group_norm``/``query``/``key``/``value``/``proj_attn``). The mid-block attentions
 of the encoder and the decoder are one head with D = 512 over L = (H/8)*(W/8)
-tokens; at 512² (L = 4096) on a CUDA tensor they run on the flash kernel K2 (the VAE
-is frozen: training encodes without a graph). Decoding is one plain batched call:
+tokens; from 512² (L = 4096) on a CUDA tensor they run on the flash kernel K2 (the
+VAE is frozen: training encodes without a graph); ``decode``'s ``attention_backend``
+"xla" keeps them on the plain version. Decoding is one plain batched call:
 the JAX package's ``decode_per_image`` works around an XLA scheduling problem.
 """
 
@@ -63,10 +65,10 @@ class VAEAttention(nn.Module):
         self.value = nn.Linear(channels, channels)
         self.proj_attn = nn.Linear(channels, channels)
 
-    def forward(self, x):
+    def forward(self, x, backend="auto"):
         _, _, hh, ww = x.shape
         h = to_tokens(self.group_norm(x))
-        h = dot_product_attention(self.query(h), self.key(h), self.value(h), heads=1)
+        h = dot_product_attention(self.query(h), self.key(h), self.value(h), 1, backend)
         return x + from_tokens(self.proj_attn(h), hh, ww)
 
 
@@ -141,10 +143,10 @@ class Decoder(nn.Module):
         self.conv_norm_out = GroupNorm(groups, ch, 1e-6)
         self.conv_out = conv3(ch, cfg.out_channels)
 
-    def forward(self, z):
+    def forward(self, z, backend="auto"):
         h = self.conv_in(z)
         h = self.mid_block.resnets[0](h)
-        h = self.mid_block.attentions[0](h)
+        h = self.mid_block.attentions[0](h, backend)
         h = self.mid_block.resnets[1](h)
         for block in self.up_blocks:
             for resnet in block.resnets:
@@ -186,8 +188,8 @@ class AutoencoderKL(nn.Module):
             mean = mean + torch.exp(0.5 * logvar) * noise.to(mean.dtype)
         return mean * self.config.scaling_factor
 
-    def decode(self, z: torch.Tensor) -> torch.Tensor:
+    def decode(self, z: torch.Tensor, attention_backend: str = "auto") -> torch.Tensor:
         """Scaled latents (B, 4, h, w) -> image (B, 3, 8h, 8w) in [-1, 1], in the
         module's dtype."""
         z = (z / self.config.scaling_factor).to(self.post_quant_conv.weight.dtype)
-        return self.decoder(self.post_quant_conv(z))
+        return self.decoder(self.post_quant_conv(z), attention_backend)

@@ -20,19 +20,29 @@ a cached deep feature stands in for them).
 The public layout is the JAX package's: guides (H, W, 3) or (n, H, W, 3) in [-1, 1],
 ``latents=`` (n, H/8, W/8, 4), results HWC uint8 images or float arrays in [-1, 1]
 with ``return_array=True``. Inside, tensors are NCHW on ``device``.
-Not ported yet: img2img, inpaint and ``denoising_start``/``denoising_end``, the
-SDXL refiner and ``hires``, extra LoRAs and controls, threaded (unfoldable) adapter
-stacks, and meshes.
+
+Every family of ``models/zoo.py`` renders through the same loop. A text encoder with
+a pooled head (SDXL's dual encoder, the refiner's tower) makes ``encode_prompt``
+return (context, pooled), and a ``text_time`` UNet then takes the pooled vector and
+the size ids of the render (JAX :680-715): 6 ids ``[h, w, 0, 0, h, w]`` (SDXL), or
+5 ids ``[h, w, 0, 0, score]`` (the refiner) with ``aesthetic_score`` on the cond
+rows and ``negative_aesthetic_score`` on the uncond rows. SD2.1's v-prediction is
+the scheduler's: ``DPMSolverMultistepScheduler(DiffusionSchedule.create(
+prediction_type="v_prediction"))``.
+Not ported yet: img2img, inpaint and ``denoising_start``/``denoising_end`` (so the
+SDXL base -> refiner ensemble), ``hires``, extra LoRAs and controls, threaded
+(unfoldable) adapter stacks, and meshes.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 from torch.func import functional_call
 
+from controllora_tpu_torch.models.clip import DualCLIPTextEncoder
 from controllora_tpu_torch.models.lora import is_foldable
 from controllora_tpu_torch.ops.folding import fold_adapters
 from controllora_tpu_torch.ops.tome import ToMeConfig
@@ -42,6 +52,15 @@ from controllora_tpu_torch.schedulers import DPMSolverMultistepScheduler
 def _nhwc_to_nchw(x, device, dtype=torch.float32) -> torch.Tensor:
     t = torch.as_tensor(np.asarray(x, np.float32) if not torch.is_tensor(x) else x)
     return t.to(device=device, dtype=dtype).permute(0, 3, 1, 2).contiguous()
+
+
+def _cfg_batch(pair: torch.Tensor, n: int, per_image: bool) -> torch.Tensor:
+    """An [uncond || cond] pair, (2, ...), or per-image pairs, (2, n, ...), as the
+    block CFG batch [u1..un || c1..cn], (2n, ...)."""
+    if per_image:
+        return pair.reshape((-1,) + pair.shape[2:])
+    return torch.cat([pair[:1].expand((n,) + pair.shape[1:]),
+                      pair[1:].expand((n,) + pair.shape[1:])])
 
 
 class StableDiffusionControlLoRAPipeline:
@@ -60,10 +79,13 @@ class StableDiffusionControlLoRAPipeline:
 
     @torch.inference_mode()
     def encode_prompt(self, prompt: Union[str, Sequence[str]],
-                      negative_prompt: Union[str, Sequence[str]] = "") -> torch.Tensor:
+                      negative_prompt: Union[str, Sequence[str]] = ""
+                      ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
         """-> (2, 77, hidden) [uncond || cond] context; for a LIST of n prompts,
         (2, n, 77, hidden) with the uncond row block first (image-major on axis 1).
-        ``negative_prompt`` may be a matching list or one string for all images."""
+        ``negative_prompt`` may be a matching list or one string for all images.
+        An encoder with a pooled head returns (context, pooled), pooled (2, d) or
+        (2, n, d). SDXL's tower 2 reads ids padded with 0 (its tokenizer_2's pad)."""
         per_image = None
         if isinstance(prompt, (list, tuple)):
             prompts = list(prompt)
@@ -77,9 +99,39 @@ class StableDiffusionControlLoRAPipeline:
             raise ValueError("list negative_prompt requires a list prompt")
         else:
             texts = [negative_prompt, prompt]
-        ids = torch.as_tensor(self.tokenizer(texts), dtype=torch.long, device=self.device)
-        enc = self.text_encoder(ids)
-        return enc if per_image is None else enc.reshape((2, per_image) + enc.shape[1:])
+        def tensor(ids):
+            return torch.as_tensor(ids, dtype=torch.long, device=self.device)
+
+        ids = tensor(self.tokenizer(texts))
+        if isinstance(self.text_encoder, DualCLIPTextEncoder):
+            enc = self.text_encoder(ids, tensor(self.tokenizer(texts, pad_id=0)))
+        else:
+            enc = self.text_encoder(ids)
+        if per_image is None:
+            return enc
+        if isinstance(enc, tuple):
+            return tuple(e.reshape((2, per_image) + e.shape[1:]) for e in enc)
+        return enc.reshape((2, per_image) + enc.shape[1:])
+
+    def text_time_ids(self, pooled: Optional[torch.Tensor], height: int, width: int,
+                      aesthetic_score: float, negative_aesthetic_score: float
+                      ) -> torch.Tensor:
+        """The (2, n_ids) [uncond || cond] size ids of a ``text_time`` UNet; their
+        count follows the conditioning width: 6 for SDXL (original == target == the
+        render's size, no crop), 5 for the refiner (with the aesthetic scores)."""
+        if pooled is None:
+            raise ValueError("this UNet needs text_time micro-conditioning; build the "
+                             "stack with a pooled-projection text encoder "
+                             "(zoo.build_models('sdxl' | 'sdxl-refiner'))")
+        cfg = self.unet.config
+        n_ids = ((cfg.projection_class_embeddings_input_dim - pooled.shape[-1])
+                 // cfg.addition_time_embed_dim)
+        if n_ids == 5:
+            ids = [[height, width, 0, 0, negative_aesthetic_score],
+                   [height, width, 0, 0, aesthetic_score]]
+        else:
+            ids = [[height, width, 0, 0, height, width]] * 2
+        return torch.tensor(ids, dtype=torch.float32, device=self.device)
 
     # ------------------------------------------------------------------ call
 
@@ -101,6 +153,8 @@ class StableDiffusionControlLoRAPipeline:
         tome_ratio: float = 0.0,
         tome_min_tokens: int = 4096,
         deepcache_interval: int = 1,
+        aesthetic_score: float = 6.0,
+        negative_aesthetic_score: float = 2.5,
     ) -> List[np.ndarray]:
         """Returns a list of HWC uint8 images (float arrays in [-1, 1] with
         ``return_array``). Without ``latents=`` the initial noise is drawn from
@@ -115,7 +169,10 @@ class StableDiffusionControlLoRAPipeline:
         ``deepcache_interval`` (1 = the exact path): the deep UNet levels run on
         every interval-th step only (``i % interval == 0``, so step 0 always); the
         steps between run the level-0 modules around the deep feature cached by the
-        last full step. Composes with ``tome_ratio``."""
+        last full step. Composes with ``tome_ratio``.
+
+        ``aesthetic_score`` / ``negative_aesthetic_score``: the cond / uncond score
+        id of a 5-id ``text_time`` UNet (the refiner); other UNets ignore them."""
         tome = None
         if tome_ratio:
             if not 0.0 < tome_ratio <= 0.75:
@@ -159,13 +216,18 @@ class StableDiffusionControlLoRAPipeline:
             noise = torch.randn((n, lh, lw, c_in), generator=generator)
             lat = _nhwc_to_nchw(noise, self.device)
 
-        ctx = self.encode_prompt(prompt, negative_prompt)
-        if ctx.dim() == 4:
-            if ctx.shape[1] != n:
-                raise ValueError(f"{ctx.shape[1]} per-image prompts for a batch of {n}")
-            ctx_n = ctx.reshape((-1,) + ctx.shape[2:])
-        else:
-            ctx_n = torch.cat([ctx[:1].expand(n, -1, -1), ctx[1:].expand(n, -1, -1)])
+        encoded = self.encode_prompt(prompt, negative_prompt)
+        ctx, pooled = encoded if isinstance(encoded, tuple) else (encoded, None)
+        per_image = isinstance(prompt, (list, tuple))
+        if per_image and ctx.shape[1] != n:
+            raise ValueError(f"{ctx.shape[1]} per-image prompts for a batch of {n}")
+        ctx_n = _cfg_batch(ctx, n, per_image)
+        added = {}
+        if self.unet.config.addition_embed_type == "text_time":
+            ids = self.text_time_ids(pooled, height, width, aesthetic_score,
+                                     negative_aesthetic_score)
+            added = dict(added_text_embeds=_cfg_batch(pooled, n, per_image),
+                         added_time_ids=_cfg_batch(ids, n, False))
 
         weights, biases = {}, None
         if guide is not None and self.control_lora is not None:
@@ -190,7 +252,7 @@ class StableDiffusionControlLoRAPipeline:
         for i in range(num_inference_steps):
             x = sch.model_input(state, i)
             t_i = sch.ts[i]
-            kw = {"biases": biases}
+            kw = dict(added, biases=biases)
             if tome is not None:
                 kw.update(tome=tome, tome_step=(0, t_i, i))
             args = (torch.cat([x, x]),

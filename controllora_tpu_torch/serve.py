@@ -2,6 +2,7 @@
 with its flags, defaults, preset table and JSON contract for the flags it takes).
 
     python -m controllora_tpu_torch.serve --port 8000 --preset turbo --warmup
+    python -m controllora_tpu_torch.serve --model_variant sdxl --port 8000
     python -m controllora_tpu_torch.serve --device cpu --model_variant smoke --port 8000
 
 A stdlib ThreadingHTTPServer takes concurrent JSON requests; each request is one
@@ -10,6 +11,13 @@ traffic into bucketed batches. There are no pretrained weights in the repository
 the frozen stack gets seeded random weights (``models/zoo.py``) and a warning says
 so. ``--control_lora_dir`` loads a ControlLoRA artifact (``training/checkpoint.py``);
 without one the guide is not used.
+
+Model families (``--model_variant``): sd15, sd21 (768², v-prediction is the
+scheduler's) and sdxl (1024²) run in bf16, the smoke stacks smoke, smoke2 and
+smokexl in fp32, as ``scripts/serve.py`` runs them. The render size comes with each
+request (``"width": 1024, "height": 1024``). The SDXL refiner (and its smoke stack)
+is refused: it serves as the second half of the base -> refiner ensemble, which
+needs ``denoising_start``/``denoising_end`` (ROADMAP.md item 11.1).
 
 Speed presets (deployment-wide, applied to every batch): ``exact`` (the exact
 sampler), ``tome`` (token merging 0.5) and ``turbo`` (token merging 0.5 + DeepCache
@@ -51,15 +59,31 @@ from controllora_tpu_torch.schedulers import (
 )
 
 PRESETS = {"exact": (0.0, 1), "tome": (0.5, 1), "turbo": (0.5, 2)}
+VARIANTS = ("sd15", "sd21", "sdxl", "smoke", "smoke2", "smokexl")
+BF16_VARIANTS = ("sd15", "sd21", "sdxl")  # scripts/serve.py's rule; the smoke stacks fp32
+REFUSED = {v: f"--model_variant {v} is not served yet: the refiner renders the end of "
+              "an SDXL base trajectory (the base -> refiner ensemble), which needs "
+              "denoising_start/denoising_end in the pipeline (ROADMAP.md item 11.1)"
+           for v in ("sdxl-refiner", "smokeref")}
 SCHEDULERS = {"dpm++": DPMSolverMultistepScheduler, "ddim": DDIMScheduler,
               "pndm": PNDMScheduler, "euler": EulerDiscreteScheduler,
               "unipc": UniPCMultistepScheduler}
 
 
+def model_variant(name: str) -> str:
+    if name in REFUSED:
+        raise argparse.ArgumentTypeError(REFUSED[name])
+    return name
+
+
+def model_dtype(variant: str) -> torch.dtype:
+    return torch.bfloat16 if variant in BF16_VARIANTS else torch.float32
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--model_variant", type=str, default="sd15", choices=["sd15", "smoke"])
+    p.add_argument("--model_variant", type=model_variant, default="sd15", choices=VARIANTS)
     p.add_argument("--control_lora_dir", type=str, default=None)
     p.add_argument("--scheduler", type=str, default="dpm++", choices=tuple(SCHEDULERS))
     p.add_argument("--host", type=str, default="0.0.0.0")
@@ -99,14 +123,14 @@ def parse_args(argv=None):
 
 def build_pipeline(args):
     """The pipeline the server renders with: the frozen stack of ``--model_variant``
-    (bf16 for sd15, fp32 for smoke) with seeded random weights, the ControlLoRA of
+    (``model_dtype``) with seeded random weights, the ControlLoRA of
     ``--control_lora_dir`` if given, and ``--scheduler``."""
     from controllora_tpu_torch.data.tokenizer import default_tokenizer
     from controllora_tpu_torch.models import zoo
     from controllora_tpu_torch.pipelines import StableDiffusionControlLoRAPipeline
 
     device = torch.device(args.device)
-    dtype = torch.bfloat16 if args.model_variant == "sd15" else torch.float32
+    dtype = model_dtype(args.model_variant)
     unet, vae, text_encoder = zoo.build_models(
         args.model_variant, dtype, device, torch.Generator(device).manual_seed(0))
     print("WARNING: random frozen stack (no pretrained weights)", flush=True)

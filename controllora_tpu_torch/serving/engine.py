@@ -15,7 +15,8 @@ Concurrent requests coalesce into per-image-prompt batches over one pipeline:
   hence different images, than the JAX engine.
 * **Compatibility groups.** Only requests with identical (steps, resolution,
   guidance, lora_scale, guided-ness, output kind) share a batch; others are held for
-  the next one.
+  the next one. So an SDXL batch shares its size ids, and each request's prompt
+  brings its own pooled text vector (per-image prompts in the pipeline).
 * **One dispatch thread** owns the device; a forming batch waits at most
   ``max_wait_ms`` for companions.
 

@@ -94,19 +94,15 @@ def parse_args(argv=None):
 
 def build_control_config(args, unet_config):
     """The ControlLoRA config: the named preset, or for the smoke variant the JAX
-    CLI's reduced config with slot counts derived from the UNet."""
+    CLI's reduced hint encoder with buckets and slots derived from the UNet."""
     from controllora_tpu_torch.config import ControlLoRAConfig, load_config
-    from controllora_tpu_torch.models.unet import derive_cross_attention_dims
+    from controllora_tpu_torch.models.control_lora import config_for_unet
 
     cfg = load_config(args.control_lora_config)
     if args.model_variant == "smoke":
-        cfg = ControlLoRAConfig(
-            block_out_channels=(8, 16, 16, 32),
-            lora_block_in_channels=(32, 32, 32, 32),
-            lora_block_out_channels=unet_config.block_out_channels,
-            lora_cross_attention_dims=derive_cross_attention_dims(unet_config),
-            lora_control_version=cfg.lora_control_version,
-        )
+        cfg = config_for_unet(ControlLoRAConfig(
+            block_out_channels=(8, 16, 16, 32), lora_block_in_channels=(32, 32, 32, 32),
+            lora_control_version=cfg.lora_control_version), unet_config)
     return cfg
 
 

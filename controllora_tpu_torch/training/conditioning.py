@@ -1,7 +1,8 @@
 """Text conditioning of a training batch (counterpart of
 ``controllora_tpu/training/conditioning.py``): precomputed ``encoder_hidden_states``,
 or ``input_ids`` through the frozen text encoder. The SDXL ``text_time``
-micro-conditioning is not ported yet (ROADMAP Queue 1 item 12).
+micro-conditioning serves (``pipelines/text_to_image.py``) but does not train yet
+(ROADMAP Queue 1 item 9.5).
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ def resolve_text_conditioning(batch: Dict[str, torch.Tensor], text_encoder,
     if getattr(unet_config, "addition_embed_type", None) == "text_time" or sdxl:
         raise NotImplementedError(
             f"SDXL text_time conditioning ({sdxl or 'text_time UNet'}) is not ported to "
-            "the PyTorch trainer yet: ROADMAP Queue 1 item 12")
+            "the PyTorch trainer yet: ROADMAP Queue 1 item 9.5")
     if "encoder_hidden_states" in batch:
         return batch["encoder_hidden_states"], {}
     return text_encoder(batch["input_ids"]), {}

@@ -38,6 +38,12 @@ def load_vae(module: nn.Module, params: Dict[str, Any]) -> nn.Module:
 
 
 def load_clip(module: nn.Module, params: Dict[str, Any]) -> nn.Module:
+    """A text tower's tree, or SDXL's dual-encoder tree {"te1": ..., "te2": ...}
+    (the JAX ``DualCLIPTextEncoder``'s) into the port's ``te1``/``te2``."""
+    if "te1" in params:
+        return load_numpy_state_dict(module, {
+            f"{tower}.{k}": v for tower in ("te1", "te2")
+            for k, v in flax_to_torch_clip(params[tower]).items()})
     return load_numpy_state_dict(module, flax_to_torch_clip(params))
 
 

@@ -49,13 +49,16 @@ def k1_reference(q, k, v, heads, qb, kb, vb):
                                             (2, 8, 33, 40, 1), (8, 2, 700, 64, 2),
                                             (8, 8, 4096, 40, 4), (8, 8, 4096, 40, 1),
                                             (2, 8, 4225, 40, 1), (2, 1, 700, 512, 1),
-                                            (2, 8, 2048, 40, 2), (8, 8, 2048, 40, 8)])
+                                            (2, 8, 2048, 40, 2), (8, 8, 2048, 40, 8),
+                                            (2, 5, 9216, 64, 1), (8, 10, 2304, 64, 4),
+                                            (2, 10, 4096, 64, 1), (2, 12, 4096, 64, 1)])
 def test_k1_matches_plain(cuda, b, heads, l, d, bc):
     """bc is the bias batch: per-image biases (bc = n under the 2n CFG batch) must
     TILE, so batch row i reads bias row i % bc; every bias row differs. L shorter
     than a tile (33), ragged (333, 700, 4225), the render's 4096 and ToMe's merged
     2048, whose biases are merged per CFG row (bc = b); D 40, 64, 80, 160 and 512
-    (the wide design)."""
+    (the wide design); the other families' head dim 64 renders: SD2.1 at 768²
+    (levels 0 and 1, the second at batch 4), SDXL at 1024² and the refiner's UNet."""
     q, k, v = (randn((b, l, heads * d), s, cuda) for s in range(3))
     qb, kb, vb = (0.25 * randn((bc, l, heads * d), s, cuda) for s in range(3, 6))
     out = fa.biased_attention(q, k, v, heads, qb, kb, vb)
@@ -83,11 +86,12 @@ def test_k1_with_a_bias_left_out(cuda, missing):
                                          (1, 2, 129, 64), (8, 8, 4096, 40),
                                          (8, 1, 4096, 512), (1, 1, 4096, 512),
                                          (2, 8, 33, 40), (1, 4, 333, 80), (2, 2, 4225, 160),
-                                         (1, 8, 700, 64), (2, 8, 2048, 40)])
+                                         (1, 8, 700, 64), (2, 8, 2048, 40),
+                                         (1, 1, 9216, 512), (1, 1, 16384, 512)])
 def test_k2_matches_plain(cuda, b, heads, l, d):
     """Ragged and short shapes, the serving VAE (1, 1, 4096, 512, split keys), then
     the training path's at 512², batch 8: the UNet self-attention and the VAE
-    encoder's mid-attention."""
+    encoder's mid-attention; the VAE decode of SD2.1 at 768² and of SDXL at 1024²."""
     q, k, v = (randn((b, l, heads * d), s, cuda) for s in range(3))
     o, lse = fa.flash_attention(q, k, v, heads)
     torch.cuda.synchronize()

@@ -1,7 +1,10 @@
 """The port's HTTP server (``python -m controllora_tpu_torch.serve``) and its PNG codec.
 
 * The flags the port takes parse as ``scripts/serve.py`` parses them: every preset,
-  every explicit override of a preset's knob, and the defaults.
+  every explicit override of a preset's knob, every served model variant, and the
+  defaults. Each variant's dtype is the one ``scripts/serve.py`` builds it in (bf16
+  for sd15, sd21 and sdxl, fp32 for the smoke stacks); the refiner variants are
+  refused with their reason.
 * An in-process server on 127.0.0.1:0 over a CPU smoke pipeline (seeded random
   weights, a small ControlLoRA artifact loaded through ``--control_lora_dir``):
   /healthz, /stats, /generate with a base64 PNG guide (the response decodes to an
@@ -42,7 +45,9 @@ ARGVS = [[], ["--preset", "exact"], ["--preset", "tome"], ["--preset", "turbo"],
          ["--preset", "tome", "--tome_ratio", "0"],
          ["--preset", "turbo", "--tome_ratio", "0.25", "--deepcache_interval", "1"],
          ["--scheduler", "unipc", "--buckets", "1,4", "--warmup", "--port", "0",
-          "--max_wait_ms", "5", "--result_timeout_s", "30", "--host", "127.0.0.1"]]
+          "--max_wait_ms", "5", "--result_timeout_s", "30", "--host", "127.0.0.1"],
+         ["--model_variant", "sd21"], ["--model_variant", "sdxl", "--buckets", "1,2"],
+         ["--model_variant", "smoke2"], ["--model_variant", "smokexl", "--preset", "tome"]]
 JAX_ONLY = {"serving_mesh", "pretrained_model_name_or_path"}
 
 
@@ -52,6 +57,38 @@ def test_flags_parse_as_scripts_serve(argv):
     assert ours.pop("device") == "cuda"
     assert set(ref) - set(ours) == JAX_ONLY
     assert ours == {k: v for k, v in ref.items() if k not in JAX_ONLY}
+
+
+@pytest.mark.parametrize("variant", serve.VARIANTS)
+def test_model_dtype_as_scripts_serve(variant, monkeypatch):
+    """The dtype scripts/serve.py's build_pipeline builds each variant in (read off
+    its call of the JAX zoo's build_models) is the port's."""
+    import jax.numpy as jnp
+
+    from controllora_tpu.models import zoo as jzoo
+    from scripts.serve import build_pipeline as jax_build_pipeline
+
+    class Built(Exception):
+        pass
+
+    def build_models(name, dtype):
+        raise Built(name, dtype)
+
+    monkeypatch.setattr(jzoo, "build_models", build_models)
+    with pytest.raises(Built) as built:
+        jax_build_pipeline(jax_parse_args(["--model_variant", variant]))
+    assert built.value.args[0] == variant
+    want = {jnp.bfloat16: torch.bfloat16, jnp.float32: torch.float32}[built.value.args[1]]
+    assert serve.model_dtype(variant) == want
+
+
+@pytest.mark.parametrize("variant", ["sdxl-refiner", "smokeref"])
+def test_refiner_variants_refused_with_reason(variant, capsys):
+    with pytest.raises(SystemExit):
+        serve.parse_args(["--model_variant", variant])
+    err = capsys.readouterr().err
+    assert f"--model_variant {variant} is not served yet" in err
+    assert "denoising_start/denoising_end" in err and "ROADMAP.md item 11.1" in err
 
 
 def test_speed_kwargs_of_presets():

@@ -336,7 +336,7 @@ def test_unported_options_raise():
                   "--device", "cpu", "--output_dir", "/nonexistent"])
     from controllora_tpu_torch.training.conditioning import resolve_text_conditioning
 
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 9.5"):
         resolve_text_conditioning({"time_ids": torch.zeros(1, 6)}, None, None)
 
 
