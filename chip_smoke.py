@@ -26,7 +26,9 @@ Phases, each of which raises (non-zero exit, no result line) when it fails:
               softmax scale, and contiguous (B, H, L, D) tensors beside the head-split
               views, with times, bounds and SDPA (the forward also at the VAE
               encoder's shape); L 4225 raises; the gradient of FlashStockAttention
-              against autograd.
+              against autograd. K2, K3 and K4 at SD2.1's and SDXL's training
+              shapes (head dim 64 at L 9216, 2304 and 4096; K2 at their VAE encoders,
+              D 512) with times, bounds and SDPA, and K3/K4 at a ragged D 64 L.
   4. parity   full-width SD1.5 (random seeded bf16 weights) + the `base` ControlLoRA
               (perturbed so the folded biases are nonzero): one folded UNet eval,
               one VAE decode and the CLIP encoder on the card against the same
@@ -64,7 +66,9 @@ Phases, each of which raises (non-zero exit, no result line) when it fails:
  11. stock train  the K5 path: the same CLI in this process under
               CONTROLLORA_FLASH_IMPL=stock at 512² batch 16 with remat `dots`: 2
               warm-up and 5 timed steps, exact K5 launches per step, ms/step, peak
-              memory; then 2 steps each of remat `nothing` and no remat.
+              memory, the native data plane reported by the CLI (and the host's time
+              to make a batch in Python and in C); then 2 steps each of remat
+              `nothing` and no remat.
  12. CLI smoke  the smoke-variant CLI with 8-bit AdamW, remat, checkpoints and the
               latent cache: 4 steps straight against 2 + resume latest for 2.
  13. families  SD2.1 (768², v-prediction DPM-Solver++) and SDXL (1024², dual text
@@ -78,6 +82,22 @@ Phases, each of which raises (non-zero exit, no result line) when it fails:
               `python -m controllora_tpu_torch.serve --model_variant sdxl` answering
               one 1024² /generate with a PNG guide; the refiner's UNet (5 ids) and
               text tower against fp32.
+ 14. family train  SD2.1 (768², batch 4, no remat, v-prediction) and SDXL (1024², batch
+              2, remat dots, text_time) ControlLoRA training at full width on seeded
+              random bf16 weights with `base` re-derived (K2-K4 at their D 64 and VAE
+              shapes are checked and timed in phase 3): per family one train step's loss
+              and adapter gradient against an fp32 copy on the card with every attention
+              plain; 2 warm-up and 5 timed steps on native fill50k batches with exact
+              launches per step (from the configs: K2 per long self-attention, again per
+              remat recompute, once in the VAE encoder; K3 and K4 per long
+              self-attention), peak memory and one profiled step.
+ 15. train CLI  `python -m controllora_tpu_torch.train --model_variant sdxl --resolution
+              1024` for 3 steps with --validation_steps 2 --report_to jsonl: the metrics
+              lines, the validation montage PNG, the native data plane.
+ 16. dreambooth  `python -m controllora_tpu_torch.train_dreambooth` on SD1.5 at 512² with
+              prior preservation (2 class images sampled by the frozen stack), 3 steps
+              with exact launches, validation renders, the .safetensors and .bin LoRA
+              equal to the trained one bit for bit.
 The last lines are the kernel record (each route with the CUDA kernel it launches),
 the card's name and power limit, and {"ok": true, "device": {...}}.
 """
@@ -981,62 +1001,79 @@ def grad_check(name, out, ref):
     return err
 
 
-def phase_backward_kernels(torch, fa, device):
-    """K3/K4 vs plain (fp32 on the same bf16 inputs, O and LSE from K2); returns
-    {kernel: {"max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-    "library_backend"}}."""
+def bwd_case(torch, fa, rnd, record, b, h, l, d, timed, label=""):
+    """K3/K4 at (B, H, L, D) against their plain versions (fp32 on the same bf16
+    inputs, O and LSE from K2); with `timed`, the kernels' times (events and
+    device), the plain versions', the bounds and one SDPA backward (dq, dk and dv
+    together: the yardstick of K3 + K4), appended to record["k3"/"k4"]["shapes"].
+    Returns (K3 entry, K4 entry), or None untimed."""
     from controllora_tpu_torch.ops.attention import split_heads
 
+    q, k, v, do = (rnd(b, l, h * d) for _ in range(4))
+    o, lse = fa.flash_attention(q, k, v, h)
+    dcap = fa.attention_dcap(o, do, h)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, dcap, h)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, dcap, h)
+    torch.cuda.synchronize()
+    args = [x.float() for x in (q, k, v, do)] + [lse, dcap]
+    ref_dk, ref_dv = fa.flash_bwd_dkv_plain(*args, h)
+    ref_dq = fa.flash_bwd_dq_plain(*args, h)
+    tag = f"B={b} H={h} L={l} D={d}"
+    errs = {n: grad_check(f"{n} {tag}", out, ref)
+            for n, out, ref in (("dq", dq, ref_dq), ("dk", dk, ref_dk), ("dv", dv, ref_dv))}
+    del ref_dk, ref_dv, ref_dq, args
+    record["k3"]["max_abs_err"] = max(record["k3"]["max_abs_err"], errs["dk"], errs["dv"])
+    record["k4"]["max_abs_err"] = max(record["k4"]["max_abs_err"], errs["dq"])
+    line = (f"K3/K4{label} {tag}: max|d| dQ {errs['dq']:.3e}, dK {errs['dk']:.3e}, "
+            f"dV {errs['dv']:.3e} <= {GRAD_BOUND} * max(1, max|ref|)")
+    entries = None
+    if timed:
+        bwd = (q, k, v, do, lse, dcap, h)
+        b3 = attention_roofline(4, b, h, l, l, d, 2, 4, 2)
+        b4 = attention_roofline(3, b, h, l, l, d, 3, 2, 2)
+        ms3 = cuda_ms(lambda: fa.flash_bwd_dkv(*bwd))
+        dms3 = device_ms(lambda: fa.flash_bwd_dkv(*bwd), floor_ms=b3["bound_ms"])
+        pms3 = cuda_ms(lambda: fa.flash_bwd_dkv_plain(*bwd))
+        ms4 = cuda_ms(lambda: fa.flash_bwd_dq(*bwd))
+        dms4 = device_ms(lambda: fa.flash_bwd_dq(*bwd), floor_ms=b4["bound_ms"])
+        pms4 = cuda_ms(lambda: fa.flash_bwd_dq_plain(*bwd))
+        library = sdpa_ms(torch, *(split_heads(x, h) for x in (q, k, v)),
+                          do=split_heads(do, h))
+        entries = (shape_entry((b, h, l, d), ms3, dms3, pms3, b3, library),
+                   shape_entry((b, h, l, d), ms4, dms4, pms4, b4, library))
+        for name, entry in zip(("k3", "k4"), entries):
+            if label:
+                entry["path"] = label.strip(" ()")
+            record[name]["shapes"].append(entry)
+        line += (f"  K3 {ms3:.4f} ms (device {num(dms3)}, plain {pms3:.4f}, bound "
+                 f"{b3['bound_ms']:.4f})  K4 {ms4:.4f} ms (device {num(dms4)}, "
+                 f"plain {pms4:.4f}, bound {b4['bound_ms']:.4f})  SDPA "
+                 f"backward (dq, dk, dv) {fmt_sdpa(library)}")
+    log(line)
+    del q, k, v, do, o, lse, dcap, dk, dv, dq
+    return entries
+
+
+def phase_backward_kernels(torch, fa, device):
+    """K3/K4 vs plain; returns {kernel: {"max_abs_err", "ms", "plain_ms", "bound_ms",
+    "bound_by", "library_ms", "library_backend", "shapes"}}: the top-level numbers
+    are those of the SD1.5 training shape."""
     gen = torch.Generator(device=device).manual_seed(3)
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
 
-    record = {"k3": {"max_abs_err": 0.0}, "k4": {"max_abs_err": 0.0}}
+    record = {n: {"max_abs_err": 0.0, "shapes": []} for n in ("k3", "k4")}
     # the training path's shape (5 UNet self-attentions at 512², batch 8), the 384²
     # and 704² latents (L a multiple of the kernels' 64-row tile), then ragged L: the
     # 520² latent (4225 = 66 * 64 + 1) and a short one, where the kernels mask P by index
     # and D 64 (K3's third instance), and L 40, under one tile of either kernel
     for b, h, l, d in ((8, 8, 4096, 40), (2, 8, 2304, 80), (1, 8, 7744, 40),
                        (2, 8, 4225, 40), (1, 8, 300, 80), (2, 8, 1024, 64), (2, 4, 40, 40)):
-        q, k, v, do = (rnd(b, l, h * d) for _ in range(4))
-        o, lse = fa.flash_attention(q, k, v, h)
-        dcap = fa.attention_dcap(o, do, h)
-        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, dcap, h)
-        dq = fa.flash_bwd_dq(q, k, v, do, lse, dcap, h)
-        torch.cuda.synchronize()
-        args = [x.float() for x in (q, k, v, do)] + [lse, dcap]
-        ref_dk, ref_dv = fa.flash_bwd_dkv_plain(*args, h)
-        ref_dq = fa.flash_bwd_dq_plain(*args, h)
-        tag = f"B={b} H={h} L={l} D={d}"
-        errs = {n: grad_check(f"{n} {tag}", out, ref)
-                for n, out, ref in (("dq", dq, ref_dq), ("dk", dk, ref_dk), ("dv", dv, ref_dv))}
-        del ref_dk, ref_dv, ref_dq, args
-        line = (f"K3/K4 {tag}: max|d| dQ {errs['dq']:.3e}, dK {errs['dk']:.3e}, "
-                f"dV {errs['dv']:.3e} <= {GRAD_BOUND} * max(1, max|ref|)")
-        if (b, l, d) == (8, 4096, 40):
-            bwd = (q, k, v, do, lse, dcap, h)
-            ms3 = cuda_ms(lambda: fa.flash_bwd_dkv(*bwd))
-            dms3 = device_ms(lambda: fa.flash_bwd_dkv(*bwd))
-            pms3 = cuda_ms(lambda: fa.flash_bwd_dkv_plain(*bwd))
-            ms4 = cuda_ms(lambda: fa.flash_bwd_dq(*bwd))
-            dms4 = device_ms(lambda: fa.flash_bwd_dq(*bwd))
-            pms4 = cuda_ms(lambda: fa.flash_bwd_dq_plain(*bwd))
-            # one SDPA backward gives dq, dk and dv: the yardstick of K3 + K4 together
-            library = sdpa_ms(torch, *(split_heads(x, h) for x in (q, k, v)),
-                              do=split_heads(do, h))
-            record["k3"].update(ms=ms3, device_ms=dms3, plain_ms=pms3, **library,
-                                **attention_roofline(4, b, h, l, l, d, 2, 4, 2))
-            record["k4"].update(ms=ms4, device_ms=dms4, plain_ms=pms4, **library,
-                                **attention_roofline(3, b, h, l, l, d, 3, 2, 2))
-            line += (f"  K3 {ms3:.4f} ms (device {num(dms3)}, plain {pms3:.4f}, bound "
-                     f"{record['k3']['bound_ms']:.4f})  K4 {ms4:.4f} ms (device {num(dms4)}, "
-                     f"plain {pms4:.4f}, bound {record['k4']['bound_ms']:.4f})  SDPA "
-                     f"backward (dq, dk, dv) {fmt_sdpa(library)}")
-        record["k3"]["max_abs_err"] = max(record["k3"]["max_abs_err"], errs["dk"], errs["dv"])
-        record["k4"]["max_abs_err"] = max(record["k4"]["max_abs_err"], errs["dq"])
-        log(line)
-        del q, k, v, do, o, lse, dcap, dk, dv, dq
+        entries = bwd_case(torch, fa, rnd, record, b, h, l, d, timed=(b, l, d) == (8, 4096, 40))
+        if entries is not None:
+            for name, entry in zip(("k3", "k4"), entries):
+                record[name].update({k: v for k, v in entry.items() if k != "shape"})
     return record
 
 
@@ -1491,8 +1528,11 @@ def phase_stock_train(torch, fa, fs):
     so that the launch counters are read here) under CONTROLLORA_FLASH_IMPL=stock, on
     SD1.5 at full width with the `base` ControlLoRA, 512², batch 16,
     --gradient_checkpointing --remat_policy dots: 2 warm-up and 5 timed steps with
-    exact launches per step; then 2 steps each of `nothing` and no remat, for peak
-    memory. Returns the launch counts of the dots run."""
+    exact launches per step, batches from the native data plane (C fill50k behind a
+    prefetch thread), which the CLI must report; then 2 steps each of `nothing` and
+    no remat, for peak memory. The host's time to make one batch of 16 in Python
+    (what each CLI step paid before the native plane) and in C is logged. Returns the
+    launch counts of the dots run."""
     import contextlib
     import io
 
@@ -1516,6 +1556,9 @@ def phase_stock_train(torch, fa, fs):
         counts = {**fa.LAUNCHES, **fs.LAUNCHES}  # the main path ends here
         peak = torch.cuda.max_memory_allocated() / 2**30
         steps_out = [ln for ln in buf.getvalue().splitlines() if ln.startswith("step ")]
+        plane = [ln for ln in buf.getvalue().splitlines() if ln.startswith("data plane:")]
+        if not plane or "native" not in plane[0]:
+            raise AssertionError(f"stock train ({policy}): data plane {plane}")
         ms = [float(ln.split()[-2]) for ln in steps_out]
         losses = [float(ln.split("loss=")[1].split()[0]) for ln in steps_out]
         want = {n: c * steps for n, c in STOCK_LAUNCHES[policy].items()}
@@ -1527,16 +1570,24 @@ def phase_stock_train(torch, fa, fs):
             raise AssertionError(f"stock train ({policy}): losses {losses}")
         return counts, peak - resident, ms, losses
 
+    from controllora_tpu_torch.data.fastloader import NativeFill50kBatcher
     from controllora_tpu_torch.data.registry import DatasetBase, batch_iterator
     from controllora_tpu_torch.data.tokenizer import HashTokenizer
 
-    data = batch_iterator(DatasetBase.from_name("process/fill50k")(HashTokenizer(),
-                                                                   resolution=RES),
-                          STOCK_BATCH, seed=1)
-    t0 = time.perf_counter()
-    next(data)
+    ds = DatasetBase.from_name("process/fill50k")(HashTokenizer(), resolution=RES)
+    made = {}
+    for name, data in (("Python batch_iterator", batch_iterator(ds, STOCK_BATCH, seed=1)),
+                       ("native C", iter(NativeFill50kBatcher(ds, STOCK_BATCH, seed=1)))):
+        next(data)  # the C library is built by its first call
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            next(data)
+            times.append((time.perf_counter() - t0) * 1e3)
+        made[name] = times
     log(f"host: one fill50k batch of {STOCK_BATCH} at {RES}² takes "
-        f"{(time.perf_counter() - t0) * 1e3:.1f} ms to make (inside each CLI step below)")
+        + "; ".join(f"{n} " + ", ".join(f"{x:.1f}" for x in t) + " ms" for n, t in made.items())
+        + " to make; the CLI below makes it in C on a prefetch thread, off the step")
     os.environ["CONTROLLORA_FLASH_IMPL"] = "stock"
     try:
         with tempfile.TemporaryDirectory() as out:
@@ -1879,6 +1930,339 @@ def phase_families(torch, fa, device, card):
     return total
 
 
+# the other families' training: SD2.1 768² at batch 4 without remat (v-
+# prediction) and SDXL 1024² at batch 2 with remat `dots` (text_time, dual towers)
+FAMILY_TRAIN = {"sd21": dict(res=768, batch=4, remat=None, prediction="v_prediction"),
+                "sdxl": dict(res=1024, batch=2, remat="dots", prediction="epsilon")}
+# K2-K4 at their long self-attentions (B, heads, L, D): K3/K4's D 64 instance on a
+# main path; K2 also at the VAE encoder of each batch (D 512); one ragged D 64 shape
+FAMILY_TRAIN_ATTN = (((4, 5, 9216, 64), "SD2.1 768² batch 4 level 0"),
+                     ((4, 10, 2304, 64), "SD2.1 768² batch 4 level 1"),
+                     ((2, 10, 4096, 64), "SDXL 1024² batch 2 level 1"))
+FAMILY_TRAIN_VAE = (((4, 1, 9216, 512), "SD2.1 768² batch 4 VAE encoder"),
+                    ((2, 1, 16384, 512), "SDXL 1024² batch 2 VAE encoder"))
+FAMILY_TRAIN_RAGGED = (2, 5, 4225, 64)
+CLI_FAMILY, CLI_RES = "sdxl", 1024  # the family phase "train CLI" trains
+DREAMBOOTH_VARIANT = "sd15"
+CLI_DEVICE = "cuda"  # the CLIs' --device
+
+
+def train_launches(unet_config, res, remat):
+    """Launches of one ControlLoRA train step at `res`: K2 forward and K3 + K4 backward
+    at every long self-attention, K2 once more in the VAE encoder's mid-attention, and
+    with remat K2 again where each attention block is recomputed in the backward (the
+    checkpoint does not see inside the kernels)."""
+    n = k1_per_eval(unet_config, res)
+    vae = int((res // 8) ** 2 >= 2048)
+    return {"k1": 0, "k2": n * (2 if remat else 1) + vae, "k3": n, "k4": n}
+
+
+def phase_family_train_kernels(torch, fa, device, record):
+    """K2, K3 and K4 at the other families' training shapes against their plain
+    versions with times, bounds and SDPA, into `record`'s shapes; the ragged D 64
+    shape checked only."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(12)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+
+    for (b, h, l, d), label in FAMILY_TRAIN_ATTN:
+        k2_case(torch, fa, device, rnd, record, b, h, l, d, label=f" ({label})")
+        bwd_case(torch, fa, rnd, record, b, h, l, d, timed=True, label=f" ({label})")
+        gc.collect()
+        torch.cuda.empty_cache()
+    bwd_case(torch, fa, rnd, record, *FAMILY_TRAIN_RAGGED, timed=False,
+             label=" (ragged D 64)")
+    for (b, h, l, d), label in FAMILY_TRAIN_VAE:
+        k2_case(torch, fa, device, rnd, record, b, h, l, d, label=f" ({label})")
+        torch.cuda.empty_cache()
+    log(f"family train kernels {time.perf_counter() - t0:.1f} s")
+
+
+def family_train_parity(torch, pipe, res, label):
+    """One train step's loss and adapter gradient at batch 1 on the card: the bf16
+    stack (kernels) against an fp32 copy of the UNet and text encoder with every
+    attention plain (fp32 side rematerialised to fit), same latents, guide, ids,
+    noise and t; relative within REL_BOUND."""
+    import functools
+
+    import numpy as np
+
+    from controllora_tpu_torch.training.trainer import ControlLoRATrainer
+
+    rng = np.random.default_rng(5)
+    device = pipe.unet.conv_in.weight.device
+    side = res // 8
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device)
+
+    batch = {"latents": t(rng.normal(size=(1, 4, side, side))),
+             "guide_values": t(rng.uniform(-1, 1, (1, 3, res, res))),
+             "input_ids": torch.from_numpy(rng.integers(0, 49407, (1, 77))).to(device)}
+    draws = dict(noise=t(rng.normal(size=(1, 4, side, side))),
+                 timesteps=torch.tensor([500], device=device))
+    t0 = time.perf_counter()
+
+    def run(unet, text, hint_dtype, remat):
+        trainer = ControlLoRATrainer(pipe.control_lora, unet, pipe.vae, text,
+                                     prediction_type=pipe.scheduler.schedule.prediction_type,
+                                     hint_compute_dtype=hint_dtype, remat_unet=remat,
+                                     remat_policy="nothing")
+        loss = trainer.loss(batch, **draws)
+        grad = torch.cat([g.detach().float().flatten() for g in trainer.grads(loss)])
+        return loss.item(), grad
+
+    loss, grad = run(pipe.unet, pipe.text_encoder, torch.bfloat16, False)
+    unet32 = fp32_copy(torch, pipe.unet, device)
+    unet32.forward = functools.partial(unet32.forward, attention_backend="xla")
+    text32 = fp32_copy(torch, pipe.text_encoder, device)
+    ref_loss, ref_grad = run(unet32, text32, None, True)
+    del unet32, text32
+    gc.collect()
+    torch.cuda.empty_cache()
+    errs = {"train loss": abs(loss - ref_loss) / abs(ref_loss),
+            "adapter gradient": rel_l2(grad, ref_grad)}
+    for name, err in errs.items():
+        log(f"{label} train parity {name}: card bf16 (kernels) vs card fp32 (plain "
+            f"versions) relative {err:.4e} <= {REL_BOUND}")
+    log(f"{label} train parity: loss {loss:.6f} vs {ref_loss:.6f}; |grad| "
+        f"{grad.norm():.4e} vs {ref_grad.norm():.4e}; {time.perf_counter() - t0:.1f} s")
+    if not (math.isfinite(loss) and bool(grad.isfinite().all()) and ref_grad.norm() > 0):
+        raise AssertionError(f"{label} train parity: non-finite or zero result")
+    bad = {k: v for k, v in errs.items() if not v <= REL_BOUND}
+    if bad:
+        raise AssertionError(f"{label} train parity outside {REL_BOUND}: {bad}")
+
+
+def family_train(torch, fa, pipe, label, res, batch, remat, card):
+    """The family's training main path: ControlLoRATrainer.train_step at res² on
+    native fill50k batches, bf16 stack, `base` re-derived: 2 warm-up and 5 timed
+    steps on the host clock with exact launches per step, finite losses, nonzero
+    gradients, params updated, peak memory; then one profiled step. Returns the
+    launches of the timed steps, counted from 0."""
+    from controllora_tpu_torch.data.fastloader import NativeFill50kBatcher
+    from controllora_tpu_torch.data.fill50k import Fill50kSynthetic
+    from controllora_tpu_torch.data.tokenizer import HashTokenizer
+    from controllora_tpu_torch.training.trainer import ControlLoRATrainer, to_device_batch
+
+    data = iter(NativeFill50kBatcher(Fill50kSynthetic(HashTokenizer(), resolution=res),
+                                     batch, seed=0))
+    batches = [to_device_batch(next(data), pipe.unet.conv_in.weight.device)
+               for _ in range(TRAIN_WARMUP + TRAIN_STEPS + 1)]
+    trainer = ControlLoRATrainer(pipe.control_lora, pipe.unet, pipe.vae, pipe.text_encoder,
+                                 prediction_type=pipe.scheduler.schedule.prediction_type,
+                                 hint_compute_dtype=torch.bfloat16,
+                                 remat_unet=remat is not None, remat_policy=remat or "dots")
+    gen = torch.Generator(device=batches[0]["pixel_values"].device).manual_seed(0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 2**30
+    for b in batches[:TRAIN_WARMUP]:
+        trainer.train_step(b, gen)
+    torch.cuda.synchronize()
+    before = [p.detach().clone() for p in trainer.params]
+    want = train_launches(pipe.unet.config, res, remat)
+    fa.reset_launch_counts()  # the main path starts here
+    t0 = time.perf_counter()
+    metrics, per_step = [], []
+    for b in batches[TRAIN_WARMUP:TRAIN_WARMUP + TRAIN_STEPS]:
+        c0 = dict(fa.LAUNCHES)
+        metrics.append(trainer.train_step(b, gen))
+        per_step.append(launched(fa, c0))
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / TRAIN_STEPS
+    total = dict(fa.LAUNCHES)  # the main path ends here
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    changed = sum(not torch.equal(a, p.detach()) for a, p in zip(before, trainer.params))
+    log(f"{label} train {res}² batch {batch}, remat {remat or 'off'}: {step_s * 1e3:.1f} "
+        f"ms/step, {batch / step_s:.3f} img/s, peak {peak:.2f} GiB allocated ({resident:.2f} "
+        "GiB resident before); losses " + ", ".join(f"{x:.4f}" for x in losses)
+        + "; grad norms " + ", ".join(f"{x:.4f}" for x in norms)
+        + f"; {changed}/{len(before)} params changed; launches per step {per_step[0]}; {card}")
+    if any(p != want for p in per_step):
+        raise AssertionError(f"{label} train launches per step {per_step}, expected {want}")
+    if not all(math.isfinite(x) for x in losses + norms) or min(norms) <= 0:
+        raise AssertionError(f"{label} train: losses {losses}, grad norms {norms}")
+    if changed == 0:
+        raise AssertionError(f"{label} train: no adapter parameter changed")
+    wall, busy, top = device_profile(torch, lambda: trainer.train_step(batches[-1], gen))
+    log(profile_line(f"{label} train profiled step", wall, busy, top)
+        + f"; idle share against the unprofiled step {1 - busy / step_s:.3f}; top kernels: "
+        + "; ".join(f"{name[:60]} {ms:.1f} ms" for name, ms in top[:8]))
+    return total
+
+
+def phase_family_train(torch, fa, device, card):
+    """SD2.1 and SDXL ControlLoRA training at full width on seeded random bf16
+    weights: per family the train-step parity on the card and the timed, profiled
+    steps. The stacks are built one at a time and freed. Returns the launches of the
+    timed steps."""
+    from controllora_tpu_torch.schedulers import DPMSolverMultistepScheduler
+    from controllora_tpu_torch.schedulers.common import DiffusionSchedule
+
+    t_phase = time.perf_counter()
+    total = {n: 0 for n in fa.LAUNCHES}
+    for variant, c in FAMILY_TRAIN.items():
+        scheduler = DPMSolverMultistepScheduler(DiffusionSchedule.create(
+            prediction_type=c["prediction"]))
+        pipe = build_stack(torch, device, variant, scheduler)
+        family_train_parity(torch, pipe, c["res"], variant)
+        used = family_train(torch, fa, pipe, variant, c["res"], c["batch"], c["remat"], card)
+        total = {n: total[n] + used[n] for n in total}
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"family train phase {time.perf_counter() - t_phase:.1f} s; main-path launches {total}")
+    return total
+
+
+def run_cli(module, args, timeout=900):
+    """`python -m <module> <args>` from the repository root; its stdout, or a failure
+    with the ends of both streams."""
+    proc = subprocess.run([sys.executable, "-m", module, *args], cwd=ROOT,
+                          capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0 or "nan" in proc.stdout:
+        raise AssertionError(f"{module} ({proc.returncode}):\n{proc.stdout[-1500:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def phase_train_cli(torch, card):
+    """`python -m controllora_tpu_torch.train --model_variant sdxl --resolution 1024`
+    for 3 steps at batch 2 (remat dots) with --validation_steps 2 --report_to jsonl:
+    metrics.jsonl holds the 3 step lines, the validation montage decodes to a
+    1024 x 3072 RGB image, and the CLI used the native data plane."""
+    import sysconfig
+
+    from controllora_tpu_torch.utils.png import decode_png
+
+    # the JAX package builds its fastloader as a CPython extension; the port's copy
+    # is a plain C library (ctypes), which needs no Python headers: record whether
+    # this machine has them
+    include = sysconfig.get_paths()["include"]
+    python_h = os.path.exists(os.path.join(include, "Python.h"))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        stdout = run_cli("controllora_tpu_torch.train", [
+            "--model_variant", CLI_FAMILY, "--resolution", str(CLI_RES),
+            "--train_batch_size", "2", "--gradient_checkpointing", "--remat_policy", "dots",
+            "--max_train_steps", "3", "--log_every", "1", "--validation_steps", "2",
+            "--report_to", "jsonl", "--checkpointing_steps", "0", "--output_dir", out,
+            "--device", CLI_DEVICE])
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            lines = [json.loads(ln) for ln in f]
+        with open(os.path.join(out, "images", "validation-2.png"), "rb") as f:
+            img = decode_png(f.read())
+    plane = [ln for ln in stdout.splitlines() if ln.startswith("data plane:")]
+    steps = [ln for ln in stdout.splitlines() if ln.startswith("step ")]
+    if [r["step"] for r in lines] != [1, 2, 3] or len(steps) != 3:
+        raise AssertionError(f"train CLI sdxl: metrics {lines}\n{stdout[-1500:]}")
+    if img.shape != (CLI_RES, 3 * CLI_RES, 3):
+        raise AssertionError(f"train CLI sdxl: validation image {img.shape}")
+    if not plane or "native" not in plane[0]:
+        raise AssertionError(f"train CLI sdxl: data plane {plane}")
+    log(f"train CLI: python -m controllora_tpu_torch.train --model_variant {CLI_FAMILY} "
+        f"{CLI_RES}² batch 2, 3 steps + validation at step 2 in "
+        f"{time.perf_counter() - t0:.1f} s; "
+        f"{plane[0]}; metrics.jsonl steps {[r['step'] for r in lines]} "
+        "(losses " + ", ".join(f"{r['train_loss']:.4f}" for r in lines) + "); "
+        f"validation montage {img.shape}; {steps[-1]}; Python.h for a CPython "
+        f"extension build {'present' if python_h else 'absent'} ({include}); {card}")
+
+
+def phase_dreambooth(torch, fa, card):
+    """`python -m controllora_tpu_torch.train_dreambooth` (its main in this process,
+    so that the launch counters are read here) on SD1.5 at 512²: 2 instance PNGs
+    from fill50k, prior preservation with 2 class images sampled by the frozen stack,
+    3 steps at batch 1 (+ 1 class row), one validation image after epoch 0 and one
+    after training (the LoRA folded into the UNet: K1 without biases); the
+    .safetensors and .bin written equal the trained LoRA bit for bit, and each step
+    launches exactly {k2 6, k3 5, k4 5}. Returns the launches of the train steps."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from controllora_tpu_torch import train_dreambooth as cli
+    from controllora_tpu_torch.data.fill50k import Fill50kSynthetic
+    from controllora_tpu_torch.data.tokenizer import HashTokenizer
+    from controllora_tpu_torch.training.dreambooth import DreamBoothLoRATrainer
+    from controllora_tpu_torch.utils.convert import load_state_dict
+    from controllora_tpu_torch.utils.png import decode_png, encode_png
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    ds = Fill50kSynthetic(HashTokenizer(), resolution=RES)
+    seen, per_step = [], []
+    train_step = DreamBoothLoRATrainer.train_step
+
+    def counted(self, *a, **kw):  # each train step's launches, and the trainer
+        c0 = dict(fa.LAUNCHES)
+        out = train_step(self, *a, **kw)
+        torch.cuda.synchronize()
+        per_step.append(launched(fa, c0))
+        seen[:] = [self]
+        return out
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        inst = os.path.join(tmp, "instance")
+        os.makedirs(inst)
+        for i in range(2):
+            with open(os.path.join(inst, f"instance-{i}.png"), "wb") as f:
+                f.write(encode_png(np.clip((ds[i]["pixel_values"] + 1) * 127.5, 0, 255)
+                                   .astype(np.uint8)))
+        out, buf = os.path.join(tmp, "out"), io.StringIO()
+        DreamBoothLoRATrainer.train_step = counted  # shadows AdapterTrainer's
+        try:
+            with contextlib.redirect_stdout(buf):
+                cli.main(["--model_variant", DREAMBOOTH_VARIANT, "--resolution", str(RES),
+                          "--instance_data_dir", inst, "--instance_prompt", "a sks circle",
+                          "--with_prior_preservation", "--class_prompt", "a circle",
+                          "--class_data_dir", os.path.join(tmp, "class"),
+                          "--sample_class_images", "--num_class_images", "2",
+                          "--max_train_steps", "3", "--log_every", "1",
+                          "--validation_prompt", "a sks circle", "--num_validation_images",
+                          "1", "--checkpointing_steps", "0", "--lr_warmup_steps", "0",
+                          "--output_dir", out, "--device", CLI_DEVICE])
+        finally:
+            del DreamBoothLoRATrainer.train_step
+        stdout = buf.getvalue()
+        trained = seen[0].state_dict()
+        files = {fmt: load_state_dict(os.path.join(out, f"pytorch_lora_weights.{fmt}"))
+                 for fmt in ("safetensors", "bin")}
+        classes = sorted(os.listdir(os.path.join(tmp, "class")))
+        images = sorted(os.listdir(os.path.join(out, "images")))
+        val = decode_png(open(os.path.join(out, "images", images[-1]), "rb").read())
+    want = dict(TRAIN_LAUNCHES)
+    steps = [ln for ln in stdout.splitlines() if ln.startswith("step ")]
+    for fmt, sd in files.items():
+        if set(sd) != set(trained) or not all(
+                sd[k].dtype == trained[k].dtype and np.array_equal(sd[k], trained[k])
+                for k in trained):
+            raise AssertionError(f"dreambooth: the .{fmt} LoRA differs from the trained one")
+    if len(per_step) != 3 or any(p != want for p in per_step) or len(steps) != 3:
+        raise AssertionError(f"dreambooth: launches per step {per_step} (want {want})\n"
+                             + stdout[-1500:])
+    if len(classes) != 2 or val.shape != (RES, RES, 3):
+        raise AssertionError(f"dreambooth: class images {classes}, validation {images}")
+    if max(float(np.abs(v).max()) for k, v in trained.items() if ".up." in k) <= 0:
+        raise AssertionError("dreambooth: the LoRA's up factors did not move")
+    total = {n: sum(p[n] for p in per_step) for n in want}
+    log(f"dreambooth: python -m controllora_tpu_torch.train_dreambooth SD1.5 {RES}², prior "
+        f"preservation (2 sampled class images), 3 steps at batch 1 + 1 class row, "
+        f"validation images {images}: {time.perf_counter() - t0:.1f} s; {steps[-1]}; "
+        f".safetensors and .bin equal the trained LoRA bit for bit ({len(trained)} "
+        f"tensors); launches per step {per_step[0]}; {card}")
+    return total
+
+
 def main():
     import torch
 
@@ -1909,6 +2293,7 @@ def main():
     record = phase_kernels(torch, fa, device)
     phase_family_kernels(torch, fa, device, record)
     record.update(phase_backward_kernels(torch, fa, device))
+    phase_family_train_kernels(torch, fa, device, record)
     phase_flash_grad(torch, fa, device)
     record.update(phase_stock_kernels(torch, fs, device))
     phase_stock_grad(torch, fs, device)
@@ -1930,10 +2315,14 @@ def main():
     stock = phase_stock_train(torch, fa, fs)
     phase_cli_resume(torch)
     families = phase_families(torch, fa, device, card)
+    family_train = phase_family_train(torch, fa, device, card)
+    phase_train_cli(torch, card)
+    dreambooth = phase_dreambooth(torch, fa, card)
     # launches on the main paths, each counted from 0: serving, the serving presets,
-    # training (K1-K4) and the other families' renders and request, then training
-    # under CONTROLLORA_FLASH_IMPL=stock (K5)
-    launches = {n: serve[n] + presets[n] + train[n] + families[n] for n in serve}
+    # training (K1-K4), the other families' renders and request, their training and
+    # DreamBooth's steps, then training under CONTROLLORA_FLASH_IMPL=stock (K5)
+    paths = (serve, presets, train, families, family_train, dreambooth)
+    launches = {n: sum(p.get(n, 0) for p in paths) for n in serve}
     launches.update({n: stock[n] for n in fs.LAUNCHES})
 
     fwd = "controllora_tpu_torch/csrc/flash_attn_fwd.cu"

@@ -1,8 +1,8 @@
 """DreamBooth dataset — instance (+ optional class) images with fixed prompts
 (reference train_dreambooth_lora.py:410-488).
 
-The port's own copy of ``controllora_tpu/data/dreambooth.py`` (numpy only):
-the port imports nothing of the JAX package. tests/test_torch_standalone.py
+The port's own copy of ``controllora_tpu/data/dreambooth.py``: the port imports
+nothing of the JAX package, and reads PNGs without PIL. tests/test_torch_dreambooth.py
 holds the two equal.
 
 Yields per index:
@@ -19,6 +19,7 @@ from typing import Dict, Optional
 import numpy as np
 
 from controllora_tpu_torch.data.registry import DatasetBase
+from controllora_tpu_torch.utils.png import SIGNATURE as PNG_SIGNATURE, decode_png
 
 _EXTS = (".png", ".jpg", ".jpeg", ".webp", ".bmp")
 
@@ -30,22 +31,31 @@ def _list_images(root: str):
 
 
 def _load_image(path: str, resolution: int, center_crop: bool, rng) -> np.ndarray:
-    from PIL import Image
+    """The image resized (bilinear) so its short side is ``resolution``, then cropped
+    to a square at the centre or at random, in [-1, 1]. A PNG is decoded by the port's
+    own codec, and one whose short side is already ``resolution`` needs no resize and
+    no PIL (which the card's machine lacks); anything else goes through PIL, as the JAX
+    copy does."""
+    with open(path, "rb") as f:
+        data = f.read()
+    img = decode_png(data) if data.startswith(PNG_SIGNATURE) else None
+    if img is None or min(img.shape[:2]) != resolution:
+        from PIL import Image
 
-    img = Image.open(path).convert("RGB")
-    w, h = img.size
-    scale = resolution / min(w, h)
-    img = img.resize((max(resolution, round(w * scale)), max(resolution, round(h * scale))),
-                     Image.BILINEAR)
-    w, h = img.size
+        pil = Image.open(path).convert("RGB") if img is None else Image.fromarray(img)
+        w, h = pil.size
+        scale = resolution / min(w, h)
+        img = np.asarray(pil.resize((max(resolution, round(w * scale)),
+                                     max(resolution, round(h * scale))), Image.BILINEAR))
+    h, w = img.shape[:2]
     if center_crop or (w == resolution and h == resolution):
         x0 = (w - resolution) // 2
         y0 = (h - resolution) // 2
     else:
         x0 = int(rng.integers(0, w - resolution + 1))
         y0 = int(rng.integers(0, h - resolution + 1))
-    img = img.crop((x0, y0, x0 + resolution, y0 + resolution))
-    return np.asarray(img, np.float32) / 127.5 - 1.0
+    crop = img[y0:y0 + resolution, x0:x0 + resolution]
+    return crop.astype(np.float32) / 127.5 - 1.0
 
 
 class DreamBoothDataset(DatasetBase):

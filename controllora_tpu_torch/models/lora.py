@@ -193,3 +193,60 @@ def adapt_output(stack: AdapterStack, out: torch.Tensor, attn_hidden: torch.Tens
                                            out if a.spec.post_add else attn_hidden)
     return out
 
+
+
+# ---------------------------------------------------------------------------- init
+
+
+def init_lora_params(generator: torch.Generator, in_dim: int, out_dim: int, rank: int,
+                     device=None) -> Dict[str, torch.Tensor]:
+    """A LoRA factor pair as diffusers' LoRALinearLayer starts it: down ~ N(0, 1/rank),
+    up = 0, so a fresh adapter is the identity perturbation. fp32, drawn from
+    ``generator`` (which must live on ``device``)."""
+    down = torch.randn((in_dim, rank), generator=generator, device=device) / rank
+    return {"down": down, "up": torch.zeros((rank, out_dim), device=device)}
+
+
+def init_adapter_params(generator: torch.Generator, hidden_size: int,
+                        cross_attention_dim: Optional[int], rank: int, spec: AdapterSpec,
+                        control_rank: Optional[int] = None,
+                        control_channels: Optional[int] = None,
+                        device=None) -> Dict[str, Dict[str, torch.Tensor]]:
+    """One adapter's factor pairs (the JAX ``init_adapter_params`` layout), drawn in
+    the order to_q, to_k, to_v, to_out, to_control, to_control_out."""
+    kv_in = hidden_size if spec.post_add else (cross_attention_dim or hidden_size)
+
+    def pair(i, o, r=rank):
+        return init_lora_params(generator, i, o, r, device)
+
+    p = {"to_q": pair(hidden_size, hidden_size)}
+    if not spec.key_skipped:
+        p["to_k"] = pair(kv_in, hidden_size)
+    if not spec.value_skipped:
+        p["to_v"] = pair(kv_in, hidden_size)
+    if spec.is_control or not spec.output_skipped:
+        p["to_out"] = pair(hidden_size, hidden_size)
+    if spec.is_control:
+        crank = control_rank if control_rank is not None else rank
+        cch = control_channels if control_channels is not None else hidden_size
+        in_dim = cch + (hidden_size if spec.concat_hidden else 0)
+        p["to_control"] = pair(in_dim, hidden_size, crank)
+        if spec.kind == "control_v2":
+            p["to_control_out"] = pair(in_dim, hidden_size, crank)
+    return p
+
+
+def make_plain_lora_adapters(generator: torch.Generator, rank: int = 4, unet_config=None,
+                             post_add: bool = False, device=None) -> Dict[str, AttnAdapter]:
+    """One plain LoRA adapter per UNet attention layer: the DreamBooth-LoRA model
+    (reference train_dreambooth_lora.py:706-722, rank = --lora_rank), as
+    {processor name: AttnAdapter} for threading, folding or ``merge_extra_loras``."""
+    from controllora_tpu_torch.models import unet as unet_lib
+
+    cfg = unet_config or unet_lib.UNetConfig()
+    spec = AdapterSpec(kind="lora", post_add=post_add)
+    return {name: AttnAdapter(params=init_adapter_params(
+                generator, unet_lib.processor_hidden_size(name, cfg),
+                unet_lib.processor_cross_dim(name, cfg), rank, spec, device=device),
+                spec=spec)
+            for name in unet_lib.attention_processor_names(cfg)}

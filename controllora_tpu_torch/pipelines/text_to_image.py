@@ -29,24 +29,46 @@ the size ids of the render (JAX :680-715): 6 ids ``[h, w, 0, 0, h, w]`` (SDXL), 
 rows and ``negative_aesthetic_score`` on the uncond rows. SD2.1's v-prediction is
 the scheduler's: ``DPMSolverMultistepScheduler(DiffusionSchedule.create(
 prediction_type="v_prediction"))``.
+Extra plain LoRAs (``extra_loras=``, ``merge_extra_loras``) render where they fold:
+as the main adapters of a stack without a ControlLoRA (DreamBooth validation).
 Not ported yet: img2img, inpaint and ``denoising_start``/``denoising_end`` (so the
-SDXL base -> refiner ensemble), ``hires``, extra LoRAs and controls, threaded
-(unfoldable) adapter stacks, and meshes.
+SDXL base -> refiner ensemble), ``hires``, extra controls, threaded (unfoldable)
+adapter stacks such as a LoRA chained beside a ControlLoRA, and meshes.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple, Union
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 from torch.func import functional_call
 
 from controllora_tpu_torch.models.clip import DualCLIPTextEncoder
-from controllora_tpu_torch.models.lora import is_foldable
+from controllora_tpu_torch.models.lora import AdapterStack, AttnAdapter, is_foldable
 from controllora_tpu_torch.ops.folding import fold_adapters
 from controllora_tpu_torch.ops.tome import ToMeConfig
 from controllora_tpu_torch.schedulers import DPMSolverMultistepScheduler
+
+
+def merge_extra_loras(stacks: Dict[str, AdapterStack], extra: Dict[str, AttnAdapter],
+                      where: str = "pre") -> Dict[str, AdapterStack]:
+    """Compose plain LoRA adapters with installed ControlLoRA stacks (reference
+    mix_lora_and_control_lora.py:114-121: DreamBooth LoRAs become the pre_loras /
+    post_loras of each control processor); where a layer has no stack, the LoRA is
+    its main adapter."""
+    out = dict(stacks)
+    for name, adapter in extra.items():
+        stack = out.get(name)
+        if stack is None:
+            stack = AdapterStack(main=adapter)
+        elif where == "pre":
+            stack = dataclasses.replace(stack, pre=stack.pre + (adapter,))
+        else:
+            stack = dataclasses.replace(stack, post=stack.post + (adapter,))
+        out[name] = stack
+    return out
 
 
 def _nhwc_to_nchw(x, device, dtype=torch.float32) -> torch.Tensor:
@@ -155,6 +177,7 @@ class StableDiffusionControlLoRAPipeline:
         deepcache_interval: int = 1,
         aesthetic_score: float = 6.0,
         negative_aesthetic_score: float = 2.5,
+        extra_loras: Optional[Dict[str, AttnAdapter]] = None,
     ) -> List[np.ndarray]:
         """Returns a list of HWC uint8 images (float arrays in [-1, 1] with
         ``return_array``). Without ``latents=`` the initial noise is drawn from
@@ -172,7 +195,12 @@ class StableDiffusionControlLoRAPipeline:
         last full step. Composes with ``tome_ratio``.
 
         ``aesthetic_score`` / ``negative_aesthetic_score``: the cond / uncond score
-        id of a 5-id ``text_time`` UNet (the refiner); other UNets ignore them."""
+        id of a 5-id ``text_time`` UNet (the refiner); other UNets ignore them.
+
+        ``extra_loras``: {processor name: plain LoRA AttnAdapter} composed with the
+        ControlLoRA by ``merge_extra_loras``. Without a guide they are the stacks'
+        main adapters and fold (a DreamBooth LoRA's render); beside a ControlLoRA
+        they form a chain, which does not fold and is refused."""
         tome = None
         if tome_ratio:
             if not 0.0 < tome_ratio <= 0.75:
@@ -229,15 +257,20 @@ class StableDiffusionControlLoRAPipeline:
             added = dict(added_text_embeds=_cfg_batch(pooled, n, per_image),
                          added_time_ids=_cfg_batch(ids, n, False))
 
-        weights, biases = {}, None
+        weights, biases, adapters = {}, None, {}
         if guide is not None and self.control_lora is not None:
             if guide.shape[0] not in (1, n):
                 raise ValueError(f"guide batch {guide.shape[0]} must be 1 (shared) or "
                                  f"match the image batch {n} (per-image guides)")
             g = _nhwc_to_nchw(guide, self.device)
             adapters = self.control_lora.adapters_for(g, self.unet.config)
+        if extra_loras:
+            adapters = merge_extra_loras(adapters, extra_loras)
+        if adapters:
             if not is_foldable(adapters):
-                raise ValueError("only foldable adapter stacks are served by the port")
+                raise ValueError("only foldable adapter stacks are served by the port: a "
+                                 "LoRA chained beside a ControlLoRA (pre/post) needs the "
+                                 "threaded serving path, ROADMAP Queue 1 item 11.3")
             weights, biases = fold_adapters(self.unet, adapters, lora_scale)
             # cast once: every step adds them in the UNet's compute dtype
             dtype = self.unet.conv_in.weight.dtype

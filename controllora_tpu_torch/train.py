@@ -5,11 +5,23 @@ with that script's flag names, defaults and semantics for the flags it takes).
         --train_batch_size 2 --max_train_steps 3 --output_dir /tmp/run --device cpu
 
 There are no pretrained weights in the repository: the frozen stack (UNet, VAE,
-CLIP) gets seeded random weights (``models/zoo.py``), and so does the hint encoder.
-Data comes from the port's numpy registry (``process/<name>``, ``batch_iterator``),
-optionally behind the VAE latent cache (``--cache_latents``). The UNet can be
-rematerialised (``--gradient_checkpointing``, ``--remat_policy``) and the AdamW
-moments kept in 8 bits (``--use_8bit_adam``).
+text encoder) of ``--model_variant`` (sd15, sd21, sdxl and their smoke stacks) gets
+seeded random weights (``models/zoo.py``), and so does the hint encoder. For SD2.1
+and SDXL the ControlLoRA config is re-derived for the UNet
+(``control_lora.config_for_unet``: SD2.1 32 adapter slots, SDXL 3 buckets, 140
+slots, level 0 adapter-free); SDXL trains with its ``text_time`` conditioning
+(``training/conditioning.py``), SD2.1-v with ``--prediction_type v_prediction``.
+Data comes from the port's numpy registry (``process/<name>``) or a column dataset
+(a local directory or dataset script: ``data/hf_dataset.py``,
+``--image_column`` etc.), optionally behind the VAE latent cache
+(``--cache_latents``). fill50k and column datasets are batched by the native data
+plane (``data/fastloader.py``: C synthesis or normalisation, a prefetch thread)
+where its C library builds, else by ``batch_iterator``; the CLI says which. The
+UNet can be rematerialised (``--gradient_checkpointing``, ``--remat_policy``) and
+the AdamW moments kept in 8 bits (``--use_8bit_adam``). Metrics go to
+``<output_dir>/metrics.jsonl`` (``--report_to``, ``utils/logging.py``), and every
+``--validation_steps`` steps a guided 25-step render of the first dataset item
+with the current adapters is logged as a montage of image, guide and sample.
 
 Every ``--checkpointing_steps`` steps the train state goes to
 ``<output_dir>/checkpoint-<step>`` (in a background thread unless
@@ -20,7 +32,9 @@ stream fast-forwarded to the step; the seed recorded in ``run_meta.json`` wins o
 ``--seed`` for the random weights, data order and noise. SIGTERM or SIGINT finishes the step, saves a
 checkpoint and exits 0 (a second signal aborts). The run ends by writing the
 adapter artifact (``training/checkpoint.py``) to ``--output_dir``. Flags of
-``scripts/train.py`` not taken here are listed in ROADMAP.md (Queue 1 item 9).
+``scripts/train.py`` not taken here: ``--pretrained_model_name_or_path`` (no weights
+in the repository), ``--push_to_hub`` and the ``--hub_*`` flags (no network),
+``--profile`` and data parallelism (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -34,11 +48,14 @@ import time
 
 import torch
 
+from controllora_tpu_torch.utils.logging import REPORT_TO, MetricsLogger
+
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--model_variant", type=str, default="sd15", choices=["sd15", "smoke"])
+    p.add_argument("--model_variant", type=str, default="sd15",
+                   choices=["sd15", "sd21", "sdxl", "smoke", "smoke2", "smokexl"])
     p.add_argument("--control_lora_config", type=str, default="base",
                    help="preset name or reference-format JSON path")
     p.add_argument("--mixed_precision", type=str, default="bf16", choices=["no", "bf16"],
@@ -48,7 +65,13 @@ def parse_args(argv=None):
                         "(fp32 master params and optimizer state)")
     p.add_argument("--prediction_type", type=str, default=None)
     p.add_argument("--snr_gamma", type=float, default=None)
-    p.add_argument("--dataset_name", type=str, default="process/fill50k")
+    p.add_argument("--dataset_name", type=str, default="process/fill50k",
+                   help="process/<registry name>, or a local imagefolder directory or "
+                        "dataset script with (image, guide, text) columns")
+    p.add_argument("--dataset_config_name", type=str, default=None)
+    p.add_argument("--image_column", type=str, default=None)
+    p.add_argument("--guide_column", type=str, default=None)
+    p.add_argument("--caption_column", type=str, default=None)
     p.add_argument("--resolution", type=int, default=512)
     p.add_argument("--max_train_samples", type=int, default=None)
     p.add_argument("--train_batch_size", type=int, default=16)
@@ -85,6 +108,11 @@ def parse_args(argv=None):
                    help="block the train loop during checkpoint saves")
     p.add_argument("--resume_from_checkpoint", type=str, default=None,
                    help="'latest' (in --output_dir) or a directory of checkpoint-<step>")
+    p.add_argument("--validation_steps", type=int, default=0,
+                   help="render a validation sample every N steps (0 = off)")
+    p.add_argument("--validation_prompt", type=str, default=None)
+    p.add_argument("--report_to", type=str, default="jsonl", choices=list(REPORT_TO),
+                   help="metrics sinks beside metrics.jsonl")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--log_every", type=int, default=10)
     p.add_argument("--device", type=str, default="cuda",
@@ -93,13 +121,16 @@ def parse_args(argv=None):
 
 
 def build_control_config(args, unet_config):
-    """The ControlLoRA config: the named preset, or for the smoke variant the JAX
-    CLI's reduced hint encoder with buckets and slots derived from the UNet."""
+    """The ControlLoRA config: the named preset, re-derived for SD2.1 and SDXL
+    (``config_for_unet``), or for the smoke variants the JAX CLI's reduced hint
+    encoder with buckets and slots derived from the UNet."""
     from controllora_tpu_torch.config import ControlLoRAConfig, load_config
     from controllora_tpu_torch.models.control_lora import config_for_unet
 
     cfg = load_config(args.control_lora_config)
-    if args.model_variant == "smoke":
+    if args.model_variant in ("sd21", "sdxl"):
+        cfg = config_for_unet(cfg, unet_config)
+    if args.model_variant.startswith("smoke"):
         cfg = config_for_unet(ControlLoRAConfig(
             block_out_channels=(8, 16, 16, 32), lora_block_in_channels=(32, 32, 32, 32),
             lora_control_version=cfg.lora_control_version), unet_config)
@@ -139,9 +170,83 @@ def resume_point(args):
     return state, at, seed
 
 
+def build_dataset(args, tokenizer, seed):
+    """The registry dataset ``process/<name>``, or a column dataset
+    (``data/hf_dataset.py``) from a local directory or dataset script."""
+    if args.dataset_name.startswith("process/"):
+        from controllora_tpu_torch.data.registry import DatasetBase
+
+        dataset = DatasetBase.from_name(args.dataset_name)(tokenizer,
+                                                           resolution=args.resolution)
+        if args.max_train_samples:
+            dataset.size = min(len(dataset), args.max_train_samples)
+        return dataset
+    from controllora_tpu_torch.data.hf_dataset import HFImageGuideDataset
+
+    return HFImageGuideDataset(
+        tokenizer, dataset_name=args.dataset_name,
+        dataset_config_name=args.dataset_config_name, resolution=args.resolution,
+        image_column=args.image_column, guide_column=args.guide_column,
+        caption_column=args.caption_column, seed=seed,
+        max_train_samples=args.max_train_samples)
+
+
+def make_batches(args, dataset, seed, start_step):
+    """(batch stream, what it is). fill50k is made in C and column datasets are
+    normalised in C, behind a prefetch thread (scripts/train.py's native data plane),
+    where the C library builds; everything else, and a latent cache, goes through
+    ``batch_iterator``."""
+    from controllora_tpu_torch.data import fastloader
+    from controllora_tpu_torch.data.registry import batch_iterator
+
+    bs = args.train_batch_size
+    why = "latent cache" if args.cache_latents else None
+    if why is None and not fastloader.native_available():
+        why = f"native fastloader unavailable: {fastloader.native_error()}"
+    if why is None and args.dataset_name == "process/fill50k":
+        return (iter(fastloader.Prefetcher(iter(fastloader.NativeFill50kBatcher(
+            dataset, bs, seed=seed, start_step=start_step)))),
+            "native fastloader (fill50k made in C, prefetch thread)")
+    if why is None and hasattr(dataset, "getitem_u8"):
+        return (iter(fastloader.Prefetcher(iter(fastloader.NativeNormalizeBatcher(
+            dataset, bs, seed=seed, start_step=start_step)))),
+            "native batch-normalize (uint8 -> [-1, 1] in C, prefetch thread)")
+    return (batch_iterator(dataset, bs, seed=seed, start_step=start_step),
+            f"python batch_iterator ({why or 'no native batcher for this dataset'})")
+
+
+def make_validation(args, dataset, stack, control, trainer, logger, device):
+    """validate(step): a guided 25-step CFG-9 render of the first dataset item's
+    guide through ``stack`` (unet, vae, text encoder, tokenizer) with the current
+    adapters (folded, as served), logged as the montage image | guide | sample
+    (``DatasetBase.cat_input``)."""
+    import numpy as np
+
+    from controllora_tpu_torch.data.registry import DatasetBase
+    from controllora_tpu_torch.pipelines import StableDiffusionControlLoRAPipeline
+    from controllora_tpu_torch.schedulers import DPMSolverMultistepScheduler
+
+    # the montage needs pixel_values: unwrap a latent cache
+    item = getattr(dataset, "dataset", dataset)[0]
+    scheduler = DPMSolverMultistepScheduler(trainer.scheduler.schedule)
+    pipe = StableDiffusionControlLoRAPipeline(*stack, control, scheduler=scheduler,
+                                              device=device)
+
+    def validate(step):
+        img = pipe(args.validation_prompt or "validation sample",
+                   guide=item["guide_values"].astype(np.float32), num_inference_steps=25,
+                   guidance_scale=9.0, generator=torch.Generator().manual_seed(args.seed),
+                   return_array=True)[0]
+        logger.log_image(step, "validation",
+                         DatasetBase.cat_input(item["pixel_values"], item["guide_values"], img))
+        print(f"validation image at step {step}: {logger.image_path(step, 'validation')}",
+              flush=True)
+
+    return validate
+
+
 def main(argv=None):
     args = parse_args(argv)
-    from controllora_tpu_torch.data.registry import DatasetBase, batch_iterator
     from controllora_tpu_torch.data.tokenizer import default_tokenizer
     from controllora_tpu_torch.models import zoo
     from controllora_tpu_torch.training.checkpoint import Checkpointer, save_control_lora
@@ -164,13 +269,8 @@ def main(argv=None):
     print(f"device {device}; frozen {args.model_variant} stack is random (seed "
           f"{seed}): no pretrained weights in the repository", flush=True)
 
-    if not args.dataset_name.startswith("process/"):
-        raise NotImplementedError("only process/<name> datasets are ported: ROADMAP "
-                                  "Queue 1 item 9")
-    dataset = DatasetBase.from_name(args.dataset_name)(default_tokenizer(),
-                                                       resolution=args.resolution)
-    if args.max_train_samples:
-        dataset.size = min(len(dataset), args.max_train_samples)
+    tokenizer = default_tokenizer()
+    dataset = build_dataset(args, tokenizer, seed)
     if args.cache_latents:
         from controllora_tpu_torch.data.latent_cache import LatentCachedDataset
 
@@ -208,8 +308,11 @@ def main(argv=None):
             json.dump({"seed": args.seed, "global_batch": args.train_batch_size,
                        "dataset_name": args.dataset_name,
                        "resolution": args.resolution}, f)
-    batches = batch_iterator(dataset, args.train_batch_size, seed=seed,
-                             start_step=start_step)
+    batches, plane = make_batches(args, dataset, seed, start_step)
+    print(f"data plane: {plane}", flush=True)
+    logger = MetricsLogger(args.output_dir, args.report_to)
+    validate = (make_validation(args, dataset, (unet, vae, text, tokenizer), control,
+                                trainer, logger, device) if args.validation_steps else None)
     n_params = sum(p.numel() for p in trainer.params)
     print(f"ControlLoRA params: {n_params / 1e6:.2f}M | batch {args.train_batch_size} | "
           f"lr {lr}", flush=True)
@@ -249,10 +352,16 @@ def main(argv=None):
                 loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
                 now = time.perf_counter()
                 n = done % args.log_every or args.log_every
+                dt = (now - t_last) / n
                 print(f"step {done}: loss={loss:.4f} grad_norm={gnorm:.4f} "
-                      f"{n / (now - t_last):.3f} steps/s {(now - t_last) / n * 1e3:.1f} "
-                      "ms/step", flush=True)
+                      f"{1 / dt:.3f} steps/s {dt * 1e3:.1f} ms/step", flush=True)
+                logger.log(done, {"train_loss": loss, "grad_norm": gnorm,
+                                  "steps_per_sec": 1 / dt,
+                                  "imgs_per_sec": args.train_batch_size / dt})
                 t_last = now
+            if validate is not None and done % args.validation_steps == 0:
+                validate(done)
+                t_last = time.perf_counter()
             if args.checkpointing_steps and done % args.checkpointing_steps == 0:
                 save_checkpoint(done)
             if stop["sig"] is not None:
@@ -264,6 +373,7 @@ def main(argv=None):
                 return
         checkpointer.finalize()
     finally:
+        logger.close()
         for s, h in prev_handlers.items():
             signal.signal(s, h)
     save_control_lora(args.output_dir, control)

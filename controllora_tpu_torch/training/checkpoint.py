@@ -25,7 +25,7 @@ import os
 import re
 import shutil
 import threading
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -95,16 +95,21 @@ def cpu_copy(tree: Any) -> Any:
 
 
 def save_train_state(output_dir: str, step: int, state: Dict[str, Any],
-                     config: ControlLoRAConfig, keep: Optional[int] = None) -> str:
+                     config: Optional[ControlLoRAConfig], keep: Optional[int] = None,
+                     artifact: Optional[Callable[[str, Any], Any]] = None) -> str:
     """Write ``output_dir/checkpoint-<step>`` (the state, and the adapter artifact of
-    ``state["params"]`` under ``control_lora/``), then prune all but the newest
+    ``state["params"]``: the ControlLoRA's under ``control_lora/``, or what
+    ``artifact(checkpoint dir, params)`` writes), then prune all but the newest
     ``keep`` checkpoints (the reference's --checkpoints_total_limit)."""
     path = os.path.join(output_dir, f"checkpoint-{step}")
     tmp = f"{path}.tmp-{os.getpid()}-{threading.get_ident()}"
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
     torch.save(state, os.path.join(tmp, STATE_NAME))
-    _write_artifact(os.path.join(tmp, ARTIFACT_DIR), config, state["params"])
+    if artifact is None:
+        _write_artifact(os.path.join(tmp, ARTIFACT_DIR), config, state["params"])
+    else:
+        artifact(tmp, state["params"])
     shutil.rmtree(path, ignore_errors=True)
     os.replace(tmp, path)
     if keep is not None:
@@ -138,18 +143,18 @@ class Checkpointer:
         self._error: Optional[Exception] = None
 
     def save(self, output_dir: str, step: int, state: Dict[str, Any],
-             config: ControlLoRAConfig, keep: Optional[int] = None,
-             wait: bool = True) -> str:
+             config: Optional[ControlLoRAConfig], keep: Optional[int] = None,
+             wait: bool = True, artifact: Optional[Callable[[str, Any], Any]] = None) -> str:
         self.finalize()
         state = cpu_copy(state)
         path = os.path.join(output_dir, f"checkpoint-{step}")
         if wait:
-            save_train_state(output_dir, step, state, config, keep)
+            save_train_state(output_dir, step, state, config, keep, artifact)
             return path
 
         def run():
             try:
-                save_train_state(output_dir, step, state, config, keep)
+                save_train_state(output_dir, step, state, config, keep, artifact)
             except Exception as e:  # re-raised by finalize()
                 self._error = e
 

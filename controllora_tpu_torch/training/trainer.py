@@ -240,43 +240,35 @@ def to_device_batch(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Ten
 # ---------------------------------------------------------------------------- trainer
 
 
-class ControlLoRATrainer:
-    """Owns the models and runs the train/eval steps (the JAX trainer's surface).
-    The ControlLoRA's parameters are made trainable; the frozen modules are used as
-    they are.
+class AdapterTrainer:
+    """What the ControlLoRA and the DreamBooth-LoRA trainers share: the frozen stack
+    (UNet, VAE, text encoder, used as they are), the trainable ``params``, the DDPM
+    target under ``prediction_type``, block-wise remat, the VAE latents, the
+    gradients and the optimizer step. A subclass defines ``loss``.
 
-    ``adapter_compute_dtype``: the adapter factors and control maps threaded into
-    the UNet are cast to it (fp32 masters stay); ``hint_compute_dtype``: the hint
-    encoder's convolutions compute in it (flax ``ControlLoRA(dtype=)``);
     ``remat_unet`` / ``remat_policy``: the UNet's blocks run under
     ``torch.utils.checkpoint`` with ``remat_context(remat_policy)``, where the JAX
-    trainer wraps ``unet.apply`` in ``jax.checkpoint`` (its defaults: on, ``dots``).
-    One checkpoint around the whole UNet would save no memory here: PyTorch recomputes
-    a checkpointed segment whole at the start of its backward, so every activation
-    of the UNet would be live again at once (measured on the H100: the same peak as
-    without remat). Each resnet and each attention block is its own segment, so the
-    backward holds one block's activations at a time."""
+    trainers wrap ``unet.apply`` in ``jax.checkpoint``. One checkpoint around the
+    whole UNet would save no memory here: PyTorch recomputes a checkpointed segment
+    whole at the start of its backward, so every activation of the UNet would be live
+    again at once (measured on the H100: the same peak as without remat). Each resnet
+    and each attention block is its own segment, so the backward holds one block's
+    activations at a time."""
 
-    def __init__(self, control_lora, unet, vae=None, text_encoder=None,
+    def __init__(self, params: List[torch.Tensor], unet, vae=None, text_encoder=None,
                  scheduler: Optional[DDPMScheduler] = None,
                  optimizer: Optional[AdapterOptimizer] = None,
-                 prediction_type: Optional[str] = None, snr_gamma: Optional[float] = None,
-                 remat_unet: bool = True, remat_policy: str = "dots",
-                 adapter_compute_dtype: Optional[torch.dtype] = None,
-                 hint_compute_dtype: Optional[torch.dtype] = None):
+                 prediction_type: Optional[str] = None, remat_unet: bool = True,
+                 remat_policy: str = "dots"):
         self.remat_unet = remat_unet
         self.remat_context = remat_context(remat_policy)
-        self.control_lora = control_lora.requires_grad_(True)
         self.unet, self.vae, self.text_encoder = unet, vae, text_encoder
-        self.params = [p for p in control_lora.parameters()]
+        self.params = params
         self.optimizer = optimizer or make_optimizer(self.params)
         self.scheduler = scheduler or DDPMScheduler()
         if prediction_type is not None:
             self.scheduler = DDPMScheduler(dataclasses.replace(
                 self.scheduler.schedule, prediction_type=prediction_type))
-        self.snr_gamma = snr_gamma
-        self.adapter_compute_dtype = adapter_compute_dtype
-        self.hint_compute_dtype = hint_compute_dtype
 
     def _remat(self, layer, *inputs):
         """One UNet block under ``torch.utils.checkpoint`` with the policy's context."""
@@ -296,39 +288,21 @@ class ControlLoRATrainer:
         with torch.no_grad():  # the VAE is frozen
             return self.vae.encode(batch["pixel_values"], generator, sample_noise)
 
-    def loss(self, batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None,
-             noise: Optional[torch.Tensor] = None, timesteps: Optional[torch.Tensor] = None,
-             sample_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """batch: {"latents" | "latent_mean" + "latent_logvar" | "pixel_values",
-        "guide_values", "input_ids" | "encoder_hidden_states"}, NCHW images in
-        [-1, 1]. Draws the posterior sample, the noise and t from ``generator`` in
-        that order, unless they are given."""
-        sch = self.scheduler
+    def _noised(self, batch, generator, noise, timesteps, sample_noise):
+        """(latents, noise, t, noisy latents), fp32: the posterior sample, the noise
+        and t drawn from ``generator`` in that order where they are not given."""
         latents = self._latents(batch, generator, sample_noise).float()
-        b = latents.shape[0]
         if noise is None:
             noise = torch.randn(latents.shape, generator=generator, device=latents.device)
         if timesteps is None:
-            timesteps = torch.randint(0, sch.schedule.num_train_timesteps, (b,),
-                                      generator=generator, device=latents.device)
-        noisy = sch.schedule.add_noise(latents, noise, timesteps)
-        with torch.no_grad():  # the text encoder is frozen
-            ctx, added = resolve_text_conditioning(batch, self.text_encoder, self.unet.config)
-        adapters = self.control_lora.adapters_for(batch["guide_values"], self.unet.config,
-                                                  self.hint_compute_dtype)
-        if self.adapter_compute_dtype is not None:
-            adapters = cast_adapters(adapters, self.adapter_compute_dtype)
-        pred = self.unet(noisy, timesteps, ctx, adapters=adapters,
-                         remat=self._remat if self.remat_unet else None, **added)
-        loss = (pred.float() - sch.training_target(latents, noise, timesteps)) ** 2
-        if self.snr_gamma is not None:
-            snr = sch.schedule.snr(timesteps)
-            w = torch.clamp(snr, max=self.snr_gamma) / torch.clamp(snr, min=1e-8)
-            loss = loss * w[:, None, None, None]
-        return loss.mean()
+            timesteps = torch.randint(0, self.scheduler.schedule.num_train_timesteps,
+                                      (latents.shape[0],), generator=generator,
+                                      device=latents.device)
+        return latents, noise, timesteps, self.scheduler.schedule.add_noise(
+            latents, noise, timesteps)
 
     def grads(self, loss: torch.Tensor) -> List[torch.Tensor]:
-        """d loss / d ControlLoRA params (zeros for a parameter the step does not use)."""
+        """d loss / d params (zeros for a parameter the step does not use)."""
         grads = torch.autograd.grad(loss, self.params, allow_unused=True)
         return [torch.zeros_like(p) if g is None else g for p, g in zip(self.params, grads)]
 
@@ -348,3 +322,54 @@ class ControlLoRATrainer:
     def eval_step(self, batch: Dict[str, torch.Tensor],
                   generator: Optional[torch.Generator] = None, **draws) -> torch.Tensor:
         return self.loss(batch, generator, **draws)
+
+
+class ControlLoRATrainer(AdapterTrainer):
+    """The ControlLoRA trainer (the JAX ``ControlLoRATrainer``'s surface): the
+    ControlLoRA's parameters are made trainable.
+
+    ``adapter_compute_dtype``: the adapter factors and control maps threaded into
+    the UNet are cast to it (fp32 masters stay); ``hint_compute_dtype``: the hint
+    encoder's convolutions compute in it (flax ``ControlLoRA(dtype=)``); remat as
+    ``AdapterTrainer`` (the JAX trainer's defaults: on, ``dots``)."""
+
+    def __init__(self, control_lora, unet, vae=None, text_encoder=None,
+                 scheduler: Optional[DDPMScheduler] = None,
+                 optimizer: Optional[AdapterOptimizer] = None,
+                 prediction_type: Optional[str] = None, snr_gamma: Optional[float] = None,
+                 remat_unet: bool = True, remat_policy: str = "dots",
+                 adapter_compute_dtype: Optional[torch.dtype] = None,
+                 hint_compute_dtype: Optional[torch.dtype] = None):
+        super().__init__(list(control_lora.parameters()), unet, vae, text_encoder,
+                         scheduler, optimizer, prediction_type, remat_unet, remat_policy)
+        self.control_lora = control_lora.requires_grad_(True)
+        self.snr_gamma = snr_gamma
+        self.adapter_compute_dtype = adapter_compute_dtype
+        self.hint_compute_dtype = hint_compute_dtype
+
+    def loss(self, batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None,
+             noise: Optional[torch.Tensor] = None, timesteps: Optional[torch.Tensor] = None,
+             sample_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """batch: {"latents" | "latent_mean" + "latent_logvar" | "pixel_values",
+        "guide_values", "input_ids" (+ "input_ids2") | "encoder_hidden_states" (+
+        "pooled_text_embeds"), optionally "time_ids"}, NCHW images in [-1, 1]. Draws
+        the posterior sample, the noise and t from ``generator`` in that order, unless
+        they are given."""
+        sch = self.scheduler
+        latents, noise, timesteps, noisy = self._noised(batch, generator, noise, timesteps,
+                                                        sample_noise)
+        with torch.no_grad():  # the text encoder is frozen
+            ctx, added = resolve_text_conditioning(batch, self.text_encoder, self.unet.config,
+                                                   latents)
+        adapters = self.control_lora.adapters_for(batch["guide_values"], self.unet.config,
+                                                  self.hint_compute_dtype)
+        if self.adapter_compute_dtype is not None:
+            adapters = cast_adapters(adapters, self.adapter_compute_dtype)
+        pred = self.unet(noisy, timesteps, ctx, adapters=adapters,
+                         remat=self._remat if self.remat_unet else None, **added)
+        loss = (pred.float() - sch.training_target(latents, noise, timesteps)) ** 2
+        if self.snr_gamma is not None:
+            snr = sch.schedule.snr(timesteps)
+            w = torch.clamp(snr, max=self.snr_gamma) / torch.clamp(snr, min=1e-8)
+            loss = loss * w[:, None, None, None]
+        return loss.mean()

@@ -281,3 +281,110 @@ def control_lora_to_torch(
                 sd[f"lora_layers.{i}.{j}.{tname}.down.weight"] = np.asarray(pair["down"]).T
                 sd[f"lora_layers.{i}.{j}.{tname}.up.weight"] = np.asarray(pair["up"]).T
     return sd
+
+
+# ---------------------------------------------------------------------------- attn procs
+# copied from controllora_tpu/utils/torch_compat.py (the DreamBooth-LoRA artifact)
+
+
+def _to_numpy(x) -> np.ndarray:
+    if torch.is_tensor(x):
+        t = x.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return np.asarray(x)
+
+
+def attn_procs_to_torch(adapters: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """Export {processor_name: AttnAdapter or params tree} to diffusers
+    ``unet.save_attn_procs`` naming ('<proc_name>.to_q_lora.down.weight', reference
+    train_dreambooth_lora.py:987-994); torch (out, in) layouts, numpy values."""
+    sd: Dict[str, np.ndarray] = {}
+    inv = {v: k for k, v in _LORA_PROJ.items()}
+    for name, adapter in adapters.items():
+        params = adapter.params if hasattr(adapter, "params") else adapter
+        for proj, pair in params.items():
+            sd[f"{name}.{inv[proj]}.down.weight"] = _to_numpy(pair["down"]).T
+            sd[f"{name}.{inv[proj]}.up.weight"] = _to_numpy(pair["up"]).T
+    return sd
+
+
+def attn_procs_from_torch(sd: Dict[str, Any]) -> Dict[str, Dict[str, Any]]:
+    """Import a diffusers attn-procs LoRA state dict -> {processor_name: params tree}
+    of numpy arrays in the (in, r) / (r, out) layout (``unet.load_attn_procs``)."""
+    out: Dict[str, Dict[str, Any]] = {}
+    for key, w in sd.items():
+        m = re.fullmatch(r"(.+\.processor)\.(\w+)\.(down|up)\.weight", key)
+        if not m:
+            raise KeyError(f"unrecognized attn-procs key: {key}")
+        name, proj_t, which = m.groups()
+        proj = _LORA_PROJ[proj_t]
+        out.setdefault(name, {}).setdefault(proj, {})[which] = _to_numpy(w).T
+    return out
+
+
+# ---------------------------------------------------------------------------- state-dict IO
+# The card's machine has no ``safetensors`` package: the format is written and read
+# here (an 8-byte little-endian header length, a JSON header, the raw little-endian
+# bytes), byte for byte as ``safetensors.numpy.save`` writes it.
+
+# the Rust crate's Dtype order: tensors are laid out by descending dtype, then name
+_ST_DTYPES = (("BOOL", np.bool_), ("U8", np.uint8), ("I8", np.int8), ("I16", np.int16),
+              ("U16", np.uint16), ("F16", np.float16), ("I32", np.int32),
+              ("U32", np.uint32), ("F32", np.float32), ("F64", np.float64),
+              ("I64", np.int64), ("U64", np.uint64))
+_ST_RANK = {np.dtype(t): (i, name) for i, (name, t) in enumerate(_ST_DTYPES)}
+_ST_NUMPY = {name: np.dtype(t) for name, t in _ST_DTYPES}
+
+
+def safetensors_bytes(sd: Dict[str, np.ndarray]) -> bytes:
+    """The .safetensors file of a numpy state dict."""
+    import json
+
+    arrays = {k: np.ascontiguousarray(v) for k, v in sd.items()}
+    order = sorted(arrays, key=lambda k: (-_ST_RANK[arrays[k].dtype][0], k))
+    header, offset = {}, 0
+    for k in order:
+        a = arrays[k]
+        header[k] = {"dtype": _ST_RANK[a.dtype][1], "shape": list(a.shape),
+                     "data_offsets": [offset, offset + a.nbytes]}
+        offset += a.nbytes
+    text = json.dumps(header, separators=(",", ":"), ensure_ascii=False).encode()
+    text += b" " * (-len(text) % 8)
+    return (len(text).to_bytes(8, "little") + text
+            + b"".join(arrays[k].astype(arrays[k].dtype.newbyteorder("<")).tobytes()
+                       for k in order))
+
+
+def safetensors_load(data: bytes) -> Dict[str, np.ndarray]:
+    import json
+
+    n = int.from_bytes(data[:8], "little")
+    header = json.loads(data[8:8 + n])
+    header.pop("__metadata__", None)
+    base = 8 + n
+    out = {}
+    for k, info in header.items():
+        begin, end = info["data_offsets"]
+        dt = _ST_NUMPY[info["dtype"]].newbyteorder("<")
+        out[k] = (np.frombuffer(data[base + begin:base + end], dt)
+                  .astype(dt.newbyteorder("=")).reshape(info["shape"]))
+    return out
+
+
+def save_state_dict(sd: Dict[str, Any], path: str) -> None:
+    """A state dict (numpy or tensors) to .safetensors, or to a ``torch.save`` .bin."""
+    if path.endswith(".safetensors"):
+        with open(path, "wb") as f:
+            f.write(safetensors_bytes({k: _to_numpy(v) for k, v in sd.items()}))
+    else:
+        torch.save({k: torch.from_numpy(np.ascontiguousarray(_to_numpy(v)).copy())
+                    for k, v in sd.items()}, path)
+
+
+def load_state_dict(path: str) -> Dict[str, np.ndarray]:
+    """A .safetensors or pickled .bin state dict -> numpy arrays."""
+    if path.endswith(".safetensors"):
+        with open(path, "rb") as f:
+            return safetensors_load(f.read())
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return {k: v.numpy() for k, v in sd.items()}

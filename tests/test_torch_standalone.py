@@ -61,7 +61,9 @@ def test_port_imports_nothing_of_jax():
     count, names = proc.stdout.splitlines()[:2]
     assert int(count.split()[0]) >= 30, proc.stdout
     for module in ("ops.tome", "serve", "utils.png", "schedulers.ddim", "schedulers.pndm",
-                   "schedulers.euler", "schedulers.unipc"):
+                   "schedulers.euler", "schedulers.unipc", "train_dreambooth",
+                   "training.dreambooth", "data.fastloader", "data.hf_dataset",
+                   "utils.logging"):
         assert f"controllora_tpu_torch.{module}" in names.split(), module
 
 

@@ -325,19 +325,16 @@ def test_optimizer_matches_optax(accumulation):
 
 
 def test_unported_options_raise():
-    """What the port still refuses: SDXL text_time conditioning, non-registry
-    datasets in the CLI and unknown remat policies (8-bit Adam and remat are ported)."""
+    """What the port still refuses: unknown remat policies, and the SDXL refiner in
+    the train CLI, which the JAX CLI does not train either. (text_time conditioning
+    and column datasets train now: tests/test_torch_train_families.py and
+    tests/test_torch_train_data.py.)"""
     with pytest.raises(ValueError, match="remat_policy"):
         ttrainer.ControlLoRATrainer(torch.nn.Linear(1, 1), None, remat_policy="offload")
     from controllora_tpu_torch import train as cli
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["--model_variant", "smoke", "--dataset_name", "lambdalabs/pokemon",
-                  "--device", "cpu", "--output_dir", "/nonexistent"])
-    from controllora_tpu_torch.training.conditioning import resolve_text_conditioning
-
-    with pytest.raises(NotImplementedError, match="item 9.5"):
-        resolve_text_conditioning({"time_ids": torch.zeros(1, 6)}, None, None)
+    with pytest.raises(SystemExit):
+        cli.parse_args(["--model_variant", "sdxl-refiner"])
 
 
 # ---------------------------------------------------------------------------- artifact
