@@ -87,6 +87,19 @@ def cast_adapters(adapters: Dict[str, AdapterStack], dtype: torch.dtype
             for name, s in adapters.items()}
 
 
+def map_controls(stack: AdapterStack, fn) -> AdapterStack:
+    """``stack`` with ``fn`` applied to the control state of every adapter that
+    carries one (main, pre and post); the factors stay as they are."""
+
+    def adapt(a: Optional[AttnAdapter]) -> Optional[AttnAdapter]:
+        if a is None or a.control is None:
+            return a
+        return dataclasses.replace(a, control=fn(a.control))
+
+    return AdapterStack(main=adapt(stack.main), pre=tuple(map(adapt, stack.pre)),
+                        post=tuple(map(adapt, stack.post)))
+
+
 def is_foldable(adapters: Dict[str, Any]) -> bool:
     """Every stack has a main adapter and no pre/post chain (JAX pipeline :795-797)."""
     return bool(adapters) and all(

@@ -18,8 +18,8 @@ Attention layers run one of three paths, keyed by diffusers processor name:
 
 Two serving accelerations, both off by default (``forward``):
   * ToMe (``ops/tome.py``): each self-attention on a long enough grid runs on merged
-    tokens; on the folded path the per-position biases merge with the same map
-    (JAX ``unet.py`` :348-416). Threaded adapter stacks are not merged.
+    tokens; the folded path's per-position biases and a threaded stack's control
+    states merge with the same map (JAX ``unet.py`` :348-416).
   * DeepCache: a "full" eval also returns the feature entering the last up block; a
     "shallow" eval recomputes only the level-0 ops around a cached one
     (JAX ``unet.py`` :532-733).
@@ -52,6 +52,7 @@ from controllora_tpu_torch.models.lora import (
     adapt_output,
     adapt_query,
     adapt_value,
+    map_controls,
 )
 from controllora_tpu_torch.ops import tome as tome_ops
 from controllora_tpu_torch.ops.attention import dot_product_attention, use_flash
@@ -310,7 +311,7 @@ class BasicTransformerBlock(nn.Module):
             # tomesd's placement: match on the block input, attend over the merged
             # tokens, unmerge before the residual add
             merge, unmerge, _ = tome_ops.build_merge(x, grid[0], grid[1], tome, choice)
-            stack1 = _merge_folded_bias(stack_for("attn1"), merge, x.shape[0])
+            stack1 = _merge_stack_tokens(stack_for("attn1"), merge, x.shape[0])
             x = x + unmerge(self.attn1(merge(h), None, stack1, lora_scale, backend))
         else:
             x = x + self.attn1(h, None, stack_for("attn1"), lora_scale, backend)
@@ -318,20 +319,22 @@ class BasicTransformerBlock(nn.Module):
         return x + self.ff(self.norm3(x))
 
 
-def _merge_folded_bias(bias: Optional[FoldedBias], merge, b_h: int) -> Optional[FoldedBias]:
-    """A ToMe merge map applied to the per-position biases of a folded layer; per-image
-    biases (batch n under the 2n CFG batch) tile first (JAX ``_merge_stack_tokens``)."""
-    if bias is None:
+def _merge_stack_tokens(stack, merge, b_h: int):
+    """A ToMe merge map applied to every per-token tensor riding a layer's adapters
+    (JAX ``unet.py`` :348-382): the per-position biases of a folded layer, or the
+    control states the adapters of a threaded ``AdapterStack`` carry (main, pre and
+    post). Merging is linear, so it commutes with the adapter math. Per-image tensors
+    (batch n under the 2n CFG batch) tile first; batch-1 ones broadcast."""
+    if stack is None:
         return None
-    if not isinstance(bias, FoldedBias):
-        raise ValueError("ToMe merges folded adapter biases only; threaded adapter "
-                         "stacks are not merged by the port")
 
     def fit(t):
         return None if t is None else merge(_match_batch(t, b_h) if t.shape[0] != 1 else t)
 
-    return FoldedBias(fit(bias.q_bias), fit(bias.k_bias), fit(bias.v_bias),
-                      fit(bias.out_bias))
+    if isinstance(stack, FoldedBias):
+        return FoldedBias(fit(stack.q_bias), fit(stack.k_bias), fit(stack.v_bias),
+                          fit(stack.out_bias))
+    return map_controls(stack, fit)
 
 
 class Transformer2DModel(nn.Module):

@@ -145,6 +145,16 @@ VARIANTS = {
     "smokexl": (SMOKEXL_UNET, SMOKE_VAE, (SMOKEXL_CLIP1, SMOKEXL_CLIP2)),
     "smokeref": (SMOKEREF_UNET, SMOKE_VAE, SMOKEXL_CLIP2),
 }
+# the base models the serving and sampling CLIs build, and those they build in bf16
+# (scripts/serve.py :97-98, scripts/sample.py :142); the smoke stacks and the refiner
+# variants are fp32
+BASE_VARIANTS = ("sd15", "sd21", "sdxl", "smoke", "smoke2", "smokexl")
+BF16_VARIANTS = ("sd15", "sd21", "sdxl")
+
+
+def model_dtype(variant: str) -> torch.dtype:
+    """The dtype the CLIs build ``variant`` in."""
+    return torch.bfloat16 if variant in BF16_VARIANTS else torch.float32
 
 
 @torch.no_grad()

@@ -7,19 +7,31 @@ The CFG batch is the block layout [uncond * n || cond * n]; a batch-1 guide's bi
 broadcast over it and per-image guides tile to it.
 
 The samplers are the JAX package's five (DPM-Solver++, DDIM, PNDM, Euler, UniPC).
-Each keeps its grid after ``set_timesteps(n)`` (``ts``) and offers the same four
-calls, which the loop makes directly: ``init_state(noise)``, ``model_input(state,
-i)`` (what the UNet sees at step i: the sample, or Euler's 1 / sqrt(sigma^2 + 1)
-rescale), ``step(state, eps, i)`` and ``get_sample(state)``. The scheduler holds the
-grid of the render in progress, so one pipeline renders one request batch at a time
-(the serving engine's single worker). Two serving accelerations are off by default:
-``tome_ratio`` (token merging in the level-0 self-attentions, ``ops/tome.py``) and
-``deepcache_interval`` (the deep UNet levels run every interval-th step; between,
-a cached deep feature stands in for them).
+Each keeps its grid after ``set_timesteps(n)`` (``ts``) and offers the same calls,
+which the loop makes directly: ``init_state(noise)``, ``model_input(state, i)`` (what
+the UNet sees at step i: the sample, or Euler's 1 / sqrt(sigma^2 + 1) rescale),
+``step(state, eps, i, first_index=)``, ``get_sample(state)``, and the frame of a
+partial trajectory (JAX :280-308): ``noised_init(init, noise, i)``,
+``prepare_state(init, noise, start)``, ``wrap_state(latents)`` and
+``set_sample(state, x)``. The scheduler holds the grid of the render in progress,
+so one pipeline renders one request batch at a time (the serving engine's single
+worker). Two serving accelerations are off by default: ``tome_ratio`` (token merging
+in the level-0 self-attentions, ``ops/tome.py``) and ``deepcache_interval`` (the deep
+UNet levels run every interval-th step; between, a cached deep feature stands in for
+them).
 
-The public layout is the JAX package's: guides (H, W, 3) or (n, H, W, 3) in [-1, 1],
-``latents=`` (n, H/8, W/8, 4), results HWC uint8 images or float arrays in [-1, 1]
-with ``return_array=True``. Inside, tensors are NCHW on ``device``.
+The render modes are the JAX pipeline's (its :562-889), meshes aside: text-to-image;
+img2img (``image``, ``strength``) and inpaint (``mask``); a window of the trajectory
+(``denoising_start``, ``denoising_end``, ``return_latents``: the SDXL base ->
+refiner ensemble); extra plain LoRAs (``extra_loras``, ``merge_extra_loras``) and
+extra ControlLoRAs (``extra_controls``, ``merge_extra_controls``). Adapter stacks
+that fold are folded into the weights; a chain (a LoRA beside a ControlLoRA) runs
+threaded through the UNet. ``pipelines/hires.py`` composes two calls.
+
+The public layout is the JAX package's: guides and init images (H, W, 3) or
+(n, H, W, 3) in [-1, 1], masks (H, W) in [0, 1], ``latents=`` (n, H/8, W/8, 4),
+results HWC uint8 images or float arrays in [-1, 1] with ``return_array=True``.
+Inside, tensors are NCHW on ``device``.
 
 Every family of ``models/zoo.py`` renders through the same loop. A text encoder with
 a pooled head (SDXL's dual encoder, the refiner's tower) makes ``encode_prompt``
@@ -29,27 +41,29 @@ the size ids of the render (JAX :680-715): 6 ids ``[h, w, 0, 0, h, w]`` (SDXL), 
 rows and ``negative_aesthetic_score`` on the uncond rows. SD2.1's v-prediction is
 the scheduler's: ``DPMSolverMultistepScheduler(DiffusionSchedule.create(
 prediction_type="v_prediction"))``.
-Extra plain LoRAs (``extra_loras=``, ``merge_extra_loras``) render where they fold:
-as the main adapters of a stack without a ControlLoRA (DreamBooth validation).
-Not ported yet: img2img, inpaint and ``denoising_start``/``denoising_end`` (so the
-SDXL base -> refiner ensemble), ``hires``, extra controls, threaded (unfoldable)
-adapter stacks such as a LoRA chained beside a ControlLoRA, and meshes.
+Not ported: meshes (ROADMAP.md item 14).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 from torch.func import functional_call
 
 from controllora_tpu_torch.models.clip import DualCLIPTextEncoder
-from controllora_tpu_torch.models.lora import AdapterStack, AttnAdapter, is_foldable
+from controllora_tpu_torch.models.lora import (
+    AdapterStack,
+    AttnAdapter,
+    is_foldable,
+    map_controls,
+)
 from controllora_tpu_torch.ops.folding import fold_adapters
 from controllora_tpu_torch.ops.tome import ToMeConfig
 from controllora_tpu_torch.schedulers import DPMSolverMultistepScheduler
+from controllora_tpu_torch.utils.image import resize_linear
 
 
 def merge_extra_loras(stacks: Dict[str, AdapterStack], extra: Dict[str, AttnAdapter],
@@ -69,6 +83,41 @@ def merge_extra_loras(stacks: Dict[str, AdapterStack], extra: Dict[str, AttnAdap
             stack = dataclasses.replace(stack, post=stack.post + (adapter,))
         out[name] = stack
     return out
+
+
+def merge_extra_controls(stacks: Dict[str, AdapterStack],
+                         extra_stacks: Dict[str, AdapterStack],
+                         where: str = "post") -> Dict[str, AdapterStack]:
+    """Compose a second ControlLoRA's adapters (with their control states) with the
+    installed stacks: multi-condition control, e.g. canny and pose driving one render
+    (JAX :60-76). Each extra control adapter joins the chain at ``where`` as a
+    chained adapter, not a second main, so the reference's chain quirks hold for it
+    (its value LoRA applies unscaled, its skip flags are honoured)."""
+    extra = {name: s.main for name, s in extra_stacks.items() if s.main is not None}
+    return merge_extra_loras(stacks, extra, where)
+
+
+def draw_noise(generator: torch.Generator, shape: Tuple[int, ...]) -> torch.Tensor:
+    """The render's Gaussian draws, (n, H/8, W/8, C) fp32 on the CPU: the initial
+    latents of a text-to-image render, and img2img's noise. Looked up on the module at
+    call time, so that a parity test can substitute the JAX package's draws."""
+    return torch.randn(shape, generator=generator)
+
+
+def latent_mask(mask, lh: int, lw: int) -> torch.Tensor:
+    """An (H, W) or (H, W, C) repaint mask in [0, 1] -> the (1, 1, lh, lw) latent mask:
+    ``utils/image.py::resize_linear``, which equals ``jax.image.resize(m, (lh, lw),
+    "linear")`` (JAX :817-821), clipped to [0, 1]."""
+    m = np.asarray(mask, np.float32)
+    m = m[..., 0] if m.ndim == 3 else m
+    return resize_linear(m[None, :, :, None], lh, lw).permute(0, 3, 1, 2).clamp(0.0, 1.0)
+
+
+def _cast_controls(adapters: Dict[str, AdapterStack], dtype: torch.dtype
+                   ) -> Dict[str, AdapterStack]:
+    """A threaded stack with its control states in the UNet's compute dtype (the JAX
+    package's bf16 hint encoder hands them over so); the factors stay as they are."""
+    return {name: map_controls(s, lambda c: c.to(dtype)) for name, s in adapters.items()}
 
 
 def _nhwc_to_nchw(x, device, dtype=torch.float32) -> torch.Tensor:
@@ -155,6 +204,16 @@ class StableDiffusionControlLoRAPipeline:
             ids = [[height, width, 0, 0, height, width]] * 2
         return torch.tensor(ids, dtype=torch.float32, device=self.device)
 
+
+    # ------------------------------------------------------------------ image
+
+    @torch.inference_mode()
+    def encode_image(self, image) -> torch.Tensor:
+        """(B, H, W, 3) in [-1, 1] -> scaled init latents (B, 4, H/8, W/8), fp32: the
+        posterior mean, with no noise (JAX ``_encode_image`` :198), so img2img's only
+        randomness is the sampler noise and strength 0 is the exact VAE round trip."""
+        return self.vae.encode(_nhwc_to_nchw(image, self.device)).float()
+
     # ------------------------------------------------------------------ call
 
     @torch.inference_mode()
@@ -178,29 +237,60 @@ class StableDiffusionControlLoRAPipeline:
         aesthetic_score: float = 6.0,
         negative_aesthetic_score: float = 2.5,
         extra_loras: Optional[Dict[str, AttnAdapter]] = None,
+        extra_loras_where: str = "pre",
+        extra_controls: Optional[Sequence[Tuple[Any, np.ndarray]]] = None,
+        extra_controls_where: str = "post",
+        image: Optional[np.ndarray] = None,
+        strength: float = 0.8,
+        mask: Optional[np.ndarray] = None,
+        denoising_start: Optional[float] = None,
+        denoising_end: Optional[float] = None,
+        return_latents: bool = False,
     ) -> List[np.ndarray]:
         """Returns a list of HWC uint8 images (float arrays in [-1, 1] with
-        ``return_array``). Without ``latents=`` the initial noise is drawn from
-        ``generator`` (a CPU generator; default seed 0).
+        ``return_array``; (H/8, W/8, 4) latents with ``return_latents``). Without
+        ``latents=`` the initial noise is drawn from ``generator`` (a CPU generator;
+        default seed 0) through ``draw_noise``.
 
         ``tome_ratio`` (0 = the exact path): before each self-attention on a grid of
         at least ``tome_min_tokens`` tokens (level 0 at 512²), that fraction of the
         tokens merges into their most similar neighbours and the output unmerges;
-        the folded per-position biases merge with the same map. 0.5 is tomesd's
-        published setting.
+        the folded per-position biases (or a threaded stack's control states) merge
+        with the same map. 0.5 is tomesd's published setting.
 
         ``deepcache_interval`` (1 = the exact path): the deep UNet levels run on
-        every interval-th step only (``i % interval == 0``, so step 0 always); the
-        steps between run the level-0 modules around the deep feature cached by the
-        last full step. Composes with ``tome_ratio``.
+        every interval-th executed step only (counted from the first, which is
+        always full); the steps between run the level-0 modules around the deep
+        feature cached by the last full step. Composes with ``tome_ratio``.
 
         ``aesthetic_score`` / ``negative_aesthetic_score``: the cond / uncond score
         id of a 5-id ``text_time`` UNet (the refiner); other UNets ignore them.
 
         ``extra_loras``: {processor name: plain LoRA AttnAdapter} composed with the
-        ControlLoRA by ``merge_extra_loras``. Without a guide they are the stacks'
-        main adapters and fold (a DreamBooth LoRA's render); beside a ControlLoRA
-        they form a chain, which does not fold and is refused."""
+        ControlLoRA by ``merge_extra_loras`` at ``extra_loras_where`` ("pre" or
+        "post"). ``extra_controls``: (control_lora, guide) pairs, more ControlLoRAs
+        driving the same render (multi-condition control); each guide is encoded by
+        its own hint encoder and its adapters join every layer's chain at
+        ``extra_controls_where`` (``merge_extra_controls``). The port's ControlLoRA
+        module carries its own parameters, so a pair stands for the JAX package's
+        (control_lora, params, guide) triple. Stacks that fold (a main adapter and
+        no chain) fold into the UNet weights; a chain runs threaded, each layer
+        evaluating its adapters (long self-attention on K2's flash route instead of
+        K1's), with the control states cast to the UNet's compute dtype.
+
+        ``image`` + ``strength``: image-to-image (SDEdit). The init image is encoded
+        (``encode_image``), noised to grid point ``N - min(int(N * strength), N)`` in
+        the sampler's own frame, and only the remaining steps run. ``mask`` (H, W) in
+        [0, 1], 1 = repaint: inpainting; the mask is resized to the latent grid
+        (antialiased bilinear, as ``jax.image.resize(..., "linear")``) and after
+        every update the known region is re-injected at the noise level of the next
+        grid point (the clean init after the last).
+
+        ``denoising_end`` / ``denoising_start``: the base -> refiner ensemble split.
+        The base runs grid indices [0, round(N * end)), paired with
+        ``return_latents=True``; the refiner continues the same trajectory from
+        ``latents=`` at [round(N * start), N) without re-noising. Use the same
+        sampler type and step count on both so that the grids line up."""
         tome = None
         if tome_ratio:
             if not 0.0 < tome_ratio <= 0.75:
@@ -221,6 +311,11 @@ class StableDiffusionControlLoRAPipeline:
             guide = guide[None] if guide.ndim == 3 else guide
             height = height or guide.shape[1]
             width = width or guide.shape[2]
+        if image is not None:
+            image = np.asarray(image, np.float32)
+            image = image[None] if image.ndim == 3 else image
+            height = height or image.shape[1]
+            width = width or image.shape[2]
         if latents is not None:
             latents = np.asarray(latents.cpu() if torch.is_tensor(latents) else latents,
                                  np.float32)
@@ -231,7 +326,48 @@ class StableDiffusionControlLoRAPipeline:
         lh, lw = height // 8, width // 8
         c_in = self.unet.config.in_channels
 
-        if latents is not None:
+        # the trajectory window [start, end) of the grid (JAX :735-764)
+        steps = num_inference_steps
+        if mask is not None and image is None:
+            raise ValueError("mask (inpainting) requires an init image")
+        if image is not None and latents is not None:
+            raise ValueError("image and latents are mutually exclusive: img2img derives "
+                             "its start latents from the encoded init image")
+        start = 0
+        if image is not None:
+            s = float(min(max(strength, 0.0), 1.0))
+            start = steps - min(int(steps * s), steps)
+        if denoising_start is not None:
+            if image is not None:
+                raise ValueError("denoising_start (latent trajectory continuation) and "
+                                 "image (img2img re-noising) are mutually exclusive")
+            if latents is None:
+                raise ValueError("denoising_start continues a partial trajectory: pass "
+                                 "the base pipeline's return_latents output as latents=")
+            start = int(round(steps * float(denoising_start)))
+        end = steps
+        if denoising_end is not None:
+            end = int(round(steps * float(denoising_end)))
+            if not start < end <= steps:
+                raise ValueError(f"denoising window [{start}, {end}) is empty or out of "
+                                 f"range for {steps} steps")
+
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        noise = init = paint = None
+        if image is not None:
+            init = self.encode_image(image)
+            n = num_images
+            if init.shape[0] == 1 and n > 1:
+                init = init.repeat(n, 1, 1, 1)
+            elif init.shape[0] != n and num_images != 1:
+                raise ValueError(f"init image batch {init.shape[0]} conflicts with "
+                                 f"num_images={num_images}")
+            n = init.shape[0]
+            noise = _nhwc_to_nchw(draw_noise(generator, (n, lh, lw, c_in)), self.device)
+            if mask is not None:
+                paint = latent_mask(mask, lh, lw).to(self.device)
+        elif latents is not None:
             n = latents.shape[0]
             if num_images not in (1, n):
                 raise ValueError(f"explicit latents provide the batch ({n} image(s)); "
@@ -239,10 +375,7 @@ class StableDiffusionControlLoRAPipeline:
             lat = _nhwc_to_nchw(latents, self.device)
         else:
             n = num_images
-            if generator is None:
-                generator = torch.Generator().manual_seed(0)
-            noise = torch.randn((n, lh, lw, c_in), generator=generator)
-            lat = _nhwc_to_nchw(noise, self.device)
+            lat = _nhwc_to_nchw(draw_noise(generator, (n, lh, lw, c_in)), self.device)
 
         encoded = self.encode_prompt(prompt, negative_prompt)
         ctx, pooled = encoded if isinstance(encoded, tuple) else (encoded, None)
@@ -257,35 +390,49 @@ class StableDiffusionControlLoRAPipeline:
             added = dict(added_text_embeds=_cfg_batch(pooled, n, per_image),
                          added_time_ids=_cfg_batch(ids, n, False))
 
-        weights, biases, adapters = {}, None, {}
+        def control_adapters(control_lora, g, what):
+            g = np.asarray(g, np.float32)
+            g = g[None] if g.ndim == 3 else g
+            if g.shape[0] not in (1, n):
+                raise ValueError(f"{what} batch {g.shape[0]} must be 1 (shared) or match "
+                                 f"the image batch {n} (per-image guides)")
+            return control_lora.adapters_for(_nhwc_to_nchw(g, self.device), self.unet.config)
+
+        adapters = {}
         if guide is not None and self.control_lora is not None:
-            if guide.shape[0] not in (1, n):
-                raise ValueError(f"guide batch {guide.shape[0]} must be 1 (shared) or "
-                                 f"match the image batch {n} (per-image guides)")
-            g = _nhwc_to_nchw(guide, self.device)
-            adapters = self.control_lora.adapters_for(g, self.unet.config)
+            adapters = control_adapters(self.control_lora, guide, "guide")
         if extra_loras:
-            adapters = merge_extra_loras(adapters, extra_loras)
-        if adapters:
-            if not is_foldable(adapters):
-                raise ValueError("only foldable adapter stacks are served by the port: a "
-                                 "LoRA chained beside a ControlLoRA (pre/post) needs the "
-                                 "threaded serving path, ROADMAP Queue 1 item 11.3")
+            adapters = merge_extra_loras(adapters, extra_loras, extra_loras_where)
+        for control_lora, g in extra_controls or ():
+            adapters = merge_extra_controls(
+                adapters, control_adapters(control_lora.to(self.device), g,
+                                           "extra_controls guide"),
+                extra_controls_where)
+        dtype = self.unet.conv_in.weight.dtype
+        weights, unet_kw = {}, {}
+        if adapters and is_foldable(adapters):
             weights, biases = fold_adapters(self.unet, adapters, lora_scale)
             # cast once: every step adds them in the UNet's compute dtype
-            dtype = self.unet.conv_in.weight.dtype
-            biases = {k: b.to(dtype) for k, b in biases.items()}
+            unet_kw["biases"] = {k: b.to(dtype) for k, b in biases.items()}
+        elif adapters:
+            unet_kw.update(adapters=_cast_controls(adapters, dtype), lora_scale=lora_scale)
 
         sch = self.scheduler
-        sch.set_timesteps(num_inference_steps)
-        state = sch.init_state(lat)
-        # DeepCache: step 0 is a full eval, so the cache is set before any shallow
-        # step reads it (the JAX loop's zeros are only the initial lax.cond carry)
+        sch.set_timesteps(steps)
+        if init is not None:
+            state = sch.prepare_state(init, noise, start)
+        elif denoising_start is not None:
+            state = sch.wrap_state(lat)
+        else:
+            state = sch.init_state(lat)
+        # DeepCache: the first executed step is a full eval, so the cache is set
+        # before any shallow step reads it (the JAX loop's zeros are only the initial
+        # lax.cond carry)
         cache = None
-        for i in range(num_inference_steps):
+        for i in range(start, end):
             x = sch.model_input(state, i)
             t_i = sch.ts[i]
-            kw = dict(added, biases=biases)
+            kw = dict(added, **unet_kw)
             if tome is not None:
                 kw.update(tome=tome, tome_step=(0, t_i, i))
             args = (torch.cat([x, x]),
@@ -293,17 +440,26 @@ class StableDiffusionControlLoRAPipeline:
                     ctx_n)
             if deepcache_interval == 1:
                 eps = functional_call(self.unet, weights, args, kw)
-            elif i % deepcache_interval == 0:
+            elif (i - start) % deepcache_interval == 0:
                 eps, cache = functional_call(self.unet, weights, args,
                                              dict(kw, deepcache="full"))
             else:
                 eps = functional_call(self.unet, weights, args,
                                       dict(kw, deepcache="shallow", deepcache_feat=cache))
             eps_u, eps_c = eps.chunk(2)
-            state = sch.step(state, eps_u + guidance_scale * (eps_c - eps_u), i)
+            state = sch.step(state, eps_u + guidance_scale * (eps_c - eps_u), i,
+                             first_index=start)
+            if paint is not None:
+                # re-inject the known region at the noise level of grid point i + 1
+                known = sch.noised_init(init, noise, i + 1)
+                state = sch.set_sample(state, paint * sch.get_sample(state)
+                                       + (1.0 - paint) * known)
 
-        img = (self.vae.decode(sch.get_sample(state)).float().permute(0, 2, 3, 1)
-               .cpu().numpy())
+        sample = sch.get_sample(state)
+        if return_latents:
+            lat_out = sample.float().permute(0, 2, 3, 1).cpu().numpy()
+            return [lat_out[i] for i in range(n)]
+        img = self.vae.decode(sample).float().permute(0, 2, 3, 1).cpu().numpy()
         if return_array:
             return [img[i] for i in range(n)]
         return [np.clip((img[i] + 1.0) * 127.5, 0, 255).astype(np.uint8) for i in range(n)]

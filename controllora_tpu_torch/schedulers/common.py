@@ -104,3 +104,31 @@ def leading_timesteps(num_train_timesteps: int, num_inference_steps: int,
     step_ratio = num_train_timesteps // num_inference_steps
     ts = (np.arange(0, num_inference_steps) * step_ratio).round()[::-1].astype(np.int32)
     return ts + steps_offset
+
+
+class VPFrame:
+    """The partial-trajectory frame of a variance-preserving sampler (DPM-Solver++,
+    DDIM, PNDM, UniPC; JAX pipeline :295-308): where an init image sits at grid point
+    ``i`` of the grid set by ``set_timesteps``, for img2img, inpaint and the ensemble
+    split. Euler's variance-exploding frame is its own."""
+
+    def noised_init(self, init: torch.Tensor, noise: torch.Tensor, i: int) -> torch.Tensor:
+        """``init`` noised to grid point ``i`` (q(x_t | x_0) at ``ts[i]``); i == N is
+        the clean end of the grid."""
+        if i >= len(self.ts):
+            return init
+        return self.schedule.add_noise(init, noise, torch.tensor(int(self.ts[i]),
+                                                                  device=init.device))
+
+    def prepare_state(self, init: torch.Tensor, noise: torch.Tensor, start_index: int):
+        """The state of an img2img trajectory starting at grid point ``start_index``."""
+        return self.init_state(self.noised_init(init, noise, start_index))
+
+    def wrap_state(self, sample: torch.Tensor):
+        """Continuation latents, already at their grid point, with a fresh (empty)
+        history: no re-noising."""
+        return self.init_state(sample)
+
+    def set_sample(self, state, sample: torch.Tensor):
+        """``state`` with its sample overwritten (inpaint's re-injection)."""
+        return dataclasses.replace(state, sample=sample)

@@ -8,7 +8,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from controllora_tpu_torch.schedulers.common import DiffusionSchedule, leading_timesteps
+from controllora_tpu_torch.schedulers.common import (
+    DiffusionSchedule,
+    VPFrame,
+    leading_timesteps,
+)
 
 
 def alpha_prod(schedule: DiffusionSchedule, t: int) -> np.float32:
@@ -16,7 +20,7 @@ def alpha_prod(schedule: DiffusionSchedule, t: int) -> np.float32:
     return schedule.alphas_cumprod[t] if t >= 0 else np.float32(1.0)
 
 
-class DDIMScheduler:
+class DDIMScheduler(VPFrame):
     def __init__(self, schedule: DiffusionSchedule | None = None):
         self.schedule = schedule or DiffusionSchedule.create()
 
@@ -38,8 +42,13 @@ class DDIMScheduler:
     def model_input(self, state: torch.Tensor, i: int) -> torch.Tensor:
         return state
 
-    def step(self, state: torch.Tensor, model_output: torch.Tensor, i: int) -> torch.Tensor:
-        """x_t -> x_{t_prev} from grid point ``i``."""
+    def set_sample(self, state: torch.Tensor, sample: torch.Tensor) -> torch.Tensor:
+        return sample
+
+    def step(self, state: torch.Tensor, model_output: torch.Tensor, i: int,
+             first_index: int = 0) -> torch.Tensor:
+        """x_t -> x_{t_prev} from grid point ``i``; a single-step update, so
+        ``first_index`` is not needed."""
         s = self.schedule
         t, t_prev = int(self.ts[i]), int(self.ts_prev[i])
         acp_t, acp_prev = s.alphas_cumprod[t], alpha_prod(s, t_prev)

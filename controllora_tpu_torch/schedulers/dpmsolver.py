@@ -12,7 +12,11 @@ import dataclasses
 import numpy as np
 import torch
 
-from controllora_tpu_torch.schedulers.common import DiffusionSchedule, linspace_timesteps
+from controllora_tpu_torch.schedulers.common import (
+    DiffusionSchedule,
+    VPFrame,
+    linspace_timesteps,
+)
 
 
 @dataclasses.dataclass
@@ -21,7 +25,7 @@ class DPMSolverState:
     prev_x0: torch.Tensor  # previous converted model output (zeros before the first step)
 
 
-class DPMSolverMultistepScheduler:
+class DPMSolverMultistepScheduler(VPFrame):
     def __init__(self, schedule: DiffusionSchedule | None = None):
         self.schedule = schedule or DiffusionSchedule.create()
 

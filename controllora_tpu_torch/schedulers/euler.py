@@ -44,8 +44,29 @@ class EulerDiscreteScheduler:
         """diffusers ``scale_model_input``: divide by sqrt(sigma_i^2 + 1)."""
         return state / float(np.sqrt(self.sigmas[i]**2 + np.float32(1.0)))
 
-    def step(self, state: torch.Tensor, model_output: torch.Tensor, i: int) -> torch.Tensor:
-        """x_{i+1} = x_i + (sigma_{i+1} - sigma_i) * (x - x0_hat) / sigma_i."""
+    # the partial-trajectory frame (JAX pipeline :286-294): variance-exploding, so an
+    # init sits at x0 + sigma_i * noise, and prepared latents do not pass through
+    # init_state (which scales pure noise by sigma_max)
+
+    def noised_init(self, init: torch.Tensor, noise: torch.Tensor, i: int) -> torch.Tensor:
+        """``init`` noised to grid point ``i``; sigmas[N] = 0, so i == N is clean."""
+        return init + float(self.sigmas[i]) * noise
+
+    def prepare_state(self, init: torch.Tensor, noise: torch.Tensor,
+                      start_index: int) -> torch.Tensor:
+        return self.noised_init(init, noise, start_index)
+
+    def wrap_state(self, sample: torch.Tensor) -> torch.Tensor:
+        """Continuation latents are already in the VE frame at their sigma."""
+        return sample
+
+    def set_sample(self, state: torch.Tensor, sample: torch.Tensor) -> torch.Tensor:
+        return sample
+
+    def step(self, state: torch.Tensor, model_output: torch.Tensor, i: int,
+             first_index: int = 0) -> torch.Tensor:
+        """x_{i+1} = x_i + (sigma_{i+1} - sigma_i) * (x - x0_hat) / sigma_i; a
+        single-step update, so ``first_index`` is not needed."""
         sample, sigmas = state, self.sigmas
         s = sigmas[i]
         one = np.float32(1.0)

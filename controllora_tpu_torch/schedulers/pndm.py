@@ -12,7 +12,11 @@ from typing import List
 import numpy as np
 import torch
 
-from controllora_tpu_torch.schedulers.common import DiffusionSchedule, leading_timesteps
+from controllora_tpu_torch.schedulers.common import (
+    DiffusionSchedule,
+    VPFrame,
+    leading_timesteps,
+)
 from controllora_tpu_torch.schedulers.ddim import alpha_prod
 
 
@@ -22,7 +26,7 @@ class PNDMState:
     ets: List[torch.Tensor]  # recent model outputs, newest first, at most 4
 
 
-class PNDMScheduler:
+class PNDMScheduler(VPFrame):
     def __init__(self, schedule: DiffusionSchedule | None = None):
         self.schedule = schedule or DiffusionSchedule.create()
 
@@ -55,7 +59,10 @@ class PNDMScheduler:
         eps_coeff = (acp_prev - acp_t) / denom
         return float(sample_coeff) * sample - float(eps_coeff) * eps
 
-    def step(self, state: PNDMState, model_output: torch.Tensor, i: int) -> PNDMState:
+    def step(self, state: PNDMState, model_output: torch.Tensor, i: int,
+             first_index: int = 0) -> PNDMState:
+        """The order follows the history in ``state`` (empty after ``init_state`` or
+        ``wrap_state``), so ``first_index`` is not needed."""
         e = [model_output] + state.ets[:3]
         if len(e) == 1:
             eps = e[0]

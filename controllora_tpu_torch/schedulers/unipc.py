@@ -16,7 +16,11 @@ import dataclasses
 import numpy as np
 import torch
 
-from controllora_tpu_torch.schedulers.common import DiffusionSchedule, linspace_timesteps
+from controllora_tpu_torch.schedulers.common import (
+    DiffusionSchedule,
+    VPFrame,
+    linspace_timesteps,
+)
 
 
 @dataclasses.dataclass
@@ -27,7 +31,7 @@ class UniPCState:
     m1: torch.Tensor            # x0_hat two grid points back
 
 
-class UniPCMultistepScheduler:
+class UniPCMultistepScheduler(VPFrame):
     def __init__(self, schedule: DiffusionSchedule | None = None):
         self.schedule = schedule or DiffusionSchedule.create()
 

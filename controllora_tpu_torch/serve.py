@@ -16,8 +16,9 @@ Model families (``--model_variant``): sd15, sd21 (768², v-prediction is the
 scheduler's) and sdxl (1024²) run in bf16, the smoke stacks smoke, smoke2 and
 smokexl in fp32, as ``scripts/serve.py`` runs them. The render size comes with each
 request (``"width": 1024, "height": 1024``). The SDXL refiner (and its smoke stack)
-is refused: it serves as the second half of the base -> refiner ensemble, which
-needs ``denoising_start``/``denoising_end`` (ROADMAP.md item 11.1).
+is refused: ``scripts/serve.py`` serves it in fp32, and the flash kernels take bf16
+only; the base -> refiner ensemble renders through ``python -m
+controllora_tpu_torch.sample --refiner_variant`` (ROADMAP.md item 12.2).
 
 Speed presets (deployment-wide, applied to every batch): ``exact`` (the exact
 sampler), ``tome`` (token merging 0.5) and ``turbo`` (token merging 0.5 + DeepCache
@@ -50,6 +51,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
+from controllora_tpu_torch.models.zoo import BASE_VARIANTS, model_dtype
 from controllora_tpu_torch.schedulers import (
     DDIMScheduler,
     DPMSolverMultistepScheduler,
@@ -59,11 +61,12 @@ from controllora_tpu_torch.schedulers import (
 )
 
 PRESETS = {"exact": (0.0, 1), "tome": (0.5, 1), "turbo": (0.5, 2)}
-VARIANTS = ("sd15", "sd21", "sdxl", "smoke", "smoke2", "smokexl")
-BF16_VARIANTS = ("sd15", "sd21", "sdxl")  # scripts/serve.py's rule; the smoke stacks fp32
-REFUSED = {v: f"--model_variant {v} is not served yet: the refiner renders the end of "
-              "an SDXL base trajectory (the base -> refiner ensemble), which needs "
-              "denoising_start/denoising_end in the pipeline (ROADMAP.md item 11.1)"
+REFUSED = {v: f"--model_variant {v} is not served yet: scripts/serve.py serves the refiner "
+              "in fp32 (its dtype rule makes only sd15, sd21 and sdxl bf16), and the flash "
+              "kernels K1 and K2 take bf16 only (ops/flash_attention.py). The refiner "
+              "renders through the sampling CLI instead (python -m "
+              "controllora_tpu_torch.sample --refiner_variant, bf16 with the base; "
+              "ROADMAP.md item 12.2)"
            for v in ("sdxl-refiner", "smokeref")}
 SCHEDULERS = {"dpm++": DPMSolverMultistepScheduler, "ddim": DDIMScheduler,
               "pndm": PNDMScheduler, "euler": EulerDiscreteScheduler,
@@ -76,14 +79,11 @@ def model_variant(name: str) -> str:
     return name
 
 
-def model_dtype(variant: str) -> torch.dtype:
-    return torch.bfloat16 if variant in BF16_VARIANTS else torch.float32
-
-
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--model_variant", type=model_variant, default="sd15", choices=VARIANTS)
+    p.add_argument("--model_variant", type=model_variant, default="sd15",
+                   choices=BASE_VARIANTS)
     p.add_argument("--control_lora_dir", type=str, default=None)
     p.add_argument("--scheduler", type=str, default="dpm++", choices=tuple(SCHEDULERS))
     p.add_argument("--host", type=str, default="0.0.0.0")

@@ -5,7 +5,8 @@ These need an NVIDIA GPU with nvcc (sm_90a); elsewhere they skip. On the card:
 bf16 inputs; the plain version runs in fp32 on the same bf16 values (and the same
 bf16 sums with the biases) and its output stays fp32. The bounds (O 1e-2, LSE 1e-3,
 gradients 1e-2 * max(1, max|ref|)) cover the kernels' bf16 rounding of P (and dS)
-and of their own outputs.
+and of their own outputs. K1 has no LSE to check, so its O is also held to
+2e-2 * max|ref|: at long L, O shrinks as 1/sqrt(L) toward 1e-2 itself.
 """
 
 import pytest
@@ -43,6 +44,12 @@ def k1_reference(q, k, v, heads, qb, kb, vb):
     return fa.attention_lse_plain(qe, ke, ve, heads)[0]
 
 
+def k1_close(out, ref):
+    """K1's max|dO| within 1e-2 and within 2e-2 * max|ref|."""
+    err = (out.float() - ref).abs().max().item()
+    return err <= min(1e-2, 2e-2 * ref.abs().max().item())
+
+
 @pytest.mark.parametrize("b,heads,l,d,bc", [(2, 8, 1024, 40, 1), (2, 4, 333, 80, 1),
                                             (1, 1, 1000, 512, 1), (2, 2, 77, 160, 1),
                                             (8, 8, 1024, 40, 4), (4, 4, 333, 80, 2),
@@ -51,20 +58,22 @@ def k1_reference(q, k, v, heads, qb, kb, vb):
                                             (2, 8, 4225, 40, 1), (2, 1, 700, 512, 1),
                                             (2, 8, 2048, 40, 2), (8, 8, 2048, 40, 8),
                                             (2, 5, 9216, 64, 1), (8, 10, 2304, 64, 4),
-                                            (2, 10, 4096, 64, 1), (2, 12, 4096, 64, 1)])
+                                            (2, 10, 4096, 64, 1), (2, 12, 4096, 64, 1),
+                                            (2, 8, 16384, 40, 1), (2, 8, 4096, 80, 1)])
 def test_k1_matches_plain(cuda, b, heads, l, d, bc):
     """bc is the bias batch: per-image biases (bc = n under the 2n CFG batch) must
     TILE, so batch row i reads bias row i % bc; every bias row differs. L shorter
     than a tile (33), ragged (333, 700, 4225), the render's 4096 and ToMe's merged
     2048, whose biases are merged per CFG row (bc = b); D 40, 64, 80, 160 and 512
     (the wide design); the other families' head dim 64 renders: SD2.1 at 768²
-    (levels 0 and 1, the second at batch 4), SDXL at 1024² and the refiner's UNet."""
+    (levels 0 and 1, the second at batch 4), SDXL at 1024² and the refiner's UNet;
+    SD1.5's 1024² hires pass (levels 0 and 1: L 16384 at D 40, L 4096 at D 80)."""
     q, k, v = (randn((b, l, heads * d), s, cuda) for s in range(3))
     qb, kb, vb = (0.25 * randn((bc, l, heads * d), s, cuda) for s in range(3, 6))
     out = fa.biased_attention(q, k, v, heads, qb, kb, vb)
     torch.cuda.synchronize()
     assert fa.LAUNCHES["k1"] == 1
-    assert (out.float() - k1_reference(q, k, v, heads, qb, kb, vb)).abs().max().item() <= 1e-2
+    assert k1_close(out, k1_reference(q, k, v, heads, qb, kb, vb))
 
 
 @pytest.mark.parametrize("missing", ["q", "k", "v", "all"])
@@ -79,7 +88,7 @@ def test_k1_with_a_bias_left_out(cuda, missing):
     out = fa.biased_attention(q, k, v, heads, biases["q"], biases["k"], biases["v"])
     torch.cuda.synchronize()
     ref = k1_reference(q, k, v, heads, biases["q"], biases["k"], biases["v"])
-    assert (out.float() - ref).abs().max().item() <= 1e-2
+    assert k1_close(out, ref)
 
 
 @pytest.mark.parametrize("b,heads,l,d", [(2, 8, 1024, 40), (1, 1, 700, 512),
@@ -87,11 +96,14 @@ def test_k1_with_a_bias_left_out(cuda, missing):
                                          (8, 1, 4096, 512), (1, 1, 4096, 512),
                                          (2, 8, 33, 40), (1, 4, 333, 80), (2, 2, 4225, 160),
                                          (1, 8, 700, 64), (2, 8, 2048, 40),
-                                         (1, 1, 9216, 512), (1, 1, 16384, 512)])
+                                         (1, 1, 9216, 512), (1, 1, 16384, 512),
+                                         (2, 12, 4096, 64)])
 def test_k2_matches_plain(cuda, b, heads, l, d):
     """Ragged and short shapes, the serving VAE (1, 1, 4096, 512, split keys), then
     the training path's at 512², batch 8: the UNet self-attention and the VAE
-    encoder's mid-attention; the VAE decode of SD2.1 at 768² and of SDXL at 1024²."""
+    encoder's mid-attention; the VAE decode of SD2.1 at 768² and of SDXL at 1024²
+    (also the VAE encoder of a 1024² img2img pass); the refiner's unguided level 1 at
+    1024², which a base -> refiner ensemble runs on K2."""
     q, k, v = (randn((b, l, heads * d), s, cuda) for s in range(3))
     o, lse = fa.flash_attention(q, k, v, heads)
     torch.cuda.synchronize()

@@ -59,7 +59,7 @@ def test_flags_parse_as_scripts_serve(argv):
     assert ours == {k: v for k, v in ref.items() if k not in JAX_ONLY}
 
 
-@pytest.mark.parametrize("variant", serve.VARIANTS)
+@pytest.mark.parametrize("variant", zoo.BASE_VARIANTS)
 def test_model_dtype_as_scripts_serve(variant, monkeypatch):
     """The dtype scripts/serve.py's build_pipeline builds each variant in (read off
     its call of the JAX zoo's build_models) is the port's."""
@@ -79,7 +79,7 @@ def test_model_dtype_as_scripts_serve(variant, monkeypatch):
         jax_build_pipeline(jax_parse_args(["--model_variant", variant]))
     assert built.value.args[0] == variant
     want = {jnp.bfloat16: torch.bfloat16, jnp.float32: torch.float32}[built.value.args[1]]
-    assert serve.model_dtype(variant) == want
+    assert zoo.model_dtype(variant) == want
 
 
 @pytest.mark.parametrize("variant", ["sdxl-refiner", "smokeref"])
@@ -88,7 +88,7 @@ def test_refiner_variants_refused_with_reason(variant, capsys):
         serve.parse_args(["--model_variant", variant])
     err = capsys.readouterr().err
     assert f"--model_variant {variant} is not served yet" in err
-    assert "denoising_start/denoising_end" in err and "ROADMAP.md item 11.1" in err
+    assert "in fp32" in err and "bf16 only" in err and "ROADMAP.md item 12.2" in err
 
 
 def test_speed_kwargs_of_presets():

@@ -63,7 +63,7 @@ def test_port_imports_nothing_of_jax():
     for module in ("ops.tome", "serve", "utils.png", "schedulers.ddim", "schedulers.pndm",
                    "schedulers.euler", "schedulers.unipc", "train_dreambooth",
                    "training.dreambooth", "data.fastloader", "data.hf_dataset",
-                   "utils.logging"):
+                   "utils.logging", "sample", "mix_lora", "pipelines.hires", "utils.image"):
         assert f"controllora_tpu_torch.{module}" in names.split(), module
 
 

@@ -20,7 +20,7 @@ import torch
 from controllora_tpu.models.unet import _merge_stack_tokens
 from controllora_tpu.ops import tome as jtome
 from controllora_tpu.ops.folding import FoldedBias as JFoldedBias
-from controllora_tpu_torch.models.unet import _merge_folded_bias
+from controllora_tpu_torch.models.unet import _merge_stack_tokens as merge_stack_tokens
 from controllora_tpu_torch.ops import tome
 from controllora_tpu_torch.ops.folding import FoldedBias
 
@@ -75,7 +75,7 @@ def test_build_merge_matches_jax(hh, ww, ratio, b):
                                   ref[1][:, :n_unm])
     np.testing.assert_allclose(merge(torch.from_numpy(x)).numpy(), ref[0], atol=ATOL)
     np.testing.assert_allclose(unmerge(torch.from_numpy(y)).numpy(), ref[2], atol=ATOL)
-    out = _merge_folded_bias(FoldedBias(*(None if t is None else torch.from_numpy(t)
+    out = merge_stack_tokens(FoldedBias(*(None if t is None else torch.from_numpy(t)
                                           for t in biases)), merge, b)
     for name, want in zip(("q_bias", "k_bias", "v_bias", "out_bias"), ref[4]):
         got = getattr(out, name)
@@ -97,7 +97,7 @@ def test_per_image_biases_tile_then_merge():
                    tokens(rng, 4, 32, 1), (bias, None, None, None))[4][0]
     merge, _, _ = tome.build_merge(torch.from_numpy(x), 8, 8,
                                    tome.ToMeConfig(ratio=0.5, min_tokens=0), rand)
-    out = _merge_folded_bias(FoldedBias(q_bias=torch.from_numpy(bias)), merge, 4).q_bias
+    out = merge_stack_tokens(FoldedBias(q_bias=torch.from_numpy(bias)), merge, 4).q_bias
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
 
 
