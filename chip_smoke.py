@@ -30,7 +30,8 @@ Phases, each of which raises (non-zero exit, no result line) when it fails:
               shapes (head dim 64 at L 9216, 2304 and 4096; K2 at their VAE encoders,
               D 512) with times, bounds and SDPA, and K3/K4 at a ragged D 64 L. K1 at
               SD1.5's 1024² hires pass (L 16384 at D 40, L 4096 at D 80) and K2 at the
-              refiner's unguided level 1 (12 heads of D 64), timed the same way.
+              refiner's unguided level 1 (12 heads of D 64), timed the same way; K2, K3
+              and K4 at the canned train_canny task's batch-1 shape (1, 8, 4096, 40).
   4. parity   full-width SD1.5 (random seeded bf16 weights) + the `base` ControlLoRA
               (perturbed so the folded biases are nonzero): one folded UNet eval,
               one VAE decode and the CLIP encoder on the card against the same
@@ -115,6 +116,20 @@ Phases, each of which raises (non-zero exit, no result line) when it fails:
               prior preservation (2 class images sampled by the frozen stack), 3 steps
               with exact launches, validation renders, the .safetensors and .bin LoRA
               equal to the trained one bit for bit.
+ 18. weights  the real-weights path at full width: the seeded bf16 SD1.5 stack written
+              as a diffusers-layout F16 checkpoint directory (unet/, vae/,
+              text_encoder/; about 2 GiB) with a small CLIP BPE vocab in
+              CLIP_VOCAB_DIR; zoo.load_frozen onto the card (every tensor bitwise the
+              F16 source cast to bf16; seconds, peak GiB); one guided 512² render
+              through the loaded stack bitwise equal to the in-memory stack's cast the
+              same way, launches exactly {k1 100, k2 1} each; the Canny annotator on
+              the card equal to the CPU's at 512² and 1024², three threshold pairs (ms
+              an image); the canny2image web UI answering one POST /api with a 512²
+              PNG ({k1 100, k2 1}); `python -m controllora_tpu_torch.tasks train_canny`
+              (3 steps, batch 1, diffusiondb_canny's Canny on the card, K2-K4) and
+              `tasks test_canny` on its output, then convert_checkpoint import-sd,
+              export-controllora (its artifact equal to the run's) and
+              import-controllora, each a subprocess that must exit 0.
 The last lines are the kernel record (each route with the CUDA kernel it launches),
 the card's name and power limit, and {"ok": true, "device": {...}}.
 """
@@ -2636,6 +2651,296 @@ def phase_dreambooth(torch, fa, card):
     return total
 
 
+# phase "weights": the real-weights path at SD1.5's full width. The canned train_canny
+# task trains at batch 1 (tasks/_launch.py), which gives K2-K4 this shape
+WEIGHTS_VARIANT = "sd15"
+CANNY_TRAIN_SHAPE = (1, 8, 4096, 40)
+CANNY_SIZES = (512, 1024)
+CANNY_PAIRS = ((50, 150), (100, 200), (30, 80))
+CLIP_MERGES = ("a </w>", "r e", "re d</w>", "s q", "sq u", "squ a", "squa re</w>", "o n</w>",
+               "b l", "bl u", "blu e</w>", "f i", "fi e", "fie l", "fiel d</w>")
+
+
+def phase_canny_train_kernels(torch, fa, device, record):
+    """K2, K3 and K4 at the canned train_canny task's shape, batch 1 at 512²
+    (CANNY_TRAIN_SHAPE), against their plain versions with times, bounds and SDPA,
+    into `record`'s shapes."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(14)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+
+    label = " (train_canny 512² batch 1)"
+    k2_case(torch, fa, device, rnd, record, *CANNY_TRAIN_SHAPE, label=label)
+    bwd_case(torch, fa, rnd, record, *CANNY_TRAIN_SHAPE, timed=True, label=label)
+    torch.cuda.empty_cache()
+    log(f"train_canny kernels {time.perf_counter() - t0:.1f} s")
+
+
+def write_checkpoint(torch, root, unet, vae, text):
+    """A diffusers-layout directory (unet/, vae/, text_encoder/) of the stack's
+    weights as F16, the form of SD1.5's published fp16 files; returns the F16 state
+    dicts by component."""
+    from controllora_tpu_torch.utils.convert import save_state_dict
+
+    sds = {}
+    for sub, module, name in (("unet", unet, "diffusion_pytorch_model"),
+                              ("vae", vae, "diffusion_pytorch_model"),
+                              ("text_encoder", text, "model")):
+        sds[sub] = {k: v.detach().to(torch.float16).cpu() for k, v in module.state_dict().items()}
+        os.makedirs(os.path.join(root, sub))
+        save_state_dict(sds[sub], os.path.join(root, sub, f"{name}.safetensors"))
+    return sds
+
+
+def write_clip_vocab(root):
+    """A small CLIP BPE asset directory (merges.txt + the vocab.json openai/CLIP
+    builds from it) for the CLIs' require_clip."""
+    from controllora_tpu_torch.data.tokenizer import CLIPBPETokenizer
+
+    os.makedirs(root)
+    with open(os.path.join(root, "merges.txt"), "w") as f:
+        f.write("#version: 0.2\n" + "\n".join(CLIP_MERGES) + "\n")
+    tok = CLIPBPETokenizer.from_files(None, os.path.join(root, "merges.txt"))
+    with open(os.path.join(root, "vocab.json"), "w") as f:
+        json.dump(tok.encoder, f)
+
+
+def weights_render(torch, fa, pipe, guide, label):
+    """One guided RES² render of STEPS steps at CFG, its launches counted from 0 and
+    held to render_launches; returns (image, launches, wall s)."""
+    fa.reset_launch_counts()  # this render's main path starts here
+    t0 = time.perf_counter()
+    img = pipe("a red square on a blue field", guide=guide, num_inference_steps=STEPS,
+               guidance_scale=CFG, generator=torch.Generator().manual_seed(7),
+               return_array=True)[0]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    used = dict(fa.LAUNCHES)  # and ends here
+    want = render_launches(pipe.unet.config, RES)
+    if used != want:
+        raise AssertionError(f"weights {label} render: launches {used}, expected {want}")
+    return img, used, wall
+
+
+def weights_app(torch, fa, ckpt, control_dir, device, card):
+    """The canny2image app's web UI on the card: one POST /api with a RES² PNG, 20
+    steps, 1 sample; the answer is the inverted edge map and a RES² PNG sample.
+    Returns the request's launches."""
+    import base64
+    import threading
+    import urllib.request
+    from types import SimpleNamespace
+
+    from controllora_tpu_torch.apps import canny2image
+    from controllora_tpu_torch.apps.webui import build_server
+    from controllora_tpu_torch.data.process_datasets import _procedural_image
+    from controllora_tpu_torch.models import zoo
+    from controllora_tpu_torch.utils.png import decode_png, encode_png
+
+    t0 = time.perf_counter()
+    process = canny2image.build_processor(SimpleNamespace(
+        pretrained_model_name_or_path=ckpt, model_variant=WEIGHTS_VARIANT,
+        control_lora_dir=control_dir, device=str(device)))
+    build_s = time.perf_counter() - t0
+    server = build_server("canny2image", process, canny2image.DEFAULTS, host="127.0.0.1",
+                          port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    body = dict(image=base64.b64encode(encode_png(_procedural_image(3, RES))).decode("ascii"),
+                prompt="a bird", num_samples=1, image_resolution=RES, ddim_steps=STEPS,
+                scale=CFG, seed=42, low_threshold=100, high_threshold=200)
+    try:
+        fa.reset_launch_counts()  # the request's main path starts here
+        t0 = time.perf_counter()
+        req = urllib.request.Request(f"http://127.0.0.1:{server.server_address[1]}/api",
+                                     data=json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+        out = json.loads(urllib.request.urlopen(req, timeout=900).read())
+        wall = time.perf_counter() - t0
+        used = dict(fa.LAUNCHES)  # and ends here
+    finally:
+        server.shutdown()
+        thread.join(timeout=60)
+        server.server_close()
+    images = [decode_png(base64.b64decode(b)) for b in out["images"]]
+    want = render_launches(zoo.VARIANTS[WEIGHTS_VARIANT][0], RES)
+    if ([im.shape for im in images] != [(RES, RES, 3)] * 2 or used != want
+            or not (255 - images[0]).any()):
+        raise AssertionError(f"app: images {[im.shape for im in images]}, launches {used} "
+                             f"(want {want})")
+    log(f"weights app: POST /api to python -m controllora_tpu_torch.apps.canny2image's web "
+        f"UI (stack loaded from the directory in {build_s:.1f} s): {RES}² PNG in, "
+        f"{STEPS} steps, 1 sample: {wall:.3f} s wall; answered {len(images)} {RES}² PNGs; "
+        f"launches {used}; {card}")
+    return used
+
+
+def phase_weights(torch, fa, card):
+    """The real-weights path at full width (WEIGHTS_VARIANT at RES): the seeded bf16
+    stack written as a diffusers-layout F16 checkpoint directory (and a small CLIP
+    vocab); zoo.load_frozen on the card, each tensor bitwise equal to the F16 source
+    cast to bf16, with its seconds and peak GiB; one guided render through the
+    loaded stack bitwise equal to the in-memory stack's cast the same way, launches
+    exactly render_launches each; the Canny annotator on the card equal to the CPU's
+    at CANNY_SIZES and CANNY_PAIRS, with ms per image; the canny2image web UI
+    answering one POST /api; then `python -m controllora_tpu_torch.tasks train_canny`
+    (3 steps, batch 1, diffusiondb_canny, K2-K4), `tasks test_canny` on its output,
+    and the three convert_checkpoint commands, each exiting 0, the exported artifact
+    equal to the run's. Returns the summed launches of the in-process main paths."""
+    import re
+
+    import numpy as np
+
+    from controllora_tpu_torch.annotators import canny
+    from controllora_tpu_torch.data.process_datasets import _procedural_image
+    from controllora_tpu_torch.data.tokenizer import default_tokenizer
+    from controllora_tpu_torch.models import zoo
+    from controllora_tpu_torch.pipelines import StableDiffusionControlLoRAPipeline
+    from controllora_tpu_torch.training.checkpoint import save_control_lora
+    from controllora_tpu_torch.utils.png import decode_png
+
+    t_phase = time.perf_counter()
+    device = torch.device(CLI_DEVICE)
+    gc.collect()
+    torch.cuda.empty_cache()
+    old_vocab = os.environ.get("CLIP_VOCAB_DIR")
+    total = {"k1": 0, "k2": 0, "k3": 0, "k4": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        # 1. a local checkpoint directory and a CLIP vocab
+        pipe = build_stack(torch, device, WEIGHTS_VARIANT)
+        t0 = time.perf_counter()
+        ckpt = os.path.join(tmp, "sd")
+        sds = write_checkpoint(torch, ckpt, pipe.unet, pipe.vae, pipe.text_encoder)
+        size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(ckpt) for f in fs)
+        write_s = time.perf_counter() - t0
+        os.environ["CLIP_VOCAB_DIR"] = os.path.join(tmp, "vocab")
+        write_clip_vocab(os.environ["CLIP_VOCAB_DIR"])
+        control_dir = os.path.join(tmp, "control")
+        save_control_lora(control_dir, pipe.control_lora)
+
+        # 2. load it on the card
+        torch.cuda.synchronize()
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loaded = zoo.load_frozen(ckpt, WEIGHTS_VARIANT, torch.bfloat16, device)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - base_mem) / 2 ** 30
+        n = 0
+        for sub, module in zip(("unet", "vae", "text_encoder"), loaded):
+            for k, v in module.state_dict().items():
+                if v.dtype != torch.bfloat16 or not torch.equal(v.cpu(), sds[sub][k].to(torch.bfloat16)):
+                    raise AssertionError(f"weights: {sub}.{k} is not the F16 source cast to bf16")
+                n += 1
+        log(f"weights load: zoo.load_frozen of a {size / 2 ** 30:.2f} GiB F16 {WEIGHTS_VARIANT} "
+            f"directory (written in {write_s:.1f} s) onto the card in bf16: {load_s:.2f} s, "
+            f"peak {peak:.2f} GiB above the {base_mem / 2 ** 30:.2f} GiB held; {n} tensors "
+            f"bitwise equal to the F16 source cast to bf16; {card}")
+
+        # 3. the same render through the loaded and the in-memory stack
+        with torch.no_grad():
+            for module in (pipe.unet, pipe.vae, pipe.text_encoder):
+                for p in module.parameters():
+                    p.copy_(p.to(torch.float16).to(torch.bfloat16))
+        tokenizer = default_tokenizer(require_clip=True)
+        memory = StableDiffusionControlLoRAPipeline(
+            pipe.unet, pipe.vae, pipe.text_encoder, tokenizer, pipe.control_lora,
+            device=device)
+        from_dir = StableDiffusionControlLoRAPipeline(*loaded, tokenizer, pipe.control_lora,
+                                                      device=device)
+        guide = np.zeros((RES, RES, 3), np.float32) - 1.0
+        guide[RES // 4:3 * RES // 4, RES // 4:3 * RES // 4] = 1.0
+        img_l, used_l, wall_l = weights_render(torch, fa, from_dir, guide, "loaded")
+        img_m, used_m, wall_m = weights_render(torch, fa, memory, guide, "in-memory")
+        if not (np.isfinite(img_l).all() and np.array_equal(img_l, img_m)):
+            raise AssertionError("weights: the loaded stack's render differs from the "
+                                 f"in-memory one (max|d| {np.abs(img_l - img_m).max()})")
+        total = {k: total[k] + used_l[k] + used_m[k] for k in total}
+        log(f"weights render: guided {RES}², {STEPS} steps, CFG {CFG} through the loaded "
+            f"stack {wall_l:.3f} s, the in-memory stack {wall_m:.3f} s: bitwise equal; "
+            f"launches {used_l} each; {card}")
+        del memory, from_dir, loaded, pipe, sds
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 4. Canny on the card against the CPU
+        for size in CANNY_SIZES:
+            img = torch.from_numpy(_procedural_image(size, size))
+            on_card = img.to(device)
+            for lo, hi in CANNY_PAIRS:
+                out, ref = canny(on_card, lo, hi), canny(img, lo, hi)
+                if out.device != on_card.device or not torch.equal(out.cpu(), ref):
+                    raise AssertionError(f"canny {size}² ({lo}, {hi}): card differs from CPU")
+            ms = cuda_ms(lambda: canny(on_card, 100, 200))
+            log(f"weights canny: {size}² RGB, thresholds {CANNY_PAIRS}: card == CPU exactly "
+                f"({int((ref > 0).sum())} edge pixels at {CANNY_PAIRS[-1]}); {ms:.3f} ms an "
+                f"image on the card (events, median of 10); {card}")
+
+        # 5. the app over HTTP
+        used = weights_app(torch, fa, ckpt, control_dir, device, card)
+        total = {k: total[k] + used[k] for k in total}
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 6. the canned launchers and the conversion CLI, as a user runs them
+        common = ["--model_variant", WEIGHTS_VARIANT, "--resolution", str(RES),
+                  "--device", CLI_DEVICE]
+        run = os.path.join(tmp, "run")
+        t0 = time.perf_counter()
+        stdout = run_cli("controllora_tpu_torch.tasks", [
+            "train_canny", "--pretrained_model_name_or_path", ckpt, "--max_train_steps", "3",
+            "--output_dir", run, "--checkpointing_steps", "3", "--log_every", "1", *common])
+        train_s = time.perf_counter() - t0
+        steps = [ln for ln in stdout.splitlines() if ln.startswith("step ")]
+        ms_step = [float(m) for m in re.findall(r"([\d.]+) ms/step", "\n".join(steps))]
+        if len(steps) != 3 or "frozen" not in stdout or f"from {ckpt}" not in stdout:
+            raise AssertionError(f"train_canny:\n{stdout[-1500:]}")
+        samples = os.path.join(tmp, "samples")
+        t0 = time.perf_counter()
+        run_cli("controllora_tpu_torch.tasks", [
+            "test_canny", "--control_lora_dir", run, "--pretrained_model_name_or_path", ckpt,
+            "--num_validation_images", "1", "--num_inference_steps", str(STEPS),
+            "--output_dir", samples, *common])
+        test_s = time.perf_counter() - t0
+        with open(os.path.join(samples, "0.png"), "rb") as f:
+            montage = decode_png(f.read())
+        if montage.shape != (RES, 3 * RES, 3):
+            raise AssertionError(f"test_canny: montage {montage.shape}")
+        t0 = time.perf_counter()
+        imported = run_cli("controllora_tpu_torch.convert_checkpoint",
+                           ["import-sd", ckpt, "--device", CLI_DEVICE]).splitlines()
+        export = os.path.join(tmp, "export")
+        exported = run_cli("controllora_tpu_torch.convert_checkpoint", [
+            "export-controllora", "--run_dir", run, "--config",
+            os.path.join(run, "config.json"), "--out", export, "--device", CLI_DEVICE])
+        reimported = run_cli("controllora_tpu_torch.convert_checkpoint",
+                             ["import-controllora", export, "--device", CLI_DEVICE])
+        convert_s = time.perf_counter() - t0
+        a, b = (torch.load(os.path.join(d, "diffusion_pytorch_model.bin"), weights_only=True)
+                for d in (run, export))
+        if (list(a) != list(b) or not all(torch.equal(a[k], b[k]) for k in a)
+                or [ln.split(":")[0] for ln in imported] != ["unet", "vae", "text"]
+                or f"exported step-3 adapter to {export}" not in exported
+                or "params ok" not in reimported):
+            raise AssertionError(f"convert_checkpoint: {imported} {exported} {reimported}")
+    if old_vocab is None:
+        os.environ.pop("CLIP_VOCAB_DIR", None)
+    else:
+        os.environ["CLIP_VOCAB_DIR"] = old_vocab
+    log(f"weights tasks: python -m controllora_tpu_torch.tasks train_canny (3 steps, {RES}² "
+        f"batch 1, diffusiondb_canny on the card) {train_s:.1f} s with start and load, "
+        f"ms/step as logged {ms_step}; tasks test_canny (1 image, {STEPS} steps) "
+        f"{test_s:.1f} s, montage {montage.shape}; convert_checkpoint import-sd "
+        f"({'; '.join(imported)}), export-controllora ({exported.strip()}; {len(a)} tensors "
+        f"equal the run's artifact), import-controllora ({reimported.strip()}): "
+        f"{convert_s:.1f} s; {card}")
+    log(f"weights phase {time.perf_counter() - t_phase:.1f} s; main-path launches {total}")
+    return total
+
+
 def main():
     import torch
 
@@ -2668,6 +2973,7 @@ def main():
     phase_mode_kernels(torch, fa, device, record)
     record.update(phase_backward_kernels(torch, fa, device))
     phase_family_train_kernels(torch, fa, device, record)
+    phase_canny_train_kernels(torch, fa, device, record)
     phase_flash_grad(torch, fa, device)
     record.update(phase_stock_kernels(torch, fs, device))
     phase_stock_grad(torch, fs, device)
@@ -2693,11 +2999,12 @@ def main():
     family_train = phase_family_train(torch, fa, device, card)
     phase_train_cli(torch, card)
     dreambooth = phase_dreambooth(torch, fa, card)
+    weights = phase_weights(torch, fa, card)
     # launches on the main paths, each counted from 0: serving, the serving presets,
     # training (K1-K4), the render modes, the other families' renders and request,
-    # their training and DreamBooth's steps, then training under
-    # CONTROLLORA_FLASH_IMPL=stock (K5)
-    paths = (serve, presets, train, modes, families, family_train, dreambooth)
+    # their training and DreamBooth's steps, the loaded stack's renders and the app's
+    # request, then training under CONTROLLORA_FLASH_IMPL=stock (K5)
+    paths = (serve, presets, train, modes, families, family_train, dreambooth, weights)
     launches = {n: sum(p.get(n, 0) for p in paths) for n in serve}
     launches.update({n: stock[n] for n in fs.LAUNCHES})
 

@@ -19,6 +19,7 @@ from typing import Dict, Optional
 import numpy as np
 
 from controllora_tpu_torch.data.registry import DatasetBase
+from controllora_tpu_torch.utils.image import resize_bilinear
 from controllora_tpu_torch.utils.png import SIGNATURE as PNG_SIGNATURE, decode_png
 
 _EXTS = (".png", ".jpg", ".jpeg", ".webp", ".bmp")
@@ -31,18 +32,23 @@ def _list_images(root: str):
 
 
 def _load_image(path: str, resolution: int, center_crop: bool, rng) -> np.ndarray:
-    """The image resized (bilinear) so its short side is ``resolution``, then cropped
-    to a square at the centre or at random, in [-1, 1]. A PNG is decoded by the port's
-    own codec, and one whose short side is already ``resolution`` needs no resize and
-    no PIL (which the card's machine lacks); anything else goes through PIL, as the JAX
-    copy does."""
+    """The image resized (PIL's BILINEAR) so its short side is ``resolution``, then
+    cropped to a square at the centre or at random, in [-1, 1]. A PNG is decoded by
+    the port's own codec and resized by ``utils/image.py::resize_bilinear``, which
+    equals PIL's, with no PIL (which the card's machine lacks); any other format goes
+    through PIL, as the JAX copy does."""
     with open(path, "rb") as f:
         data = f.read()
-    img = decode_png(data) if data.startswith(PNG_SIGNATURE) else None
-    if img is None or min(img.shape[:2]) != resolution:
+    if data.startswith(PNG_SIGNATURE):
+        img = decode_png(data)
+        h, w = img.shape[:2]
+        scale = resolution / min(w, h)
+        img = resize_bilinear(img, max(resolution, round(h * scale)),
+                              max(resolution, round(w * scale)))
+    else:
         from PIL import Image
 
-        pil = Image.open(path).convert("RGB") if img is None else Image.fromarray(img)
+        pil = Image.open(path).convert("RGB")
         w, h = pil.size
         scale = resolution / min(w, h)
         img = np.asarray(pil.resize((max(resolution, round(w * scale)),

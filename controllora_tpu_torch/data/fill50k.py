@@ -48,6 +48,7 @@ class Fill50kSynthetic(DatasetBase):
         size: int = 50_000,
         seed: int = 0,
         use_crop: bool = True,  # accepted for reference CLI parity; crops are a no-op
+        **_,  # the CLIs' device=, which only the Canny dataset uses
     ):
         if tokenizer is None:
             from controllora_tpu_torch.data.tokenizer import default_tokenizer

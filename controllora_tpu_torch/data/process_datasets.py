@@ -2,12 +2,19 @@
 copy of ``controllora_tpu/data/process_datasets.py``, so that
 ``DatasetBase.from_name`` resolves the same names.
 
-  * diffusiondb_canny — on-the-fly Canny guides; registered, but its items need the
-    Canny annotator, which is not ported yet (reading one raises).
+  * diffusiondb_canny — on-the-fly Canny guides with RANDOM thresholds in [1, 255)
+    per sample (the reference's augmentation, process/diffusiondb_canny.py:37-39),
+    computed by the port's Canny (``annotators/canny.py``) on ``device``. Sources
+    images from the HF hub when ``CONTROLLORA_USE_HUB=1`` and ``datasets`` can load
+    it, else a procedural image generator (no network needed).
   * mpii_pose — prompt.jsonl + precomputed pose-guide images with a synchronized
     random crop (reference process/mpii_pose.py:29-36).
   * danbooru_sketch — jsonl prompts + per-sample random choice among 3 precomputed
     sketch-style directories (reference process/danbooru_sketch.py:16-32).
+
+No PIL on these paths (the card's machine has none): PNG files decode through
+``utils/png.py`` and resize with ``utils/image.py::resize_bilinear``, which equals
+PIL's ``BILINEAR``. Only a file that is not a PNG goes through PIL.
 """
 
 from __future__ import annotations
@@ -19,6 +26,8 @@ from typing import Dict, Optional
 import numpy as np
 
 from controllora_tpu_torch.data.registry import DatasetBase
+from controllora_tpu_torch.utils.image import resize_bilinear
+from controllora_tpu_torch.utils.png import SIGNATURE as PNG_SIGNATURE, decode_png
 
 
 def _rand_crop_pair(a: np.ndarray, b: np.ndarray, res: int, rng) -> tuple:
@@ -30,36 +39,100 @@ def _rand_crop_pair(a: np.ndarray, b: np.ndarray, res: int, rng) -> tuple:
 
 
 def _resize_short(img: np.ndarray, res: int) -> np.ndarray:
-    from PIL import Image
-
+    """Short side -> ``res`` (PIL's BILINEAR, as the JAX copy resizes)."""
     h, w = img.shape[:2]
     s = res / min(h, w)
-    return np.asarray(
-        Image.fromarray(img).resize((max(res, round(w * s)), max(res, round(h * s))),
-                                    Image.BILINEAR)
+    return resize_bilinear(img, max(res, round(h * s)), max(res, round(w * s)))
+
+
+def _read_rgb(path: str) -> np.ndarray:
+    """An image file -> (H, W, 3) uint8 RGB: a PNG through the port's decoder, any
+    other format through PIL (``convert("RGB")``, as the JAX copy reads every file)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data.startswith(PNG_SIGNATURE):
+        return decode_png(data)
+    from PIL import Image
+
+    return np.asarray(Image.open(path).convert("RGB"))
+
+
+def _procedural_image(idx: int, size: int) -> np.ndarray:
+    """Deterministic colorful synthetic 'photo' for hermetic runs."""
+    rng = np.random.default_rng(idx)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+    img = np.stack(
+        [
+            127 + 120 * np.sin(xx / rng.uniform(8, 40) + rng.uniform(0, 6)),
+            127 + 120 * np.sin(yy / rng.uniform(8, 40) + rng.uniform(0, 6)),
+            127 + 120 * np.sin((xx + yy) / rng.uniform(10, 50)),
+        ],
+        axis=-1,
     )
+    for _ in range(rng.integers(2, 6)):
+        cx, cy, r = rng.uniform(0, size, 2).tolist() + [rng.uniform(10, size / 3)]
+        mask = (xx - cx) ** 2 + (yy - cy) ** 2 < r * r
+        img[mask] = rng.uniform(0, 255, 3)
+    return np.clip(img, 0, 255).astype(np.uint8)
 
 
 class DiffusionDBCanny(DatasetBase):
-    """Registered under the JAX package's name. Its guides are Canny edges of each
-    image with random thresholds, and the Canny annotator is not ported yet (ROADMAP
-    Queue 1 item 15), so reading an item raises."""
+    """Images with Canny guides at random thresholds; the detector runs on
+    ``device`` (the CLIs pass their ``--device``; the JAX class takes and ignores the
+    keyword)."""
 
     name = "diffusiondb_canny"
 
     def __init__(self, tokenizer=None, resolution: int = 512, use_crop: bool = True,
-                 size: int = 1000, seed: int = 0, **_):
+                 size: int = 1000, seed: int = 0, device="cuda", **_):
+        if tokenizer is None:
+            from controllora_tpu_torch.data.tokenizer import default_tokenizer
+
+            tokenizer = default_tokenizer()
         self.tokenizer = tokenizer
         self.resolution = resolution
-        self.size = size
         self.seed = seed
+        self.device = device
+        self._hub = None
+        if os.environ.get("CONTROLLORA_USE_HUB") == "1":
+            # opt-in HF hub source (zero-egress containers would stall retrying)
+            try:
+                from datasets import load_dataset
+
+                self._hub = load_dataset(
+                    "poloclub/diffusiondb", "2m_random_1k", split="train",
+                    download_mode="reuse_cache_if_exists",
+                )
+                size = len(self._hub)
+            except Exception:
+                self._hub = None
+        self.size = size
 
     def __len__(self):
         return self.size
 
     def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
-        raise NotImplementedError("process/diffusiondb_canny needs the Canny annotator, "
-                                  "which is not ported yet: ROADMAP Queue 1 item 15")
+        from controllora_tpu_torch.annotators import CannyDetector
+
+        rng = np.random.default_rng(self.seed * 999_983 + idx)
+        if self._hub is not None:
+            rec = self._hub[int(idx)]
+            img = np.asarray(rec["image"].convert("RGB"))
+            text = rec["prompt"]
+        else:
+            img = _procedural_image(idx, self.resolution + 64)
+            text = f"synthetic scene {idx}"
+        img = _resize_short(img, self.resolution)
+        img, _ = _rand_crop_pair(img, img, self.resolution, rng)
+        # random thresholds in [1, 255) — the reference's augmentation
+        t1, t2 = sorted(rng.integers(1, 255, 2).tolist())
+        guide = np.asarray(CannyDetector(self.device)(img, int(t1), int(max(t2, t1 + 1))))
+        guide3 = np.repeat(guide[:, :, None], 3, axis=2).astype(np.float32)
+        return {
+            "pixel_values": img.astype(np.float32) / 127.5 - 1.0,
+            "guide_values": guide3 / 127.5 - 1.0,
+            "input_ids": self.tokenizer([text])[0],
+        }
 
 
 class _JsonlGuideDataset(DatasetBase):
@@ -91,10 +164,8 @@ class _JsonlGuideDataset(DatasetBase):
         return len(self.records)
 
     def _load_pair(self, rec, rng):
-        from PIL import Image
-
-        img = np.asarray(Image.open(os.path.join(self.root, rec["image"])).convert("RGB"))
-        guide = np.asarray(Image.open(os.path.join(self.root, self._guide_path(rec, rng))).convert("RGB"))
+        img = _read_rgb(os.path.join(self.root, rec["image"]))
+        guide = _read_rgb(os.path.join(self.root, self._guide_path(rec, rng)))
         return img, guide
 
     def _guide_path(self, rec, rng):

@@ -10,9 +10,10 @@ format, ``.safetensors`` or ``.bin``) joins every ControlLoRA processor's chain 
 pre- (or, ``--where post``, post-) adapter and both steer one render. The chain does
 not fold, so the UNet runs it threaded (long self-attention on K2's flash route).
 The guide is ``--guide_image`` (a PNG, resized to ``--resolution``) or fill50k's
-first guide. Images go to ``<output_dir>/<i>.png``. The frozen stack gets seeded
-random weights (no pretrained weights in the repository);
-``--pretrained_model_name_or_path`` is refused with that reason.
+first guide. Images go to ``<output_dir>/<i>.png``. The frozen stack comes from
+``--pretrained_model_name_or_path`` (a local diffusers-layout directory; the real
+CLIP BPE vocab is then required, ``$CLIP_VOCAB_DIR``) or, without it, from seeded
+random weights.
 """
 
 from __future__ import annotations
@@ -24,14 +25,14 @@ import numpy as np
 import torch
 
 from controllora_tpu_torch.models.zoo import model_dtype
-from controllora_tpu_torch.sample import NO_WEIGHTS, refused
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--pretrained_model_name_or_path",
-                   type=refused("--pretrained_model_name_or_path", NO_WEIGHTS), default=None)
+    p.add_argument("--pretrained_model_name_or_path", type=str, default=None,
+                   help="local diffusers-layout checkpoint directory (unet/, vae/, "
+                        "text_encoder[_2]/); omit for seeded random weights")
     p.add_argument("--model_variant", type=str, default="sd15", choices=["sd15", "smoke"])
     p.add_argument("--control_lora_dir", type=str, required=True)
     p.add_argument("--lora_weights", type=str, required=True,
@@ -63,14 +64,17 @@ def main(argv=None):
 
     args = parse_args(argv)
     device = torch.device(args.device)
-    unet, vae, text = zoo.build_models(args.model_variant, model_dtype(args.model_variant),
-                                       device, torch.Generator(device).manual_seed(args.seed))
-    print("WARNING: random frozen stack (no pretrained weights)", flush=True)
+    unet, vae, text = zoo.frozen_stack(args.pretrained_model_name_or_path, args.model_variant,
+                                       model_dtype(args.model_variant), device,
+                                       torch.Generator(device).manual_seed(args.seed))
+    if not args.pretrained_model_name_or_path:
+        print("WARNING: random frozen stack (no pretrained weights)", flush=True)
     control_lora, ccfg = load_control_lora(args.control_lora_dir, device)
     extra = load_lora(args.lora_weights, device)
     print(f"loaded {len(extra)} plain LoRA adapters + ControlLoRA "
           f"(lora_control_version={ccfg.lora_control_version})", flush=True)
-    pipe = StableDiffusionControlLoRAPipeline(unet, vae, text, default_tokenizer(),
+    tokenizer = default_tokenizer(require_clip=bool(args.pretrained_model_name_or_path))
+    pipe = StableDiffusionControlLoRAPipeline(unet, vae, text, tokenizer,
                                               control_lora, device=device)
     if args.guide_image:
         guide = load_image(args.guide_image, args.resolution)

@@ -1,17 +1,23 @@
 """Model zoo: the SD1.5, SD2.1, SDXL and SDXL-refiner stacks and their reduced smoke
-variants, with seeded random weights (counterpart of ``controllora_tpu/models/zoo.py``;
-the configurations are the JAX package's, field for field).
+variants, with seeded random weights or loaded from a local checkpoint directory
+(counterpart of ``controllora_tpu/models/zoo.py``; the configurations are the JAX
+package's, field for field).
 
-There are no pretrained weights in the repository, so full-width runs use random
-weights made from an explicit ``torch.Generator``: every floating parameter of rank
->= 2 is N(0, 1/fan_in) with fan_in = prod(shape[1:]), 1-D norm weights are 1 and
-biases 0. Modules are built on the meta device and materialised on ``device``, so
-no default initialisation runs first.
+There are no pretrained weights in the repository. ``load_frozen`` reads a
+diffusers-layout directory that the user supplies (``unet/``, ``vae/``,
+``text_encoder/`` and/or ``text_encoder_2/``, each holding ``*.safetensors`` or
+``*.bin``). Without one, full-width runs use random weights made from an explicit
+``torch.Generator``: every floating parameter of rank >= 2 is N(0, 1/fan_in) with
+fan_in = prod(shape[1:]), 1-D norm weights are 1 and biases 0. Modules are built on
+the meta device and materialised on ``device``, so no default initialisation runs
+first.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+import glob
+import os
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -174,14 +180,16 @@ def random_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
 def materialize(cls, config, device, generator: Optional[torch.Generator],
                 dtype: torch.dtype) -> nn.Module:
     """Build ``cls(config)`` on ``device`` without default init; seed it from
-    ``generator`` (fp32 draws, then cast to ``dtype``) or leave it uninitialised for
-    a state-dict load when ``generator`` is None."""
+    ``generator`` (fp32 draws, then cast to ``dtype``) or, when ``generator`` is None,
+    leave it uninitialised in ``dtype`` for a state-dict load (no fp32 copy is ever
+    allocated)."""
     with torch.device("meta"):
         module = cls(config)
-    module = module.to_empty(device=device)
-    if generator is not None:
-        random_init_(module, generator)
-    return module.to(dtype).eval().requires_grad_(False)
+    if generator is None:
+        module = module.to(dtype).to_empty(device=device)
+    else:
+        module = random_init_(module.to_empty(device=device), generator).to(dtype)
+    return module.eval().requires_grad_(False)
 
 
 def build_models(variant: str = "sd15", dtype: torch.dtype = torch.bfloat16,
@@ -217,3 +225,102 @@ def build_control_lora(config, device="cuda", generator: Optional[torch.Generato
                 m.down.weight.normal_(0.0, 1.0 / rank, generator=generator)
                 m.up.weight.zero_()
     return model
+
+
+def _find_weights(subdir: str) -> Optional[str]:
+    """The weights file of one component directory: the first ``*.safetensors`` in
+    sorted order, else the first ``*.bin``; None when there is neither. As in the JAX
+    package, sorting puts ``diffusion_pytorch_model.fp16.safetensors`` before
+    ``diffusion_pytorch_model.safetensors``, so a directory holding both loads the
+    fp16 file."""
+    for pat in ("*.safetensors", "*.bin"):
+        hits = sorted(glob.glob(os.path.join(subdir, pat)))
+        if hits:
+            return hits[0]
+    return None
+
+
+def weight_files(pretrained_dir: str) -> Dict[str, Optional[str]]:
+    """{"unet", "vae", "text", "text2"} -> the weights file of ``unet/``, ``vae/``,
+    ``text_encoder/`` and ``text_encoder_2/`` (None where absent); raises
+    FileNotFoundError, as the JAX loader does, without the UNet, the VAE or any
+    text tower."""
+    files = {name: _find_weights(os.path.join(pretrained_dir, sub))
+             for name, sub in (("unet", "unet"), ("vae", "vae"), ("text", "text_encoder"),
+                               ("text2", "text_encoder_2"))}
+    if not (files["unet"] and files["vae"] and (files["text"] or files["text2"])):
+        raise FileNotFoundError(
+            f"expected unet/vae/text_encoder[_2] weight files under {pretrained_dir}")
+    return files
+
+
+def _text_state_dict(files: Dict[str, Optional[str]]):
+    """The text encoder's state dict by the directory's layout: ``text_encoder/``
+    alone (SD1.5, SD2.1), ``text_encoder/`` + ``text_encoder_2/`` as the dual
+    encoder's ``te1``/``te2`` (SDXL), ``text_encoder_2/`` alone (the refiner)."""
+    from controllora_tpu_torch.utils.convert import checkpoint_state_dict
+
+    if files["text"] and files["text2"]:
+        return {**checkpoint_state_dict(files["text"], "te1."),
+                **checkpoint_state_dict(files["text2"], "te2.")}
+    return checkpoint_state_dict(files["text"] or files["text2"])
+
+
+def load_frozen(pretrained_dir: str, variant: str, dtype: torch.dtype = torch.bfloat16,
+                device="cuda") -> Tuple[UNet2DConditionModel, AutoencoderKL,
+                                        Union[CLIPTextModel, DualCLIPTextEncoder]]:
+    """(unet, vae, text_encoder) of ``variant`` on ``device`` in ``dtype``, with the
+    weights of a diffusers-layout checkpoint directory (the JAX ``load_frozen``'s
+    files and layouts, ``weight_files``). Each module is built uninitialised and
+    filled by one strict load, which casts each tensor to ``dtype`` on ``device``: a
+    missing, unknown or misshapen key raises and names the key."""
+    from controllora_tpu_torch.utils.convert import checkpoint_state_dict
+
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown model variant {variant!r}; known: {sorted(VARIANTS)}")
+    files = weight_files(pretrained_dir)
+    unet, vae, text = build_models(variant, dtype, device)
+    unet.load_state_dict(checkpoint_state_dict(files["unet"]), strict=True)
+    vae.load_state_dict(checkpoint_state_dict(files["vae"]), strict=True)
+    text.load_state_dict(_text_state_dict(files), strict=True)
+    return unet, vae, text
+
+
+def frozen_stack(pretrained_dir: Optional[str], variant: str, dtype: torch.dtype,
+                 device, generator: torch.Generator):
+    """The CLIs' frozen stack: ``load_frozen(pretrained_dir, ...)``, which draws
+    nothing from ``generator``, or without a directory ``build_models`` with random
+    weights drawn from it (a generator on ``device``)."""
+    if pretrained_dir:
+        return load_frozen(pretrained_dir, variant, dtype, device)
+    return build_models(variant, dtype, device, generator)
+
+
+def _file_shapes(path: str) -> Dict[str, Tuple[int, ...]]:
+    """Each tensor's shape in a checkpoint file (a .safetensors file's header only)."""
+    import json
+
+    if path.endswith(".safetensors"):
+        with open(path, "rb") as f:
+            header = json.loads(f.read(int.from_bytes(f.read(8), "little")))
+        header.pop("__metadata__", None)
+        return {k: tuple(v["shape"]) for k, v in header.items()}
+    sd = torch.load(path, map_location="meta", weights_only=True)
+    return {k: tuple(v.shape) for k, v in sd.items()}
+
+
+def infer_variant(pretrained_dir: str) -> str:
+    """The variant whose UNet has exactly the parameter names and shapes of the
+    directory's UNet file (no two variants' UNets share them); raises ValueError when
+    none does."""
+    shapes = _file_shapes(weight_files(pretrained_dir)["unet"])
+    hits: List[str] = []
+    for variant, (ucfg, _, _) in VARIANTS.items():
+        with torch.device("meta"):
+            unet = UNet2DConditionModel(ucfg)
+        if {k: tuple(v.shape) for k, v in unet.state_dict().items()} == shapes:
+            hits.append(variant)
+    if not hits:
+        raise ValueError(f"the UNet under {pretrained_dir} is none of the model variants "
+                         f"{sorted(VARIANTS)}")
+    return hits[0]

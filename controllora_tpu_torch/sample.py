@@ -19,10 +19,13 @@ repaint; PNG files only, ``utils/image.py``), ToMe and DeepCache, and the SDXL b
 of the grid, a second pipeline without a ControlLoRA continues the trajectory; bf16
 whenever the base is).
 
-There are no pretrained weights in the repository: the frozen stacks get seeded
-random weights (``models/zoo.py``) and a warning says so. Refused, with the reason:
-``--pretrained_model_name_or_path`` and ``--refiner_model_path`` (no weights in the
-repository, no loader) and ``--serving_mesh`` (parallelism is not ported).
+``--pretrained_model_name_or_path`` (and ``--refiner_model_path`` for the refiner)
+loads the frozen stack from a local diffusers-layout directory (``zoo.load_frozen``)
+and then needs the real CLIP BPE vocab (``$CLIP_VOCAB_DIR``: ``merges.txt`` and
+``vocab.json``); without one, the stack gets seeded random weights and a warning
+says so (there are no pretrained weights in the repository). ``--dataset_name
+process/diffusiondb_canny`` runs its Canny annotator on ``--device``. Refused, with
+the reason: ``--serving_mesh`` (parallelism is not ported).
 """
 
 from __future__ import annotations
@@ -36,9 +39,6 @@ import torch
 
 from controllora_tpu_torch.models.zoo import BASE_VARIANTS, model_dtype
 
-NO_WEIGHTS = ("there are no pretrained weights in the repository and the port has no "
-              "loader for them (ROADMAP.md item 10.4); the frozen stack gets seeded random "
-              "weights")
 NO_MESH = "parallelism is not ported (ROADMAP.md item 14)"
 
 
@@ -54,8 +54,9 @@ def refused(flag: str, reason: str):
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--pretrained_model_name_or_path",
-                   type=refused("--pretrained_model_name_or_path", NO_WEIGHTS), default=None)
+    p.add_argument("--pretrained_model_name_or_path", type=str, default=None,
+                   help="local diffusers-layout checkpoint directory (unet/, vae/, "
+                        "text_encoder[_2]/); omit for seeded random weights")
     p.add_argument("--model_variant", type=str, default="sd15", choices=BASE_VARIANTS)
     p.add_argument("--control_lora_dir", type=str, default=None,
                    help="directory with config.json + diffusion_pytorch_model.bin")
@@ -89,8 +90,8 @@ def parse_args(argv=None):
                    choices=["sdxl-refiner", "smokeref"],
                    help="two-stage SDXL render: the base runs [0, denoising_split) and "
                         "the refiner continues the trajectory to the end")
-    p.add_argument("--refiner_model_path",
-                   type=refused("--refiner_model_path", NO_WEIGHTS), default=None)
+    p.add_argument("--refiner_model_path", type=str, default=None,
+                   help="the refiner's checkpoint directory (text_encoder_2/ alone)")
     p.add_argument("--denoising_split", type=float, default=0.8,
                    help="base/refiner handoff point as a schedule fraction")
     p.add_argument("--aesthetic_score", type=float, default=6.0)
@@ -155,7 +156,8 @@ def load_lora(path: str, device, resume: Optional[str] = None):
 
 def build_pipelines(args):
     """(pipeline, refiner pipeline or None, whether a ControlLoRA was loaded, extra
-    LoRAs or None), on ``--device`` with seeded random frozen weights."""
+    LoRAs or None), on ``--device``: the frozen weights of
+    ``--pretrained_model_name_or_path``, or seeded random ones."""
     from controllora_tpu_torch.data.tokenizer import default_tokenizer
     from controllora_tpu_torch.models import zoo
     from controllora_tpu_torch.pipelines import StableDiffusionControlLoRAPipeline
@@ -171,9 +173,11 @@ def build_pipelines(args):
 
     device = torch.device(args.device)
     dtype = model_dtype(args.model_variant)
-    unet, vae, text = zoo.build_models(args.model_variant, dtype, device,
+    unet, vae, text = zoo.frozen_stack(args.pretrained_model_name_or_path,
+                                       args.model_variant, dtype, device,
                                        torch.Generator(device).manual_seed(args.seed))
-    print("WARNING: random frozen stack (no pretrained weights)", flush=True)
+    if not args.pretrained_model_name_or_path:
+        print("WARNING: random frozen stack (no pretrained weights)", flush=True)
 
     control_lora = None
     if args.control_lora_dir:
@@ -206,7 +210,7 @@ def build_pipelines(args):
                 "pndm": PNDMScheduler, "euler": EulerDiscreteScheduler,
                 "unipc": UniPCMultistepScheduler}[args.scheduler](schedule)
 
-    tokenizer = default_tokenizer()
+    tokenizer = default_tokenizer(require_clip=bool(args.pretrained_model_name_or_path))
     pipe = StableDiffusionControlLoRAPipeline(unet, vae, text, tokenizer, control_lora,
                                               scheduler=scheduler(), device=device)
     refiner = None
@@ -214,10 +218,11 @@ def build_pipelines(args):
         if args.mask_image:
             raise SystemExit("--refiner_variant with --mask_image is unsupported: the "
                              "refiner stage would repaint the preserved region")
-        r_unet, r_vae, r_text = zoo.build_models(
-            args.refiner_variant, dtype, device,
+        r_unet, r_vae, r_text = zoo.frozen_stack(
+            args.refiner_model_path, args.refiner_variant, dtype, device,
             torch.Generator(device).manual_seed(args.seed + 1))
-        print("WARNING: random frozen refiner (no pretrained weights)", flush=True)
+        if not args.refiner_model_path:
+            print("WARNING: random frozen refiner (no pretrained weights)", flush=True)
         refiner = StableDiffusionControlLoRAPipeline(r_unet, r_vae, r_text, tokenizer,
                                                      scheduler=scheduler(), device=device)
         print(f"two-stage render: base [0, {args.denoising_split}) -> refiner", flush=True)
@@ -265,7 +270,8 @@ def main(argv=None):
         return
 
     dataset = DatasetBase.from_name(args.dataset_name)(pipe.tokenizer,
-                                                       resolution=args.resolution)
+                                                       resolution=args.resolution,
+                                                       device=args.device)
     for i in range(args.num_validation_images):
         item = dataset[i]
         img = render(args.prompt or f"sample {i}", return_array=True,

@@ -7,9 +7,11 @@ with its flags, defaults, preset table and JSON contract for the flags it takes)
 
 A stdlib ThreadingHTTPServer takes concurrent JSON requests; each request is one
 image rendered through ``serving.BatchingEngine``, which coalesces concurrent
-traffic into bucketed batches. There are no pretrained weights in the repository:
-the frozen stack gets seeded random weights (``models/zoo.py``) and a warning says
-so. ``--control_lora_dir`` loads a ControlLoRA artifact (``training/checkpoint.py``);
+traffic into bucketed batches. ``--pretrained_model_name_or_path`` loads the frozen
+stack from a local diffusers-layout directory (``zoo.load_frozen``; the real CLIP
+BPE vocab is then required, ``$CLIP_VOCAB_DIR``); without it the stack gets seeded
+random weights (there are none in the repository) and a warning says so.
+``--control_lora_dir`` loads a ControlLoRA artifact (``training/checkpoint.py``);
 without one the guide is not used.
 
 Model families (``--model_variant``): sd15, sd21 (768², v-prediction is the
@@ -35,8 +37,7 @@ API:
       response: {"image": <base64 PNG>, "seconds": float}; 504 when the render
       outlasts --result_timeout_s, 500 with the error text when it fails.
 
-Not taken here: ``--serving_mesh`` (parallelism is not ported) and
-``--pretrained_model_name_or_path`` (no weight loader; ROADMAP.md).
+Not taken here: ``--serving_mesh`` (parallelism is not ported; ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -82,6 +83,9 @@ def model_variant(name: str) -> str:
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--pretrained_model_name_or_path", type=str, default=None,
+                   help="local diffusers-layout checkpoint directory (unet/, vae/, "
+                        "text_encoder[_2]/); omit for seeded random weights")
     p.add_argument("--model_variant", type=model_variant, default="sd15",
                    choices=BASE_VARIANTS)
     p.add_argument("--control_lora_dir", type=str, default=None)
@@ -123,7 +127,8 @@ def parse_args(argv=None):
 
 def build_pipeline(args):
     """The pipeline the server renders with: the frozen stack of ``--model_variant``
-    (``model_dtype``) with seeded random weights, the ControlLoRA of
+    (``model_dtype``) loaded from ``--pretrained_model_name_or_path`` or with seeded
+    random weights, the ControlLoRA of
     ``--control_lora_dir`` if given, and ``--scheduler``."""
     from controllora_tpu_torch.data.tokenizer import default_tokenizer
     from controllora_tpu_torch.models import zoo
@@ -131,15 +136,18 @@ def build_pipeline(args):
 
     device = torch.device(args.device)
     dtype = model_dtype(args.model_variant)
-    unet, vae, text_encoder = zoo.build_models(
-        args.model_variant, dtype, device, torch.Generator(device).manual_seed(0))
-    print("WARNING: random frozen stack (no pretrained weights)", flush=True)
+    unet, vae, text_encoder = zoo.frozen_stack(args.pretrained_model_name_or_path,
+                                               args.model_variant, dtype, device,
+                                               torch.Generator(device).manual_seed(0))
+    if not args.pretrained_model_name_or_path:
+        print("WARNING: random frozen stack (no pretrained weights)", flush=True)
     control_lora = None
     if args.control_lora_dir:
         from controllora_tpu_torch.training.checkpoint import load_control_lora
 
         control_lora, _ = load_control_lora(args.control_lora_dir, device)
-    return StableDiffusionControlLoRAPipeline(unet, vae, text_encoder, default_tokenizer(),
+    tokenizer = default_tokenizer(require_clip=bool(args.pretrained_model_name_or_path))
+    return StableDiffusionControlLoRAPipeline(unet, vae, text_encoder, tokenizer,
                                               control_lora,
                                               scheduler=SCHEDULERS[args.scheduler](),
                                               device=device)

@@ -4,14 +4,17 @@ with that script's flag names, defaults and semantics for the flags it takes).
     python -m controllora_tpu_torch.train --model_variant smoke --resolution 64 \
         --train_batch_size 2 --max_train_steps 3 --output_dir /tmp/run --device cpu
 
-There are no pretrained weights in the repository: the frozen stack (UNet, VAE,
-text encoder) of ``--model_variant`` (sd15, sd21, sdxl and their smoke stacks) gets
-seeded random weights (``models/zoo.py``), and so does the hint encoder. For SD2.1
+The frozen stack (UNet, VAE, text encoder) of ``--model_variant`` (sd15, sd21, sdxl
+and their smoke stacks) comes from ``--pretrained_model_name_or_path``, a local
+diffusers-layout directory (``zoo.load_frozen``; the real CLIP BPE vocab is then
+required, ``$CLIP_VOCAB_DIR``), or gets seeded random weights (there are none in the
+repository); the hint encoder is seeded. For SD2.1
 and SDXL the ControlLoRA config is re-derived for the UNet
 (``control_lora.config_for_unet``: SD2.1 32 adapter slots, SDXL 3 buckets, 140
 slots, level 0 adapter-free); SDXL trains with its ``text_time`` conditioning
 (``training/conditioning.py``), SD2.1-v with ``--prediction_type v_prediction``.
-Data comes from the port's numpy registry (``process/<name>``) or a column dataset
+Data comes from the port's numpy registry (``process/<name>``; ``process/diffusiondb_canny`` runs its Canny annotator on
+``--device``) or a column dataset
 (a local directory or dataset script: ``data/hf_dataset.py``,
 ``--image_column`` etc.), optionally behind the VAE latent cache
 (``--cache_latents``). fill50k and column datasets are batched by the native data
@@ -31,10 +34,10 @@ a run exactly: params, optimizer and schedule, the noise generator, and the data
 stream fast-forwarded to the step; the seed recorded in ``run_meta.json`` wins over
 ``--seed`` for the random weights, data order and noise. SIGTERM or SIGINT finishes the step, saves a
 checkpoint and exits 0 (a second signal aborts). The run ends by writing the
-adapter artifact (``training/checkpoint.py``) to ``--output_dir``. Flags of
-``scripts/train.py`` not taken here: ``--pretrained_model_name_or_path`` (no weights
-in the repository), ``--push_to_hub`` and the ``--hub_*`` flags (no network),
-``--profile`` and data parallelism (ROADMAP.md).
+adapter artifact (``training/checkpoint.py``) and a model card (``README.md``, the
+checkpoint directory as ``base_model``) to ``--output_dir``. Flags of
+``scripts/train.py`` not taken here: ``--push_to_hub`` and the ``--hub_*`` flags (no
+network), ``--profile`` and data parallelism (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -54,6 +57,9 @@ from controllora_tpu_torch.utils.logging import REPORT_TO, MetricsLogger
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--pretrained_model_name_or_path", type=str, default=None,
+                   help="local diffusers-layout checkpoint directory (unet/, vae/, "
+                        "text_encoder[_2]/); omit for seeded random weights")
     p.add_argument("--model_variant", type=str, default="sd15",
                    choices=["sd15", "sd21", "sdxl", "smoke", "smoke2", "smokexl"])
     p.add_argument("--control_lora_config", type=str, default="base",
@@ -177,7 +183,8 @@ def build_dataset(args, tokenizer, seed):
         from controllora_tpu_torch.data.registry import DatasetBase
 
         dataset = DatasetBase.from_name(args.dataset_name)(tokenizer,
-                                                           resolution=args.resolution)
+                                                           resolution=args.resolution,
+                                                           device=args.device)
         if args.max_train_samples:
             dataset.size = min(len(dataset), args.max_train_samples)
         return dataset
@@ -245,6 +252,27 @@ def make_validation(args, dataset, stack, control, trainer, logger, device):
     return validate
 
 
+def write_model_card(args) -> None:
+    """``<output_dir>/README.md`` (the reference's save_model_card, as
+    ``scripts/train.py`` writes it): the checkpoint directory, or SD1.5's hub name
+    for a random stack, as ``base_model``."""
+    with open(os.path.join(args.output_dir, "README.md"), "w") as f:
+        f.write(f"""---
+license: creativeml-openrail-m
+base_model: {args.pretrained_model_name_or_path or 'runwayml/stable-diffusion-v1-5'}
+tags: [stable-diffusion, controllora, control-lora, pytorch, cuda]
+---
+# ControlLoRA — {os.path.basename(os.path.normpath(args.output_dir))}
+
+ControlLoRA adapter trained with controllora_tpu_torch (PyTorch/CUDA) on
+`{args.dataset_name}` at {args.resolution}px for {args.max_train_steps} steps (lr
+{args.learning_rate}, global batch {args.train_batch_size}, config
+`{args.control_lora_config}`). Load with
+`controllora_tpu_torch.training.checkpoint.load_control_lora`, the JAX package's
+`load_control_lora` or the PyTorch reference's `ControlLoRA.from_pretrained`.
+""")
+
+
 def main(argv=None):
     args = parse_args(argv)
     from controllora_tpu_torch.data.tokenizer import default_tokenizer
@@ -263,13 +291,15 @@ def main(argv=None):
     # reference's skip_first_batches)
     state, start_step, seed = resume_point(args)
     gen = torch.Generator(device).manual_seed(seed)
-    unet, vae, text = zoo.build_models(args.model_variant, dtype, device, gen)
+    unet, vae, text = zoo.frozen_stack(args.pretrained_model_name_or_path,
+                                       args.model_variant, dtype, device, gen)
     ccfg = build_control_config(args, unet.config)
     control = zoo.build_control_lora(ccfg, device, gen)
-    print(f"device {device}; frozen {args.model_variant} stack is random (seed "
-          f"{seed}): no pretrained weights in the repository", flush=True)
+    print(f"device {device}; frozen {args.model_variant} stack " + (
+        f"from {args.pretrained_model_name_or_path}" if args.pretrained_model_name_or_path
+        else f"is random (seed {seed}): no pretrained weights given"), flush=True)
 
-    tokenizer = default_tokenizer()
+    tokenizer = default_tokenizer(require_clip=bool(args.pretrained_model_name_or_path))
     dataset = build_dataset(args, tokenizer, seed)
     if args.cache_latents:
         from controllora_tpu_torch.data.latent_cache import LatentCachedDataset
@@ -377,6 +407,7 @@ def main(argv=None):
         for s, h in prev_handlers.items():
             signal.signal(s, h)
     save_control_lora(args.output_dir, control)
+    write_model_card(args)
     print(f"saved final ControlLoRA to {args.output_dir}", flush=True)
 
 

@@ -18,8 +18,10 @@ end of every ``--validation_epochs``-th epoch, and once after training, the
 (``extra_loras``). Every ``--checkpointing_steps`` updates the train state goes to
 ``checkpoint-<step>`` with the LoRA's ``.safetensors`` beside it;
 ``--resume_from_checkpoint latest`` continues (params, optimizer, schedule, noise and
-the data stream). Left out: ``--pretrained_model_name_or_path`` (no weights in the
-repository), ``--push_to_hub`` and the ``--hub_*`` flags (no network).
+the data stream). ``--pretrained_model_name_or_path`` loads the frozen stack from a
+local diffusers-layout directory (and requires the real CLIP BPE vocab,
+``$CLIP_VOCAB_DIR``); without it the stack gets seeded random weights. Left out:
+``--push_to_hub`` and the ``--hub_*`` flags (no network).
 """
 
 from __future__ import annotations
@@ -42,6 +44,9 @@ WEIGHTS = "pytorch_lora_weights"
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--pretrained_model_name_or_path", type=str, default=None,
+                   help="local diffusers-layout checkpoint directory (unet/, vae/, "
+                        "text_encoder[_2]/); omit for seeded random weights")
     p.add_argument("--model_variant", type=str, default="sd15",
                    choices=["sd15", "sd21", "sdxl", "smoke", "smoke2", "smokexl"])
     p.add_argument("--lora_rank", type=int, default=4)
@@ -136,10 +141,12 @@ def main(argv=None):
     dtype = torch.bfloat16 if args.mixed_precision == "bf16" else torch.float32
     accum = max(args.gradient_accumulation_steps, 1)
     gen = torch.Generator(device).manual_seed(args.seed)
-    unet, vae, text = zoo.build_models(args.model_variant, dtype, device, gen)
-    print(f"device {device}; frozen {args.model_variant} stack is random (seed "
-          f"{args.seed}): no pretrained weights in the repository", flush=True)
-    tokenizer = default_tokenizer()
+    unet, vae, text = zoo.frozen_stack(args.pretrained_model_name_or_path,
+                                       args.model_variant, dtype, device, gen)
+    print(f"device {device}; frozen {args.model_variant} stack " + (
+        f"from {args.pretrained_model_name_or_path}" if args.pretrained_model_name_or_path
+        else f"is random (seed {args.seed}): no pretrained weights given"), flush=True)
+    tokenizer = default_tokenizer(require_clip=bool(args.pretrained_model_name_or_path))
     pipe = StableDiffusionControlLoRAPipeline(unet, vae, text, tokenizer, device=device)
 
     if args.with_prior_preservation and args.sample_class_images:

@@ -1,16 +1,20 @@
-"""Load JAX parameter trees (as numpy) into the port's modules.
+"""Load JAX parameter trees (as numpy) and checkpoint files into the port's modules.
 
 The numpy key maps below are the port's own copies of the JAX package's exporters
 (``controllora_tpu/utils/torch_compat.py``: ``flax_to_torch_unet``, ``_vae``,
 ``_clip`` and ``control_lora_to_torch``, with the helpers they call), so the port
 imports nothing of the JAX package. They turn a flax parameter tree into diffusers /
-reference state-dict keys, which are the port's parameter names. Every load is
-``strict=True``, so a key gap fails loudly. tests/test_torch_standalone.py holds the
-copies equal to the originals.
+reference state-dict keys, which are the port's parameter names. A diffusers /
+transformers checkpoint file needs no key map: ``checkpoint_state_dict`` reads it
+straight into tensors (``load_tensors``) and renames only what ``normalize_keys``
+lists. Every load is ``strict=True``, so a key gap fails loudly.
+tests/test_torch_standalone.py holds the copies equal to the originals.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import re
 from typing import Any, Dict, Optional
 
@@ -325,7 +329,9 @@ def attn_procs_from_torch(sd: Dict[str, Any]) -> Dict[str, Dict[str, Any]]:
 # ---------------------------------------------------------------------------- state-dict IO
 # The card's machine has no ``safetensors`` package: the format is written and read
 # here (an 8-byte little-endian header length, a JSON header, the raw little-endian
-# bytes), byte for byte as ``safetensors.numpy.save`` writes it.
+# bytes), byte for byte as ``safetensors.numpy.save`` writes it. A file is read once
+# into one buffer, and every tensor is a view of it at its offset (no copy); the byte
+# order is the machine's, little-endian on every platform the port runs on.
 
 # the Rust crate's Dtype order: tensors are laid out by descending dtype, then name
 _ST_DTYPES = (("BOOL", np.bool_), ("U8", np.uint8), ("I8", np.int8), ("I16", np.int16),
@@ -334,12 +340,13 @@ _ST_DTYPES = (("BOOL", np.bool_), ("U8", np.uint8), ("I8", np.int8), ("I16", np.
               ("I64", np.int64), ("U64", np.uint64))
 _ST_RANK = {np.dtype(t): (i, name) for i, (name, t) in enumerate(_ST_DTYPES)}
 _ST_NUMPY = {name: np.dtype(t) for name, t in _ST_DTYPES}
+_ST_TORCH = {"BOOL": torch.bool, "U8": torch.uint8, "I8": torch.int8, "I16": torch.int16,
+             "F16": torch.float16, "BF16": torch.bfloat16, "I32": torch.int32,
+             "F32": torch.float32, "F64": torch.float64, "I64": torch.int64}
 
 
 def safetensors_bytes(sd: Dict[str, np.ndarray]) -> bytes:
     """The .safetensors file of a numpy state dict."""
-    import json
-
     arrays = {k: np.ascontiguousarray(v) for k, v in sd.items()}
     order = sorted(arrays, key=lambda k: (-_ST_RANK[arrays[k].dtype][0], k))
     header, offset = {}, 0
@@ -355,20 +362,45 @@ def safetensors_bytes(sd: Dict[str, np.ndarray]) -> bytes:
                        for k in order))
 
 
-def safetensors_load(data: bytes) -> Dict[str, np.ndarray]:
-    import json
-
-    n = int.from_bytes(data[:8], "little")
-    header = json.loads(data[8:8 + n])
+def _safetensors_entries(data):
+    """(name, dtype name, shape, byte offset, byte count) of each tensor in a
+    .safetensors buffer."""
+    n = int.from_bytes(bytes(data[:8]), "little")
+    header = json.loads(bytes(data[8:8 + n]))
     header.pop("__metadata__", None)
-    base = 8 + n
-    out = {}
     for k, info in header.items():
         begin, end = info["data_offsets"]
-        dt = _ST_NUMPY[info["dtype"]].newbyteorder("<")
-        out[k] = (np.frombuffer(data[base + begin:base + end], dt)
-                  .astype(dt.newbyteorder("=")).reshape(info["shape"]))
+        yield k, info["dtype"], info["shape"], 8 + n + begin, end - begin
+
+
+def safetensors_load(data) -> Dict[str, np.ndarray]:
+    """A .safetensors buffer (bytes, bytearray or memoryview) -> numpy arrays that view
+    it (read-only views of ``bytes``)."""
+    out = {}
+    for k, dtype, shape, offset, nbytes in _safetensors_entries(data):
+        dt = _ST_NUMPY[dtype]
+        out[k] = np.frombuffer(data, dt, nbytes // dt.itemsize, offset).reshape(shape)
     return out
+
+
+def safetensors_tensors(data: bytearray) -> Dict[str, torch.Tensor]:
+    """A .safetensors buffer -> CPU tensors that view it (bf16 too, which numpy
+    lacks)."""
+    out = {}
+    for k, dtype, shape, offset, nbytes in _safetensors_entries(data):
+        dt = _ST_TORCH[dtype]
+        t = (torch.frombuffer(data, dtype=dt, count=nbytes // dt.itemsize, offset=offset)
+             if nbytes else torch.empty(0, dtype=dt))
+        out[k] = t.reshape(shape)
+    return out
+
+
+def _read(path: str) -> bytearray:
+    buf = bytearray(os.path.getsize(path))
+    with open(path, "rb") as f:
+        if f.readinto(buf) != len(buf):
+            raise OSError(f"{path}: short read")
+    return buf
 
 
 def save_state_dict(sd: Dict[str, Any], path: str) -> None:
@@ -381,10 +413,51 @@ def save_state_dict(sd: Dict[str, Any], path: str) -> None:
                     for k, v in sd.items()}, path)
 
 
+def load_tensors(path: str) -> Dict[str, torch.Tensor]:
+    """A .safetensors or pickled .bin state dict -> CPU tensors in the file's dtypes
+    (a .safetensors file is read once; its tensors view that buffer)."""
+    if path.endswith(".safetensors"):
+        return safetensors_tensors(_read(path))
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
 def load_state_dict(path: str) -> Dict[str, np.ndarray]:
     """A .safetensors or pickled .bin state dict -> numpy arrays."""
     if path.endswith(".safetensors"):
-        with open(path, "rb") as f:
-            return safetensors_load(f.read())
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    return {k: v.numpy() for k, v in sd.items()}
+        return safetensors_load(_read(path))
+    return {k: v.numpy() for k, v in load_tensors(path).items()}
+
+
+# the VAE mid-block attention's projections under diffusers >= 0.14's names, and the
+# names diffusers 0.13 (and the port) give them
+_VAE_ATTN = {"to_q": "query", "to_k": "key", "to_v": "value", "to_out.0": "proj_attn"}
+_VAE_ATTN_KEY = re.compile(r"((?:en|de)coder\.mid_block\.attentions\.0)\."
+                           r"(to_q|to_k|to_v|to_out\.0|query|key|value|proj_attn)\."
+                           r"(weight|bias)")
+
+
+def normalize_keys(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A diffusers / transformers checkpoint's state dict in the port's names: the
+    changes ``translate_vae`` and ``translate_clip_text`` make before their loads
+    (``controllora_tpu/utils/torch_compat.py``). The CLIP tower's
+    ``embeddings.position_ids`` buffer goes, and the VAE attention takes either
+    spelling of its projections, as Linear weights or as (C, C, 1, 1) 1x1 convs. Every
+    other key passes as it is, for a strict load to judge."""
+    out = {}
+    for key, w in sd.items():
+        if key in ("text_model.embeddings.position_ids", "embeddings.position_ids"):
+            continue
+        m = _VAE_ATTN_KEY.fullmatch(key)
+        if m:
+            key = f"{m.group(1)}.{_VAE_ATTN.get(m.group(2), m.group(2))}.{m.group(3)}"
+            if w.dim() == 4:
+                w = w[:, :, 0, 0]
+        out[key] = w
+    return out
+
+
+def checkpoint_state_dict(path: str, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A checkpoint file's tensors (``load_tensors``) in the port's names
+    (``normalize_keys``), each key under ``prefix`` (SDXL's towers ``te1.`` and
+    ``te2.``), for one strict ``load_state_dict``."""
+    return {prefix + k: v for k, v in normalize_keys(load_tensors(path)).items()}

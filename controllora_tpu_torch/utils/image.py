@@ -1,18 +1,23 @@
-"""Image input for the sampling CLIs: PNG files read and resized without PIL.
+"""Image input for the sampling CLIs and the datasets: PNG files read and resized
+without PIL.
 
 The JAX scripts read images with PIL (``Image.open(path).convert("RGB"|"L")
-.resize(size, Image.BICUBIC)``). The card's machine has no PIL, so the port reads
-PNGs through its own decoder (``utils/png.py``: 8-bit gray, RGB or RGBA; gray
-replicates to RGB, alpha is dropped, as ``convert("RGB")`` does) and resizes with
-``F.interpolate(mode="bicubic", antialias=True)``, whose kernel (a = -0.5, widened
-by the scale when shrinking) is PIL's, one axis at a time with uint8 rounding
-between, as PIL does: within one level of PIL's (PIL's weights are fixed-point).
-Other formats are refused with the reason. ``resize_linear`` is the antialiased
-bilinear resize of float images that the pipeline (the inpaint mask) and the hires
-fix share.
+.resize(size, Image.BICUBIC)``, the datasets ``Image.BILINEAR``). The card's machine
+has no PIL, so the port reads PNGs through its own decoder (``utils/png.py``: 8-bit
+gray, RGB or RGBA; gray replicates to RGB, alpha is dropped, as ``convert("RGB")``
+does) and resizes them with ``resize_bicubic`` and ``resize_bilinear``, which follow
+PIL's 8-bit resample in its own integer arithmetic (libImaging/Resample.c: the
+kernel widened by the scale when shrinking, fixed-point weights with 22 fractional
+bits, the horizontal pass first, uint8 between the passes), so they equal PIL's
+output. Other formats are refused with the reason. ``resize_linear`` is the
+antialiased bilinear resize of float images that the pipeline (the inpaint mask)
+and the hires fix share; ``resize_jax`` is ``jax.image.resize`` itself
+(``"linear"`` or ``"lanczos3"``), one weight matrix per axis, for the annotators.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -32,19 +37,127 @@ def read_png(path: str) -> np.ndarray:
     return decode_png(data)
 
 
+def _bilinear(x: float) -> float:
+    x = abs(x)
+    return 1.0 - x if x < 1.0 else 0.0
+
+
+def _bicubic(x: float, a: float = -0.5) -> float:
+    x = abs(x)
+    if x < 1.0:
+        return ((a + 2.0) * x - (a + 3.0)) * x * x + 1
+    if x < 2.0:
+        return (((x - 5) * x + 8) * x - 4) * a
+    return 0.0
+
+
+# PIL's filters (support, kernel) and its 8-bit fixed point (libImaging/Resample.c)
+_PIL_FILTERS = {"bilinear": (1.0, _bilinear), "bicubic": (2.0, _bicubic)}
+_PRECISION_BITS = 32 - 8 - 2
+
+
+def _pil_coeffs(in_size: int, out_size: int, mode: str):
+    """(first input index, fixed-point weights (out_size, taps)) of one axis, as
+    PIL's ``precompute_coeffs`` and ``normalize_coeffs_8bpc`` make them: the kernel's
+    support widened by the scale when shrinking, each output's weights normalised in
+    double precision, then rounded to 22 fractional bits."""
+    support, kernel = _PIL_FILTERS[mode]
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support *= filterscale
+    taps = int(math.ceil(support)) * 2 + 1
+    first = np.zeros(out_size, np.int64)
+    weights = np.zeros((out_size, taps), np.int64)
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size) - xmin
+        k = [kernel((x + xmin - center + 0.5) / filterscale) for x in range(xmax)]
+        total = 0.0
+        for w in k:
+            total += w
+        for x, w in enumerate(k):
+            w = w / total if total != 0.0 else w
+            weights[xx, x] = int((-0.5 if w < 0 else 0.5) + w * (1 << _PRECISION_BITS))
+        first[xx] = xmin
+    return first, weights
+
+
+def _pil_pass(x: np.ndarray, axis: int, out_size: int, mode: str) -> np.ndarray:
+    """One axis of PIL's 8-bit resample: integer sums from half a unit, shifted down
+    and clipped to uint8 (``clip8``)."""
+    first, weights = _pil_coeffs(x.shape[axis], out_size, mode)
+    shape = [1] * x.ndim
+    shape[axis] = out_size
+    acc = np.int64(1 << (_PRECISION_BITS - 1))
+    for tap in range(weights.shape[1]):
+        idx = np.minimum(first + tap, x.shape[axis] - 1)
+        acc = acc + np.take(x, idx, axis=axis) * weights[:, tap].reshape(shape)
+    return np.clip(acc >> _PRECISION_BITS, 0, 255)
+
+
+def _resize_pil(image: np.ndarray, height: int, width: int, mode: str) -> np.ndarray:
+    """PIL's ``resize`` of a uint8 image with its ``mode`` filter, in PIL's own
+    integer arithmetic: the horizontal pass first, its uint8 result fed to the
+    vertical one, an axis whose size does not change left alone."""
+    x = np.asarray(image).astype(np.int64)
+    if x.shape[1] != width:
+        x = _pil_pass(x, 1, width, mode)
+    if x.shape[0] != height:
+        x = _pil_pass(x, 0, height, mode)
+    return x.astype(np.uint8)
+
+
 def resize_bicubic(image: np.ndarray, height: int, width: int) -> np.ndarray:
     """(H, W, C) or (H, W) uint8 -> (height, width[, C]) uint8, as PIL's
-    ``resize((width, height), Image.BICUBIC)`` within one level: like PIL, the
-    horizontal pass runs first and its result is rounded and clamped to uint8 before
-    the vertical one (bicubic overshoots at hard edges)."""
-    x = torch.from_numpy(np.asarray(image, np.float32))
-    x = (x[..., None] if x.dim() == 2 else x).permute(2, 0, 1)[None]
-    for size in ((x.shape[2], width), (height, width)):
-        if tuple(x.shape[2:]) != size:
-            x = F.interpolate(x, size=size, mode="bicubic", antialias=True,
-                              align_corners=False).round().clamp(0, 255)
-    y = x[0].permute(1, 2, 0).to(torch.uint8).numpy()
-    return y[..., 0] if np.asarray(image).ndim == 2 else y
+    ``resize((width, height), Image.BICUBIC)``."""
+    return _resize_pil(image, height, width, "bicubic")
+
+
+def resize_bilinear(image: np.ndarray, height: int, width: int) -> np.ndarray:
+    """(H, W, C) or (H, W) uint8 -> (height, width[, C]) uint8, as PIL's
+    ``resize((width, height), Image.BILINEAR)``."""
+    return _resize_pil(image, height, width, "bilinear")
+
+
+def _lanczos3(x: torch.Tensor) -> torch.Tensor:
+    y = 3.0 * torch.sin(math.pi * x) * torch.sin(math.pi * x / 3.0)
+    out = torch.where(x > 1e-3, y / torch.where(x != 0, math.pi ** 2 * x ** 2, 1.0), 1.0)
+    return torch.where(x > 3.0, 0.0, out)
+
+
+def _triangle(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(1.0 - x.abs(), min=0.0)
+
+
+def resize_weights(in_size: int, out_size: int, method: str) -> torch.Tensor:
+    """(out_size, in_size) fp32 weights of one axis of ``jax.image.resize(...,
+    method, antialias=True)`` (jax ``image/scale.py`` ``compute_weight_mat``): the
+    kernel's support scaled by 1/scale when shrinking, each output's weights
+    normalised, outputs whose sample lies outside the input zeroed."""
+    kernel = {"linear": _triangle, "lanczos3": _lanczos3}[method]
+    inv_scale = 1.0 / (out_size / in_size)
+    sample = (torch.arange(out_size, dtype=torch.float32) + 0.5) * inv_scale - 0.5
+    x = ((sample[None, :] - torch.arange(in_size, dtype=torch.float32)[:, None]).abs()
+         / max(inv_scale, 1.0))
+    w = kernel(x)
+    total = w.sum(0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
+                    w / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return torch.where(inside[None, :], w, 0.0).T.contiguous()
+
+
+def resize_jax(image: torch.Tensor, height: int, width: int, method: str) -> torch.Tensor:
+    """(H, W, C) float -> (height, width, C) fp32 on the image's device, as
+    ``jax.image.resize(image, (height, width, C), method)``: one weight matrix per
+    axis that changes size (``resize_weights``)."""
+    x = image.float()
+    for axis, size in ((0, height), (1, width)):
+        if x.shape[axis] != size:
+            w = resize_weights(x.shape[axis], size, method).to(x.device)
+            x = torch.tensordot(w, x.movedim(axis, 0), dims=1).movedim(0, axis)
+    return x
 
 
 def resize_linear(images, height: int, width: int, device="cpu") -> torch.Tensor:

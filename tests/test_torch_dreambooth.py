@@ -236,8 +236,9 @@ def write_png(path, seed, h, w):
 
 def test_dreambooth_dataset_items_equal_jax(tmp_path):
     """Items equal the JAX dataset's bit for bit: PNGs at the size (decoded by the
-    port's codec, no resize) and larger ones (resized by PIL), random and centre
-    crops, with class images."""
+    port's codec, no resize) and larger ones (resized by the port's PIL-exact
+    bilinear, ``utils/image.py``, without PIL), random and centre crops, with class
+    images."""
     inst, cls = tmp_path / "instance", tmp_path / "class"
     inst.mkdir()
     cls.mkdir()

@@ -9,6 +9,7 @@ and of their own outputs. K1 has no LSE to check, so its O is also held to
 2e-2 * max|ref|: at long L, O shrinks as 1/sqrt(L) toward 1e-2 itself.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -97,11 +98,11 @@ def test_k1_with_a_bias_left_out(cuda, missing):
                                          (2, 8, 33, 40), (1, 4, 333, 80), (2, 2, 4225, 160),
                                          (1, 8, 700, 64), (2, 8, 2048, 40),
                                          (1, 1, 9216, 512), (1, 1, 16384, 512),
-                                         (2, 12, 4096, 64)])
+                                         (2, 12, 4096, 64), (1, 8, 4096, 40)])
 def test_k2_matches_plain(cuda, b, heads, l, d):
     """Ragged and short shapes, the serving VAE (1, 1, 4096, 512, split keys), then
     the training path's at 512², batch 8: the UNet self-attention and the VAE
-    encoder's mid-attention; the VAE decode of SD2.1 at 768² and of SDXL at 1024²
+    encoder's mid-attention, and at batch 1 (the canned train_canny task); the VAE decode of SD2.1 at 768² and of SDXL at 1024²
     (also the VAE encoder of a 1024² img2img pass); the refiner's unguided level 1 at
     1024², which a base -> refiner ensemble runs on K2."""
     q, k, v = (randn((b, l, heads * d), s, cuda) for s in range(3))
@@ -189,10 +190,12 @@ def bound(ref):
 @pytest.mark.parametrize("b,heads,l,d", [(8, 8, 4096, 40), (2, 8, 2304, 80),
                                          (1, 8, 7744, 40), (2, 8, 4225, 40),
                                          (1, 8, 300, 80), (2, 8, 1024, 64),
-                                         (1, 4, 333, 64), (2, 4, 40, 40), (1, 2, 40, 64)])
+                                         (1, 4, 333, 64), (2, 4, 40, 40), (1, 2, 40, 64),
+                                         (1, 8, 4096, 40)])
 def test_k3_k4_match_plain(cuda, b, heads, l, d):
     """dQ, dK, dV from O and LSE of K2, against the plain versions in fp32 on the
-    same bf16 inputs and the same Dcap: the training shape, the 384² and 704²
+    same bf16 inputs and the same Dcap: the training shape (batch 8, and batch 1 of
+    the canned train_canny task), the 384² and 704²
     latents, D 64 (the third instance of both kernels), ragged L (not a multiple of
     the 64-row tile: the kernels set P to 0 by index past L) and L 40, under one tile
     of 64 rows on the ring side and one 128-row stationary tile."""
@@ -392,3 +395,20 @@ def test_bwd_wrappers_raise_on_misaligned_views(cuda):
         fs.stock_flash_bwd_dq(gq, sq, sq, gq, stock_rows, stock_rows, stock_rows, 0.1)
     assert fa.LAUNCHES == {"k1": 0, "k2": 0, "k3": 0, "k4": 0}
     assert fs.LAUNCHES == {"k5_fwd": 0, "k5_dkv": 0, "k5_dq": 0}
+
+
+@pytest.mark.parametrize("size", [512, 1024])
+def test_canny_on_card_equals_cpu(cuda, size):
+    """The Canny annotator on a CUDA tensor stays on the card and gives the CPU's
+    edge map exactly (procedural images of process/diffusiondb_canny), at the three
+    threshold pairs of tests/test_annotators.py, one image and a batch of two."""
+    from controllora_tpu_torch.annotators import canny
+    from controllora_tpu_torch.data.process_datasets import _procedural_image
+
+    imgs = torch.from_numpy(np.stack([_procedural_image(i, size) for i in (0, 1)]))
+    for lo, hi in ((50, 150), (100, 200), (30, 80)):
+        ref = canny(imgs, lo, hi)
+        out = canny(imgs.to(cuda), lo, hi)
+        assert out.device.type == "cuda" and torch.equal(out.cpu(), ref)
+        assert torch.equal(canny(imgs[0].to(cuda), lo, hi).cpu(), ref[0])
+        assert ref.float().mean() > 1.0  # edges fired

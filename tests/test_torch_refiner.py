@@ -142,7 +142,8 @@ def test_denoising_validation(stack):  # noqa: F811
 def test_sample_cli_base_to_refiner(tmp_path, capsys):
     """``python -m controllora_tpu_torch.sample --model_variant smokexl
     --refiner_variant smokeref`` at 64² with a plain LoRA file on the base: two
-    images; with --mask_image, or a refused flag, it stops with the reason."""
+    images; with --mask_image, or the refused --serving_mesh, it stops with the
+    reason; the checkpoint-directory flags parse."""
     lora = tlora.make_plain_lora_adapters(torch.Generator().manual_seed(2), 4,
                                           zoo.SMOKEXL_UNET)
     path = str(tmp_path / "pytorch_lora_weights.safetensors")
@@ -159,8 +160,9 @@ def test_sample_cli_base_to_refiner(tmp_path, capsys):
     with pytest.raises(SystemExit, match="repaint the preserved region"):
         sample.main(base + ["--refiner_variant", "smokeref", "--init_image", path,
                             "--mask_image", path])
-    for flag in ("--pretrained_model_name_or_path", "--refiner_model_path",
-                 "--serving_mesh"):
-        with pytest.raises(SystemExit):
-            sample.parse_args([flag, "x"])
-        assert f"{flag} is not taken by the port" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        sample.parse_args(["--serving_mesh", "x"])
+    assert "--serving_mesh is not taken by the port" in capsys.readouterr().err
+    args = sample.parse_args(["--pretrained_model_name_or_path", "a",
+                              "--refiner_model_path", "b"])
+    assert (args.pretrained_model_name_or_path, args.refiner_model_path) == ("a", "b")

@@ -48,7 +48,7 @@ ARGVS = [[], ["--preset", "exact"], ["--preset", "tome"], ["--preset", "turbo"],
           "--max_wait_ms", "5", "--result_timeout_s", "30", "--host", "127.0.0.1"],
          ["--model_variant", "sd21"], ["--model_variant", "sdxl", "--buckets", "1,2"],
          ["--model_variant", "smoke2"], ["--model_variant", "smokexl", "--preset", "tome"]]
-JAX_ONLY = {"serving_mesh", "pretrained_model_name_or_path"}
+JAX_ONLY = {"serving_mesh"}
 
 
 @pytest.mark.parametrize("argv", ARGVS, ids=lambda a: " ".join(a) or "defaults")

@@ -63,7 +63,9 @@ def test_port_imports_nothing_of_jax():
     for module in ("ops.tome", "serve", "utils.png", "schedulers.ddim", "schedulers.pndm",
                    "schedulers.euler", "schedulers.unipc", "train_dreambooth",
                    "training.dreambooth", "data.fastloader", "data.hf_dataset",
-                   "utils.logging", "sample", "mix_lora", "pipelines.hires", "utils.image"):
+                   "utils.logging", "sample", "mix_lora", "pipelines.hires", "utils.image",
+                   "annotators.canny", "annotators.util", "apps.canny2image", "apps.webui",
+                   "tasks", "convert_checkpoint", "data.process_datasets"):
         assert f"controllora_tpu_torch.{module}" in names.split(), module
 
 
@@ -165,3 +167,33 @@ def test_key_maps_equal():
         for k in a:
             np.testing.assert_array_equal(a[k], b[k])
             np.testing.assert_array_equal(a[k], sd[k])
+
+
+def test_canny_data_and_launcher_copies_equal():
+    """The copies of this slice: the procedural image of process/diffusiondb_canny,
+    the Canny detector's sector constants, ``HWC3``, and the launchers' argument
+    builders (tasks/_launch.py)."""
+    import importlib
+
+    from controllora_tpu.annotators import HWC3 as JHWC3
+    from controllora_tpu.data import process_datasets as jpd
+    from controllora_tpu_torch import tasks
+    from controllora_tpu_torch.annotators import HWC3
+    from controllora_tpu_torch.data import process_datasets as pd
+
+    jcanny = importlib.import_module("controllora_tpu.annotators.canny")
+    tcanny = importlib.import_module("controllora_tpu_torch.annotators.canny")
+    assert (tcanny._TAN22, tcanny._TAN67) == (jcanny._TAN22, jcanny._TAN67)
+    for idx, size in ((0, 128), (7, 576), (123, 96)):
+        np.testing.assert_array_equal(pd._procedural_image(idx, size),
+                                      jpd._procedural_image(idx, size))
+    rgba = np.random.default_rng(0).integers(0, 256, (5, 6, 4), dtype=np.uint8)
+    np.testing.assert_array_equal(HWC3(rgba), JHWC3(rgba))
+    sys.path.insert(0, os.path.join(REPO, "tasks"))
+    try:
+        import _launch
+    finally:
+        sys.path.remove(os.path.join(REPO, "tasks"))
+    for name in ("train_defaults", "test_defaults"):
+        assert (getattr(tasks, name)("a", "process/b", "c", ["--x", "1"])
+                == getattr(_launch, name)("a", "process/b", "c", ["--x", "1"]))
