@@ -130,6 +130,15 @@ Phases, each of which raises (non-zero exit, no result line) when it fails:
               `tasks test_canny` on its output, then convert_checkpoint import-sd,
               export-controllora (its artifact equal to the run's) and
               import-controllora, each a subprocess that must exit 0.
+ 19. annotators  OpenPose (body at detect_resolution 512, the hand net at its four
+              scales), HED and MLSD at 512², MiDaS at 384² and 512², UniFormer at 512²,
+              each from a seeded state dict in its checkpoint's key names, against the
+              same detector on the CPU (raw maps within 1e-3 relative max error; the
+              decoded peaks, centres and labels and the uint8 maps equal, or differing
+              only at near-ties and level boundaries, counted), ms an image; the
+              pose2image web UI answering one POST /api at 512² with the app's defaults
+              (30 steps, CFG 9): exact launches {k1 150, k2 1}, wall and device busy
+              time, the PNGs written.
 The last lines are the kernel record (each route with the CUDA kernel it launches),
 the card's name and power limit, and {"ok": true, "device": {...}}.
 """
@@ -2941,6 +2950,301 @@ def phase_weights(torch, fa, card):
     return total
 
 
+
+ANNOTATOR_RES = 512  # the reference's detect_resolution and MLSD's, HED's working size
+MIDAS_SIZES = (384, 512)
+ANNOTATOR_REL = 1e-3  # max|card - CPU| / max|CPU| of each net's raw maps
+POSE_STEPS, POSE_CFG = 30, 9.0  # the pose2image app's defaults
+POSE_VARIANT = "sd15"
+
+
+def rel_max(out, ref):
+    out, ref = out.double().cpu(), ref.double().cpu()
+    return float((out - ref).abs().max() / ref.abs().max())
+
+
+def held(name, out, ref):
+    """The card's raw map against the CPU's: relative max error <= ANNOTATOR_REL."""
+    err = rel_max(out, ref)
+    if not err <= ANNOTATOR_REL:
+        raise AssertionError(f"{name}: card vs CPU relative max error {err:.3g}")
+    return err
+
+
+def truncation_diff(name, card_u8, card_f, cpu_f):
+    """Pixels where the card's uint8 map differs from the CPU's float map truncated
+    to uint8: allowed only where the CPU float lies within max|card_f - cpu_f| of a
+    level boundary, and by one level; returns their count."""
+    import numpy as np
+
+    card_f, cpu_f = card_f.double().cpu().numpy(), cpu_f.double().cpu().numpy()
+    want = np.clip(cpu_f, 0, 255).astype(np.uint8)
+    margin = float(np.abs(card_f - cpu_f).max())
+    frac = cpu_f - np.floor(cpu_f)
+    differ = card_u8 != want
+    near = (frac <= margin) | (frac >= 1 - margin)
+    if (differ & ~near).any() or np.abs(card_u8.astype(np.int16) - want).max() > 1:
+        raise AssertionError(f"{name}: {int((differ & ~near).sum())} uint8 pixels differ "
+                             f"from the CPU's away from a level boundary")
+    return int(differ.sum())
+
+
+def peak_diff(torch, heat, cheat):
+    """OpenPose's peak masks from the card's and the CPU's heatmaps: positions that
+    differ must be near-ties of the blurred maps (a neighbour or the 0.1 threshold
+    within twice the blurs' difference); returns their count."""
+    from controllora_tpu_torch.annotators.openpose import _shifted, gaussian_blur, peak_mask
+
+    mask, cmask = peak_mask(heat[:, :, :18]).cpu(), peak_mask(cheat[:, :, :18])
+    b = gaussian_blur(cheat[:, :, :18].permute(2, 0, 1), 3.0, 12)
+    delta = float((gaussian_blur(heat[:, :, :18].permute(2, 0, 1), 3.0, 12).cpu() - b).abs().max())
+    margin = (b - 0.1).abs()
+    for axis in (1, 2):
+        for step in (1, -1):
+            margin = torch.minimum(margin, (b - _shifted(b, axis, step)).abs())
+    differ = (mask != cmask).permute(2, 0, 1)
+    if (differ & (margin > 2 * delta)).any():
+        raise AssertionError("openpose: a peak differs from the CPU's away from a near-tie")
+    return int(differ.sum())
+
+
+def detector_profile(torch, fn):
+    """One call of fn under the profiler (device activity only): its device busy ms
+    against its wall ms, and the two kernels that took most of the card."""
+    wall, busy, top = device_profile(torch, fn, host=False)
+    kernels = ", ".join(f"{name[:48]} {ms:.1f} ms" for name, ms in top[:2])
+    return f"one profiled call: device busy {busy * 1e3:.1f} ms of {wall * 1e3:.1f} ms wall ({kernels})"
+
+
+def phase_annotators(torch, fa, card):
+    """The five annotators on the card at the reference's working sizes, each from a
+    seeded state dict in its checkpoint's key names (He-scaled fills), against the
+    same detector on the CPU, fp32 with TF32 off: OpenPose body at detect_resolution
+    512 (scale 0.5 of boxsize 368) and its hand net at the four scales, HED and MLSD
+    at 512², MiDaS at 384² and 512², UniFormer at 512²; raw maps within
+    ANNOTATOR_REL, the decoded peaks, centres, labels and uint8 maps equal or
+    differing only where the text says why; ms per image (events, median of 10).
+    Then the pose2image app's web UI answers one POST /api at 512² with the app's
+    defaults (30 steps, CFG 9), launches exactly {k1 30 x 5, k2 1}, with its wall
+    and device busy time and the PNGs it answers written and read back. Returns the
+    request's launches."""
+    import base64
+    import threading
+    import urllib.request
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from controllora_tpu_torch.annotators import hed, midas, mlsd, openpose, uniformer
+    from controllora_tpu_torch.annotators.util import seeded_state_dict
+    from controllora_tpu_torch.apps import pose2image
+    from controllora_tpu_torch.apps.webui import build_server
+    from controllora_tpu_torch.data.process_datasets import _procedural_image
+    from controllora_tpu_torch.models import zoo
+    from controllora_tpu_torch.training.checkpoint import save_control_lora
+    from controllora_tpu_torch.utils.image import resize_jax
+    from controllora_tpu_torch.utils.png import decode_png, encode_png
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    device = torch.device(CLI_DEVICE)
+    img = _procedural_image(3, ANNOTATOR_RES)
+
+    def seeded(net_cls, seed=0):
+        with torch.device("meta"):
+            return seeded_state_dict(net_cls(), seed)
+
+    # OpenPose: body maps, peaks, skeleton; the hand net at its four scales
+    t0 = time.perf_counter()
+    body, hand = seeded(openpose.BodyposeModel), seeded(openpose.HandposeModel, 1)
+    det = openpose.OpenposeDetector(body, hand, device=device)
+    ref = openpose.OpenposeDetector(body, hand, device="cpu")
+    (paf, heat), (cpaf, cheat) = det.infer_maps(img), ref.infer_maps(img)
+    errs = (held("openpose paf", paf, cpaf), held("openpose heat", heat, cheat))
+    peaks_off = peak_diff(torch, heat, cheat)
+    t1 = time.perf_counter()
+    canvas, pose = det(img)
+    call_s = time.perf_counter() - t1
+    cpeaks = openpose.find_peaks(cheat[:, :, :18])
+    ccandidate, csubset = openpose.assemble_people(
+        cpeaks, openpose.score_limbs(cpaf.numpy(), cpeaks, ANNOTATOR_RES))
+    ccanvas = openpose.draw_bodypose(np.zeros_like(img), ccandidate, csubset)
+    canvas_off = int((canvas != ccanvas).any(-1).sum())
+    if peaks_off == 0 and canvas_off:
+        raise AssertionError("openpose: equal peaks, but the skeletons differ")
+    ms = cuda_ms(lambda: openpose.peak_mask(det.infer_maps(img)[1][:, :, :18]))
+    n_peaks = sum(len(p) for p in openpose.find_peaks(heat[:, :, :18]))
+    log(f"annotators openpose: body at detect_resolution {ANNOTATOR_RES} (net at 184² + "
+        f"bicubic maps), relative max error paf {errs[0]:.2e}, heat {errs[1]:.2e}; {n_peaks} "
+        f"peaks, {peaks_off} peak pixels differ from the CPU's (near-ties of the blurred "
+        f"maps); {len(pose['bodies']['subset'])} people, skeleton pixels differing {canvas_off}; "
+        f"maps and peak mask {ms:.3f} ms an image on the card (events, median of 10), the "
+        f"whole detector call with the host decode (PAF scoring of every peak pair) "
+        f"{call_s * 1e3:.1f} ms (host clock, one call); "
+        f"{detector_profile(torch, lambda: det.infer_maps(img))}; {card}")
+    r = ANNOTATOR_RES
+    crop = np.ascontiguousarray(img[r // 4:3 * r // 4, r // 4:3 * r // 4])
+    hm, chm = det.infer_hand(crop), ref.infer_hand(crop)
+    err = held("openpose hand", hm, chm)
+    hand_peaks, chand_peaks = openpose.decode_hand_peaks(hm), openpose.decode_hand_peaks(chm)
+    hand_off = int((hand_peaks != chand_peaks).any(-1).sum())
+    ms = cuda_ms(lambda: det.infer_hand(crop))
+    log(f"annotators openpose hand: {r // 2}² crop at scales 184/368/552/736, relative max error "
+        f"{err:.2e}; {hand_off} of 21 keypoints differ from the CPU's; {ms:.3f} ms a crop "
+        f"(events, median of 10); {detector_profile(torch, lambda: det.infer_hand(crop))}; "
+        f"{card}; {time.perf_counter() - t0:.1f} s")
+    del det, ref
+
+    # HED: edges, the uint8 map, the scribble nms
+    t0 = time.perf_counter()
+    sd = seeded(hed.HEDNetwork)
+    det, ref = hed.HEDdetector(sd, device=device), hed.HEDdetector(sd, device="cpu")
+    edge, cedge = det.edge(img), ref.edge(img)
+    err = held("hed", edge, cedge)
+    out = det(img)
+    off = truncation_diff("hed", out, (edge * 255).clamp(0, 255), (cedge * 255).clamp(0, 255))
+    scribble = torch.from_numpy(out.astype(np.float32))
+    if not torch.equal(hed.hed_nms(scribble.to(device), 127, 3.0).cpu(),
+                       hed.hed_nms(scribble, 127, 3.0)):
+        raise AssertionError("hed nms: the card differs from the CPU on the same map")
+    ms = cuda_ms(lambda: det(img))
+    log(f"annotators hed: {ANNOTATOR_RES}², relative max error {err:.2e}; uint8 pixels "
+        f"differing {off} (each within the floats' difference of a level boundary); nms "
+        f"card == CPU exactly; {ms:.3f} ms an image (events, median of 10); "
+        f"{detector_profile(torch, lambda: det(img))}; {card}; {time.perf_counter() - t0:.1f} s")
+    del det, ref
+
+    # MLSD: the tpMap, the centre decode, the lines and their map
+    t0 = time.perf_counter()
+    sd = seeded(mlsd.MobileV2MLSDLarge)
+    det, ref = mlsd.MLSDdetector(sd, device=device), mlsd.MLSDdetector(sd, device="cpu")
+    x = resize_jax(torch.from_numpy(img).float(), 512, 512, "linear")
+    x = (torch.cat([x, torch.ones_like(x[:, :, :1])], -1) / 127.5 - 1.0).permute(2, 0, 1)[None]
+    with torch.no_grad():
+        tp, ctp = det.model(x.to(device)), ref.model(x)
+    err = held("mlsd", tp, ctp)
+    centres = [torch.stack(c[1:3]).cpu() for c in (mlsd.decode_centers(tp),
+                                                  mlsd.decode_centers(ctp))]
+    centres_off = int((centres[0] != centres[1]).any(0).sum())
+    lines, clines = mlsd.pred_lines(img, det.model), mlsd.pred_lines(img, ref.model)
+    line_err = (float(np.abs(lines - clines).max()) if lines.shape == clines.shape
+                else f"{len(lines)} vs {len(clines)} lines")
+    off = int((det(img) != ref(img)).sum())
+    ms = cuda_ms(lambda: det(img))
+    log(f"annotators mlsd: {ANNOTATOR_RES}², relative max error {err:.2e}; of the top 200 "
+        f"centres {centres_off} differ from the CPU's in place (ties of the sigmoid scores "
+        f"reorder); {len(lines)} lines, max coordinate difference {line_err}; line-map "
+        f"pixels differing {off}; {ms:.3f} ms an image (events, median of 10); "
+        f"{detector_profile(torch, lambda: det(img))}; {card}; {time.perf_counter() - t0:.1f} s")
+    del det, ref
+
+    # MiDaS: depth, depth and normal uint8 maps at 384² and 512²
+    t0 = time.perf_counter()
+    sd = seeded(midas.DPTHybridDepth)
+    det, ref = midas.MidasDetector(sd, device=device), midas.MidasDetector(sd, device="cpu")
+    for size in MIDAS_SIZES:
+        im = _procedural_image(5, size)
+        d, cd = det.depth(im), ref.depth(im)
+        err = held(f"midas {size}", d, cd)
+        (n01, n), (cn01, cn) = midas.depth_to_normal(d), midas.depth_to_normal(cd)
+        depth, normal = det(im)
+        off = (truncation_diff("midas depth", depth, (n01 * 255).clamp(0, 255),
+                               (cn01 * 255).clamp(0, 255)),
+               truncation_diff("midas normal", normal, (n * 127.5 + 127.5).clamp(0, 255),
+                               (cn * 127.5 + 127.5).clamp(0, 255)))
+        ms = cuda_ms(lambda: det(im))
+        log(f"annotators midas: {size}², relative max error {err:.2e}; uint8 pixels differing "
+            f"depth {off[0]}, normal {off[1]} (each within the floats' difference of a level "
+            f"boundary); {ms:.3f} ms an image (events, median of 10); "
+            f"{detector_profile(torch, lambda: det(im))}; {card}")
+    log(f"annotators midas {time.perf_counter() - t0:.1f} s")
+    del det, ref
+
+    # UniFormer: logits, labels, the colour map
+    t0 = time.perf_counter()
+    sd = seeded(uniformer.UniFormerSeg)
+    det, ref = (uniformer.UniformerDetector(sd, device=device),
+                uniformer.UniformerDetector(sd, device="cpu"))
+    logits, clogits = det.logits(img), ref.logits(img)
+    err = held("uniformer", logits, clogits)
+    labels, clabels = (resize_jax(lg.argmax(0), *img.shape[:2], "nearest").cpu()
+                       for lg in (logits, clogits))
+    top2 = clogits.topk(2, dim=0).values
+    clear = (top2[0] - top2[1]) > 2 * float((logits.cpu() - clogits).abs().max())
+    if not torch.equal(labels[clear], clabels[clear]):
+        raise AssertionError("uniformer: a label with a clear margin differs from the CPU's")
+    off = int((labels != clabels).sum())
+    ms = cuda_ms(lambda: det(img))
+    log(f"annotators uniformer: {ANNOTATOR_RES}², relative max error {err:.2e}; "
+        f"{len(torch.unique(labels))} classes, labels differing {off} (each a near-tie of "
+        f"the top two logits); {ms:.3f} ms an image (events, median of 10); "
+        f"{detector_profile(torch, lambda: det(img))}; {card}; {time.perf_counter() - t0:.1f} s")
+    del det, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the pose2image app over HTTP at 512² with its defaults
+    with tempfile.TemporaryDirectory() as tmp:
+        unet_config = zoo.VARIANTS[POSE_VARIANT][0]
+        control = base_control(torch, unet_config, device,
+                               torch.Generator(device=device).manual_seed(21))
+        save_control_lora(os.path.join(tmp, "control"), control)
+        torch.save({k: torch.from_numpy(v) for k, v in body.items()},
+                   os.path.join(tmp, "body_pose_model.pth"))
+        t0 = time.perf_counter()
+        process = pose2image.build_processor(SimpleNamespace(
+            pretrained_model_name_or_path=None, model_variant=POSE_VARIANT,
+            control_lora_dir=os.path.join(tmp, "control"),
+            openpose_weights=os.path.join(tmp, "body_pose_model.pth"), device=CLI_DEVICE))
+        build_s = time.perf_counter() - t0
+        server = build_server("pose2image", process, pose2image.DEFAULTS, host="127.0.0.1",
+                              port=0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        req = dict(image=base64.b64encode(encode_png(img)).decode("ascii"), prompt="a dancer",
+                   num_samples=1, image_resolution=ANNOTATOR_RES,
+                   detect_resolution=ANNOTATOR_RES, ddim_steps=POSE_STEPS, scale=POSE_CFG,
+                   seed=42)
+        answer = {}
+
+        def request():
+            r = urllib.request.Request(f"http://127.0.0.1:{server.server_address[1]}/api",
+                                       data=json.dumps(req).encode(),
+                                       headers={"Content-Type": "application/json"})
+            answer.update(json.loads(urllib.request.urlopen(r, timeout=900).read()))
+
+        try:
+            fa.reset_launch_counts()  # the request's main path starts here
+            wall, busy, top = device_profile(torch, request, host=False)
+            used = dict(fa.LAUNCHES)  # and ends here
+        finally:
+            server.shutdown()
+            thread.join(timeout=60)
+            server.server_close()
+        written = []
+        for i, b64 in enumerate(answer["images"]):
+            path = os.path.join(tmp, f"{i}.png")
+            with open(path, "wb") as f:
+                f.write(base64.b64decode(b64))
+            with open(path, "rb") as f:
+                written.append(decode_png(f.read()))
+    want = {"k1": POSE_STEPS * k1_per_eval(unet_config, ANNOTATOR_RES),
+            "k2": int((ANNOTATOR_RES // 8) ** 2 >= 4096), "k3": 0, "k4": 0}
+    if ([w.shape for w in written] != [(ANNOTATOR_RES, ANNOTATOR_RES, 3)] * 2 or used != want
+            or not written[0].any()):
+        raise AssertionError(f"pose2image: PNGs {[w.shape for w in written]}, launches {used} "
+                             f"(want {want})")
+    log(f"annotators pose2image: POST /api to python -m controllora_tpu_torch.apps.pose2image's "
+        f"web UI (random {POSE_VARIANT} stack and OpenPose built in {build_s:.1f} s): {ANNOTATOR_RES}² PNG "
+        f"in, detect_resolution {ANNOTATOR_RES}, {POSE_STEPS} steps, CFG {POSE_CFG}, 1 sample: "
+        f"{wall:.3f} s wall, device busy {busy:.3f} s (idle share {1 - busy / wall:.3f}); "
+        f"{len(written)} {ANNOTATOR_RES}² PNGs written and read back, skeleton "
+        f"{int(written[0].any(-1).sum())} pixels; launches {used}; {card}")
+    log(f"annotators phase {time.perf_counter() - t_phase:.1f} s; main-path launches {used}")
+    return used
+
+
 def main():
     import torch
 
@@ -3000,11 +3304,14 @@ def main():
     phase_train_cli(torch, card)
     dreambooth = phase_dreambooth(torch, fa, card)
     weights = phase_weights(torch, fa, card)
+    annotators = phase_annotators(torch, fa, card)
     # launches on the main paths, each counted from 0: serving, the serving presets,
     # training (K1-K4), the render modes, the other families' renders and request,
-    # their training and DreamBooth's steps, the loaded stack's renders and the app's
-    # request, then training under CONTROLLORA_FLASH_IMPL=stock (K5)
-    paths = (serve, presets, train, modes, families, family_train, dreambooth, weights)
+    # their training and DreamBooth's steps, the loaded stack's renders and the
+    # canny2image request, the pose2image request, then training under
+    # CONTROLLORA_FLASH_IMPL=stock (K5)
+    paths = (serve, presets, train, modes, families, family_train, dreambooth, weights,
+             annotators)
     launches = {n: sum(p.get(n, 0) for p in paths) for n in serve}
     launches.update({n: stock[n] for n in fs.LAUNCHES})
 

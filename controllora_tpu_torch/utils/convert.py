@@ -461,3 +461,209 @@ def checkpoint_state_dict(path: str, prefix: str = "") -> Dict[str, torch.Tensor
     (``normalize_keys``), each key under ``prefix`` (SDXL's towers ``te1.`` and
     ``te2.``), for one strict ``load_state_dict``."""
     return {prefix + k: v for k, v in normalize_keys(load_tensors(path)).items()}
+
+
+# ---------------------------------------------------------------------------- annotators
+# The inverse of the JAX package's five importers (``openpose_params_from_torch``
+# with and without ``hand``, ``hed_``, ``mlsd_``, ``midas_`` and
+# ``uniformer_params_from_torch``): each checkpoint key of the port's nets to its flax
+# path, in the port's own copy of those importers' naming rules.
+
+
+def _annotator_nets():
+    from controllora_tpu_torch.annotators.hed import HEDNetwork
+    from controllora_tpu_torch.annotators.midas import DPTHybridDepth
+    from controllora_tpu_torch.annotators.mlsd import MobileV2MLSDLarge
+    from controllora_tpu_torch.annotators.openpose import BodyposeModel, HandposeModel
+    from controllora_tpu_torch.annotators.uniformer import UniFormerSeg
+
+    return {"openpose": BodyposeModel, "openpose_hand": HandposeModel, "hed": HEDNetwork,
+            "mlsd": MobileV2MLSDLarge, "midas": DPTHybridDepth, "uniformer": UniFormerSeg}
+
+
+ANNOTATOR_KINDS = ("openpose", "openpose_hand", "hed", "mlsd", "midas", "uniformer")
+# checkpoint keys the nets have no place for (the JAX importers skip them too): the
+# ViT's final norm and classifier, mmseg's training-only auxiliary head
+_UNUSED_PREFIXES = {"midas": ("pretrained.model.norm.", "pretrained.model.head."),
+                    "uniformer": ("auxiliary_head.",)}
+# the deepest MiDaS fusion block's first residual unit: in the checkpoint, unused by
+# either forward, absent from a tree that flax's init made
+_MIDAS_UNUSED = "scratch.refinenet4.resConfUnit1."
+
+
+def _openpose_path(parts, hand):
+    mod, layer = parts[0], parts[1]
+    if hand and mod == "model1_1":
+        return (f"model1_1_{layer}",)
+    if layer.startswith("Mconv"):
+        return (mod, f"{mod}_{layer.split('_')[0]}")
+    if layer.startswith("conv5_") and "CPM" in layer:
+        return (mod, f"{mod}_{'_'.join(layer.split('_')[:3])}")
+    return (mod, f"{mod}_{layer}")
+
+
+def _hed_path(parts):
+    name = parts[0]
+    if name.startswith("netVgg"):
+        first = 0 if name == "netVggOne" else 1
+        return (f"{name}_{(int(parts[1]) - first) // 2}",)
+    return (name,)
+
+
+def _mlsd_path(parts, keys):
+    if parts[0] == "backbone":
+        mod = f"features_{parts[2]}"
+        if parts[2] == "0":
+            return (mod, "conv" if parts[3] == "0" else "bn")
+        expand = any(k.startswith(f"backbone.features.{parts[2]}.conv.3.") for k in keys)
+        kind = (("expand", "dw", "project", "project_bn") if expand
+                else ("dw", "project", "project_bn"))[int(parts[4])]
+        if kind in ("expand", "dw"):
+            return (mod, kind, "conv" if parts[5] == "0" else "bn")
+        return (mod, kind)
+    mod, sub = parts[0], parts[1]
+    if mod == "block23":
+        if sub == "conv3":
+            return (mod, "conv3")
+        return (mod, sub if parts[2] == "0" else sub.replace("conv", "bn"))
+    return (mod, sub, "conv" if parts[2] == "0" else "bn")
+
+
+def _midas_path(parts):
+    if parts[:4] == ["pretrained", "model", "patch_embed", "backbone"]:
+        rest = parts[4:]
+        if rest[0] == "stem":
+            return ("backbone", f"stem_{rest[1]}")
+        base = ("backbone", f"stage{rest[1]}_block{rest[3]}")
+        if rest[4] == "downsample":
+            return base + (f"downsample_{rest[5]}",)
+        return base + (rest[4],)
+    if parts[:3] == ["pretrained", "model", "patch_embed"]:
+        return ("patch_proj",)
+    if parts[:2] == ["pretrained", "model"]:
+        return (f"block{parts[3]}", parts[5] if parts[4] in ("attn", "mlp") else parts[4])
+    if parts[0] == "pretrained":
+        idx, seq = int(parts[1][len("act_postprocess"):]), int(parts[2])
+        if seq == 0:
+            return (f"readout{idx}_project",)
+        if seq == 3:
+            return ("postprocess3" if idx == 3 else "postprocess4_proj",)
+        return ("postprocess4_down",)
+    if parts[1].startswith("layer"):
+        return (parts[1],)
+    if parts[1].startswith("refinenet"):
+        return (parts[1],) + tuple(parts[2:])
+    return ({"0": "head_conv1", "2": "head_conv2", "4": "head_conv3"}[parts[2]],)
+
+
+def _uniformer_path(parts):
+    if parts[0] == "backbone":
+        rest = parts[1:]
+        if rest[0].startswith("patch_embed"):
+            return ("backbone", f"{rest[0]}_{rest[1]}")
+        if rest[0].startswith("norm"):
+            return ("backbone", rest[0])
+        base = ("backbone", f"{rest[0]}_{rest[1]}")
+        if rest[2] == "mlp":
+            return base + (f"mlp_{rest[3]}",)
+        if rest[2] == "attn" and len(rest) > 3:  # an SABlock's qkv and proj
+            return base + (rest[3],)
+        return base + (rest[2],)
+    rest = parts[1:]
+    if rest[0] == "psp_modules":
+        return ("decode_head", f"psp_{rest[1]}", rest[3])
+    if rest[0] in ("lateral_convs", "fpn_convs"):
+        return ("decode_head", f"{rest[0].split('_')[0]}_{rest[1]}", rest[2])
+    if rest[0] == "conv_seg":
+        return ("decode_head", "conv_seg")
+    return ("decode_head", rest[0], rest[1])
+
+
+def _flax_path(kind: str, key: str, keys) -> tuple:
+    if key.endswith(("cls_token", "pos_embed")):  # MiDaS's bare parameters
+        return (key.rsplit(".", 1)[-1],)
+    parts = key.split(".")[:-1]
+    if kind in ("openpose", "openpose_hand"):
+        return _openpose_path(parts, kind == "openpose_hand")
+    if kind == "hed":
+        return _hed_path(parts)
+    if kind == "mlsd":
+        return _mlsd_path(parts, keys)
+    if kind == "midas":
+        return _midas_path(parts)
+    return _uniformer_path(parts)
+
+
+_BN_LEAVES = {"weight": "scale", "bias": "bias", "running_mean": "mean", "running_var": "var"}
+
+
+def annotator_state_dict(kind: str, params: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """A flax parameter tree of the JAX package's annotator ``kind`` (numpy arrays,
+    as its ``*_params_from_torch`` makes it) -> the port's state dict in the reference
+    checkpoint's key names. Kernels go back to torch's (out, in, kh, kw) and (out,
+    in); batch norm's scale/bias/mean/var to weight/bias/running_mean/running_var,
+    with ``num_batches_tracked`` 0. MiDaS's StdConv kernels come back as the JAX
+    package stored them, already standardised: the port standardises at forward
+    time, and standardising a standardised kernel again changes it only by the eps.
+    The unused ``scratch.refinenet4.resConfUnit1`` of MiDaS is zero where the tree
+    lacks it."""
+    with torch.device("meta"):
+        net = _annotator_nets()[kind]()
+    keys = list(net.state_dict())
+    out = {}
+    for key, t in net.state_dict().items():
+        leaf = key.rsplit(".", 1)[-1]
+        if leaf == "num_batches_tracked":
+            out[key] = np.zeros((), np.int64)
+            continue
+        node = params
+        try:
+            for p in _flax_path(kind, key, keys):
+                node = node[p]
+        except KeyError:
+            if kind == "midas" and key.startswith(_MIDAS_UNUSED):
+                out[key] = np.zeros(tuple(t.shape), np.float32)
+                continue
+            raise KeyError(f"{kind}: no flax parameter for {key}") from None
+        if not isinstance(node, dict):  # cls_token, pos_embed
+            w = np.asarray(node)
+        elif "mean" in node:
+            w = np.asarray(node[_BN_LEAVES[leaf]])
+        elif leaf == "bias":
+            w = np.asarray(node["bias"])
+        elif "kernel" in node:
+            w = np.asarray(node["kernel"])
+            w = np.transpose(w, (3, 2, 0, 1)) if w.ndim == 4 else w.T
+        else:
+            w = np.asarray(node["scale"])
+        if w.shape != tuple(t.shape):
+            raise ValueError(f"{kind}: {key} has shape {w.shape}, the net wants {tuple(t.shape)}")
+        out[key] = np.ascontiguousarray(w)
+    return out
+
+
+def annotator_file_state_dict(kind: str, path: str, device="cpu") -> Dict[str, torch.Tensor]:
+    """A reference annotator checkpoint (``torch.load``, weights only, onto
+    ``device``) in the port's key names: mmseg's nested ``"state_dict"`` taken,
+    HED's ``module`` prefix renamed ``net`` (as the reference does), the CMU files'
+    flat keys (``conv1_1.weight``) put under their modules as the reference's
+    ``util.transfer`` does, and the keys the nets have no place for dropped."""
+    sd = torch.load(path, map_location=device, weights_only=True)
+    sd = sd.get("state_dict", sd)
+    if kind == "hed":
+        sd = {k.replace("module", "net"): v for k, v in sd.items()}
+    if kind in ("openpose", "openpose_hand") and not any(k.startswith("model") for k in sd):
+        with torch.device("meta"):
+            names = list(_annotator_nets()[kind]().state_dict())
+        sd = {k: sd[k.split(".", 1)[1]] for k in names}
+    drop = _UNUSED_PREFIXES.get(kind, ())
+    return {k: v for k, v in sd.items() if not k.startswith(drop)}
+
+
+def load_annotator(kind: str, path: str, device="cuda") -> nn.Module:
+    """The annotator net ``kind`` (one of ``ANNOTATOR_KINDS``) on ``device`` in eval
+    mode, holding the reference checkpoint at ``path``, loaded strict."""
+    from controllora_tpu_torch.annotators.util import build_net
+
+    return build_net(_annotator_nets()[kind], annotator_file_state_dict(kind, path, device),
+                     device)

@@ -11,8 +11,11 @@ kernel widened by the scale when shrinking, fixed-point weights with 22 fraction
 bits, the horizontal pass first, uint8 between the passes), so they equal PIL's
 output. Other formats are refused with the reason. ``resize_linear`` is the
 antialiased bilinear resize of float images that the pipeline (the inpaint mask)
-and the hires fix share; ``resize_jax`` is ``jax.image.resize`` itself
-(``"linear"`` or ``"lanczos3"``), one weight matrix per axis, for the annotators.
+and the hires fix share; ``resize_jax`` is ``jax.image.resize`` itself for the
+annotators: ``"linear"``/``"bilinear"``, ``"cubic"``/``"bicubic"`` (Keys, a = -0.5)
+and ``"lanczos3"`` as one weight matrix per axis, antialiased when shrinking, and
+``"nearest"`` by jax's half-pixel rule. ``resize_align_corners`` is the bilinear
+``align_corners=True`` upsampling of the MLSD and MiDaS decoders.
 """
 
 from __future__ import annotations
@@ -130,12 +133,24 @@ def _triangle(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(1.0 - x.abs(), min=0.0)
 
 
+def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
+    """Keys' cubic convolution kernel with a = -0.5 (jax's ``_keys_cubic_kernel``;
+    ``F.interpolate(mode="bicubic")`` takes a = -0.75), of |x|."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, 0.0, out)
+
+
+_KERNELS = {"linear": _triangle, "bilinear": _triangle, "cubic": _keys_cubic,
+            "bicubic": _keys_cubic, "lanczos3": _lanczos3}
+
+
 def resize_weights(in_size: int, out_size: int, method: str) -> torch.Tensor:
     """(out_size, in_size) fp32 weights of one axis of ``jax.image.resize(...,
     method, antialias=True)`` (jax ``image/scale.py`` ``compute_weight_mat``): the
     kernel's support scaled by 1/scale when shrinking, each output's weights
     normalised, outputs whose sample lies outside the input zeroed."""
-    kernel = {"linear": _triangle, "lanczos3": _lanczos3}[method]
+    kernel = _KERNELS[method]
     inv_scale = 1.0 / (out_size / in_size)
     sample = (torch.arange(out_size, dtype=torch.float32) + 0.5) * inv_scale - 0.5
     x = ((sample[None, :] - torch.arange(in_size, dtype=torch.float32)[:, None]).abs()
@@ -148,16 +163,39 @@ def resize_weights(in_size: int, out_size: int, method: str) -> torch.Tensor:
     return torch.where(inside[None, :], w, 0.0).T.contiguous()
 
 
-def resize_jax(image: torch.Tensor, height: int, width: int, method: str) -> torch.Tensor:
-    """(H, W, C) float -> (height, width, C) fp32 on the image's device, as
-    ``jax.image.resize(image, (height, width, C), method)``: one weight matrix per
-    axis that changes size (``resize_weights``)."""
-    x = image.float()
-    for axis, size in ((0, height), (1, width)):
-        if x.shape[axis] != size:
+def nearest_indices(in_size: int, out_size: int) -> torch.Tensor:
+    """jax's ``"nearest"`` source index of each output, floor((i + 0.5) * in / out)
+    in fp32, rounded as XLA compiles it: the constants folded first, (i + 0.5) *
+    fp32(in * fp32(1 / out)) (half-pixel centres; ``F.interpolate(mode="nearest")``
+    takes floor(i * in / out))."""
+    scale = torch.ones((), dtype=torch.float32) / out_size * in_size
+    return torch.floor((torch.arange(out_size, dtype=torch.float32) + 0.5) * scale
+                       ).to(torch.int64)
+
+
+def resize_jax(image: torch.Tensor, height: int, width: int, method: str,
+               dims=(0, 1)) -> torch.Tensor:
+    """``jax.image.resize`` of ``image`` to (height, width) along its axes ``dims``
+    ((H, W, C) by default; ``dims=(-2, -1)`` for NCHW), on the image's device:
+    fp32 through one weight matrix per axis that changes size (``resize_weights``),
+    or, for ``"nearest"``, an index gather in the input's dtype."""
+    x = image if method == "nearest" else image.float()
+    for axis, size in zip(dims, (height, width)):
+        if x.shape[axis] == size:
+            continue
+        if method == "nearest":
+            x = x.index_select(axis, nearest_indices(x.shape[axis], size).to(x.device))
+        else:
             w = resize_weights(x.shape[axis], size, method).to(x.device)
             x = torch.tensordot(w, x.movedim(axis, 0), dims=1).movedim(0, axis)
     return x
+
+
+def resize_align_corners(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """(B, C, h, w) -> (B, C, height, width): bilinear with align_corners=True, source
+    row i * (h - 1) / (height - 1) (the JAX package's ``_resize_align_corners`` of
+    MLSD's BlockTypeA and MiDaS's fusion blocks)."""
+    return F.interpolate(x, size=(height, width), mode="bilinear", align_corners=True)
 
 
 def resize_linear(images, height: int, width: int, device="cpu") -> torch.Tensor:

@@ -65,7 +65,9 @@ def test_port_imports_nothing_of_jax():
                    "training.dreambooth", "data.fastloader", "data.hf_dataset",
                    "utils.logging", "sample", "mix_lora", "pipelines.hires", "utils.image",
                    "annotators.canny", "annotators.util", "apps.canny2image", "apps.webui",
-                   "tasks", "convert_checkpoint", "data.process_datasets"):
+                   "tasks", "convert_checkpoint", "data.process_datasets",
+                   "annotators.openpose", "annotators.hed", "annotators.mlsd",
+                   "annotators.midas", "annotators.uniformer", "apps.pose2image"):
         assert f"controllora_tpu_torch.{module}" in names.split(), module
 
 
@@ -197,3 +199,61 @@ def test_canny_data_and_launcher_copies_equal():
     for name in ("train_defaults", "test_defaults"):
         assert (getattr(tasks, name)("a", "process/b", "c", ["--x", "1"])
                 == getattr(_launch, name)("a", "process/b", "c", ["--x", "1"]))
+
+
+# the annotators' host code and tables, copied from the JAX package verbatim
+ANNOTATOR_COPIES = {
+    "openpose": ("score_limbs", "assemble_people", "_draw_line", "draw_bodypose", "hand_detect",
+                 "draw_handpose", "LIMB_SEQ", "PAF_IDX", "_LIMB_COLORS", "_HAND_EDGES",
+                 "_VGG_TRUNK", "_HAND_TRUNK"),
+    "mlsd": ("_maxfilter5", "squares_from_segments", "DEFAULT_SQUARE_PARAMS", "_IR_SETTING",
+             "_FPN_SELECTED"),
+    "hed": ("_BGR_MEAN", "_STAGES", "_STAGE_NAMES"),
+    "uniformer": ("ade_palette", "_DIMS", "_DEPTHS", "_HEAD_DIM", "_IMAGENET_MEAN",
+                  "_IMAGENET_STD"),
+}
+
+
+def test_annotator_copies_equal():
+    """The copied numpy functions have the JAX originals' source, line for line, and
+    the copied tables their values; the functions also give the same results on the
+    JAX tests' synthetic scenes (decode, drawing, hand boxes, squares)."""
+    import importlib
+    import inspect
+
+    for name, attrs in ANNOTATOR_COPIES.items():
+        ours = importlib.import_module(f"controllora_tpu_torch.annotators.{name}")
+        ref = importlib.import_module(f"controllora_tpu.annotators.{name}")
+        for attr in attrs:
+            a, b = getattr(ours, attr), getattr(ref, attr)
+            if callable(a):
+                assert inspect.getsource(a) == inspect.getsource(b), f"{name}.{attr}"
+            else:
+                assert a == b, f"{name}.{attr}"
+
+    from controllora_tpu.annotators import mlsd as jm
+    from controllora_tpu.annotators import openpose as jo
+    from controllora_tpu_torch.annotators import mlsd as pm
+    from controllora_tpu_torch.annotators import openpose as po
+    from test_mlsd import _square_scene_segments
+    from test_openpose import synth_scene, two_person_scene
+
+    heat, paf = synth_scene(two_person_scene())
+    peaks = jo.find_peaks(heat[:, :, :18])
+    conns, jconns = po.score_limbs(paf, peaks, 96), jo.score_limbs(paf, peaks, 96)
+    for a, b in zip(conns, jconns):
+        np.testing.assert_array_equal(a, b)
+    (cand, sub), (jcand, jsub) = po.assemble_people(peaks, conns), jo.assemble_people(peaks, conns)
+    np.testing.assert_array_equal(sub, jsub)
+    np.testing.assert_array_equal(
+        po.draw_bodypose(np.zeros((96, 96, 3), np.uint8), cand, sub),
+        jo.draw_bodypose(np.zeros((96, 96, 3), np.uint8), jcand, jsub))
+    assert po.hand_detect(cand, sub, (96, 96)) == jo.hand_detect(cand, sub, (96, 96))
+    hand = [np.array([[10, 12], [20, 30], [0, 0]] + [[5 + i, 40 - i] for i in range(18)])]
+    np.testing.assert_array_equal(po.draw_handpose(np.zeros((64, 64, 3), np.uint8), hand),
+                                  jo.draw_handpose(np.zeros((64, 64, 3), np.uint8), hand))
+    for a, b in zip(pm.squares_from_segments(_square_scene_segments(), 200,
+                                             pm.DEFAULT_SQUARE_PARAMS),
+                    jm.squares_from_segments(_square_scene_segments(), 200,
+                                             jm.DEFAULT_SQUARE_PARAMS)):
+        np.testing.assert_array_equal(a, b)
