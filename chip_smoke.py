@@ -139,14 +139,31 @@ Phases, each of which raises (non-zero exit, no result line) when it fails:
               pose2image web UI answering one POST /api at 512² with the app's defaults
               (30 steps, CFG 9): exact launches {k1 150, k2 1}, wall and device busy
               time, the PNGs written.
+ 20. parallel  (run after "modes") the serving mesh and data-parallel training: 4 rank
+              processes share cuda:0 over gloo (NCCL takes one card a rank; the
+              kernels are built by this process first), each with the seeded SD1.5
+              stack and `base` ControlLoRA: (a) the guided 512² render (20 steps, CFG
+              9) on a cfg,model=2 mesh, each rank's image against this process's
+              1-process render (relative L2 <= 5e-2) with launches exactly {k1 100,
+              k2 1} and K1 at (1, 4, 4096, 40); (b) two images on data,cfg (K1 at
+              (1, 8, 4096, 40)); (c) a dp train step at global batch 8 on ranks 0 and
+              1, the loss and all-reduced gradient against a 1-process batch-8 step
+              on the same draws, {k2 6, k3 5, k4 5} a rank, parameters bitwise equal
+              across ranks; (d) `python -m torch.distributed.run --nproc_per_node 2 -m
+              controllora_tpu_torch.sample --serving_mesh cfg --dist_backend gloo`,
+              rank 0 alone writing. The new kernel shapes are checked and timed in
+              phase 3 (phase_parallel_kernels). One line "parallel: {...}".
 The last lines are the kernel record (each route with the CUDA kernel it launches),
 the card's name and power limit, and {"ok": true, "device": {...}}.
+``python3 chip_smoke.py --cards`` on a host with 4 cards runs only phase 20, one rank
+a card over nccl.
 """
 
 import gc
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -3245,6 +3262,293 @@ def phase_annotators(torch, fa, card):
     return used
 
 
+# ---------------------------------------------------------------------------- parallel
+
+PAR_SEED = 21
+PAR_WORLD = 4  # rank processes: sharing cuda:0 over gloo, or one a card over nccl
+PAR_TRAIN_BATCH = 4  # a dp rank's rows of the global batch of 8
+PAR_K1 = (((1, 4, 4096, 40), "cfg,model=2 rank, level 0"),
+          ((1, 8, 4096, 40), "data,cfg or cfg rank, level 0"))
+PAR_TRAIN_SHAPE = (PAR_TRAIN_BATCH, 8, 4096, 40)
+PAR_RENDER_LAUNCHES = {"k1": 5 * STEPS, "k2": 1, "k3": 0, "k4": 0}
+# what the rank processes run on and with; a CPU rehearsal sets "cpu", "smoke", 64², 2
+# steps and zero launches (the ranks are fresh interpreters: spawn_ranks hands them this)
+PAR = dict(device="cuda", backend="gloo", variant="sd15", res=RES, steps=STEPS,
+           render_launches=PAR_RENDER_LAUNCHES, train_launches=TRAIN_LAUNCHES)
+
+
+def phase_parallel_kernels(torch, fa, device, record):
+    """K1 at a mesh rank's shapes (heads / 2 under model=2, batch 1 under cfg) and K2,
+    K3 and K4 at a dp rank's (batch 4), against their plain versions with times,
+    bounds and SDPA, into `record`'s shapes."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(15)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+
+    for (b, h, l, d), label in PAR_K1:
+        k1_case(torch, fa, rnd, record, b, h, l, d, 1, timed=True, label=f" ({label})")
+    label = " (dp rank, global batch 8 over 2)"
+    k2_case(torch, fa, device, rnd, record, *PAR_TRAIN_SHAPE, label=label)
+    bwd_case(torch, fa, rnd, record, *PAR_TRAIN_SHAPE, timed=True, label=label)
+    torch.cuda.empty_cache()
+    log(f"parallel kernels {time.perf_counter() - t0:.1f} s")
+
+
+def parallel_guide():
+    import numpy as np
+
+    res = PAR["res"]
+    return np.random.default_rng(PAR_SEED).uniform(-1, 1, (res, res, 3)).astype(np.float32)
+
+
+def profile_or_time(torch, fn):
+    """device_profile's (wall, busy, top) on the card; (wall, 0, []) on the CPU."""
+    if PAR["device"] == "cuda":
+        return device_profile(torch, fn, host=False)
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0, 0.0, []
+
+
+def parallel_rank(rank, world, init, job_dir, settings):
+    """One rank of phase "parallel" (a spawned process: on cuda:0 over gloo, or on
+    cuda:<rank> over nccl with --cards): (a) the guided
+    render on a cfg,model=2 mesh, (b) two images on data,cfg, (c) a dp train step on
+    ranks 0 and 1; each counted from 0 and profiled; results to rank<r>.pt."""
+    import torch
+
+    PAR.update(settings)
+    torch.set_num_threads(1 if PAR["device"] == "cpu" else torch.get_num_threads())
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(world))
+    from controllora_tpu_torch.ops import flash_attention as fa
+    from controllora_tpu_torch.parallel import make_mesh, make_serving_mesh, shard_batch
+    from controllora_tpu_torch.parallel.distributed import maybe_initialize_distributed
+    from controllora_tpu_torch.pipelines import StableDiffusionControlLoRAPipeline
+    from controllora_tpu_torch.training.trainer import ControlLoRATrainer, to_device_batch
+
+    assert maybe_initialize_distributed(PAR["backend"], init)
+    device = torch.device(PAR["device"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if device.type == "cuda":
+        fa.build_kernels()  # built by the parent: loads the cached library
+    shapes = set()
+    launch = fa.biased_attention
+
+    def counted(q, k, v, heads, *biases):
+        shapes.add((q.shape[0], heads, q.shape[1], q.shape[2] // heads))
+        return launch(q, k, v, heads, *biases)
+
+    fa.biased_attention = counted
+    base = build_stack(torch, device, PAR["variant"])
+    guide = parallel_guide()
+    out = {}
+    meshes = {"cfg,model=2": make_serving_mesh(range(world), cfg=True, model=2),
+              "data,cfg": make_serving_mesh(range(world), cfg=True)}
+    for name, n in (("cfg,model=2", 1), ("data,cfg", 2)):
+        mesh = meshes[name]
+        pipe = StableDiffusionControlLoRAPipeline(base.unet, base.vae, base.text_encoder,
+                                                  base.tokenizer, base.control_lora,
+                                                  device=device, mesh=mesh)
+        kw = dict(guide=guide, num_images=n, guidance_scale=CFG, return_array=True)
+        with torch.inference_mode():
+            pipe("warm up", num_inference_steps=1, generator=torch.Generator().manual_seed(0),
+                 **kw)
+            fa.reset_launch_counts()
+            shapes.clear()
+            images = []
+            wall, busy, _ = profile_or_time(torch, lambda: images.extend(pipe(
+                "a photo", num_inference_steps=PAR["steps"],
+                generator=torch.Generator().manual_seed(PAR_SEED), **kw)))
+        out[name] = dict(images=images, launches=dict(fa.LAUNCHES), k1_shapes=sorted(shapes),
+                         wall=wall, busy=busy, coords=mesh.coords)
+        del pipe
+
+    dp = make_mesh(ranks=range(2))  # every rank builds it; ranks 0 and 1 train
+    if dp.member:
+        job = torch.load(os.path.join(job_dir, "batch.pt"), weights_only=False)
+        trainer = ControlLoRATrainer(base.control_lora, base.unet, base.vae,
+                                     base.text_encoder, hint_compute_dtype=torch.bfloat16,
+                                     remat_unet=False, mesh=dp)
+        batch = to_device_batch(shard_batch(job, dp), device)
+        gen = torch.Generator(device=device).manual_seed(PAR_SEED)
+        fa.reset_launch_counts()
+        metrics = {}
+        wall, busy, _ = profile_or_time(torch, lambda: metrics.update(
+            trainer.train_step(batch, gen, return_grads=True)))
+        out["dp"] = dict(
+            loss=float(metrics["loss"]), launches=dict(fa.LAUNCHES), wall=wall, busy=busy,
+            grads=torch.cat([g.float().flatten() for g in metrics["grads"]]).cpu(),
+            params=torch.cat([p.detach().flatten() for p in trainer.params]).cpu(),
+            coords=dp.coords, peak_gb=(torch.cuda.max_memory_allocated() / 2**30
+                                       if device.type == "cuda" else 0.0))
+    torch.save(out, os.path.join(job_dir, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def spawn_ranks(world, job_dir, timeout=600):
+    """Start `world` parallel_rank processes (spawn: a fork after CUDA init fails) and
+    wait for all; one that fails or outlasts `timeout` fails the phase, and every
+    process still running is terminated."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    init = f"file://{os.path.join(job_dir, 'store')}"
+    procs = [ctx.Process(target=parallel_rank, args=(r, world, init, job_dir, dict(PAR)))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.is_alive() for p in procs):
+            if any(p.exitcode not in (None, 0) for p in procs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+            p.join(10)
+    codes = [p.exitcode for p in procs]
+    if any(c != 0 for c in codes):
+        raise AssertionError(f"parallel: rank exit codes {codes}")
+
+
+def phase_parallel(torch, fa, device, card):
+    """The serving mesh and data-parallel training on the card: PAR_WORLD ranks share
+    cuda:0 over gloo (NCCL takes one card a rank), each building the seeded SD1.5
+    stack with the `base` ControlLoRA as build_stack makes it; every rank's result
+    against a 1-process run of the same seeded stack here; then the sample CLI under
+    torch.distributed.run with --serving_mesh cfg. Returns the ranks' launches."""
+    import numpy as np
+
+    from controllora_tpu_torch.data.registry import DatasetBase, batch_iterator
+    from controllora_tpu_torch.data.tokenizer import HashTokenizer
+    from controllora_tpu_torch.training.checkpoint import save_control_lora
+    from controllora_tpu_torch.training.trainer import ControlLoRATrainer, to_device_batch
+    from controllora_tpu_torch.utils.png import decode_png
+
+    t0 = time.perf_counter()
+    res, steps = PAR["res"], PAR["steps"]
+    tmp = tempfile.mkdtemp(prefix="parallel-")
+    batch = next(batch_iterator(DatasetBase.from_name("process/fill50k")(
+        HashTokenizer(), resolution=res), 2 * PAR_TRAIN_BATCH, seed=1))
+    torch.save(batch, os.path.join(tmp, "batch.pt"))
+    spawn_ranks(PAR_WORLD, tmp)
+    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+             for r in range(PAR_WORLD)]
+    t_ranks = time.perf_counter() - t0
+
+    ref = build_stack(torch, device, PAR["variant"])
+    guide = parallel_guide()
+    report, bad = {"card": card, "backend": PAR["backend"], "ranks_s": round(t_ranks, 1)}, []
+    for name, n, heads in (("cfg,model=2", 1, 4), ("data,cfg", 2, 8)):
+        kw = dict(guide=guide, num_images=n, guidance_scale=CFG, return_array=True)
+        want = []
+        with torch.inference_mode():
+            ref("warm up", num_inference_steps=1, generator=torch.Generator().manual_seed(0),
+                **kw)
+            wall, busy, _ = profile_or_time(torch, lambda: want.extend(ref(
+                "a photo", num_inference_steps=steps,
+                generator=torch.Generator().manual_seed(PAR_SEED), **kw)))
+        want = torch.from_numpy(np.stack(want))
+        rows = []
+        for r, result in enumerate(ranks):
+            got = result[name]
+            err = rel_l2(torch.from_numpy(np.stack(got["images"])), want)
+            shapes = [(1, heads, (res // 8) ** 2, 40)] if PAR["render_launches"]["k1"] else []
+            rows.append(dict(rank=r, coords=got["coords"], launches=got["launches"],
+                             k1_shapes=got["k1_shapes"], rel_err=err,
+                             wall_s=round(got["wall"], 3), busy_s=round(got["busy"], 3)))
+            if not (err <= REL_BOUND and np.isfinite(np.stack(got["images"])).all()):
+                bad.append(f"{name} rank {r}: relative error {err}")
+            if got["launches"] != PAR["render_launches"] or got["k1_shapes"] != shapes:
+                bad.append(f"{name} rank {r}: launches {got['launches']}, K1 shapes "
+                           f"{got['k1_shapes']}, expected {PAR['render_launches']} at {shapes}")
+        report[name] = dict(images=n, bound=REL_BOUND, one_process=dict(
+            wall_s=round(wall, 3), busy_s=round(busy, 3)), ranks=rows)
+
+    trainer = ControlLoRATrainer(ref.control_lora, ref.unet, ref.vae, ref.text_encoder,
+                                 hint_compute_dtype=torch.bfloat16, remat_unet=False)
+    loss = trainer.loss(to_device_batch(batch, device),
+                        torch.Generator(device=device).manual_seed(PAR_SEED))
+    grad = torch.cat([g.float().flatten() for g in trainer.grads(loss)]).cpu()
+    loss = loss.item()
+    del trainer
+    dps = [result["dp"] for result in ranks[:2]]
+    rows = []
+    for r, got in enumerate(dps):
+        lerr, gerr = abs(got["loss"] - loss) / abs(loss), rel_l2(got["grads"], grad)
+        rows.append(dict(rank=r, coords=got["coords"], launches=got["launches"],
+                         loss=got["loss"], loss_rel_err=lerr, grad_rel_err=gerr,
+                         wall_s=round(got["wall"], 3), busy_s=round(got["busy"], 3),
+                         peak_gib=round(got["peak_gb"], 2)))
+        if not (lerr <= REL_BOUND and gerr <= REL_BOUND):
+            bad.append(f"dp rank {r}: loss {lerr}, gradient {gerr} relative")
+        if got["launches"] != PAR["train_launches"]:
+            bad.append(f"dp rank {r}: launches {got['launches']}, expected "
+                       f"{PAR['train_launches']}")
+    same = torch.equal(dps[0]["params"], dps[1]["params"])
+    if not same:
+        bad.append("dp: parameters differ between the ranks after the step")
+    report["dp"] = dict(global_batch=2 * PAR_TRAIN_BATCH, loss_1_process=loss,
+                        bound=REL_BOUND, params_equal=same, ranks=rows)
+
+    control_dir = os.path.join(tmp, "control")
+    save_control_lora(control_dir, ref.control_lora)
+    del ref
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    out_dir = os.path.join(tmp, "samples")
+    t1 = time.perf_counter()
+    stdout = run_cli("torch.distributed.run", [
+        "--standalone", "--nproc_per_node", "2", "-m", "controllora_tpu_torch.sample",
+        "--serving_mesh", "cfg", "--dist_backend", PAR["backend"], "--control_lora_dir",
+        control_dir, "--model_variant", PAR["variant"], "--device", PAR["device"],
+        "--resolution", str(res), "--num_inference_steps", str(steps),
+        "--num_validation_images", "1", "--output_dir", out_dir], timeout=600)
+    wrote = [line for line in stdout.splitlines() if line.startswith("wrote ")]
+    img = decode_png(open(os.path.join(out_dir, "0.png"), "rb").read())
+    report["sample_cli"] = dict(seconds=round(time.perf_counter() - t1, 1),
+                                wrote=len(wrote), montage=list(img.shape),
+                                mesh=[line for line in stdout.splitlines()
+                                      if line.startswith("serving mesh")])
+    if len(wrote) != 1 or img.shape != (res, 3 * res, 3) or os.listdir(out_dir) != ["0.png"]:
+        bad.append(f"sample CLI: {len(wrote)} 'wrote' lines, montage {img.shape}, files "
+                   f"{os.listdir(out_dir)}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    report["seconds"] = round(time.perf_counter() - t0, 1)
+    log("parallel: " + json.dumps(report))
+    if bad:
+        raise AssertionError("parallel: " + "; ".join(bad))
+    total = {}
+    for result in ranks:
+        for part in ("cfg,model=2", "data,cfg", "dp"):
+            for k, v in result.get(part, {}).get("launches", {}).items():
+                total[k] = total.get(k, 0) + v
+    return total
+
+
+
+def main_cards(torch, fa, device, card):
+    """``python3 chip_smoke.py --cards`` on a host with PAR_WORLD cards: phase
+    "parallel" with one rank a card over nccl (the collectives across NVLink), and
+    nothing else; the same last lines."""
+    if torch.cuda.device_count() < PAR_WORLD:
+        raise SystemExit(f"--cards needs {PAR_WORLD} CUDA devices, found "
+                         f"{torch.cuda.device_count()}")
+    PAR["backend"] = "nccl"
+    phase_parallel(torch, fa, device, card)
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+
+
 def main():
     import torch
 
@@ -3271,6 +3575,8 @@ def main():
            if e["spill_stores"] or e["spill_loads"] or e["serialised"]]
     if bad:
         raise AssertionError("ptxas spilled or serialised wgmma: " + "; ".join(bad))
+    if "--cards" in sys.argv[1:]:
+        return main_cards(torch, fa, device, card)
 
     record = phase_kernels(torch, fa, device)
     phase_family_kernels(torch, fa, device, record)
@@ -3278,6 +3584,7 @@ def main():
     record.update(phase_backward_kernels(torch, fa, device))
     phase_family_train_kernels(torch, fa, device, record)
     phase_canny_train_kernels(torch, fa, device, record)
+    phase_parallel_kernels(torch, fa, device, record)
     phase_flash_grad(torch, fa, device)
     record.update(phase_stock_kernels(torch, fs, device))
     phase_stock_grad(torch, fs, device)
@@ -3296,6 +3603,9 @@ def main():
     train = phase_train(torch, fa, pipe, device)
     modes = phase_modes(torch, fa, pipe, device, card)
     del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    parallel = phase_parallel(torch, fa, device, card)
     phase_entry_point(torch)
     stock = phase_stock_train(torch, fa, fs)
     phase_cli_resume(torch)
@@ -3308,10 +3618,10 @@ def main():
     # launches on the main paths, each counted from 0: serving, the serving presets,
     # training (K1-K4), the render modes, the other families' renders and request,
     # their training and DreamBooth's steps, the loaded stack's renders and the
-    # canny2image request, the pose2image request, then training under
-    # CONTROLLORA_FLASH_IMPL=stock (K5)
+    # canny2image request, the pose2image request, every rank's mesh renders and dp
+    # step, then training under CONTROLLORA_FLASH_IMPL=stock (K5)
     paths = (serve, presets, train, modes, families, family_train, dreambooth, weights,
-             annotators)
+             annotators, parallel)
     launches = {n: sum(p.get(n, 0) for p in paths) for n in serve}
     launches.update({n: stock[n] for n in fs.LAUNCHES})
 

@@ -27,10 +27,14 @@ The families differ by ``UNetConfig`` only: per-level heads and transformer dept
 attention-free levels (``DownBlock2D``/``UpBlock2D``), Linear ``proj_in``/``proj_out``
 on the flattened tokens (SD2.x, SDXL) and SDXL's ``text_time`` micro-conditioning
 (``add_embedding``, fed ``added_text_embeds`` and ``added_time_ids``).
+A tensor-parallel instance (``tp_size`` > 1, ``parallel/tp.py``) holds each
+transformer block's 1/tp slice: heads / tp local heads, a GEGLU inner of
+4 * dim / tp, and a SUM all-reduce over ``tp_group`` after ``to_out.0`` and after
+``net.2`` (JAX ``unet.py`` :216-345). It takes the sharded folded weights through
+``functional_call``; a threaded ``AdapterStack`` cannot shard by heads and is refused.
 ``attention_backend`` (``ops/attention.py`` names) picks the attention route for a
 whole eval: ``"xla"`` keeps every attention on its plain version, so an fp32 eval on
 the card can stand as the reference of a bf16 one.
-Left out for now: tensor parallelism.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ import math
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -154,6 +159,14 @@ def from_tokens(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return x.reshape(b, h, w, c).permute(0, 3, 1, 2)
 
 
+def _tp_sum(out: torch.Tensor, group) -> torch.Tensor:
+    """Complete a row-parallel projection: the fp32 sum of the ranks' partial outputs
+    (JAX ``psum`` over the model axis), back in the activation dtype."""
+    total = out.to(torch.float32, copy=True)
+    dist.all_reduce(total, dist.ReduceOp.SUM, group=group)
+    return total.to(out.dtype)
+
+
 def _fit(bias: Optional[torch.Tensor], batch: int, dtype) -> Optional[torch.Tensor]:
     """Per-image biases (batch n under the 2n CFG batch) tile to the block
     [uncond || cond] layout; batch-1 biases broadcast."""
@@ -210,13 +223,16 @@ class Upsample2D(nn.Module):
 
 class CrossAttention(nn.Module):
     """One attention layer: adapter-free, folded (a ``FoldedBias``, JAX ``unet.py``
-    :233-292) or threaded (an ``AdapterStack``, JAX :294-321)."""
+    :233-292) or threaded (an ``AdapterStack``, JAX :294-321). With ``tp_size`` > 1 it
+    holds heads / tp_size heads and all-reduces its out projection over ``tp_group``."""
 
     def __init__(self, query_dim: int, heads: int, dim_head: int,
-                 cross_attention_dim: Optional[int] = None):
+                 cross_attention_dim: Optional[int] = None, tp_size: int = 1,
+                 tp_group=None):
         super().__init__()
-        inner = heads * dim_head
-        self.heads = heads
+        self.heads = heads // tp_size
+        self.tp_size, self.tp_group = tp_size, tp_group
+        inner = self.heads * dim_head
         self.to_q = nn.Linear(query_dim, inner, bias=False)
         self.to_k = nn.Linear(cross_attention_dim or query_dim, inner, bias=False)
         self.to_v = nn.Linear(cross_attention_dim or query_dim, inner, bias=False)
@@ -224,8 +240,16 @@ class CrossAttention(nn.Module):
 
     def forward(self, hidden, ctx=None, stack=None, lora_scale=1.0, backend="auto"):
         if isinstance(stack, AdapterStack):
+            if self.tp_size > 1:
+                raise ValueError(
+                    "tensor-parallel serving supports folded adapter stacks only "
+                    "(fold_adapters runs before the params shard); got an unfolded "
+                    "AdapterStack — pre/post chains cannot shard by heads")
             return self._threaded(hidden, ctx, stack, lora_scale, backend)
-        bias = stack
+        out = self._projected(hidden, ctx, stack, backend)
+        return _tp_sum(out, self.tp_group) if self.tp_size > 1 else out
+
+    def _projected(self, hidden, ctx, bias, backend):
         q = self.to_q(hidden)
         ctx_in = hidden if ctx is None else ctx
         k = self.to_k(ctx_in)
@@ -278,28 +302,33 @@ class GEGLU(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """GEGLU feed-forward; ``net.1`` is diffusers' (parameter-free) dropout slot."""
+    """GEGLU feed-forward; ``net.1`` is diffusers' (parameter-free) dropout slot. With
+    ``tp_size`` > 1: the rank's 1/tp_size of the inner features, ``net.2``'s partial
+    output all-reduced over ``tp_group``."""
 
-    def __init__(self, dim: int, mult: int = 4):
+    def __init__(self, dim: int, mult: int = 4, tp_size: int = 1, tp_group=None):
         super().__init__()
-        self.net = nn.ModuleList([GEGLU(dim, dim * mult), nn.Identity(),
-                                  nn.Linear(dim * mult, dim)])
+        inner = dim * mult // tp_size
+        self.tp_size, self.tp_group = tp_size, tp_group
+        self.net = nn.ModuleList([GEGLU(dim, inner), nn.Identity(), nn.Linear(inner, dim)])
 
     def forward(self, x):
-        return self.net[2](self.net[0](x))
+        out = self.net[2](self.net[0](x))
+        return _tp_sum(out, self.tp_group) if self.tp_size > 1 else out
 
 
 class BasicTransformerBlock(nn.Module):
     def __init__(self, dim: int, heads: int, dim_head: int, cross_attention_dim: int,
-                 proc_prefix: str):
+                 proc_prefix: str, tp_size: int = 1, tp_group=None):
         super().__init__()
+        tp = dict(tp_size=tp_size, tp_group=tp_group)
         self.proc_prefix = proc_prefix
         self.norm1 = LayerNorm(dim)
-        self.attn1 = CrossAttention(dim, heads, dim_head)
+        self.attn1 = CrossAttention(dim, heads, dim_head, **tp)
         self.norm2 = LayerNorm(dim)
-        self.attn2 = CrossAttention(dim, heads, dim_head, cross_attention_dim)
+        self.attn2 = CrossAttention(dim, heads, dim_head, cross_attention_dim, **tp)
         self.norm3 = LayerNorm(dim)
-        self.ff = FeedForward(dim)
+        self.ff = FeedForward(dim, **tp)
 
     def forward(self, x, ctx, stacks=None, lora_scale=1.0, tome=None, choice=None,
                 grid=None, backend="auto"):
@@ -339,7 +368,8 @@ def _merge_stack_tokens(stack, merge, b_h: int):
 
 class Transformer2DModel(nn.Module):
     def __init__(self, channels: int, heads: int, dim_head: int, cross_attention_dim: int,
-                 depth: int, groups: int, proc_prefix: str, linear_projection: bool = False):
+                 depth: int, groups: int, proc_prefix: str, linear_projection: bool = False,
+                 tp_size: int = 1, tp_group=None):
         super().__init__()
         inner = heads * dim_head
         self.proc_prefix = proc_prefix
@@ -350,7 +380,8 @@ class Transformer2DModel(nn.Module):
                         else nn.Conv2d(channels, inner, 1))
         self.transformer_blocks = nn.ModuleList([
             BasicTransformerBlock(inner, heads, dim_head, cross_attention_dim,
-                                  f"{proc_prefix}.transformer_blocks.{i}")
+                                  f"{proc_prefix}.transformer_blocks.{i}", tp_size,
+                                  tp_group)
             for i in range(depth)
         ])
         self.proj_out = (nn.Linear(inner, channels) if linear_projection
@@ -407,9 +438,12 @@ def _per_block(value, n: int) -> Tuple[int, ...]:
 
 
 class UNet2DConditionModel(nn.Module):
-    def __init__(self, config: UNetConfig = UNetConfig()):
+    def __init__(self, config: UNetConfig = UNetConfig(), tp_size: int = 1, tp_group=None):
+        """``tp_size`` > 1: a tensor-parallel instance, the transformer blocks' slice of
+        one rank of the 'model' axis, all-reducing over ``tp_group``."""
         super().__init__()
         self.config = cfg = config
+        self.tp_size = tp_size
         n = len(cfg.block_out_channels)
         heads = _per_block(cfg.attention_head_dim, n)
         depths = _per_block(cfg.transformer_layers_per_block, n)
@@ -419,7 +453,8 @@ class UNet2DConditionModel(nn.Module):
 
         def transformer(ch, bi, prefix):
             return Transformer2DModel(ch, heads[bi], ch // heads[bi], xdim, depths[bi],
-                                      groups, prefix, cfg.use_linear_projection)
+                                      groups, prefix, cfg.use_linear_projection, tp_size,
+                                      tp_group)
 
         self.conv_in = conv3(cfg.in_channels, ch0)
         self.time_embedding = nn.Module()

@@ -20,7 +20,7 @@ in the level-0 self-attentions, ``ops/tome.py``) and ``deepcache_interval`` (the
 UNet levels run every interval-th step; between, a cached deep feature stands in for
 them).
 
-The render modes are the JAX pipeline's (its :562-889), meshes aside: text-to-image;
+The render modes are the JAX pipeline's (its :562-889): text-to-image;
 img2img (``image``, ``strength``) and inpaint (``mask``); a window of the trajectory
 (``denoising_start``, ``denoising_end``, ``return_latents``: the SDXL base ->
 refiner ensemble); extra plain LoRAs (``extra_loras``, ``merge_extra_loras``) and
@@ -41,7 +41,21 @@ the size ids of the render (JAX :680-715): 6 ids ``[h, w, 0, 0, h, w]`` (SDXL), 
 rows and ``negative_aesthetic_score`` on the uncond rows. SD2.1's v-prediction is
 the scheduler's: ``DPMSolverMultistepScheduler(DiffusionSchedule.create(
 prediction_type="v_prediction"))``.
-Not ported: meshes (ROADMAP.md item 14).
+
+``mesh=`` (``parallel/mesh.py``; one process per rank) spreads a render over ranks as
+the JAX ``shard_map`` paths do (JAX :490-557):
+  * 'data': each rank renders its rows of the batch. The initial noise (and
+    img2img's) is drawn for the whole batch from the one generator on every rank and
+    sliced, so a mesh render equals the 1-process render image for image; per-image
+    prompts shard with the latents, a batch-1 guide replicates. The images are
+    gathered over the axis, in order, as host objects: every rank returns all of them.
+  * 'cfg' (size 2): rank 0 evaluates the uncond context and rank 1 the cond one, on
+    the rank's whole batch; guidance is one fp32 SUM all-reduce of eps * w a step, w
+    = 1 - g on rank 0 and g on rank 1 (JAX :317-345, 428-435).
+  * 'model': the adapters fold at the global level, then the weights and folded
+    biases are prepared and sliced for the rank (``parallel/tp.py``) and a
+    tensor-parallel UNet runs heads / tp heads with all-reduces in its blocks.
+The VAE decode replicates over 'cfg' and 'model'. The refusals are JAX :858-876's.
 """
 
 from __future__ import annotations
@@ -62,6 +76,13 @@ from controllora_tpu_torch.models.lora import (
 )
 from controllora_tpu_torch.ops.folding import fold_adapters
 from controllora_tpu_torch.ops.tome import ToMeConfig
+from controllora_tpu_torch.parallel.tp import (
+    tp_prepare_biases,
+    tp_prepare_params,
+    tp_shard_biases,
+    tp_shard_params,
+    validate_tp,
+)
 from controllora_tpu_torch.schedulers import DPMSolverMultistepScheduler
 from controllora_tpu_torch.utils.image import resize_linear
 
@@ -136,8 +157,10 @@ def _cfg_batch(pair: torch.Tensor, n: int, per_image: bool) -> torch.Tensor:
 
 class StableDiffusionControlLoRAPipeline:
     def __init__(self, unet, vae, text_encoder, tokenizer, control_lora=None,
-                 scheduler=None, device="cuda"):
-        """``scheduler``: one of the five samplers (default DPM-Solver++)."""
+                 scheduler=None, device="cuda", mesh=None):
+        """``scheduler``: one of the five samplers (default DPM-Solver++). ``mesh``: a
+        ``parallel.Mesh`` over the ranks that render together (every rank builds the
+        same pipeline and makes the same calls), or None for one process."""
         self.device = torch.device(device)
         self.unet = unet.to(self.device)
         self.vae = vae.to(self.device)
@@ -145,6 +168,26 @@ class StableDiffusionControlLoRAPipeline:
         self.control_lora = None if control_lora is None else control_lora.to(self.device)
         self.tokenizer = tokenizer
         self.scheduler = scheduler or DPMSolverMultistepScheduler()
+        self.mesh = mesh
+        self._cfg_split = mesh is not None and "cfg" in mesh.axis_names
+        if self._cfg_split and mesh.size("cfg") != 2:
+            raise ValueError(f"the 'cfg' mesh axis carries the [uncond ‖ cond] guidance "
+                             f"pair and must have size 2, got {mesh.size('cfg')}")
+        self._tp = mesh.size("model") if mesh is not None else 1
+        if self._tp > 1:
+            from controllora_tpu_torch.models.unet import UNet2DConditionModel
+
+            validate_tp(unet.config, self._tp)
+            with torch.device("meta"):
+                self._unet_tp = UNet2DConditionModel(unet.config, self._tp,
+                                                     mesh.group("model"))
+            # the rank's slice of the adapter-free weights; a guided render replaces
+            # the folded projections
+            self._tp_base = self._tp_slice(self.unet.state_dict())
+
+    def _tp_slice(self, params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return tp_shard_params(tp_prepare_params(params, self._tp), self._tp,
+                               self.mesh.coord("model"))
 
     # ------------------------------------------------------------------ text
 
@@ -325,6 +368,9 @@ class StableDiffusionControlLoRAPipeline:
         height, width = height or 512, width or 512
         lh, lw = height // 8, width // 8
         c_in = self.unet.config.in_channels
+        mesh = self.mesh
+        if mesh is not None and not mesh.member:
+            raise ValueError(f"rank {mesh.rank} is outside the serving mesh {mesh}")
 
         # the trajectory window [start, end) of the grid (JAX :735-764)
         steps = num_inference_steps
@@ -382,13 +428,10 @@ class StableDiffusionControlLoRAPipeline:
         per_image = isinstance(prompt, (list, tuple))
         if per_image and ctx.shape[1] != n:
             raise ValueError(f"{ctx.shape[1]} per-image prompts for a batch of {n}")
-        ctx_n = _cfg_batch(ctx, n, per_image)
-        added = {}
+        ids = None
         if self.unet.config.addition_embed_type == "text_time":
             ids = self.text_time_ids(pooled, height, width, aesthetic_score,
                                      negative_aesthetic_score)
-            added = dict(added_text_embeds=_cfg_batch(pooled, n, per_image),
-                         added_time_ids=_cfg_batch(ids, n, False))
 
         def control_adapters(control_lora, g, what):
             g = np.asarray(g, np.float32)
@@ -408,14 +451,66 @@ class StableDiffusionControlLoRAPipeline:
                 adapters, control_adapters(control_lora.to(self.device), g,
                                            "extra_controls guide"),
                 extra_controls_where)
+        foldable = bool(adapters) and is_foldable(adapters)
+        tp = self._tp
+        if mesh is not None:
+            n_dev = mesh.size("data")
+            if n % n_dev:
+                raise ValueError(f"data-parallel serving shards the image batch over "
+                                 f"{n_dev} devices; num_images={n} must be a multiple of "
+                                 "the mesh size")
+            if guide is not None and guide.shape[0] != 1:
+                raise ValueError("data-parallel serving supports a single (replicated) "
+                                 f"guide; got guide batch {guide.shape[0]}")
+            if tp > 1 and adapters and not foldable:
+                raise ValueError(
+                    "tensor-parallel serving (mesh 'model' axis) folds adapters into the "
+                    "sharded kernels; pre/post adapter chains (mix / multi-control "
+                    "composition) cannot fold — serve those on a ('data', 'cfg') mesh "
+                    "instead")
+            # this rank's rows of the batch: the draws above were made for all of it
+            rows = mesh.rows(n)
+            n = rows.stop - rows.start
+            if init is not None:
+                init, noise = init[rows], noise[rows]
+            else:
+                lat = lat[rows]
+            if per_image:
+                ctx = ctx[:, rows]
+                pooled = None if pooled is None else pooled[:, rows]
+        w_cfg = None
+        if self._cfg_split:
+            # one guidance branch on the rank's whole batch: uncond on 0, cond on 1
+            c = mesh.coord("cfg")
+            w_cfg = 1.0 - guidance_scale if c == 0 else guidance_scale
+
+            def branch(pair, per):
+                return pair[c] if per else pair[c][None].expand((n,) + pair.shape[1:])
+
+            ctx_n = branch(ctx, per_image)
+            added = {} if ids is None else dict(added_text_embeds=branch(pooled, per_image),
+                                                added_time_ids=branch(ids, False))
+        else:
+            ctx_n = _cfg_batch(ctx, n, per_image)
+            added = {} if ids is None else dict(
+                added_text_embeds=_cfg_batch(pooled, n, per_image),
+                added_time_ids=_cfg_batch(ids, n, False))
+
         dtype = self.unet.conv_in.weight.dtype
         weights, unet_kw = {}, {}
-        if adapters and is_foldable(adapters):
+        unet = self.unet
+        if foldable:
             weights, biases = fold_adapters(self.unet, adapters, lora_scale)
+            if tp > 1:
+                biases = tp_shard_biases(tp_prepare_biases(biases, tp), tp,
+                                         mesh.coord("model"))
             # cast once: every step adds them in the UNet's compute dtype
             unet_kw["biases"] = {k: b.to(dtype) for k, b in biases.items()}
         elif adapters:
             unet_kw.update(adapters=_cast_controls(adapters, dtype), lora_scale=lora_scale)
+        if tp > 1:
+            # folded at the global level, then prepared and sliced like the base
+            unet, weights = self._unet_tp, dict(self._tp_base, **self._tp_slice(weights))
 
         sch = self.scheduler
         sch.set_timesteps(steps)
@@ -435,20 +530,23 @@ class StableDiffusionControlLoRAPipeline:
             kw = dict(added, **unet_kw)
             if tome is not None:
                 kw.update(tome=tome, tome_step=(0, t_i, i))
-            args = (torch.cat([x, x]),
-                    torch.full((2 * n,), float(t_i), dtype=torch.float32, device=self.device),
-                    ctx_n)
+            x_in = x if w_cfg is not None else torch.cat([x, x])
+            args = (x_in, torch.full((x_in.shape[0],), float(t_i), dtype=torch.float32,
+                                     device=self.device), ctx_n)
             if deepcache_interval == 1:
-                eps = functional_call(self.unet, weights, args, kw)
+                eps = functional_call(unet, weights, args, kw)
             elif (i - start) % deepcache_interval == 0:
-                eps, cache = functional_call(self.unet, weights, args,
-                                             dict(kw, deepcache="full"))
+                eps, cache = functional_call(unet, weights, args, dict(kw, deepcache="full"))
             else:
-                eps = functional_call(self.unet, weights, args,
+                eps = functional_call(unet, weights, args,
                                       dict(kw, deepcache="shallow", deepcache_feat=cache))
-            eps_u, eps_c = eps.chunk(2)
-            state = sch.step(state, eps_u + guidance_scale * (eps_c - eps_u), i,
-                             first_index=start)
+            if w_cfg is not None:
+                # (1 - g) eps_u + g eps_c: one all-reduce of the ranks' weighted branch
+                eps_g = mesh.all_reduce(eps * w_cfg, "cfg")
+            else:
+                eps_u, eps_c = eps.chunk(2)
+                eps_g = eps_u + guidance_scale * (eps_c - eps_u)
+            state = sch.step(state, eps_g, i, first_index=start)
             if paint is not None:
                 # re-inject the known region at the noise level of grid point i + 1
                 known = sch.noised_init(init, noise, i + 1)
@@ -457,9 +555,12 @@ class StableDiffusionControlLoRAPipeline:
 
         sample = sch.get_sample(state)
         if return_latents:
-            lat_out = sample.float().permute(0, 2, 3, 1).cpu().numpy()
-            return [lat_out[i] for i in range(n)]
-        img = self.vae.decode(sample).float().permute(0, 2, 3, 1).cpu().numpy()
-        if return_array:
-            return [img[i] for i in range(n)]
-        return [np.clip((img[i] + 1.0) * 127.5, 0, 255).astype(np.uint8) for i in range(n)]
+            out = sample.float().permute(0, 2, 3, 1).cpu().numpy()
+        else:
+            out = self.vae.decode(sample).float().permute(0, 2, 3, 1).cpu().numpy()
+        if mesh is not None:
+            # every rank's rows, in order (the decode replicates over cfg and model)
+            out = np.concatenate(mesh.all_gather_object(out, "data"))
+        if return_latents or return_array:
+            return list(out)
+        return [np.clip((x + 1.0) * 127.5, 0, 255).astype(np.uint8) for x in out]

@@ -24,8 +24,18 @@ loads the frozen stack from a local diffusers-layout directory (``zoo.load_froze
 and then needs the real CLIP BPE vocab (``$CLIP_VOCAB_DIR``: ``merges.txt`` and
 ``vocab.json``); without one, the stack gets seeded random weights and a warning
 says so (there are no pretrained weights in the repository). ``--dataset_name
-process/diffusiondb_canny`` runs its Canny annotator on ``--device``. Refused, with
-the reason: ``--serving_mesh`` (parallelism is not ported).
+process/diffusiondb_canny`` runs its Canny annotator on ``--device``.
+
+``--serving_mesh`` (``data`` | ``cfg`` | ``cfg,model=K`` | ``data,cfg,model=K``,
+``parallel/mesh.py::build_serving_mesh``) renders each image over several ranks,
+one process each, started by torchrun:
+
+    python -m torch.distributed.run --nproc_per_node 2 -m controllora_tpu_torch.sample \
+        --serving_mesh cfg --device cpu --dist_backend gloo ...
+
+``--dist_backend`` is nccl on the card (one card per rank; refused with fewer cards),
+gloo on the CPU or for ranks that share a card. Every rank renders the same calls
+with the same generator; only rank 0 writes files.
 """
 
 from __future__ import annotations
@@ -38,17 +48,21 @@ import numpy as np
 import torch
 
 from controllora_tpu_torch.models.zoo import BASE_VARIANTS, model_dtype
+from controllora_tpu_torch.parallel import distributed
+from controllora_tpu_torch.parallel.distributed import add_dist_args, is_main
+from controllora_tpu_torch.parallel.mesh import build_serving_mesh
 
-NO_MESH = "parallelism is not ported (ROADMAP.md item 14)"
 
-
-def refused(flag: str, reason: str):
-    """An argparse type that refuses ``flag`` with ``reason``."""
-
-    def fail(value):
-        raise argparse.ArgumentTypeError(f"{flag} is not taken by the port: {reason}")
-
-    return fail
+def start_mesh(args):
+    """(``--serving_mesh`` as a Mesh or None, whether this call started the process
+    group): joins the group first."""
+    if not args.serving_mesh:
+        return None, False
+    started = distributed.start(args)
+    mesh = build_serving_mesh(args.serving_mesh)
+    if is_main():
+        print(f"serving mesh: {mesh.shape}", flush=True)
+    return mesh, started
 
 
 def parse_args(argv=None):
@@ -100,11 +114,18 @@ def parse_args(argv=None):
                    help="token-merging ratio (0 = exact path, 0.5 = tomesd's setting)")
     p.add_argument("--deepcache_interval", type=int, default=1,
                    help="DeepCache: the deep UNet levels run every N-th step (1 = exact)")
-    p.add_argument("--serving_mesh", type=refused("--serving_mesh", NO_MESH), default=None)
+    p.add_argument("--serving_mesh", type=str, default=None,
+                   help="multi-rank serving axes: 'data' (shard the image batch), 'cfg' "
+                        "(split the guidance pair over 2 ranks), 'cfg,model=2' "
+                        "(additionally tensor-parallel the UNet transformer blocks; "
+                        "parallel/tp.py). This script renders one image per call, so "
+                        "prefer the latency axes (cfg/model); a 'data' axis requires "
+                        "the batch to divide across it")
     p.add_argument("--output_dir", type=str, default="samples/run")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; the flash kernels run on cuda")
+    add_dist_args(p)
     return p.parse_args(argv)
 
 
@@ -143,7 +164,8 @@ def load_lora(path: str, device, resume: Optional[str] = None):
             path = os.path.join(ckpt, "pytorch_lora_weights.safetensors")
             print(f"sampling LoRA from training checkpoint-{step}")
     sd = load_state_dict(path)
-    if os.path.isdir(root) and path != os.path.join(root, "pytorch_lora_weights.safetensors"):
+    if (os.path.isdir(root) and path != os.path.join(root, "pytorch_lora_weights.safetensors")
+            and is_main()):
         for name in ("pytorch_lora_weights.safetensors", "pytorch_lora_weights.bin"):
             save_state_dict(sd, os.path.join(root, name))
         print(f"re-saved final artifact to {root}")
@@ -154,9 +176,9 @@ def load_lora(path: str, device, resume: Optional[str] = None):
             for name, params in attn_procs_from_torch(sd).items()}
 
 
-def build_pipelines(args):
+def build_pipelines(args, mesh=None):
     """(pipeline, refiner pipeline or None, whether a ControlLoRA was loaded, extra
-    LoRAs or None), on ``--device``: the frozen weights of
+    LoRAs or None), on ``--device`` and over ``mesh``: the frozen weights of
     ``--pretrained_model_name_or_path``, or seeded random ones."""
     from controllora_tpu_torch.data.tokenizer import default_tokenizer
     from controllora_tpu_torch.models import zoo
@@ -187,7 +209,7 @@ def build_pipelines(args):
             load_dir = os.path.join(ckpt, "control_lora")
             print(f"sampling from training checkpoint-{step}")
         control_lora, ccfg = load_control_lora(load_dir, device)
-        if args.resume_from_checkpoint:
+        if args.resume_from_checkpoint and is_main():
             # the reference eval re-saves the final-format artifact at the run root
             save_control_lora(args.control_lora_dir, control_lora)
             print(f"re-saved final artifact to {args.control_lora_dir}")
@@ -212,7 +234,8 @@ def build_pipelines(args):
 
     tokenizer = default_tokenizer(require_clip=bool(args.pretrained_model_name_or_path))
     pipe = StableDiffusionControlLoRAPipeline(unet, vae, text, tokenizer, control_lora,
-                                              scheduler=scheduler(), device=device)
+                                              scheduler=scheduler(), device=device,
+                                              mesh=mesh)
     refiner = None
     if args.refiner_variant:
         if args.mask_image:
@@ -224,18 +247,31 @@ def build_pipelines(args):
         if not args.refiner_model_path:
             print("WARNING: random frozen refiner (no pretrained weights)", flush=True)
         refiner = StableDiffusionControlLoRAPipeline(r_unet, r_vae, r_text, tokenizer,
-                                                     scheduler=scheduler(), device=device)
+                                                     scheduler=scheduler(), device=device,
+                                                     mesh=mesh)
         print(f"two-stage render: base [0, {args.denoising_split}) -> refiner", flush=True)
     return pipe, refiner, control_lora is not None, extra_loras
 
 
 def main(argv=None):
+    args = parse_args(argv)
+    mesh, started = start_mesh(args)
+    try:
+        if mesh is not None and not mesh.member:
+            print(f"rank {mesh.rank} is outside the serving mesh {mesh.shape}; idle",
+                  flush=True)
+            return
+        _sample(args, mesh)
+    finally:
+        distributed.stop(started)
+
+
+def _sample(args, mesh):
     from controllora_tpu_torch.data import DatasetBase
     from controllora_tpu_torch.utils.image import load_image, load_mask
     from controllora_tpu_torch.utils.png import encode_png
 
-    args = parse_args(argv)
-    pipe, refiner, guided, extra_loras = build_pipelines(args)
+    pipe, refiner, guided, extra_loras = build_pipelines(args, mesh)
     generator = torch.Generator().manual_seed(args.seed)
 
     def render(prompt, return_array=False, **kw):
@@ -253,12 +289,15 @@ def main(argv=None):
                        generator=generator, return_array=return_array)[0]
 
     def write(i, image):
+        if not is_main():
+            return
         path = os.path.join(args.output_dir, f"{i}.png")
         with open(path, "wb") as f:
             f.write(encode_png(image))
         print(f"wrote {path}", flush=True)
 
-    os.makedirs(args.output_dir, exist_ok=True)
+    if is_main():
+        os.makedirs(args.output_dir, exist_ok=True)
     paint = dict(strength=args.strength,
                  image=load_image(args.init_image, args.resolution) if args.init_image else None,
                  mask=load_mask(args.mask_image, args.resolution) if args.mask_image else None)

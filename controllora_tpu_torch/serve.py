@@ -37,7 +37,10 @@ API:
       response: {"image": <base64 PNG>, "seconds": float}; 504 when the render
       outlasts --result_timeout_s, 500 with the error text when it fails.
 
-Not taken here: ``--serving_mesh`` (parallelism is not ported; ROADMAP.md).
+``--serving_mesh`` (as ``sample.py``'s, one rank a process under torchrun): rank 0
+runs the HTTP server and the engine; for each batch the engine's call is broadcast
+to the other ranks, which make the same pipeline call, and a stop message ends them
+at shutdown. ``/stats`` shows the mesh's shape.
 """
 
 from __future__ import annotations
@@ -53,6 +56,9 @@ import numpy as np
 import torch
 
 from controllora_tpu_torch.models.zoo import BASE_VARIANTS, model_dtype
+from controllora_tpu_torch.parallel import distributed
+from controllora_tpu_torch.parallel.distributed import add_dist_args
+from controllora_tpu_torch.sample import start_mesh
 from controllora_tpu_torch.schedulers import (
     DDIMScheduler,
     DPMSolverMultistepScheduler,
@@ -89,6 +95,8 @@ def parse_args(argv=None):
     p.add_argument("--model_variant", type=model_variant, default="sd15",
                    choices=BASE_VARIANTS)
     p.add_argument("--control_lora_dir", type=str, default=None)
+    p.add_argument("--serving_mesh", type=str, default=None,
+                   help="'data' | 'cfg' | 'cfg,model=K' | 'data,cfg' …")
     p.add_argument("--scheduler", type=str, default="dpm++", choices=tuple(SCHEDULERS))
     p.add_argument("--host", type=str, default="0.0.0.0")
     p.add_argument("--port", type=int, default=8000)
@@ -116,6 +124,7 @@ def parse_args(argv=None):
                         "published speed/quality range) applied to every batch")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; the flash kernels run on cuda")
+    add_dist_args(p)
     args = p.parse_args(argv)
     tome_ratio, interval = PRESETS[args.preset]
     if args.tome_ratio is None:
@@ -125,11 +134,11 @@ def parse_args(argv=None):
     return args
 
 
-def build_pipeline(args):
+def build_pipeline(args, mesh=None):
     """The pipeline the server renders with: the frozen stack of ``--model_variant``
     (``model_dtype``) loaded from ``--pretrained_model_name_or_path`` or with seeded
-    random weights, the ControlLoRA of
-    ``--control_lora_dir`` if given, and ``--scheduler``."""
+    random weights, the ControlLoRA of ``--control_lora_dir`` if given,
+    ``--scheduler``, over ``mesh``."""
     from controllora_tpu_torch.data.tokenizer import default_tokenizer
     from controllora_tpu_torch.models import zoo
     from controllora_tpu_torch.pipelines import StableDiffusionControlLoRAPipeline
@@ -150,7 +159,7 @@ def build_pipeline(args):
     return StableDiffusionControlLoRAPipeline(unet, vae, text_encoder, tokenizer,
                                               control_lora,
                                               scheduler=SCHEDULERS[args.scheduler](),
-                                              device=device)
+                                              device=device, mesh=mesh)
 
 
 def speed_kwargs(args):
@@ -236,13 +245,70 @@ def build_server(engine, host: str, port: int,
     return ThreadingHTTPServer((host, port), Handler)
 
 
+class MeshLeader:
+    """Rank 0's pipeline on a multi-rank mesh: each call is first broadcast to the
+    other ranks (``follow``), which make the same call; other attributes are the
+    pipeline's."""
+
+    def __init__(self, pipe):
+        self.pipe = pipe
+
+    def __getattr__(self, name):
+        return getattr(self.pipe, name)
+
+    def __call__(self, *args, **kw):
+        _broadcast(("call", args, kw))
+        return self.pipe(*args, **kw)
+
+    def stop(self) -> None:
+        _broadcast(("stop", (), {}))
+
+
+def _broadcast(message=None):
+    import torch.distributed as dist
+
+    box = [message]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def follow(pipe) -> int:
+    """A rank other than 0: make every call rank 0's engine makes, until the stop
+    message; returns the number of calls. A failed call fails on rank 0 too, whose
+    engine fails the batch and keeps serving, so this rank keeps following."""
+    calls = 0
+    while True:
+        kind, args, kw = _broadcast()
+        if kind == "stop":
+            return calls
+        calls += 1
+        if pipe.mesh.member:
+            try:
+                pipe(*args, **kw)
+            except Exception as e:
+                print(f"rank {pipe.mesh.rank}: call {calls} failed: {e}", flush=True)
+
+
 def main(argv=None):
+    args = parse_args(argv)
+    mesh, started = start_mesh(args)
+    try:
+        _serve(args, mesh)
+    finally:
+        distributed.stop(started)
+
+
+def _serve(args, mesh):
     from controllora_tpu_torch.serving import BatchingEngine
 
-    args = parse_args(argv)
-    pipe = build_pipeline(args)
+    pipe = build_pipeline(args, mesh)
+    if mesh is not None and mesh.rank != 0:
+        calls = follow(pipe)
+        print(f"rank {mesh.rank}: followed {calls} calls", flush=True)
+        return
+    leader = MeshLeader(pipe) if mesh is not None and mesh.devices > 1 else None
     buckets = tuple(int(b) for b in args.buckets.split(","))
-    engine = BatchingEngine(pipe, max_wait_ms=args.max_wait_ms, buckets=buckets,
+    engine = BatchingEngine(leader or pipe, max_wait_ms=args.max_wait_ms, buckets=buckets,
                             pipe_kwargs=speed_kwargs(args))
     server = None
     try:
@@ -263,6 +329,8 @@ def main(argv=None):
         if server is not None:
             server.server_close()
         engine.stop()
+        if leader is not None:
+            leader.stop()
 
 
 if __name__ == "__main__":

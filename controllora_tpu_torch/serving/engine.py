@@ -19,13 +19,15 @@ Concurrent requests coalesce into per-image-prompt batches over one pipeline:
   brings its own pooled text vector (per-image prompts in the pipeline).
 * **One dispatch thread** owns the device; a forming batch waits at most
   ``max_wait_ms`` for companions.
-
-The JAX engine's data-mesh handling (bucket snapping, guide fingerprints) is not
-ported: the port serves from one device.
+* **Data meshes** (a pipeline with a 'data' axis, JAX :93-105, 138-147, 213-217): the
+  buckets snap up to multiples of the axis, since the batch must divide over it; a
+  data mesh takes one replicated guide a call, so a guided request's guide joins its
+  group key as a SHA-256 fingerprint and a batch passes the one shared guide.
 """
 
 from __future__ import annotations
 
+import hashlib
 import queue
 import threading
 import time
@@ -52,13 +54,14 @@ class Request:
     # internal
     _latents: Any = field(default=None, repr=False)
     _future: Any = field(default=None, repr=False)
+    _guide_fp: Any = field(default=None, repr=False)  # guide identity on a data mesh
 
     @property
     def group_key(self):
         """Requests sharing this key can render in one batched pipeline call."""
         return (self.num_inference_steps, self.height, self.width,
                 float(self.guidance_scale), float(self.lora_scale),
-                self.guide is not None, self.return_array)
+                self.guide is not None, self.return_array, self._guide_fp)
 
 
 def request_latents(seed: int, height: int, width: int, channels: int = 4) -> np.ndarray:
@@ -86,11 +89,19 @@ class BatchingEngine:
         self.buckets = tuple(sorted(int(b) for b in buckets))
         if not self.buckets or self.buckets[0] < 1:
             raise ValueError(f"buckets must be positive ints, got {buckets!r}")
+        mesh = getattr(pipe, "mesh", None)
+        self._data_axis = mesh.size("data") if mesh is not None else 1
+        if self._data_axis > 1:
+            # a lone request on a data-4 mesh renders as a padded batch of 4
+            d = self._data_axis
+            self.buckets = tuple(sorted({-(-b // d) * d for b in self.buckets}))
         self._q: "queue.Queue[Request]" = queue.Queue()
         self._held: list = []  # incompatible leftovers, FIFO priority next round
         self._stop = threading.Event()
         self.stats: Dict[str, Any] = {"requests": 0, "batches": 0, "padded_slots": 0,
                                       "batch_sizes": {}, "errors": 0}
+        if mesh is not None:
+            self.stats["mesh"] = mesh.shape
         self._worker = threading.Thread(target=self._loop, daemon=True,
                                         name="serving-batcher")
         self._worker.start()
@@ -107,6 +118,9 @@ class BatchingEngine:
                 raise ValueError(f"guide shape {g.shape} must be "
                                  f"({req.height}, {req.width}, 3)")
             req.guide = g
+            if self._data_axis > 1:
+                # a digest: a colliding 64-bit hash would render with the wrong guide
+                req._guide_fp = hashlib.sha256(g.tobytes()).digest()
         req._latents = request_latents(req.seed, req.height, req.width,
                                        self.pipe.unet.config.in_channels)
         req._future = Future()
@@ -171,7 +185,9 @@ class BatchingEngine:
             return_array=first.return_array,
         )
         if first.guide is not None:
-            kw["guide"] = np.stack([r.guide for r in reqs])
+            # a data mesh: the one guide the group key pinned, replicated
+            kw["guide"] = (first.guide if self._data_axis > 1
+                           else np.stack([r.guide for r in reqs]))
         try:
             t0 = time.monotonic()
             imgs = self.pipe([r.prompt for r in reqs], **kw)

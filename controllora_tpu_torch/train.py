@@ -37,7 +37,18 @@ checkpoint and exits 0 (a second signal aborts). The run ends by writing the
 adapter artifact (``training/checkpoint.py``) and a model card (``README.md``, the
 checkpoint directory as ``base_model``) to ``--output_dir``. Flags of
 ``scripts/train.py`` not taken here: ``--push_to_hub`` and the ``--hub_*`` flags (no
-network), ``--profile`` and data parallelism (ROADMAP.md).
+network) and ``--profile``.
+
+Data parallelism (``scripts/train.py`` :118-150): under torchrun every rank is one
+process (``--dist_backend`` nccl, one card per rank; gloo on the CPU or a shared
+card). ``--train_batch_size`` is per rank, so the global batch is it times the world
+size (and ``--scale_lr`` scales with it); every rank makes the global batch, keeps
+its rows (``parallel.shard_batch``) and draws the noise for the whole batch, and the
+trainer averages the gradients over the ranks. Checkpoints, metrics, validation
+renders and the final artifact are written by rank 0 alone.
+
+    python -m torch.distributed.run --nproc_per_node 2 -m controllora_tpu_torch.train \
+        --model_variant smoke --resolution 64 --train_batch_size 2 --device cpu
 """
 
 from __future__ import annotations
@@ -51,6 +62,7 @@ import time
 
 import torch
 
+from controllora_tpu_torch.parallel import distributed
 from controllora_tpu_torch.utils.logging import REPORT_TO, MetricsLogger
 
 
@@ -123,6 +135,7 @@ def parse_args(argv=None):
     p.add_argument("--log_every", type=int, default=10)
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; the flash kernels run on cuda")
+    distributed.add_dist_args(p)
     return p.parse_args(argv)
 
 
@@ -143,7 +156,7 @@ def build_control_config(args, unet_config):
     return cfg
 
 
-def resume_point(args):
+def resume_point(args, global_batch):
     """(train state or None, start step, seed): the latest checkpoint under
     --resume_from_checkpoint, and the seed recorded in run_meta.json, which wins
     over --seed for data order and noise (scripts/train.py semantics) and, here, for
@@ -169,9 +182,9 @@ def resume_point(args):
             print(f"WARNING: resuming with --seed {args.seed} but the run was started "
                   f"with seed {seed}; using the recorded seed for the random weights, "
                   "data order and noise streams", flush=True)
-        if meta.get("global_batch") not in (None, args.train_batch_size):
+        if meta.get("global_batch") not in (None, global_batch):
             print(f"WARNING: global batch changed ({meta['global_batch']} -> "
-                  f"{args.train_batch_size}); the resumed data stream will not match "
+                  f"{global_batch}); the resumed data stream will not match "
                   "the original run's", flush=True)
     return state, at, seed
 
@@ -198,15 +211,17 @@ def build_dataset(args, tokenizer, seed):
         max_train_samples=args.max_train_samples)
 
 
-def make_batches(args, dataset, seed, start_step):
-    """(batch stream, what it is). fill50k is made in C and column datasets are
-    normalised in C, behind a prefetch thread (scripts/train.py's native data plane),
-    where the C library builds; everything else, and a latent cache, goes through
-    ``batch_iterator``."""
+def make_batches(args, dataset, seed, start_step, bs=None):
+    """(stream of global batches of ``bs`` (default ``--train_batch_size``), what it
+    is). fill50k is made in C and
+    column datasets are normalised in C, behind a prefetch thread (scripts/train.py's
+    native data plane), where the C library builds; everything else, and a latent
+    cache, goes through ``batch_iterator``."""
     from controllora_tpu_torch.data import fastloader
     from controllora_tpu_torch.data.registry import batch_iterator
 
-    bs = args.train_batch_size
+    bs = bs or args.train_batch_size
+
     why = "latent cache" if args.cache_latents else None
     if why is None and not fastloader.native_available():
         why = f"native fastloader unavailable: {fastloader.native_error()}"
@@ -252,7 +267,7 @@ def make_validation(args, dataset, stack, control, trainer, logger, device):
     return validate
 
 
-def write_model_card(args) -> None:
+def write_model_card(args, global_batch) -> None:
     """``<output_dir>/README.md`` (the reference's save_model_card, as
     ``scripts/train.py`` writes it): the checkpoint directory, or SD1.5's hub name
     for a random stack, as ``base_model``."""
@@ -266,7 +281,7 @@ tags: [stable-diffusion, controllora, control-lora, pytorch, cuda]
 
 ControlLoRA adapter trained with controllora_tpu_torch (PyTorch/CUDA) on
 `{args.dataset_name}` at {args.resolution}px for {args.max_train_steps} steps (lr
-{args.learning_rate}, global batch {args.train_batch_size}, config
+{args.learning_rate}, global batch {global_batch}, config
 `{args.control_lora_config}`). Load with
 `controllora_tpu_torch.training.checkpoint.load_control_lora`, the JAX package's
 `load_control_lora` or the PyTorch reference's `ControlLoRA.from_pretrained`.
@@ -275,8 +290,17 @@ ControlLoRA adapter trained with controllora_tpu_torch (PyTorch/CUDA) on
 
 def main(argv=None):
     args = parse_args(argv)
+    started = distributed.start(args)
+    try:
+        train(args)
+    finally:
+        distributed.stop(started)
+
+
+def train(args):
     from controllora_tpu_torch.data.tokenizer import default_tokenizer
     from controllora_tpu_torch.models import zoo
+    from controllora_tpu_torch.parallel import make_mesh, replicate, shard_batch
     from controllora_tpu_torch.training.checkpoint import Checkpointer, save_control_lora
     from controllora_tpu_torch.training.trainer import (
         ControlLoRATrainer,
@@ -286,16 +310,23 @@ def main(argv=None):
 
     device = torch.device(args.device)
     dtype = torch.bfloat16 if args.mixed_precision == "bf16" else torch.float32
+    mesh = make_mesh() if distributed.world_size() > 1 else None
+    main_rank = distributed.is_main()
+    say = print if main_rank else (lambda *a, **k: None)
+    global_batch = args.train_batch_size * (mesh.devices if mesh else 1)
+    if mesh is not None:
+        say(f"data parallel over {mesh.devices} ranks ({args.dist_backend or 'default'} "
+            f"backend): global batch {global_batch}", flush=True)
     # restored before the models and the data stream exist: the recorded seed makes
     # the same random frozen stack, and the stream fast-forwards to the step (the
     # reference's skip_first_batches)
-    state, start_step, seed = resume_point(args)
+    state, start_step, seed = resume_point(args, global_batch)
     gen = torch.Generator(device).manual_seed(seed)
     unet, vae, text = zoo.frozen_stack(args.pretrained_model_name_or_path,
                                        args.model_variant, dtype, device, gen)
     ccfg = build_control_config(args, unet.config)
     control = zoo.build_control_lora(ccfg, device, gen)
-    print(f"device {device}; frozen {args.model_variant} stack " + (
+    say(f"device {device}; frozen {args.model_variant} stack " + (
         f"from {args.pretrained_model_name_or_path}" if args.pretrained_model_name_or_path
         else f"is random (seed {seed}): no pretrained weights given"), flush=True)
 
@@ -307,12 +338,12 @@ def main(argv=None):
         dataset = LatentCachedDataset(dataset, vae, cache_path=args.latent_cache_path)
     if args.max_train_steps is None:
         steps_per_epoch = max(math.ceil(
-            len(dataset) / args.train_batch_size / args.gradient_accumulation_steps), 1)
+            len(dataset) / global_batch / args.gradient_accumulation_steps), 1)
         args.max_train_steps = args.num_train_epochs * steps_per_epoch
 
     lr = args.learning_rate
     if args.scale_lr:
-        lr = lr * args.gradient_accumulation_steps * args.train_batch_size
+        lr = lr * args.gradient_accumulation_steps * global_batch
     optimizer = make_optimizer(
         control.parameters(), learning_rate=lr, beta1=args.adam_beta1,
         beta2=args.adam_beta2, weight_decay=args.adam_weight_decay, eps=args.adam_epsilon,
@@ -325,27 +356,29 @@ def main(argv=None):
         prediction_type=args.prediction_type, snr_gamma=args.snr_gamma,
         remat_unet=args.gradient_checkpointing, remat_policy=args.remat_policy,
         adapter_compute_dtype=torch.bfloat16 if args.adapter_compute_bf16 else None,
-        hint_compute_dtype=None if dtype == torch.float32 else dtype)
+        hint_compute_dtype=None if dtype == torch.float32 else dtype, mesh=mesh)
 
     step_gen = torch.Generator(device).manual_seed(seed + 1)
     if state is not None:
         control.load_state_dict(state["params"])
         optimizer.load_state_dict(state["optimizer"])
         step_gen.set_state(state["generator"])
-    else:
+    elif main_rank:
         os.makedirs(args.output_dir, exist_ok=True)
         with open(os.path.join(args.output_dir, "run_meta.json"), "w") as f:
-            json.dump({"seed": args.seed, "global_batch": args.train_batch_size,
+            json.dump({"seed": args.seed, "global_batch": global_batch,
                        "dataset_name": args.dataset_name,
                        "resolution": args.resolution}, f)
-    batches, plane = make_batches(args, dataset, seed, start_step)
-    print(f"data plane: {plane}", flush=True)
-    logger = MetricsLogger(args.output_dir, args.report_to)
+    replicate(control, mesh)  # every rank starts from rank 0's parameters
+    batches, plane = make_batches(args, dataset, seed, start_step, global_batch)
+    say(f"data plane: {plane}", flush=True)
+    logger = MetricsLogger(args.output_dir, args.report_to, enabled=main_rank)
     validate = (make_validation(args, dataset, (unet, vae, text, tokenizer), control,
-                                trainer, logger, device) if args.validation_steps else None)
+                                trainer, logger, device)
+                if args.validation_steps and main_rank else None)
     n_params = sum(p.numel() for p in trainer.params)
-    print(f"ControlLoRA params: {n_params / 1e6:.2f}M | batch {args.train_batch_size} | "
-          f"lr {lr}", flush=True)
+    say(f"ControlLoRA params: {n_params / 1e6:.2f}M | batch {global_batch} | "
+        f"lr {lr}", flush=True)
 
     checkpointer = Checkpointer()
     last_saved = start_step if state is not None else -1
@@ -353,6 +386,8 @@ def main(argv=None):
     def save_checkpoint(at_step):
         nonlocal last_saved
         last_saved = at_step
+        if not main_rank:
+            return
         checkpointer.save(args.output_dir, at_step,
                           {"step": at_step, "params": control.state_dict(),
                            "optimizer": optimizer.state_dict(),
@@ -376,39 +411,44 @@ def main(argv=None):
     try:
         t_last = time.perf_counter()
         for step in range(start_step, args.max_train_steps):
-            metrics = trainer.train_step(to_device_batch(next(batches), device), step_gen)
+            batch = shard_batch(next(batches), mesh)
+            metrics = trainer.train_step(to_device_batch(batch, device), step_gen)
             done = step + 1
             if done % args.log_every == 0 or done == args.max_train_steps:
                 loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
                 now = time.perf_counter()
                 n = done % args.log_every or args.log_every
                 dt = (now - t_last) / n
-                print(f"step {done}: loss={loss:.4f} grad_norm={gnorm:.4f} "
-                      f"{1 / dt:.3f} steps/s {dt * 1e3:.1f} ms/step", flush=True)
+                say(f"step {done}: loss={loss:.4f} grad_norm={gnorm:.4f} "
+                    f"{1 / dt:.3f} steps/s {dt * 1e3:.1f} ms/step", flush=True)
                 logger.log(done, {"train_loss": loss, "grad_norm": gnorm,
                                   "steps_per_sec": 1 / dt,
-                                  "imgs_per_sec": args.train_batch_size / dt})
+                                  "imgs_per_sec": global_batch / dt})
                 t_last = now
             if validate is not None and done % args.validation_steps == 0:
                 validate(done)
                 t_last = time.perf_counter()
             if args.checkpointing_steps and done % args.checkpointing_steps == 0:
                 save_checkpoint(done)
+            # the ranks stop together: a signal on any rank stops them all
+            if mesh is not None and mesh.any(stop["sig"] is not None):
+                stop["sig"] = stop["sig"] or signal.SIGTERM
             if stop["sig"] is not None:
                 if last_saved != done:
                     save_checkpoint(done)
                 checkpointer.finalize()
-                print(f"preempted at step {done}; relaunch with "
-                      "--resume_from_checkpoint latest to continue", flush=True)
+                say(f"preempted at step {done}; relaunch with "
+                    "--resume_from_checkpoint latest to continue", flush=True)
                 return
         checkpointer.finalize()
     finally:
         logger.close()
         for s, h in prev_handlers.items():
             signal.signal(s, h)
-    save_control_lora(args.output_dir, control)
-    write_model_card(args)
-    print(f"saved final ControlLoRA to {args.output_dir}", flush=True)
+    if main_rank:
+        save_control_lora(args.output_dir, control)
+        write_model_card(args, global_batch)
+        print(f"saved final ControlLoRA to {args.output_dir}", flush=True)
 
 
 if __name__ == "__main__":

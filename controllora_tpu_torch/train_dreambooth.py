@@ -22,6 +22,11 @@ the data stream). ``--pretrained_model_name_or_path`` loads the frozen stack fro
 local diffusers-layout directory (and requires the real CLIP BPE vocab,
 ``$CLIP_VOCAB_DIR``); without it the stack gets seeded random weights. Left out:
 ``--push_to_hub`` and the ``--hub_*`` flags (no network).
+
+Data parallelism under torchrun as ``train.py``'s (``scripts/train_dreambooth.py``
+:112-135): ``--train_batch_size`` is per rank, each rank keeps its rows of the global
+instance batch and of the class batch, and only rank 0 samples class images, writes
+checkpoints, validation images and the LoRA.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ import time
 import numpy as np
 import torch
 
+from controllora_tpu_torch.parallel import distributed
 from controllora_tpu_torch.training.trainer import LR_SCHEDULES
 from controllora_tpu_torch.utils.logging import REPORT_TO, MetricsLogger
 
@@ -95,6 +101,7 @@ def parse_args(argv=None):
     p.add_argument("--log_every", type=int, default=10)
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; the flash kernels run on cuda")
+    distributed.add_dist_args(p)
     return p.parse_args(argv)
 
 
@@ -128,10 +135,21 @@ def sample_class_images(args, pipeline) -> int:
 
 def main(argv=None):
     args = parse_args(argv)
+    started = distributed.start(args)
+    try:
+        train(args)
+    finally:
+        distributed.stop(started)
+
+
+def train(args):
+    import torch.distributed as dist
+
     from controllora_tpu_torch.data.dreambooth import DreamBoothDataset
     from controllora_tpu_torch.data.registry import batch_iterator
     from controllora_tpu_torch.data.tokenizer import default_tokenizer
     from controllora_tpu_torch.models import zoo
+    from controllora_tpu_torch.parallel import make_mesh, replicate, shard_batch
     from controllora_tpu_torch.pipelines import StableDiffusionControlLoRAPipeline
     from controllora_tpu_torch.training.checkpoint import Checkpointer, restore_train_state
     from controllora_tpu_torch.training.dreambooth import DreamBoothLoRATrainer
@@ -140,20 +158,26 @@ def main(argv=None):
     device = torch.device(args.device)
     dtype = torch.bfloat16 if args.mixed_precision == "bf16" else torch.float32
     accum = max(args.gradient_accumulation_steps, 1)
+    mesh = make_mesh() if distributed.world_size() > 1 else None
+    main_rank = distributed.is_main()
+    say = print if main_rank else (lambda *a, **k: None)
+    global_batch = args.train_batch_size * (mesh.devices if mesh else 1)
     gen = torch.Generator(device).manual_seed(args.seed)
     unet, vae, text = zoo.frozen_stack(args.pretrained_model_name_or_path,
                                        args.model_variant, dtype, device, gen)
-    print(f"device {device}; frozen {args.model_variant} stack " + (
+    say(f"device {device}; frozen {args.model_variant} stack " + (
         f"from {args.pretrained_model_name_or_path}" if args.pretrained_model_name_or_path
         else f"is random (seed {args.seed}): no pretrained weights given"), flush=True)
     tokenizer = default_tokenizer(require_clip=bool(args.pretrained_model_name_or_path))
     pipe = StableDiffusionControlLoRAPipeline(unet, vae, text, tokenizer, device=device)
 
-    if args.with_prior_preservation and args.sample_class_images:
+    if args.with_prior_preservation and args.sample_class_images and main_rank:
         t0 = time.perf_counter()
         made = sample_class_images(args, pipe)
         print(f"generated {made} class images in {time.perf_counter() - t0:.1f} s",
               flush=True)
+    if mesh is not None:
+        dist.barrier()  # the class images exist before any rank reads them
 
     prior = args.with_prior_preservation
     dataset = DreamBoothDataset(
@@ -163,16 +187,16 @@ def main(argv=None):
         class_prompt=args.class_prompt if prior else None,
         resolution=args.resolution, center_crop=args.center_crop, seed=args.seed)
     # an epoch is one pass over the instance images; --max_train_steps wins
-    steps_per_epoch = max(math.ceil(len(dataset) / args.train_batch_size / accum), 1)
+    steps_per_epoch = max(math.ceil(len(dataset) / global_batch / accum), 1)
     max_steps = args.max_train_steps or args.num_train_epochs * steps_per_epoch
 
     lr = args.learning_rate
     if args.scale_lr:
-        lr = lr * accum * args.train_batch_size
+        lr = lr * accum * global_batch
     trainer = DreamBoothLoRATrainer(
         unet, vae, text, rank=args.lora_rank, with_prior_preservation=prior,
         prior_loss_weight=args.prior_loss_weight, remat_unet=args.gradient_checkpointing,
-        generator=gen)
+        generator=gen, mesh=mesh)
     optimizer = make_optimizer(
         trainer.params, learning_rate=lr, beta1=args.adam_beta1, beta2=args.adam_beta2,
         weight_decay=args.adam_weight_decay, eps=args.adam_epsilon,
@@ -194,10 +218,11 @@ def main(argv=None):
             trainer.load_state_dict({k: v.numpy() for k, v in state["params"].items()})
             optimizer.load_state_dict(state["optimizer"])
             step_gen.set_state(state["generator"])
-            print(f"resumed from step {start_step}", flush=True)
-    batches = batch_iterator(dataset, args.train_batch_size, seed=args.seed,
+            say(f"resumed from step {start_step}", flush=True)
+    replicate(trainer.params, mesh)  # every rank starts from rank 0's LoRA
+    batches = batch_iterator(dataset, global_batch, seed=args.seed,
                              start_step=start_step * accum)
-    logger = MetricsLogger(args.output_dir, args.report_to)
+    logger = MetricsLogger(args.output_dir, args.report_to, enabled=main_rank)
 
     def validation(tag, at, n_images):
         vgen = torch.Generator().manual_seed(args.seed)
@@ -214,6 +239,8 @@ def main(argv=None):
     def save_checkpoint(at_step):
         nonlocal last_saved
         last_saved = at_step
+        if not main_rank:
+            return
         params = {k: torch.from_numpy(v) for k, v in trainer.state_dict().items()}
         checkpointer.save(args.output_dir, at_step,
                           {"step": at_step, "params": params,
@@ -234,13 +261,14 @@ def main(argv=None):
 
     prev_handlers = {s: signal.signal(s, request_stop) for s in (signal.SIGTERM, signal.SIGINT)}
     n_params = sum(p.numel() for p in trainer.params)
-    print(f"LoRA params: {n_params / 1e6:.2f}M | batch {args.train_batch_size} | lr {lr} | "
-          f"{max_steps} updates ({steps_per_epoch}/epoch)", flush=True)
+    say(f"LoRA params: {n_params / 1e6:.2f}M | batch {global_batch} | lr {lr} | "
+        f"{max_steps} updates ({steps_per_epoch}/epoch)", flush=True)
     seen_epochs = set()
     try:
         t_last = time.perf_counter()
         for micro in range(start_step * accum, max_steps * accum):
-            raw = next(batches)
+            # this rank's instance rows and its class rows (DreamBooth local_rows)
+            raw = shard_batch(next(batches), mesh)
             batch = {"pixel_values": raw["pixel_values"], "input_ids": raw["input_ids"]}
             if prior:  # instance rows, then class rows
                 batch = {k: np.concatenate([raw[k], raw[f"class_{k}"]]) for k in batch}
@@ -254,25 +282,29 @@ def main(argv=None):
                 dt = (now - t_last) / (step % args.log_every or args.log_every)
                 t_last = now
                 logger.log(step, {"train_loss": loss, "steps_per_sec": 1 / dt})
-                print(f"step {step}: loss={loss:.4f} {dt * 1e3:.1f} ms/step", flush=True)
+                say(f"step {step}: loss={loss:.4f} {dt * 1e3:.1f} ms/step", flush=True)
             if args.checkpointing_steps and step % args.checkpointing_steps == 0:
                 save_checkpoint(step)
             # validation at the end of each epoch with epoch % N == 0 (0-indexed)
             epoch = step // steps_per_epoch - 1
-            if (args.validation_prompt and step % steps_per_epoch == 0
+            if (args.validation_prompt and main_rank and step % steps_per_epoch == 0
                     and epoch % max(args.validation_epochs, 1) == 0
                     and epoch not in seen_epochs):
                 seen_epochs.add(epoch)
                 validation("validation", step, args.num_validation_images)
                 t_last = time.perf_counter()
+            if mesh is not None and mesh.any(stop["sig"] is not None):
+                stop["sig"] = stop["sig"] or signal.SIGTERM
             if stop["sig"] is not None:
                 if last_saved != step:
                     save_checkpoint(step)
                 checkpointer.finalize()
-                print(f"preempted at step {step}; relaunch with "
-                      "--resume_from_checkpoint latest to continue", flush=True)
+                say(f"preempted at step {step}; relaunch with "
+                    "--resume_from_checkpoint latest to continue", flush=True)
                 return
         checkpointer.finalize()
+        if not main_rank:
+            return
         save_lora(args.output_dir, trainer.state_dict())
         print(f"saved LoRA weights to {args.output_dir}", flush=True)
         if args.validation_prompt and args.num_validation_images > 0:

@@ -4,7 +4,9 @@ train_dreambooth_lora.py:706-722), the diffusion MSE on instance images, and wit
 prior preservation the batch's second half (class images) as a second MSE weighted
 by ``prior_loss_weight`` (:898-910). Text and ``text_time`` conditioning come from
 ``training/conditioning.py``, shared with the ControlLoRA trainer; so do the latents,
-the draws, remat and the optimizer step (``AdapterTrainer``).
+the draws, remat, data parallelism and the optimizer step (``AdapterTrainer``). Under
+dp with prior preservation each rank's batch is its instance rows, then its class
+rows (``local_rows``), so the mean of the ranks' two-term losses is the global one.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ class DreamBoothLoRATrainer(AdapterTrainer):
                  optimizer: Optional[AdapterOptimizer] = None,
                  prior_loss_weight: float = 1.0, with_prior_preservation: bool = False,
                  remat_unet: bool = True, loras: Optional[Dict[str, AttnAdapter]] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, mesh=None):
         if loras is None:
             device = next(unet.parameters()).device
             loras = make_plain_lora_adapters(
@@ -43,9 +45,18 @@ class DreamBoothLoRATrainer(AdapterTrainer):
         params = [t.requires_grad_(True) for a in loras.values()
                   for pair in a.params.values() for t in pair.values()]
         super().__init__(params, unet, vae, text_encoder, scheduler, optimizer,
-                         remat_unet=remat_unet, remat_policy="nothing")
+                         remat_unet=remat_unet, remat_policy="nothing", mesh=mesh)
         self.prior_loss_weight = prior_loss_weight
         self.with_prior_preservation = with_prior_preservation
+
+    def local_rows(self, n: int) -> torch.Tensor:
+        """Under prior preservation the global batch is [instances || classes]: this
+        rank's rows are its block of each half."""
+        if not self.with_prior_preservation:
+            return super().local_rows(n)
+        half, r = n // 2, self.mesh.coord("data")
+        inst = torch.arange(r * half, (r + 1) * half)
+        return torch.cat([inst, inst + half * self.dp])
 
     def adapters(self) -> Dict[str, AdapterStack]:
         return {name: AdapterStack(main=a) for name, a in self.loras.items()}

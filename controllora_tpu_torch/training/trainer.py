@@ -15,7 +15,15 @@ block (``remat_unet``, on by default as in the JAX trainer) under one of the JAX
 
 Randomness comes from an explicit ``torch.Generator``; ``loss`` also takes the
 posterior sample, the noise and the timesteps injected, so a test can feed it the
-JAX trainer's own draws. Not ported yet (ROADMAP): data parallelism.
+JAX trainer's own draws.
+
+Data parallelism (``mesh=`` with a 'data' axis; JAX ``trainer.py`` :296-325): each
+rank takes its rows of the global batch; the draws are made for the GLOBAL batch
+from the one generator (or given for it) and sliced to the rank's rows, so a dp step
+equals a 1-process step at the global batch. After the backward, the adapter
+gradients are averaged over the axis (one fp32 all-reduce of them all), and only
+then clipped and stepped, so every rank holds the same parameters; the reported loss
+is the mean over the ranks.
 """
 
 from __future__ import annotations
@@ -259,7 +267,9 @@ class AdapterTrainer:
                  scheduler: Optional[DDPMScheduler] = None,
                  optimizer: Optional[AdapterOptimizer] = None,
                  prediction_type: Optional[str] = None, remat_unet: bool = True,
-                 remat_policy: str = "dots"):
+                 remat_policy: str = "dots", mesh=None):
+        self.mesh = mesh
+        self.dp = mesh.size("data") if mesh is not None else 1
         self.remat_unet = remat_unet
         self.remat_context = remat_context(remat_policy)
         self.unet, self.vae, self.text_encoder = unet, vae, text_encoder
@@ -288,9 +298,44 @@ class AdapterTrainer:
         with torch.no_grad():  # the VAE is frozen
             return self.vae.encode(batch["pixel_values"], generator, sample_noise)
 
+    def local_rows(self, n: int) -> torch.Tensor:
+        """This rank's rows of the global batch, for a local batch of ``n``."""
+        r = self.mesh.coord("data")
+        return torch.arange(r * n, (r + 1) * n)
+
+    def _latent_shape(self, batch) -> tuple:
+        for key in ("latents", "latent_mean"):
+            if key in batch:
+                return tuple(batch[key].shape[1:])
+        px, cfg = batch["pixel_values"], self.vae.config
+        f = 2 ** (len(cfg.block_out_channels) - 1)
+        return (cfg.latent_channels, px.shape[2] // f, px.shape[3] // f)
+
+    def _global_draws(self, batch, generator, noise, timesteps, sample_noise):
+        """The dp draws: made for the global batch in the 1-process order (posterior
+        sample, noise, t) where not given, and sliced to this rank's rows."""
+        first = next(v for v in batch.values() if torch.is_tensor(v))
+        n, device = first.shape[0], first.device
+        big = n * self.dp
+        shape = (big,) + self._latent_shape(batch)
+        if sample_noise is None and "latents" not in batch:
+            sample_noise = torch.randn(shape, generator=generator, device=device)
+        if noise is None:
+            noise = torch.randn(shape, generator=generator, device=device)
+        if timesteps is None:
+            timesteps = torch.randint(0, self.scheduler.schedule.num_train_timesteps,
+                                      (big,), generator=generator, device=device)
+        rows = self.local_rows(n).to(device)
+        return (None if sample_noise is None else sample_noise[rows]), noise[rows], \
+            timesteps[rows]
+
     def _noised(self, batch, generator, noise, timesteps, sample_noise):
         """(latents, noise, t, noisy latents), fp32: the posterior sample, the noise
-        and t drawn from ``generator`` in that order where they are not given."""
+        and t drawn from ``generator`` in that order where they are not given (for
+        the global batch under dp, then sliced)."""
+        if self.dp > 1:
+            sample_noise, noise, timesteps = self._global_draws(
+                batch, generator, noise, timesteps, sample_noise)
         latents = self._latents(batch, generator, sample_noise).float()
         if noise is None:
             noise = torch.randn(latents.shape, generator=generator, device=latents.device)
@@ -306,22 +351,40 @@ class AdapterTrainer:
         grads = torch.autograd.grad(loss, self.params, allow_unused=True)
         return [torch.zeros_like(p) if g is None else g for p, g in zip(self.params, grads)]
 
+    def all_reduce_grads(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """The mean of every rank's gradients over the 'data' axis, flattened into one
+        fp32 all-reduce (the identity without dp)."""
+        if self.dp == 1:
+            return grads
+        flat = self.mesh.all_reduce(torch.cat([g.reshape(-1).float() for g in grads]),
+                                    "data", mean=True)
+        return [f.view(g.shape).to(g.dtype)
+                for f, g in zip(flat.split([g.numel() for g in grads]), grads)]
+
+    def _mean_loss(self, loss: torch.Tensor) -> torch.Tensor:
+        return loss if self.dp == 1 else self.mesh.all_reduce(loss, "data", mean=True)
+
     def train_step(self, batch: Dict[str, torch.Tensor],
-                   generator: Optional[torch.Generator] = None, **draws
-                   ) -> Dict[str, torch.Tensor]:
+                   generator: Optional[torch.Generator] = None, return_grads: bool = False,
+                   **draws) -> Dict[str, torch.Tensor]:
         """One optimizer step (or micro-step under accumulation); returns the loss
         and the global norm of this step's gradient (before clipping), as tensors on
-        the device: reading them synchronises."""
+        the device: reading them synchronises. Under dp, ``batch`` holds the rank's
+        rows and both are the global batch's; ``return_grads`` adds the (reduced)
+        gradients."""
         loss = self.loss(batch, generator, **draws)
-        grads = self.grads(loss)
+        grads = self.all_reduce_grads(self.grads(loss))
         grad_norm = global_norm(grads)
         self.optimizer.step(grads)
-        return {"loss": loss.detach(), "grad_norm": grad_norm}
+        out = {"loss": self._mean_loss(loss.detach()), "grad_norm": grad_norm}
+        if return_grads:
+            out["grads"] = grads
+        return out
 
     @torch.no_grad()
     def eval_step(self, batch: Dict[str, torch.Tensor],
                   generator: Optional[torch.Generator] = None, **draws) -> torch.Tensor:
-        return self.loss(batch, generator, **draws)
+        return self._mean_loss(self.loss(batch, generator, **draws))
 
 
 class ControlLoRATrainer(AdapterTrainer):
@@ -331,7 +394,8 @@ class ControlLoRATrainer(AdapterTrainer):
     ``adapter_compute_dtype``: the adapter factors and control maps threaded into
     the UNet are cast to it (fp32 masters stay); ``hint_compute_dtype``: the hint
     encoder's convolutions compute in it (flax ``ControlLoRA(dtype=)``); remat as
-    ``AdapterTrainer`` (the JAX trainer's defaults: on, ``dots``)."""
+    ``AdapterTrainer`` (the JAX trainer's defaults: on, ``dots``); ``mesh``: data
+    parallelism as ``AdapterTrainer``."""
 
     def __init__(self, control_lora, unet, vae=None, text_encoder=None,
                  scheduler: Optional[DDPMScheduler] = None,
@@ -339,9 +403,10 @@ class ControlLoRATrainer(AdapterTrainer):
                  prediction_type: Optional[str] = None, snr_gamma: Optional[float] = None,
                  remat_unet: bool = True, remat_policy: str = "dots",
                  adapter_compute_dtype: Optional[torch.dtype] = None,
-                 hint_compute_dtype: Optional[torch.dtype] = None):
+                 hint_compute_dtype: Optional[torch.dtype] = None, mesh=None):
         super().__init__(list(control_lora.parameters()), unet, vae, text_encoder,
-                         scheduler, optimizer, prediction_type, remat_unet, remat_policy)
+                         scheduler, optimizer, prediction_type, remat_unet, remat_policy,
+                         mesh)
         self.control_lora = control_lora.requires_grad_(True)
         self.snr_gamma = snr_gamma
         self.adapter_compute_dtype = adapter_compute_dtype

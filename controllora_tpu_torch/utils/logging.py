@@ -34,12 +34,17 @@ def _require(package: str, report_to: str):
 
 
 class MetricsLogger:
-    def __init__(self, output_dir: str, report_to: str = "jsonl"):
+    def __init__(self, output_dir: str, report_to: str = "jsonl", enabled: bool = True):
+        """``enabled=False`` makes every sink a no-op: the ranks other than 0 of a
+        data-parallel run."""
         if report_to not in REPORT_TO:
             raise ValueError(f"unknown report_to {report_to!r}; known: {REPORT_TO}")
         self.jsonl_path = os.path.join(output_dir, "metrics.jsonl")
         self._jsonl = self._tb = self._wandb = self._comet = None
         self._t0 = time.time()
+        self.enabled = enabled
+        if not enabled:
+            return
         wants = {"tensorboard", "wandb", "comet_ml"} if report_to == "all" else {report_to}
         os.makedirs(output_dir, exist_ok=True)
         if "tensorboard" in wants:
@@ -55,6 +60,8 @@ class MetricsLogger:
         self._jsonl = open(self.jsonl_path, "a")
 
     def log(self, step: int, metrics: Dict[str, float]):
+        if not self.enabled:
+            return
         values = {k: float(v) for k, v in metrics.items()}
         rec = {"step": int(step), "time": round(time.time() - self._t0, 3), **values}
         self._jsonl.write(json.dumps(rec) + "\n")
@@ -72,6 +79,8 @@ class MetricsLogger:
 
     def log_image(self, step: int, tag: str, image_u8: np.ndarray):
         """image_u8: HWC uint8 RGB, saved as a PNG (and to tensorboard / wandb)."""
+        if not self.enabled:
+            return
         path = self.image_path(step, tag)
         os.makedirs(os.path.dirname(path), exist_ok=True)
         with open(path, "wb") as f:

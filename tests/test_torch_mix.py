@@ -149,21 +149,24 @@ def test_extra_controls_matches_jax(pipes, controls):  # noqa: F811
 
 @pytest.mark.parametrize("cli", ["sample", "mix_lora"])
 def test_cli_flags_match_scripts(cli):
-    """Every flag of scripts/<cli>.py, with its default, plus --device; the refused
-    flags parse to None when absent."""
+    """Every flag of scripts/<cli>.py, with its default, plus --device (and, for
+    sample, --dist_backend, the process-group flag of --serving_mesh)."""
     argv = [] if cli == "sample" else ["--control_lora_dir", "c", "--lora_weights", "l",
                                        "--prompt", "p"]
     ours, ref = {"sample": (sample.parse_args, jax_sample_args),
                  "mix_lora": (mix_lora.parse_args, jax_mix_args)}[cli]
     got, want = vars(ours(argv)), vars(ref(argv))
     assert got.pop("device") == "cuda"
+    if cli == "sample":
+        assert got.pop("dist_backend") is None
     assert got == want
     if cli == "sample":
         full = ["--scheduler", "euler", "--strength", "0.5", "--prediction_type",
                 "v_prediction", "--refiner_variant", "sdxl-refiner", "--denoising_split",
                 "0.7", "--tome_ratio", "0.5", "--deepcache_interval", "2",
                 "--model_variant", "smokexl", "--resume_from_checkpoint", "latest"]
-        assert vars(ours(full + ["--device", "cpu"])) == dict(vars(ref(full)), device="cpu")
+        assert vars(ours(full + ["--device", "cpu", "--serving_mesh", "cfg"])) == dict(
+            vars(ref(full + ["--serving_mesh", "cfg"])), device="cpu", dist_backend=None)
 
 
 def png_bytes(arr, mode, fmt="PNG"):

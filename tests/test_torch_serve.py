@@ -47,14 +47,16 @@ ARGVS = [[], ["--preset", "exact"], ["--preset", "tome"], ["--preset", "turbo"],
          ["--scheduler", "unipc", "--buckets", "1,4", "--warmup", "--port", "0",
           "--max_wait_ms", "5", "--result_timeout_s", "30", "--host", "127.0.0.1"],
          ["--model_variant", "sd21"], ["--model_variant", "sdxl", "--buckets", "1,2"],
-         ["--model_variant", "smoke2"], ["--model_variant", "smokexl", "--preset", "tome"]]
-JAX_ONLY = {"serving_mesh"}
+         ["--model_variant", "smoke2"], ["--model_variant", "smokexl", "--preset", "tome"],
+         ["--serving_mesh", "data,cfg"], ["--serving_mesh", "cfg,model=2", "--preset", "turbo"]]
+JAX_ONLY = set()  # --serving_mesh is taken since the port has parallelism
+PORT_ONLY = {"device": "cuda", "dist_backend": None}
 
 
 @pytest.mark.parametrize("argv", ARGVS, ids=lambda a: " ".join(a) or "defaults")
 def test_flags_parse_as_scripts_serve(argv):
     ours, ref = vars(serve.parse_args(argv)), vars(jax_parse_args(argv))
-    assert ours.pop("device") == "cuda"
+    assert {k: ours.pop(k) for k in PORT_ONLY} == PORT_ONLY
     assert set(ref) - set(ours) == JAX_ONLY
     assert ours == {k: v for k, v in ref.items() if k not in JAX_ONLY}
 

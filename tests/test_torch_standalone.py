@@ -12,6 +12,7 @@ import subprocess
 import sys
 
 import numpy as np
+import pytest
 import torch
 
 from controllora_tpu import config as jconfig
@@ -67,7 +68,8 @@ def test_port_imports_nothing_of_jax():
                    "annotators.canny", "annotators.util", "apps.canny2image", "apps.webui",
                    "tasks", "convert_checkpoint", "data.process_datasets",
                    "annotators.openpose", "annotators.hed", "annotators.mlsd",
-                   "annotators.midas", "annotators.uniformer", "apps.pose2image"):
+                   "annotators.midas", "annotators.uniformer", "apps.pose2image",
+                   "parallel", "parallel.distributed", "parallel.mesh", "parallel.tp"):
         assert f"controllora_tpu_torch.{module}" in names.split(), module
 
 
@@ -199,6 +201,38 @@ def test_canny_data_and_launcher_copies_equal():
     for name in ("train_defaults", "test_defaults"):
         assert (getattr(tasks, name)("a", "process/b", "c", ["--x", "1"])
                 == getattr(_launch, name)("a", "process/b", "c", ["--x", "1"]))
+
+
+def test_parallel_rule_copies_equal(monkeypatch):
+    """The copied rules of the parallel slice: ``validate_tp``'s verdicts and
+    messages (SD2.1, SDXL) and ``build_serving_mesh``'s grammar and errors
+    (``scripts/sample.py``'s); exhaustively in tests/test_torch_parallel_mesh.py."""
+    import jax
+
+    from controllora_tpu.models import zoo as jzoo
+    from controllora_tpu.parallel import tp as jtp
+    from controllora_tpu_torch.parallel import tp
+    from controllora_tpu_torch.parallel.mesh import build_serving_mesh
+    from scripts.sample import build_serving_mesh as jax_build_serving_mesh
+
+    def verdict(fn, cfg, n):
+        try:
+            fn(cfg, n)
+        except ValueError as e:
+            return str(e)
+        return None
+
+    for ours, ref in ((zoo.SD21_UNET, jzoo.SD21_UNET), (zoo.SDXL_UNET, jzoo.SDXL_UNET)):
+        for n in (2, 4):
+            assert verdict(tp.validate_tp, ours, n) == verdict(jtp.validate_tp, ref, n)
+    devices = jax.devices()[:2]
+    monkeypatch.setattr(jax, "devices", lambda *a: devices)
+    for spec in ("tp", "cfg,model=2"):
+        with pytest.raises(SystemExit) as a:
+            build_serving_mesh(spec, 2)
+        with pytest.raises(SystemExit) as b:
+            jax_build_serving_mesh(spec)
+        assert str(a.value) == str(b.value)
 
 
 # the annotators' host code and tables, copied from the JAX package verbatim
