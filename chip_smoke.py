@@ -31,7 +31,10 @@ Phases, each of which raises (non-zero exit, no result line) when it fails:
               D 512) with times, bounds and SDPA, and K3/K4 at a ragged D 64 L. K1 at
               SD1.5's 1024² hires pass (L 16384 at D 40, L 4096 at D 80) and K2 at the
               refiner's unguided level 1 (12 heads of D 64), timed the same way; K2, K3
-              and K4 at the canned train_canny task's batch-1 shape (1, 8, 4096, 40).
+              and K4 at the canned train_canny task's batch-1 shape (1, 8, 4096, 40); K1
+              at the levels ToMe 0.5 merges on SD2.1 768² and SDXL 1024², (2, 5, 4608,
+              64), (8, 5, 4608, 64), (2, 10, 2048, 64) and (8, 10, 2048, 64), with
+              biases of batch B (merged per CFG row), timed the same way.
   4. parity   full-width SD1.5 (random seeded bf16 weights) + the `base` ControlLoRA
               (perturbed so the folded biases are nonzero): one folded UNet eval,
               one VAE decode and the CLIP encoder on the card against the same
@@ -51,9 +54,9 @@ Phases, each of which raises (non-zero exit, no result line) when it fails:
               HTTP server (turbo, buckets 1,4, --warmup) answering 4 concurrent
               /generate requests with PNG guides in one batch; exact launches and
               wall seconds of each.
-  7. decode   one guided render at batch 1 and at batch 4 under torch.profiler,
-              under each preset (device busy time, idle share, time by kernel
-              class); VAE decode times at batch 1 and batch 4.
+  7. decode   one guided render at batch 1 and at batch 4 under torch.profiler
+              (device activity only), under each preset (device busy time, idle
+              share, time by kernel class); VAE decode times at batch 1 and batch 4.
   8. train parity  one ControlLoRA train step's loss and adapter gradient at batch 1
               (same weights, latents, noise, t, ids, guide) on the card (bf16,
               kernels; then again with the adapters cast to bf16 as well) against
@@ -94,12 +97,16 @@ Phases, each of which raises (non-zero exit, no result line) when it fails:
               (their kernel shapes are checked in phase 3): per family a folded CFG
               UNet eval, the text encoder and a VAE decode on the
               card in bf16 (kernels) against an fp32 copy on the card with every
-              attention plain; a guided 20-step render through the BatchingEngine
-              with exact launches (derived from the configs) and a profiled render;
-              `python -m controllora_tpu_torch.serve --model_variant sdxl` answering
-              one 1024² /generate with a PNG guide; the refiner's UNet (5 ids) and
-              text tower against fp32, and its unguided eval (K2) as the ensemble
-              runs it.
+              attention plain; a ToMe 0.5 eval with K1 against its plain version on
+              one set of merge maps (within 2x the exact eval's gap); guided 20-step
+              renders through the BatchingEngine under exact, tome and turbo with
+              exact launches (derived from the configs: SD2.1 {k1 200, k2 1} and
+              {150, 1} under turbo, SDXL {200, 1} and {100, 1}) and a profiled
+              render each; `python -m controllora_tpu_torch.serve --model_variant
+              sdxl` answering one 1024² /generate with a PNG guide; the refiner's UNet
+              (5 ids) and text tower against fp32, its unguided eval (K2) as the
+              ensemble runs it, and `serve --model_variant sdxl-refiner --warmup`
+              (bf16) answering one unguided 1024² request, {k1 0, k2 401}.
  15. family train  SD2.1 (768², batch 4, no remat, v-prediction) and SDXL (1024², batch
               2, remat dots, text_time) ControlLoRA training at full width on seeded
               random bf16 weights with `base` re-derived (K2-K4 at their D 64 and VAE
@@ -153,6 +160,10 @@ Phases, each of which raises (non-zero exit, no result line) when it fails:
               controllora_tpu_torch.sample --serving_mesh cfg --dist_backend gloo`,
               rank 0 alone writing. The new kernel shapes are checked and timed in
               phase 3 (phase_parallel_kernels). One line "parallel: {...}".
+ 21. eval presets  `python -m controllora_tpu_torch.eval_presets --train_steps 300` on the
+              card: the smoke ControlLoRA trained at 64², 6 specs rendered under exact,
+              tome50, dc2 and turbo, the report (the JAX script's keys) printed; no
+              kernel launches at 64².
 The last lines are the kernel record (each route with the CUDA kernel it launches),
 the card's name and power limit, and {"ok": true, "device": {...}}.
 ``python3 chip_smoke.py --cards`` on a host with 4 cards runs only phase 20, one rank
@@ -833,6 +844,78 @@ def tome_shared_maps(fa, net, weights, unet, tome_kw):
     return with_kernel, with_plain, exact_plain, layer_errs, len(maps)
 
 
+def folded_eval(torch, pipe, guide, lat, res):
+    """(weights, unet): the folded weights of `pipe`'s ControlLoRA for `guide` (1, 3,
+    res, res) and unet(**kw), one guided CFG UNet eval of `lat` (2, 4, res/8, res/8)
+    at timestep 500 with the bf16 folded biases (and, for a text_time UNet, the pooled
+    prompt and the size ids of `res`), under ``torch.func.functional_call``."""
+    from torch.func import functional_call
+
+    from controllora_tpu_torch.ops.folding import fold_adapters
+
+    weights, biases = fold_adapters(pipe.unet, pipe.control_lora.adapters_for(
+        guide, pipe.unet.config))
+    biases = {k: b.to(torch.bfloat16) for k, b in biases.items()}
+    enc = pipe.encode_prompt("a photo")
+    ctx, pooled = enc if isinstance(enc, tuple) else (enc, None)
+    added = {} if pooled is None else dict(
+        added_text_embeds=pooled, added_time_ids=pipe.text_time_ids(pooled, res, res, 6.0, 2.5))
+    args = (lat, torch.full((lat.shape[0],), 500.0, device=lat.device), ctx)
+
+    def unet(**kw):
+        return functional_call(pipe.unet, weights, args, dict(kw, biases=biases, **added))
+
+    return weights, unet
+
+
+def merges_per_eval(unet_config, res, tome_ratio=0.5):
+    """The self-attentions ToMe merges in one UNet eval at `res` (ToMeConfig's default
+    min_tokens: the grids of at least 4096 tokens that tile its window)."""
+    from controllora_tpu_torch.models.unet import attention_processor_names, processor_bucket
+    from controllora_tpu_torch.ops.tome import ToMeConfig, maybe_tome
+
+    n, side = len(unet_config.block_out_channels), res // 8
+    return sum(".attn1." in name and maybe_tome(ToMeConfig(ratio=tome_ratio),
+                                                side >> processor_bucket(name, n),
+                                                side >> processor_bucket(name, n))
+               for name in attention_processor_names(unet_config))
+
+
+def tome_check(torch, fa, pipe, weights, unet, res, label):
+    """A ToMe 0.5 eval (``unet`` of folded_eval) with K1 against the same eval, on the
+    same merge maps, with K1's plain version (tome_shared_maps): within
+    TOME_NOISE_FACTOR x the exact eval's K1-vs-plain gap (and REL_BOUND), each merged
+    self-attention within TOME_LAYER_BOUND; K1 launched k1_per_eval(..., 0.5) times and
+    merges_per_eval maps built."""
+    from controllora_tpu_torch.ops.tome import ToMeConfig
+
+    cfg = pipe.unet.config
+    plain = unet()
+    tome_kw = dict(tome=ToMeConfig(ratio=0.5), tome_step=(0, 500, 3))
+    before = fa.LAUNCHES["k1"]
+    with_kernel, with_plain, exact_plain, layer_errs, n_maps = tome_shared_maps(
+        fa, pipe.unet, weights, unet, tome_kw)
+    used = fa.LAUNCHES["k1"] - before
+    want = (k1_per_eval(cfg, res, tome_ratio=0.5), merges_per_eval(cfg, res))
+    if (used, n_maps) != want:
+        raise AssertionError(f"{label} ToMe eval: K1 launched {used} times, {n_maps} merges; "
+                             f"expected {want}")
+    tome_err, noise = rel_l2(with_kernel, with_plain), rel_l2(plain, exact_plain)
+    tome_bound = min(REL_BOUND, TOME_NOISE_FACTOR * noise)
+    log(f"{label} ToMe 0.5 merged self-attentions on the ToMe eval's own inputs, K1 vs its "
+        f"plain version: relative L2 {', '.join(f'{e:.4e}' for e in layer_errs)} <= "
+        f"{TOME_LAYER_BOUND}")
+    log(f"{label} ToMe 0.5 UNet eval ({n_maps} merged self-attentions, biases batch 2, one "
+        f"set of merge maps; K1 {used} times) with K1 vs with K1's plain version: relative "
+        f"L2 {tome_err:.4e} <= {tome_bound:.4e} ({TOME_NOISE_FACTOR}x the exact eval's K1 "
+        f"vs plain {noise:.4e}); vs the exact eval {rel_l2(with_kernel, plain):.4e}")
+    if not (torch.isfinite(with_kernel).all() and tome_err <= tome_bound
+            and max(layer_errs) <= TOME_LAYER_BOUND):
+        raise AssertionError(f"{label} ToMe eval with K1 off its plain version by "
+                             f"{tome_err}, its merged layers by {layer_errs}")
+    return plain
+
+
 PRESETS = {"exact": {}, "tome": {"tome_ratio": 0.5},
            "turbo": {"tome_ratio": 0.5, "deepcache_interval": 2}}
 GUIDED_LAUNCHES = {"k1": 5 * STEPS, "k2": 1, "k3": 0, "k4": 0}
@@ -855,10 +938,8 @@ def phase_presets(torch, fa, pipe, device, card):
     from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
-    from torch.func import functional_call
 
     from controllora_tpu_torch import schedulers, serve
-    from controllora_tpu_torch.ops.folding import fold_adapters
     from controllora_tpu_torch.ops.tome import ToMeConfig, build_merge, window_choice
     from controllora_tpu_torch.serving import BatchingEngine
     from controllora_tpu_torch.training.checkpoint import save_control_lora
@@ -867,17 +948,11 @@ def phase_presets(torch, fa, pipe, device, card):
     rng = np.random.default_rng(12)
     guides = [rng.uniform(-1, 1, (RES, RES, 3)).astype(np.float32) for _ in range(4)]
     with torch.inference_mode():
-        weights, biases = fold_adapters(pipe.unet, pipe.control_lora.adapters_for(
-            torch.from_numpy(guides[0]).permute(2, 0, 1)[None].to(device), pipe.unet.config))
-        biases = {k: b.to(torch.bfloat16) for k, b in biases.items()}
         lat = torch.from_numpy(rng.normal(size=(2, 4, RES // 8, RES // 8))
                                .astype(np.float32)).to(device)
-        args = (lat, torch.full((2,), 500.0, device=device), pipe.encode_prompt("a photo"))
-
-        def unet(**kw):
-            return functional_call(pipe.unet, weights, args, dict(kw, biases=biases))
-
-        plain = unet()
+        weights, unet = folded_eval(torch, pipe, torch.from_numpy(guides[0]).permute(
+            2, 0, 1)[None].to(device), lat, RES)
+        plain = tome_check(torch, fa, pipe, weights, unet, RES, f"SD1.5 {RES}²")
         full, cache = unet(deepcache="full")
         shallow = unet(deepcache="shallow", deepcache_feat=cache)
         dc_err = max((full - plain).abs().max().item(), (shallow - full).abs().max().item())
@@ -886,27 +961,7 @@ def phase_presets(torch, fa, pipe, device, card):
             f"{tuple(cache.shape)}")
         if dc_err != 0:
             raise AssertionError(f"DeepCache: shallow or full eval differs by {dc_err}")
-        tome_kw = dict(tome=ToMeConfig(ratio=0.5), tome_step=(0, 500, 3))
-        before = fa.LAUNCHES["k1"]
-        with_kernel, with_plain, exact_plain, layer_errs, n_maps = tome_shared_maps(
-            fa, pipe.unet, weights, unet, tome_kw)
-        if fa.LAUNCHES["k1"] - before != GUIDED_LAUNCHES["k1"] // STEPS or n_maps != 5:
-            raise AssertionError(f"ToMe eval: K1 launched {fa.LAUNCHES['k1'] - before} "
-                                 f"times, {n_maps} merges")
-        tome_err, noise = rel_l2(with_kernel, with_plain), rel_l2(plain, exact_plain)
-        tome_bound = min(REL_BOUND, TOME_NOISE_FACTOR * noise)
-        log(f"ToMe 0.5 merged self-attentions (L 2048, biases batch 2) on the ToMe eval's "
-            f"own inputs, K1 vs its plain version: relative L2 "
-            f"{', '.join(f'{e:.4e}' for e in layer_errs)} <= {TOME_LAYER_BOUND}")
-        log(f"ToMe 0.5 UNet eval (5 merged L 2048 self-attentions, biases batch 2, one set "
-            f"of merge maps) with K1 vs with K1's plain version: relative L2 "
-            f"{tome_err:.4e} <= {tome_bound:.4e} ({TOME_NOISE_FACTOR}x the exact eval's "
-            f"K1 vs plain {noise:.4e}); vs the exact eval {rel_l2(with_kernel, plain):.4e}")
-        if not (torch.isfinite(with_kernel).all() and tome_err <= tome_bound
-                and max(layer_errs) <= TOME_LAYER_BOUND):
-            raise AssertionError(f"ToMe eval with K1 off its plain version by {tome_err}, "
-                                 f"its merged layers by {layer_errs}")
-        del weights, biases, plain, full, cache, shallow, with_kernel, with_plain, exact_plain
+        del weights, unet, plain, full, cache, shallow
 
         x = torch.randn((2, 4096, 320), device=device).to(torch.bfloat16)
 
@@ -1294,7 +1349,9 @@ def profile_line(name, wall, busy, top):
 def phase_render_profile(torch, pipe):
     """One guided 512² render at batch 1 and one at batch 4 (per-image guides) through
     the pipeline under torch.profiler, under each preset: wall, device busy time,
-    idle share, and device time by kernel class (K1 is in "flash (ours)")."""
+    idle share, and device time by kernel class (K1 is in "flash (ours)"). The
+    profiler records device activity only: the host's operator events added about
+    20 s a render to gather and up to 30% to its wall."""
     import numpy as np
 
     rng = np.random.default_rng(9)
@@ -1304,7 +1361,8 @@ def phase_render_profile(torch, pipe):
     for preset, kw in PRESETS.items():
         for n in (1, 4):
             wall, busy, top = device_profile(torch, lambda: pipe(
-                [f"prompt {i}" for i in range(n)], guide=guides[:n], **common, **kw))
+                [f"prompt {i}" for i in range(n)], guide=guides[:n], **common, **kw),
+                host=False)
             label = "" if preset == "exact" else f" ({preset})"
             log(profile_line(f"render profiled{label}, guided batch {n}", wall, busy, top))
 
@@ -1744,27 +1802,51 @@ REFINER, REFINER_RES = "sdxl-refiner", 1024
 FAMILY_K1 = (((2, 5, 9216, 64), "SD2.1 768² level 0"), ((2, 10, 2304, 64), "SD2.1 768² level 1"),
              ((2, 10, 4096, 64), "SDXL 1024² level 1"), ((2, 12, 4096, 64), "refiner 1024² level 1"))
 FAMILY_K2 = (((1, 1, 9216, 512), "SD2.1 768² VAE"), ((1, 1, 16384, 512), "SDXL 1024² VAE"))
+# K1 at the levels ToMe 0.5 merges (ops/tome.py::merge_count), with biases merged per
+# CFG row (bias batch = B), at batch 1 and 4: SD2.1 768² level 0 (9216 -> 4608 tokens)
+# and SDXL 1024² level 1 (4096 -> 2048, FLASH_MIN_LEN itself)
+FAMILY_MERGED_K1 = (((2, 5, 4608, 64), "SD2.1 768² level 0, ToMe 0.5"),
+                    ((2, 10, 2048, 64), "SDXL 1024² level 1, ToMe 0.5"))
+FAMILY_PRESETS = ("tome", "turbo")  # each family's guided renders beside exact
 
 
-def k1_per_eval(unet_config, res):
+def k1_per_eval(unet_config, res, tome_ratio=0.0, levels=None):
     """K1 launches of one guided CFG UNet eval at `res`: the self-attentions (attn1;
-    every one carries folded biases) of the levels whose token count reaches the
-    flash route's FLASH_MIN_LEN."""
+    every one carries folded biases) of the levels whose token count, after ToMe's
+    merge where `tome_ratio` merges that level (ops/tome.py::maybe_tome, merge_count),
+    reaches the flash route's FLASH_MIN_LEN; only those of `levels` if given (a
+    DeepCache shallow eval runs level 0 alone)."""
     from controllora_tpu_torch.models.unet import attention_processor_names, processor_bucket
+    from controllora_tpu_torch.ops import tome
     from controllora_tpu_torch.ops.attention import FLASH_MIN_LEN
 
     n, side = len(unet_config.block_out_channels), res // 8
-    return sum(".attn1." in name and (side >> processor_bucket(name, n)) ** 2 >= FLASH_MIN_LEN
-               for name in attention_processor_names(unet_config))
+    cfg = tome.ToMeConfig(ratio=tome_ratio) if tome_ratio else None
+    count = 0
+    for name in attention_processor_names(unet_config):
+        level = processor_bucket(name, n)
+        grid = side >> level
+        tokens = grid * grid
+        if tome.maybe_tome(cfg, grid, grid):
+            tokens -= tome.merge_count(cfg, tokens)
+        count += (".attn1." in name and (levels is None or level in levels)
+                  and tokens >= FLASH_MIN_LEN)
+    return count
 
 
-def render_launches(unet_config, res):
-    """Launches of one guided batch-1 render of STEPS steps at `res`: K1 at every
-    long self-attention of every step, K2 once in the VAE decode's mid-attention."""
+def render_launches(unet_config, res, tome_ratio=0.0, deepcache_interval=1, guided=True):
+    """Launches of one batch-1 render of STEPS steps at `res`, guided (K1 at every long
+    self-attention) or not (K2 there), under a preset: every full eval runs them all
+    (after ToMe's merge), each DeepCache shallow eval (the steps off the interval)
+    those of level 0 alone; K2 once in the VAE decode's mid-attention."""
     from controllora_tpu_torch.ops.attention import FLASH_MIN_LEN
 
-    return {"k1": STEPS * k1_per_eval(unet_config, res),
-            "k2": int((res // 8) ** 2 >= FLASH_MIN_LEN), "k3": 0, "k4": 0}
+    full = len(range(0, STEPS, deepcache_interval))
+    attn = (full * k1_per_eval(unet_config, res, tome_ratio)
+            + (STEPS - full) * k1_per_eval(unet_config, res, tome_ratio, levels=(0,)))
+    vae = int((res // 8) ** 2 >= FLASH_MIN_LEN)
+    return {"k1": attn if guided else 0, "k2": vae + (0 if guided else attn), "k3": 0,
+            "k4": 0}
 
 
 def launched(fa, before):
@@ -1893,18 +1975,23 @@ def refiner_unguided_parity(torch, fa, refiner, res, device):
         raise AssertionError(f"refiner unguided eval relative L2 {err} > {REL_BOUND}")
 
 
-def family_render(torch, fa, pipe, res, label, card):
-    """The family's main path: one guided batch-1 render of STEPS steps at CFG through
-    the BatchingEngine (after a 2-step warm-up), its launches counted from 0 and held
-    to render_launches; then one render under torch.profiler. Returns the launches."""
+def family_render(torch, fa, pipe, res, label, card, preset="exact"):
+    """The family's main path under a serving preset (PRESETS): one guided batch-1
+    render of STEPS steps at CFG through the BatchingEngine (after a 2-step warm-up),
+    its launches counted from 0 and held to render_launches; then one render under
+    torch.profiler, device activity only (as phase_render_profile). Returns the
+    launches."""
     import numpy as np
 
     from controllora_tpu_torch.serving import BatchingEngine
 
+    t_call = time.perf_counter()
+    speed = PRESETS[preset]
+    label = label if preset == "exact" else f"{label} {preset}"
     guide = np.random.default_rng(6).uniform(-1, 1, (res, res, 3)).astype(np.float32)
     common = dict(guide=guide, num_inference_steps=STEPS, guidance_scale=CFG, height=res,
                   width=res, return_array=True)
-    eng = BatchingEngine(pipe, max_wait_ms=5.0, buckets=(1,))
+    eng = BatchingEngine(pipe, max_wait_ms=5.0, buckets=(1,), pipe_kwargs=speed)
     try:
         eng.submit("warm up", **dict(common, num_inference_steps=2)).result(timeout=900)
         fa.reset_launch_counts()  # this render's main path starts here
@@ -1914,7 +2001,7 @@ def family_render(torch, fa, pipe, res, label, card):
         used = dict(fa.LAUNCHES)  # and ends here
     finally:
         eng.stop()
-    want = render_launches(pipe.unet.config, res)
+    want = render_launches(pipe.unet.config, res, **speed)
     if used != want or eng.stats["errors"]:
         raise AssertionError(f"{label} render: launches {used}, expected {want}; "
                              f"stats {eng.stats}")
@@ -1924,16 +2011,19 @@ def family_render(torch, fa, pipe, res, label, card):
         f"BatchingEngine): {wall:.3f} s wall ({eng.stats['last_batch_seconds']:.3f} s in the "
         f"pipeline), finite {res}x{res}x3; launches {used}; {card}")
     wall, busy, top = device_profile(torch, lambda: pipe(
-        "a red square on a blue field", **dict(common, return_array=False)))
-    log(profile_line(f"{label} render profiled, guided batch 1", wall, busy, top))
+        "a red square on a blue field", **dict(common, return_array=False), **speed),
+        host=False)
+    log(profile_line(f"{label} render profiled, guided batch 1", wall, busy, top)
+        + f"; {time.perf_counter() - t_call:.1f} s with the warm-up and the profile")
     return used
 
 
-def family_http(torch, fa, pipe, variant, res, device, card):
-    """`python -m controllora_tpu_torch.serve --model_variant sdxl` (its parse_args,
-    build_pipeline and build_server in this process) with the family's ControlLoRA
-    saved as an artifact, answering one /generate at res² with a PNG guide; the
-    request's launches counted from 0. Returns them."""
+def family_http(torch, fa, variant, res, device, card, control_lora=None, warm=False):
+    """`python -m controllora_tpu_torch.serve --model_variant <variant>` (its parse_args,
+    build_pipeline and build_server in this process), with `control_lora` saved as an
+    artifact and a PNG guide in the request if given, else unguided; with `warm`, its
+    --warmup first. One /generate at res², its launches counted from 0 and held to
+    render_launches. Returns them."""
     import base64
     import threading
     import urllib.request
@@ -1945,50 +2035,59 @@ def family_http(torch, fa, pipe, variant, res, device, card):
     from controllora_tpu_torch.training.checkpoint import save_control_lora
     from controllora_tpu_torch.utils.png import decode_png, encode_png
 
-    guide = np.random.default_rng(8).integers(0, 256, (res, res, 3), dtype=np.uint8)
+    flags = ["--model_variant", variant, "--buckets", "1", "--host", "127.0.0.1", "--port",
+             "0", "--device", str(device)] + ["--warmup"] * warm
+    request = dict(prompt="a red square", steps=STEPS, seed=3, width=res, height=res)
     with tempfile.TemporaryDirectory() as control_dir:
-        save_control_lora(control_dir, pipe.control_lora)
-        args = serve.parse_args(["--model_variant", variant, "--buckets", "1", "--host",
-                                 "127.0.0.1", "--port", "0", "--device", str(device),
-                                 "--control_lora_dir", control_dir])
+        if control_lora is not None:
+            save_control_lora(control_dir, control_lora)
+            flags += ["--control_lora_dir", control_dir]
+            guide = np.random.default_rng(8).integers(0, 256, (res, res, 3), dtype=np.uint8)
+            request["guide"] = base64.b64encode(encode_png(guide)).decode()
+        args = serve.parse_args(flags)
         t0 = time.perf_counter()
         spipe = serve.build_pipeline(args)
-    build_s = time.perf_counter() - t0
     eng = BatchingEngine(spipe, max_wait_ms=args.max_wait_ms, buckets=(1,))
-    server = serve.build_server(eng, args.host, args.port, args.result_timeout_s)
+    server = None
     try:
+        if args.warmup:
+            serve.warmup(eng)
+        build_s = time.perf_counter() - t0
+        server = serve.build_server(eng, args.host, args.port, args.result_timeout_s)
         threading.Thread(target=server.serve_forever, daemon=True).start()
-        payload = json.dumps(dict(prompt="a red square", steps=STEPS, seed=3, width=res,
-                                  height=res, guide=base64.b64encode(encode_png(guide))
-                                  .decode())).encode()
         fa.reset_launch_counts()  # the request's main path starts here
         t0 = time.perf_counter()
         with urllib.request.urlopen(urllib.request.Request(
-                f"http://127.0.0.1:{server.server_address[1]}/generate", data=payload),
-                timeout=900) as r:
+                f"http://127.0.0.1:{server.server_address[1]}/generate",
+                data=json.dumps(request).encode()), timeout=900) as r:
             code, raw = r.status, r.read()
         wall = time.perf_counter() - t0
         used = dict(fa.LAUNCHES)  # and ends here
     finally:
-        server.shutdown()
-        server.server_close()
+        if server is not None:
+            server.shutdown()
+            server.server_close()
         eng.stop()
     reply = json.loads(raw)
     img = decode_png(base64.b64decode(reply["image"]))
-    want = render_launches(spipe.unet.config, res)
+    dtype = spipe.unet.conv_in.weight.dtype
+    want = render_launches(spipe.unet.config, res, guided=control_lora is not None)
     if code != 200 or img.shape != (res, res, 3) or used != want:
         raise AssertionError(f"{variant} server: {code}, image {img.shape}, launches {used} "
                              f"(want {want})")
-    log(f"server (python -m controllora_tpu_torch.serve --model_variant {variant}): built in "
-        f"{build_s:.1f} s; one /generate at {res}² with a PNG guide in {wall:.3f} s "
-        f"(server says {reply['seconds']} s), {res}x{res}x3 PNG; launches {used}; {card}")
+    log(f"server (python -m controllora_tpu_torch.serve --model_variant {variant}"
+        f"{' --warmup' * warm}): {dtype}, built{' and warmed' * warm} in {build_s:.1f} s; "
+        f"one {'guided' if 'guide' in request else 'unguided'} /generate at {res}² in "
+        f"{wall:.3f} s (server says {reply['seconds']} s), {res}x{res}x3 PNG; launches "
+        f"{used}; {card}")
     return used
 
 
 def phase_family_kernels(torch, fa, device, record):
-    """K1 and K2 at the other families' shapes (FAMILY_K1, FAMILY_K2) against their
-    plain versions, timed with bounds and SDPA as phase_kernels times SD1.5's, into
-    `record`'s shapes."""
+    """K1 and K2 at the other families' shapes (FAMILY_K1, FAMILY_K2) and K1 at their
+    ToMe-merged ones (FAMILY_MERGED_K1, bias batch B) against their plain versions,
+    timed with bounds and SDPA as phase_kernels times SD1.5's, into `record`'s
+    shapes."""
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(11)
 
@@ -2004,17 +2103,25 @@ def phase_family_kernels(torch, fa, device, record):
     for (b, h, l, d), label in FAMILY_K2:
         k2_case(torch, fa, device, rnd, record, b, h, l, d, label=f" ({label})")
         torch.cuda.empty_cache()
+    for (b, h, l, d), label in FAMILY_MERGED_K1:
+        for batch in (b, 4 * b):
+            k1_case(torch, fa, rnd, record, batch, h, l, d, batch, timed=True,
+                    label=f" ({label})")
+            torch.cuda.empty_cache()
     log(f"families kernels {time.perf_counter() - t0:.1f} s")
 
 
 def phase_families(torch, fa, device, card):
     """SD2.1 and SDXL served at full width on seeded random bf16 weights, and the
-    refiner's UNet: per family, parity of the card's bf16 stack with an fp32 copy on
-    the plain versions, a guided render through the BatchingEngine with exact
-    launches and a profiled render; SDXL's HTTP server; the refiner's folded UNet
-    eval (5 ids) and text tower against their fp32 copies. The stacks are built one
-    at a time and freed. Returns the launches of the main paths (renders and the
-    request), each counted from 0."""
+    refiner: per family, parity of the card's bf16 stack with an fp32 copy on the
+    plain versions, a ToMe 0.5 eval with K1 against its plain version on shared merge
+    maps (tome_check), guided renders through the BatchingEngine under exact, tome and
+    turbo with exact launches and one profiled render each; SDXL's HTTP server; the
+    refiner's folded UNet eval (5 ids) and text tower against their fp32 copies, then
+    `serve --model_variant sdxl-refiner --warmup` (bf16) answering one unguided 1024²
+    request (K2 in every long self-attention). The stacks are built one at a time and
+    freed. Returns the launches of the main paths (renders and requests), each counted
+    from 0."""
     from controllora_tpu_torch.schedulers import DPMSolverMultistepScheduler
     from controllora_tpu_torch.schedulers.common import DiffusionSchedule
 
@@ -2029,9 +2136,12 @@ def phase_families(torch, fa, device, card):
             f"{sum(p.numel() for p in pipe.unet.parameters()) / 1e9:.3f} B parameters; "
             f"K1 {k1_per_eval(pipe.unet.config, res)} a UNet eval at {res}²")
         family_parity(torch, fa, pipe, res, device, variant)
-        paths = [family_render(torch, fa, pipe, res, variant, card)]
+        family_tome_eval(torch, fa, pipe, res, device, variant)
+        paths = [family_render(torch, fa, pipe, res, variant, card, preset)
+                 for preset in ("exact",) + FAMILY_PRESETS]
         if variant == HTTP_FAMILY:
-            paths.append(family_http(torch, fa, pipe, variant, res, device, card))
+            paths.append(family_http(torch, fa, variant, res, device, card,
+                                     pipe.control_lora))
         for used in paths:
             total = {n: total[n] + used[n] for n in total}
         del pipe
@@ -2044,8 +2154,30 @@ def phase_families(torch, fa, device, card):
     del refiner
     gc.collect()
     torch.cuda.empty_cache()
+    used = family_http(torch, fa, REFINER, REFINER_RES, device, card, warm=True)
+    total = {n: total[n] + used[n] for n in total}
+    gc.collect()
+    torch.cuda.empty_cache()
     log(f"families phase {time.perf_counter() - t_phase:.1f} s; main-path launches {total}")
     return total
+
+
+def family_tome_eval(torch, fa, pipe, res, device, label):
+    """tome_check on the family's guided CFG UNet eval at `res` (seeded guide and
+    latents)."""
+    import numpy as np
+
+    rng = np.random.default_rng(13)
+    guide = torch.from_numpy(rng.uniform(-1, 1, (1, 3, res, res)).astype(np.float32))
+    lat = torch.from_numpy(rng.normal(size=(2, 4, res // 8, res // 8)).astype(np.float32))
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        weights, unet = folded_eval(torch, pipe, guide.to(device), lat.to(device), res)
+        tome_check(torch, fa, pipe, weights, unet, res, f"{label} {res}²")
+        del weights, unet
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"{label} ToMe eval check {time.perf_counter() - t0:.1f} s")
 
 
 # the other families' training: SD2.1 768² at batch 4 without remat (v-
@@ -3534,6 +3666,45 @@ def phase_parallel(torch, fa, device, card):
 
 
 
+EVAL_PRESETS_STEPS = 300  # the eval presets phase's --train_steps
+
+
+def phase_eval_presets(torch, fa, card):
+    """`python -m controllora_tpu_torch.eval_presets --train_steps 300` in this process
+    on the card (--device CLI_DEVICE): trains the smoke ControlLoRA at 64² through the
+    train CLI, renders its evaluation specs under every preset and prints the report.
+    The report must have the JAX script's keys (docs/presets_quality_r5.json), every
+    figure finite, `exact` 0 error and retrieval 1.0; at 64² no sequence reaches the
+    flash kernels, so its launches, counted from 0, must be none. Returns them."""
+    from controllora_tpu_torch import eval_presets
+
+    with open(os.path.join(ROOT, "docs", "presets_quality_r5.json")) as f:
+        jax_report = json.load(f)
+    with tempfile.TemporaryDirectory() as out:
+        fa.reset_launch_counts()  # the phase's main path starts here
+        t0 = time.perf_counter()
+        report = eval_presets.main(["--output_dir", out, "--train_steps",
+                                    str(EVAL_PRESETS_STEPS), "--device", CLI_DEVICE])
+        wall = time.perf_counter() - t0
+        used = dict(fa.LAUNCHES)  # and ends here
+    keys = (list(report), {n: list(e) for n, e in report["presets"].items()})
+    want = (list(jax_report), {n: list(e) for n, e in jax_report["presets"].items()})
+    exact = report["presets"]["exact"]
+    figures = [v for e in report["presets"].values() for v in e.values()]
+    if (keys != want or any(used.values()) or not all(math.isfinite(v) for v in figures)
+            or exact["latent_rel_err_vs_exact_max"] != 0.0
+            or exact["exact_retrieval_acc"] != 1.0):
+        raise AssertionError(f"eval presets: keys {keys} (want {want}), launches {used}, "
+                             f"report {report}")
+    log(f"eval presets (python -m controllora_tpu_torch.eval_presets --train_steps "
+        f"{EVAL_PRESETS_STEPS} --device {CLI_DEVICE}): {wall:.1f} s with training; report "
+        f"keys as the JAX script's; " + ", ".join(
+            f"{n} rel err {e['latent_rel_err_vs_exact_mean']} retrieval "
+            f"{e['exact_retrieval_acc']} drift {e['drift_vs_exact_u8_mean']}"
+            for n, e in report["presets"].items()) + f"; launches {used}; {card}")
+    return used
+
+
 def main_cards(torch, fa, device, card):
     """``python3 chip_smoke.py --cards`` on a host with PAR_WORLD cards: phase
     "parallel" with one rank a card over nccl (the collectives across NVLink), and
@@ -3578,6 +3749,11 @@ def main():
     if "--cards" in sys.argv[1:]:
         return main_cards(torch, fa, device, card)
 
+    marks = [("build", time.perf_counter())]
+
+    def mark(name):  # the seconds since the last mark, summed up by the last log line
+        marks.append((name, time.perf_counter()))
+
     record = phase_kernels(torch, fa, device)
     phase_family_kernels(torch, fa, device, record)
     phase_mode_kernels(torch, fa, device, record)
@@ -3588,40 +3764,55 @@ def main():
     phase_flash_grad(torch, fa, device)
     record.update(phase_stock_kernels(torch, fs, device))
     phase_stock_grad(torch, fs, device)
+    mark("kernels")
     pipe = build_stack(torch, device)
     phase_parity(torch, pipe, device)
     phase_breakdown(torch, pipe, device)
     serve = phase_serve(torch, fa, pipe)
-    t0 = time.perf_counter()
+    mark("parity, layers, serve")
     phase_merged_kernels(torch, fa, device, record)
     presets = phase_presets(torch, fa, pipe, device, card)
-    log(f"presets phase {time.perf_counter() - t0:.1f} s")
+    mark("presets")
     phase_render_profile(torch, pipe)
     phase_decode(torch, pipe, device)
+    mark("decode")
     phase_train_parity(torch, pipe, device)
     phase_adam8bit(torch, pipe, device)
     train = phase_train(torch, fa, pipe, device)
+    mark("train parity, 8-bit AdamW, train")
     modes = phase_modes(torch, fa, pipe, device, card)
+    mark("modes")
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
     parallel = phase_parallel(torch, fa, device, card)
+    mark("parallel")
     phase_entry_point(torch)
     stock = phase_stock_train(torch, fa, fs)
     phase_cli_resume(torch)
+    mark("entry, stock train, CLI smoke")
     families = phase_families(torch, fa, device, card)
+    mark("families")
     family_train = phase_family_train(torch, fa, device, card)
     phase_train_cli(torch, card)
     dreambooth = phase_dreambooth(torch, fa, card)
+    mark("family train, train CLI, dreambooth")
     weights = phase_weights(torch, fa, card)
+    mark("weights")
     annotators = phase_annotators(torch, fa, card)
+    mark("annotators")
+    eval_presets = phase_eval_presets(torch, fa, card)
+    mark("eval presets")
+    log("phase seconds: " + ", ".join(f"{name} {t - t_prev:.1f}" for (_, t_prev), (name, t)
+                                      in zip(marks, marks[1:])))
     # launches on the main paths, each counted from 0: serving, the serving presets,
-    # training (K1-K4), the render modes, the other families' renders and request,
-    # their training and DreamBooth's steps, the loaded stack's renders and the
-    # canny2image request, the pose2image request, every rank's mesh renders and dp
-    # step, then training under CONTROLLORA_FLASH_IMPL=stock (K5)
+    # training (K1-K4), the render modes, the other families' renders (exact, tome,
+    # turbo) and requests (SDXL, the refiner), their training and DreamBooth's steps,
+    # the loaded stack's renders and the canny2image request, the pose2image request,
+    # every rank's mesh renders and dp step, the presets' quality check, then training
+    # under CONTROLLORA_FLASH_IMPL=stock (K5)
     paths = (serve, presets, train, modes, families, family_train, dreambooth, weights,
-             annotators, parallel)
+             annotators, parallel, eval_presets)
     launches = {n: sum(p.get(n, 0) for p in paths) for n in serve}
     launches.update({n: stock[n] for n in fs.LAUNCHES})
 

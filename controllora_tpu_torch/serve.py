@@ -17,10 +17,16 @@ without one the guide is not used.
 Model families (``--model_variant``): sd15, sd21 (768², v-prediction is the
 scheduler's) and sdxl (1024²) run in bf16, the smoke stacks smoke, smoke2 and
 smokexl in fp32, as ``scripts/serve.py`` runs them. The render size comes with each
-request (``"width": 1024, "height": 1024``). The SDXL refiner (and its smoke stack)
-is refused: ``scripts/serve.py`` serves it in fp32, and the flash kernels take bf16
-only; the base -> refiner ensemble renders through ``python -m
-controllora_tpu_torch.sample --refiner_variant`` (ROADMAP.md item 12.2).
+request (``"width": 1024, "height": 1024``). The SDXL refiner serves too
+(``--model_variant sdxl-refiner``; its smoke stack ``smokeref``): a request is
+unguided unless ``--control_lora_dir`` is given, and the refiner's text tower alone
+(``text_encoder_2/``) encodes the prompt. ``sdxl-refiner`` runs in bf16, with the base
+family. This deviates from ``scripts/serve.py``, whose dtype rule makes only sd15,
+sd21 and sdxl bf16 and so serves the refiner in fp32: the flash kernels K1 and K2
+take bf16 only (``ops/flash_attention.py``), and a plain attention on the card would
+hide them. It is the rule the sampling CLI's base -> refiner ensemble already follows
+(``python -m controllora_tpu_torch.sample --refiner_variant``). ``smokeref`` stays
+fp32, as ``scripts/serve.py`` has it.
 
 Speed presets (deployment-wide, applied to every batch): ``exact`` (the exact
 sampler), ``tome`` (token merging 0.5) and ``turbo`` (token merging 0.5 + DeepCache
@@ -68,22 +74,17 @@ from controllora_tpu_torch.schedulers import (
 )
 
 PRESETS = {"exact": (0.0, 1), "tome": (0.5, 1), "turbo": (0.5, 2)}
-REFUSED = {v: f"--model_variant {v} is not served yet: scripts/serve.py serves the refiner "
-              "in fp32 (its dtype rule makes only sd15, sd21 and sdxl bf16), and the flash "
-              "kernels K1 and K2 take bf16 only (ops/flash_attention.py). The refiner "
-              "renders through the sampling CLI instead (python -m "
-              "controllora_tpu_torch.sample --refiner_variant, bf16 with the base; "
-              "ROADMAP.md item 12.2)"
-           for v in ("sdxl-refiner", "smokeref")}
+# the base models and the refiner stacks
+MODEL_VARIANTS = BASE_VARIANTS + ("sdxl-refiner", "smokeref")
 SCHEDULERS = {"dpm++": DPMSolverMultistepScheduler, "ddim": DDIMScheduler,
               "pndm": PNDMScheduler, "euler": EulerDiscreteScheduler,
               "unipc": UniPCMultistepScheduler}
 
 
-def model_variant(name: str) -> str:
-    if name in REFUSED:
-        raise argparse.ArgumentTypeError(REFUSED[name])
-    return name
+def serve_dtype(variant: str) -> torch.dtype:
+    """The dtype the server builds ``variant`` in: ``model_dtype``'s, except the SDXL
+    refiner, which runs in bf16 with its base family (see the module docstring)."""
+    return torch.bfloat16 if variant == "sdxl-refiner" else model_dtype(variant)
 
 
 def parse_args(argv=None):
@@ -92,8 +93,7 @@ def parse_args(argv=None):
     p.add_argument("--pretrained_model_name_or_path", type=str, default=None,
                    help="local diffusers-layout checkpoint directory (unet/, vae/, "
                         "text_encoder[_2]/); omit for seeded random weights")
-    p.add_argument("--model_variant", type=model_variant, default="sd15",
-                   choices=BASE_VARIANTS)
+    p.add_argument("--model_variant", type=str, default="sd15", choices=MODEL_VARIANTS)
     p.add_argument("--control_lora_dir", type=str, default=None)
     p.add_argument("--serving_mesh", type=str, default=None,
                    help="'data' | 'cfg' | 'cfg,model=K' | 'data,cfg' …")
@@ -136,7 +136,7 @@ def parse_args(argv=None):
 
 def build_pipeline(args, mesh=None):
     """The pipeline the server renders with: the frozen stack of ``--model_variant``
-    (``model_dtype``) loaded from ``--pretrained_model_name_or_path`` or with seeded
+    (``serve_dtype``) loaded from ``--pretrained_model_name_or_path`` or with seeded
     random weights, the ControlLoRA of ``--control_lora_dir`` if given,
     ``--scheduler``, over ``mesh``."""
     from controllora_tpu_torch.data.tokenizer import default_tokenizer
@@ -144,7 +144,7 @@ def build_pipeline(args, mesh=None):
     from controllora_tpu_torch.pipelines import StableDiffusionControlLoRAPipeline
 
     device = torch.device(args.device)
-    dtype = model_dtype(args.model_variant)
+    dtype = serve_dtype(args.model_variant)
     unet, vae, text_encoder = zoo.frozen_stack(args.pretrained_model_name_or_path,
                                                args.model_variant, dtype, device,
                                                torch.Generator(device).manual_seed(0))

@@ -162,6 +162,20 @@ def test_serve_pipeline_renders_as_in_memory(root, vocab_env, monkeypatch):
     assert a.shape == (64, 64, 3) and np.array_equal(a, b)
 
 
+def test_serve_refiner_directory_renders_as_in_memory(root, vocab_env, monkeypatch):
+    """serve --model_variant smokeref loads the refiner's layout (text_encoder_2/
+    alone) and renders unguided as the stack that wrote it."""
+    argv = ["--model_variant", "smokeref", "--device", "cpu"]
+    loaded = serve.build_pipeline(serve.parse_args(
+        argv + ["--pretrained_model_name_or_path", str(root / "smokeref")]))
+    assert loaded.control_lora is None and isinstance(loaded.tokenizer, CLIPBPETokenizer)
+    in_memory(monkeypatch)
+    memory = serve.build_pipeline(serve.parse_args(argv))
+    a, b = (p("a red square", num_inference_steps=2, height=64, width=64,
+              generator=torch.Generator().manual_seed(0))[0] for p in (loaded, memory))
+    assert a.shape == (64, 64, 3) and np.array_equal(a, b)
+
+
 def test_train_as_in_memory(root, vocab_env, tmp_path, monkeypatch):
     """Two steps at 64²: the same artifact bit for bit; the model card names the
     directory as base_model."""

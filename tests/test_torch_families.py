@@ -132,12 +132,11 @@ def test_build_models_builds_every_variant():
             assert p.abs().sum() > 0, name
 
 
-@pytest.fixture(scope="module")
-def stacks():
+def build_stacks(variants):
     """Per smoke variant: the JAX modules, their fp32 random frozen tree, and the
     port's modules loaded from it."""
     out = {}
-    for variant in ("smoke2", "smokexl", "smokeref"):
+    for variant in variants:
         unet, vae, text = jzoo.build_models(variant, dtype=jnp.float32)
         frozen = filled(jax.eval_shape(lambda: jzoo.random_frozen(
             jax.random.PRNGKey(0), unet, vae, text, latent_size=8,
@@ -148,6 +147,11 @@ def stacks():
         convert.load_clip(tc, frozen["text"])
         out[variant] = dict(unet=unet, vae=vae, text=text, frozen=frozen, tu=tu, tv=tv, tc=tc)
     return out
+
+
+@pytest.fixture(scope="module")
+def stacks():
+    return build_stacks(("smoke2", "smokexl", "smokeref"))
 
 
 def added_inputs(unet_config, pooled_dim, b, rng):

@@ -3,8 +3,14 @@
 * The flags the port takes parse as ``scripts/serve.py`` parses them: every preset,
   every explicit override of a preset's knob, every served model variant, and the
   defaults. Each variant's dtype is the one ``scripts/serve.py`` builds it in (bf16
-  for sd15, sd21 and sdxl, fp32 for the smoke stacks); the refiner variants are
-  refused with their reason.
+  for sd15, sd21 and sdxl, fp32 for the smoke stacks and ``smokeref``), but for the
+  recorded deviation: ``sdxl-refiner`` is bf16, as the base family (``scripts/serve.py``
+  builds it in fp32, which the flash kernels refuse).
+* The refiner served: an in-process server on ``smokeref`` (weights filled as
+  ``tests/test_torch_families.py`` fills them, loaded into ``serve.build_pipeline``'s
+  stack) answers an unguided 64² /generate whose PNG is the JAX pipeline's render of the
+  same request (the same latents, from the request's seed) within atol 2e-3 on the
+  [-1, 1] image, read through the PNG's uint8 quantisation.
 * An in-process server on 127.0.0.1:0 over a CPU smoke pipeline (seeded random
   weights, a small ControlLoRA artifact loaded through ``--control_lora_dir``):
   /healthz, /stats, /generate with a base64 PNG guide (the response decodes to an
@@ -35,9 +41,12 @@ from controllora_tpu_torch.config import ControlLoRAConfig
 from controllora_tpu_torch.models import zoo
 from controllora_tpu_torch.models.unet import derive_cross_attention_dims
 from controllora_tpu_torch.serving import BatchingEngine
+from controllora_tpu_torch.serving.engine import request_latents
 from controllora_tpu_torch.training.checkpoint import save_control_lora
+from controllora_tpu_torch.utils import convert
 from controllora_tpu_torch.utils.png import decode_png, encode_png
 from scripts.serve import parse_args as jax_parse_args
+from test_torch_families import filled
 
 ARGVS = [[], ["--preset", "exact"], ["--preset", "tome"], ["--preset", "turbo"],
          ["--preset", "turbo", "--deepcache_interval", "3"],
@@ -61,10 +70,9 @@ def test_flags_parse_as_scripts_serve(argv):
     assert ours == {k: v for k, v in ref.items() if k not in JAX_ONLY}
 
 
-@pytest.mark.parametrize("variant", zoo.BASE_VARIANTS)
-def test_model_dtype_as_scripts_serve(variant, monkeypatch):
-    """The dtype scripts/serve.py's build_pipeline builds each variant in (read off
-    its call of the JAX zoo's build_models) is the port's."""
+def jax_serve_dtype(variant, monkeypatch):
+    """The dtype scripts/serve.py's build_pipeline builds ``variant`` in, read off its
+    call of the JAX zoo's build_models, as a torch dtype."""
     import jax.numpy as jnp
 
     from controllora_tpu.models import zoo as jzoo
@@ -80,17 +88,82 @@ def test_model_dtype_as_scripts_serve(variant, monkeypatch):
     with pytest.raises(Built) as built:
         jax_build_pipeline(jax_parse_args(["--model_variant", variant]))
     assert built.value.args[0] == variant
-    want = {jnp.bfloat16: torch.bfloat16, jnp.float32: torch.float32}[built.value.args[1]]
-    assert zoo.model_dtype(variant) == want
+    return {jnp.bfloat16: torch.bfloat16, jnp.float32: torch.float32}[built.value.args[1]]
 
 
-@pytest.mark.parametrize("variant", ["sdxl-refiner", "smokeref"])
-def test_refiner_variants_refused_with_reason(variant, capsys):
-    with pytest.raises(SystemExit):
-        serve.parse_args(["--model_variant", variant])
-    err = capsys.readouterr().err
-    assert f"--model_variant {variant} is not served yet" in err
-    assert "in fp32" in err and "bf16 only" in err and "ROADMAP.md item 12.2" in err
+@pytest.mark.parametrize("variant", zoo.BASE_VARIANTS)
+def test_model_dtype_as_scripts_serve(variant, monkeypatch):
+    """The dtype scripts/serve.py builds each base variant in is the port's."""
+    assert zoo.model_dtype(variant) == jax_serve_dtype(variant, monkeypatch)
+    assert serve.serve_dtype(variant) == zoo.model_dtype(variant)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--model_variant", "sdxl-refiner", "--pretrained_model_name_or_path", "/ckpt/refiner",
+     "--buckets", "1", "--warmup"],
+    ["--model_variant", "smokeref", "--control_lora_dir", "/runs/x", "--preset", "turbo"]],
+    ids=lambda a: " ".join(a))
+def test_refiner_flags_parse_as_scripts_serve(argv):
+    ours, ref = vars(serve.parse_args(argv)), vars(jax_parse_args(argv))
+    assert {k: ours.pop(k) for k in PORT_ONLY} == PORT_ONLY
+    assert ours == ref
+    assert "sdxl-refiner" not in zoo.BASE_VARIANTS  # the sample CLI's base choices
+
+
+@pytest.mark.parametrize("variant", ["smokeref", "sdxl-refiner"])
+def test_refiner_dtype_rule(variant, monkeypatch):
+    """smokeref is fp32, as scripts/serve.py builds it. sdxl-refiner is bf16 with its
+    base family, where scripts/serve.py builds it in fp32: the recorded deviation (K1
+    and K2 take bf16 only)."""
+    jax_dtype = jax_serve_dtype(variant, monkeypatch)
+    assert jax_dtype == torch.float32
+    want = torch.bfloat16 if variant == "sdxl-refiner" else jax_dtype
+    assert serve.serve_dtype(variant) == want
+
+
+@pytest.fixture(scope="module")
+def smokeref_jax():
+    """(JAX pipeline on filled smokeref weights, those weights)."""
+    import jax
+    import jax.numpy as jnp
+
+    from controllora_tpu.data.tokenizer import HashTokenizer as JHashTokenizer
+    from controllora_tpu.models import zoo as jzoo
+    from controllora_tpu.pipelines import StableDiffusionControlLoRAPipeline as JPipeline
+
+    unet, vae, text = jzoo.build_models("smokeref", dtype=jnp.float32)
+    frozen = filled(jax.eval_shape(lambda: jzoo.random_frozen(
+        jax.random.PRNGKey(0), unet, vae, text, latent_size=8,
+        param_dtype=jnp.float32)), 4)
+    return JPipeline(unet, vae, text, JHashTokenizer(), frozen), frozen
+
+
+def test_refiner_server_matches_jax_render(smokeref_jax):
+    jpipe, frozen = smokeref_jax
+    args = serve.parse_args(["--device", "cpu", "--model_variant", "smokeref"])
+    pipe = serve.build_pipeline(args)
+    assert pipe.control_lora is None and pipe.unet.conv_in.weight.dtype == torch.float32
+    convert.load_unet(pipe.unet, frozen["unet"])
+    convert.load_vae(pipe.vae, frozen["vae"])
+    convert.load_clip(pipe.text_encoder, frozen["text"])
+    engine, server, base = serving(pipe, args, buckets=(1,))
+    try:
+        code, raw = request(base, "/generate", dict(prompt="a red square", steps=2,
+                                                    width=64, height=64, seed=3))
+    finally:
+        stop(engine, server)
+    assert code == 200, raw
+    img = decode_png(base64.b64decode(json.loads(raw)["image"])).astype(np.int64)
+    ref = jpipe("a red square", latents=request_latents(3, 64, 64), num_inference_steps=2,
+                guidance_scale=9.0, height=64, width=64, return_array=True)[0]
+
+    def u8(x):  # the server's quantisation of a [-1, 1] image
+        return np.clip((np.asarray(x, np.float32) + 1.0) * 127.5, 0, 255).astype(np.int64)
+
+    assert img.shape == (64, 64, 3)
+    # within atol 2e-3 on [-1, 1]: each level lies between those of ref -+ 2e-3
+    assert ((u8(ref - 2e-3) <= img) & (img <= u8(ref + 2e-3))).all()
+    assert len(np.unique(img)) > 16  # a picture, not a flat field
 
 
 def test_speed_kwargs_of_presets():

@@ -69,7 +69,8 @@ def test_port_imports_nothing_of_jax():
                    "tasks", "convert_checkpoint", "data.process_datasets",
                    "annotators.openpose", "annotators.hed", "annotators.mlsd",
                    "annotators.midas", "annotators.uniformer", "apps.pose2image",
-                   "parallel", "parallel.distributed", "parallel.mesh", "parallel.tp"):
+                   "parallel", "parallel.distributed", "parallel.mesh", "parallel.tp",
+                   "eval_presets"):
         assert f"controllora_tpu_torch.{module}" in names.split(), module
 
 
