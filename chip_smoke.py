@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py
 
-Phases, each of which raises (non-zero exit, no result line) when it fails:
+Phases, each of which raises (non-zero exit, no result line) when it fails. A render
+runs STEPS (10) steps and a timed training run TRAIN_STEPS (3) steps (20 and 5 until
+PR 14, cut to keep the script inside its time); the counts below are at those values.
   1. device   the CUDA device, its name and power limit (nvidia-smi); TF32 off.
   2. build    nvcc builds the hand-written kernels from controllora_tpu_torch/csrc;
               the -Xptxas -v report of each kernel (registers, spills, wgmma
@@ -34,13 +36,18 @@ Phases, each of which raises (non-zero exit, no result line) when it fails:
               and K4 at the canned train_canny task's batch-1 shape (1, 8, 4096, 40); K1
               at the levels ToMe 0.5 merges on SD2.1 768² and SDXL 1024², (2, 5, 4608,
               64), (8, 5, 4608, 64), (2, 10, 2048, 64) and (8, 10, 2048, 64), with
-              biases of batch B (merged per CFG row), timed the same way.
+              biases of batch B (merged per CFG row), timed the same way. Right after
+              the families' shapes, every kernel's fp32 route (csrc/flash_attn_fp32.cu)
+              against its plain version at the fp32 stacks' shapes (FP32_K1, FP32_K2,
+              FP32_BWD, FP32_K5: SD1.5 --mixed_precision no, the smoke stacks at 512²,
+              the refiner, ragged L, q scaled x4), each timed with its 3xTF32 and fp32
+              FMA bounds and fp32 SDPA.
   4. parity   full-width SD1.5 (random seeded bf16 weights) + the `base` ControlLoRA
               (perturbed so the folded biases are nonzero): one folded UNet eval,
               one VAE decode and the CLIP encoder on the card against the same
               weights in fp32 on the CPU, where the port takes its plain versions.
   5. serve    the BatchingEngine over the full-width pipeline on the card: one
-              guided 512² request (20 steps, CFG 9, DPM-Solver++), then 3 guided
+              guided 512² request (STEPS steps, CFG 9, DPM-Solver++), then 3 guided
               together (one padded batch of 4), then 1 unguided; exact kernel launch
               counts per call, finite 512x512x3 images, latency and img/s.
   6. presets  the serving deployment: K1 at (2, 8, 2048, 40) and (8, 8, 2048, 40) with
@@ -49,7 +56,7 @@ Phases, each of which raises (non-zero exit, no result line) when it fails:
               SDPA; DeepCache's shallow(cache_of(full)) == full and a ToMe UNet eval
               with K1 against its plain version, at full width; then guided renders
               through the engine at bucket 1 and 4 under the exact, tome and turbo
-              presets (turbo: 10 full and 10 shallow UNet evals) and an unguided tome
+              presets (turbo: 5 full and 5 shallow UNet evals) and an unguided tome
               render, one guided render each with DDIM, PNDM, Euler and UniPC, and the
               HTTP server (turbo, buckets 1,4, --warmup) answering 4 concurrent
               /generate requests with PNG guides in one batch; exact launches and
@@ -68,7 +75,7 @@ Phases, each of which raises (non-zero exit, no result line) when it fails:
               timed steps, exact launches per step (K2-K4), finite loss, nonzero
               gradient, params updated; ms/step, img/s, peak memory, one profiled step.
  10. modes    the render modes and sampling entry points at full width (seeded bf16
-              weights, the `base` ControlLoRA, 20 steps, CFG 9), each render's
+              weights, the `base` ControlLoRA, STEPS steps, CFG 9), each render's
               launches held exactly to the counts derived from the configs and its
               device busy time profiled: SD1.5 512² with a rank-4 LoRA chained before
               the ControlLoRA (threaded: K2 in the long self-attentions), img2img and
@@ -76,16 +83,17 @@ Phases, each of which raises (non-zero exit, no result line) when it fails:
               D 40 and 80); the threaded eval against an fp32 copy with every
               attention plain and a zero-up chain (K2) against the folded eval (K1);
               inpaint's unmasked latents equal to the init's; the SDXL 1024² base
-              [0, 16) -> refiner [16, 20) ensemble through `controllora_tpu_torch.
+              [0, 8) -> refiner [8, 10) ensemble through `controllora_tpu_torch.
               sample`'s main in this process; `python -m controllora_tpu_torch.
               mix_lora` from a .safetensors LoRA written by the port. (The new K1/K2
               shapes are checked and timed in phase 3; the refiner's unguided eval
               against fp32 in phase 14.)
- 11. entry    `python -m controllora_tpu_torch.train` for 2 steps at 512² batch 8;
-              its artifact loads back into the port's ControlLoRA strictly.
+ 11. entry    `python -m controllora_tpu_torch.train` for 2 steps at 512² batch 8, a
+              subprocess that runs while phase 13's run in turn (then phase 12 runs
+              alone); its artifact loads back into the port's ControlLoRA strictly.
  12. stock train  the K5 path: the same CLI in this process under
               CONTROLLORA_FLASH_IMPL=stock at 512² batch 16 with remat `dots`: 2
-              warm-up and 5 timed steps, exact K5 launches per step, ms/step, peak
+              warm-up and 3 timed steps, exact K5 launches per step, ms/step, peak
               memory, the native data plane reported by the CLI (and the host's time
               to make a batch in Python and in C); then 2 steps each of remat
               `nothing` and no remat.
@@ -98,21 +106,20 @@ Phases, each of which raises (non-zero exit, no result line) when it fails:
               UNet eval, the text encoder and a VAE decode on the
               card in bf16 (kernels) against an fp32 copy on the card with every
               attention plain; a ToMe 0.5 eval with K1 against its plain version on
-              one set of merge maps (within 2x the exact eval's gap); guided 20-step
+              one set of merge maps (within 2x the exact eval's gap); guided
               renders through the BatchingEngine under exact, tome and turbo with
-              exact launches (derived from the configs: SD2.1 {k1 200, k2 1} and
-              {150, 1} under turbo, SDXL {200, 1} and {100, 1}) and a profiled
+              exact launches (derived from the configs: SD2.1 {k1 100, k2 1} and
+              {75, 1} under turbo, SDXL {100, 1} and {50, 1}) and a profiled
               render each; `python -m controllora_tpu_torch.serve --model_variant
               sdxl` answering one 1024² /generate with a PNG guide; the refiner's UNet
-              (5 ids) and text tower against fp32, its unguided eval (K2) as the
-              ensemble runs it, and `serve --model_variant sdxl-refiner --warmup`
-              (bf16) answering one unguided 1024² request, {k1 0, k2 401}.
+              (5 ids) and text tower against fp32 and its unguided eval (K2) as the
+              ensemble runs it (its fp32 server runs in phase 22).
  15. family train  SD2.1 (768², batch 4, no remat, v-prediction) and SDXL (1024², batch
               2, remat dots, text_time) ControlLoRA training at full width on seeded
               random bf16 weights with `base` re-derived (K2-K4 at their D 64 and VAE
               shapes are checked and timed in phase 3): per family one train step's loss
               and adapter gradient against an fp32 copy on the card with every attention
-              plain; 2 warm-up and 5 timed steps on native fill50k batches with exact
+              plain; 2 warm-up and 3 timed steps on native fill50k batches with exact
               launches per step (from the configs: K2 per long self-attention, again per
               remat recompute, once in the VAE encoder; K3 and K4 per long
               self-attention), peak memory and one profiled step.
@@ -129,12 +136,12 @@ Phases, each of which raises (non-zero exit, no result line) when it fails:
               CLIP_VOCAB_DIR; zoo.load_frozen onto the card (every tensor bitwise the
               F16 source cast to bf16; seconds, peak GiB); one guided 512² render
               through the loaded stack bitwise equal to the in-memory stack's cast the
-              same way, launches exactly {k1 100, k2 1} each; the Canny annotator on
+              same way, launches exactly {k1 50, k2 1} each; the Canny annotator on
               the card equal to the CPU's at 512² and 1024², three threshold pairs (ms
               an image); the canny2image web UI answering one POST /api with a 512²
-              PNG ({k1 100, k2 1}); `python -m controllora_tpu_torch.tasks train_canny`
+              PNG ({k1 50, k2 1}); `python -m controllora_tpu_torch.tasks train_canny`
               (3 steps, batch 1, diffusiondb_canny's Canny on the card, K2-K4) and
-              `tasks test_canny` on its output, then convert_checkpoint import-sd,
+              `tasks test_canny` on its output beside convert_checkpoint import-sd,
               export-controllora (its artifact equal to the run's) and
               import-controllora, each a subprocess that must exit 0.
  19. annotators  OpenPose (body at detect_resolution 512, the hand net at its four
@@ -149,9 +156,9 @@ Phases, each of which raises (non-zero exit, no result line) when it fails:
  20. parallel  (run after "modes") the serving mesh and data-parallel training: 4 rank
               processes share cuda:0 over gloo (NCCL takes one card a rank; the
               kernels are built by this process first), each with the seeded SD1.5
-              stack and `base` ControlLoRA: (a) the guided 512² render (20 steps, CFG
-              9) on a cfg,model=2 mesh, each rank's image against this process's
-              1-process render (relative L2 <= 5e-2) with launches exactly {k1 100,
+              stack and `base` ControlLoRA: (a) the guided 512² render (STEPS steps,
+              CFG 9) on a cfg,model=2 mesh, each rank's image against this process's
+              1-process render (relative L2 <= 5e-2) with launches exactly {k1 50,
               k2 1} and K1 at (1, 4, 4096, 40); (b) two images on data,cfg (K1 at
               (1, 8, 4096, 40)); (c) a dp train step at global batch 8 on ranks 0 and
               1, the loss and all-reduced gradient against a 1-process batch-8 step
@@ -160,11 +167,21 @@ Phases, each of which raises (non-zero exit, no result line) when it fails:
               controllora_tpu_torch.sample --serving_mesh cfg --dist_backend gloo`,
               rank 0 alone writing. The new kernel shapes are checked and timed in
               phase 3 (phase_parallel_kernels). One line "parallel: {...}".
- 21. eval presets  `python -m controllora_tpu_torch.eval_presets --train_steps 300` on the
+ 21. eval presets  `python -m controllora_tpu_torch.eval_presets --train_steps 100` on the
               card: the smoke ControlLoRA trained at 64², 6 specs rendered under exact,
               tome50, dc2 and turbo, the report (the JAX script's keys) printed; no
               kernel launches at 64².
-The last lines are the kernel record (each route with the CUDA kernel it launches),
+ 22. fp32     (run after "CLI smoke") the fp32 stacks end to end on the kernels' fp32
+              route: `python -m controllora_tpu_torch.train --mixed_precision no` on
+              SD1.5 at 512², batch 8, remat dots, 3 steps, then 1 step under
+              CONTROLLORA_FLASH_IMPL=stock (K5); one step's adapter gradient on the
+              kernels against plain attention (relative 1e-4); the smoke stack's train
+              step and sample CLI at 512²; the refiner's unguided eval in fp32 against
+              plain attention and `serve --model_variant sdxl-refiner --warmup` (fp32, as
+              scripts/serve.py serves it) answering one unguided 1024² request, {k1 0,
+              k2 401}. Every launch exact and on the fp32 route.
+The last lines are the kernel record (each route with the CUDA kernel it launches, and
+under "fp32" its fp32 route's kernels, launches and times),
 the card's name and power limit, and {"ok": true, "device": {...}}.
 ``python3 chip_smoke.py --cards`` on a host with 4 cards runs only phase 20, one rank
 a card over nccl.
@@ -180,6 +197,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 O_BOUND, LSE_BOUND, GRAD_BOUND, REL_BOUND = 1e-2, 1e-3, 1e-2, 5e-2
 # K1 has no LSE output to check: its max|dO| is also held to this share of max|ref|,
@@ -192,8 +210,10 @@ K1_SCALED_BOUND = 2e-2
 TOME_NOISE_FACTOR, TOME_LAYER_BOUND = 2, 1e-2
 # H100 SXM peaks (NVIDIA data sheet): bf16 dense tensor-core FLOP/s, HBM3 bytes/s
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
-STEPS, CFG, RES = 20, 9.0, 512
-TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS = 8, 2, 5
+# a render's steps (20 until PR 14) and the timed train steps (5 until PR 14): the
+# paths' depth, cut to keep the script inside its time as it grew (PERF.md, PR 15)
+STEPS, CFG, RES = 10, 9.0, 512
+TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS = 8, 2, 3
 TRAIN_LAUNCHES = {"k1": 0, "k2": 6, "k3": 5, "k4": 5}  # per step: 5 UNet + 1 VAE
 # the K5 path (CONTROLLORA_FLASH_IMPL=stock), batch 16, launches per step by remat
 # policy: 5 UNet self-attentions at L 4096, 5 more where the remat recomputes them,
@@ -564,15 +584,15 @@ def base_control(torch, unet_config, device, gen):
     return control
 
 
-def build_stack(torch, device, variant="sd15", scheduler=None):
-    """A full-width stack of `variant` with seeded random bf16 weights and the
-    re-derived `base` ControlLoRA, as a pipeline."""
+def build_stack(torch, device, variant="sd15", scheduler=None, dtype=None):
+    """A full-width stack of `variant` with seeded random weights (bf16 unless `dtype`
+    says otherwise) and the re-derived `base` ControlLoRA, as a pipeline."""
     from controllora_tpu_torch.data.tokenizer import HashTokenizer
     from controllora_tpu_torch.models import zoo
     from controllora_tpu_torch.pipelines import StableDiffusionControlLoRAPipeline
 
     gen = torch.Generator(device=device).manual_seed(0)
-    unet, vae, text = zoo.build_models(variant, torch.bfloat16, device, gen)
+    unet, vae, text = zoo.build_models(variant, dtype or torch.bfloat16, device, gen)
     control = base_control(torch, unet.config, device, gen)
     return StableDiffusionControlLoRAPipeline(unet, vae, text, HashTokenizer(), control,
                                               scheduler=scheduler, device=device)
@@ -935,7 +955,6 @@ def phase_presets(torch, fa, pipe, device, card):
     import base64
     import threading
     import urllib.request
-    from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
 
@@ -1419,28 +1438,38 @@ def phase_train(torch, fa, pipe, device):
     return total
 
 
-def phase_entry_point(torch):
-    """The training CLI end to end; the saved artifact loads back strictly."""
+def phase_entry_point(torch, beside=None):
+    """The training CLI end to end; the saved artifact loads back strictly. The CLI is
+    a subprocess: `beside` (a function) runs in this process meanwhile, so that the two
+    subprocess-bound phases share their start-up time."""
     from controllora_tpu_torch.training.checkpoint import load_control_lora
 
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as out:
         t0 = time.perf_counter()
-        proc = subprocess.run(
+        proc = subprocess.Popen(
             [sys.executable, "-m", "controllora_tpu_torch.train", "--max_train_steps", "2",
              "--resolution", str(RES), "--train_batch_size", str(TRAIN_BATCH),
              "--log_every", "1", "--output_dir", out, "--device", "cuda"],
-            cwd=ROOT, capture_output=True, text=True, timeout=600)
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            if beside is not None:
+                beside()
+            stdout, stderr = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         if proc.returncode != 0:
-            raise AssertionError(f"train CLI failed ({proc.returncode}):\n{proc.stderr[-3000:]}")
-        steps = [ln for ln in proc.stdout.splitlines() if ln.startswith("step ")]
-        if len(steps) != 2 or "nan" in proc.stdout:
-            raise AssertionError(f"train CLI output:\n{proc.stdout[-2000:]}")
+            raise AssertionError(f"train CLI failed ({proc.returncode}):\n{stderr[-3000:]}")
+        steps = [ln for ln in stdout.splitlines() if ln.startswith("step ")]
+        if len(steps) != 2 or "nan" in stdout:
+            raise AssertionError(f"train CLI output:\n{stdout[-2000:]}")
         model, _ = load_control_lora(out)
         n = sum(p.numel() for p in model.parameters())
     log(f"entry point: python -m controllora_tpu_torch.train 2 steps at {RES}² batch "
-        f"{TRAIN_BATCH} in {time.perf_counter() - t0:.1f} s ({steps[-1]}); artifact "
-        f"loads strictly ({n / 1e6:.2f}M params)")
+        f"{TRAIN_BATCH} in {time.perf_counter() - t0:.1f} s ({steps[-1]}; sharing the card "
+        f"with the CLI smoke runs); artifact loads strictly ({n / 1e6:.2f}M params)")
 
 
 def phase_stock_kernels(torch, fs, device):
@@ -1662,7 +1691,7 @@ def phase_stock_train(torch, fa, fs):
     """The K5 main path: ``python -m controllora_tpu_torch.train`` (in this process,
     so that the launch counters are read here) under CONTROLLORA_FLASH_IMPL=stock, on
     SD1.5 at full width with the `base` ControlLoRA, 512², batch 16,
-    --gradient_checkpointing --remat_policy dots: 2 warm-up and 5 timed steps with
+    --gradient_checkpointing --remat_policy dots: 2 warm-up and 3 timed steps with
     exact launches per step, batches from the native data plane (C fill50k behind a
     prefetch thread), which the CLI must report; then 2 steps each of `nothing` and
     no remat, for peak memory. The host's time to make one batch of 16 in Python
@@ -1834,16 +1863,18 @@ def k1_per_eval(unet_config, res, tome_ratio=0.0, levels=None):
     return count
 
 
-def render_launches(unet_config, res, tome_ratio=0.0, deepcache_interval=1, guided=True):
-    """Launches of one batch-1 render of STEPS steps at `res`, guided (K1 at every long
-    self-attention) or not (K2 there), under a preset: every full eval runs them all
-    (after ToMe's merge), each DeepCache shallow eval (the steps off the interval)
-    those of level 0 alone; K2 once in the VAE decode's mid-attention."""
+def render_launches(unet_config, res, tome_ratio=0.0, deepcache_interval=1, guided=True,
+                    steps=None):
+    """Launches of one batch-1 render of `steps` (STEPS) steps at `res`, guided (K1 at
+    every long self-attention) or not (K2 there), under a preset: every full eval runs
+    them all (after ToMe's merge), each DeepCache shallow eval (the steps off the
+    interval) those of level 0 alone; K2 once in the VAE decode's mid-attention."""
     from controllora_tpu_torch.ops.attention import FLASH_MIN_LEN
 
-    full = len(range(0, STEPS, deepcache_interval))
+    steps = steps or STEPS
+    full = len(range(0, steps, deepcache_interval))
     attn = (full * k1_per_eval(unet_config, res, tome_ratio)
-            + (STEPS - full) * k1_per_eval(unet_config, res, tome_ratio, levels=(0,)))
+            + (steps - full) * k1_per_eval(unet_config, res, tome_ratio, levels=(0,)))
     vae = int((res // 8) ** 2 >= FLASH_MIN_LEN)
     return {"k1": attn if guided else 0, "k2": vae + (0 if guided else attn), "k3": 0,
             "k4": 0}
@@ -2018,12 +2049,15 @@ def family_render(torch, fa, pipe, res, label, card, preset="exact"):
     return used
 
 
-def family_http(torch, fa, variant, res, device, card, control_lora=None, warm=False):
+def family_http(torch, fa, variant, res, device, card, control_lora=None, warm=False,
+                steps=None):
     """`python -m controllora_tpu_torch.serve --model_variant <variant>` (its parse_args,
     build_pipeline and build_server in this process), with `control_lora` saved as an
     artifact and a PNG guide in the request if given, else unguided; with `warm`, its
-    --warmup first. One /generate at res², its launches counted from 0 and held to
-    render_launches. Returns them."""
+    --warmup first. One /generate of `steps` (STEPS) steps at res², its launches counted
+    from 0 and held to
+    render_launches, every one on the route of the server's dtype (FP32_LAUNCHES all
+    of them for an fp32 stack, none for a bf16 one). Returns them."""
     import base64
     import threading
     import urllib.request
@@ -2037,7 +2071,8 @@ def family_http(torch, fa, variant, res, device, card, control_lora=None, warm=F
 
     flags = ["--model_variant", variant, "--buckets", "1", "--host", "127.0.0.1", "--port",
              "0", "--device", str(device)] + ["--warmup"] * warm
-    request = dict(prompt="a red square", steps=STEPS, seed=3, width=res, height=res)
+    steps = steps or STEPS
+    request = dict(prompt="a red square", steps=steps, seed=3, width=res, height=res)
     with tempfile.TemporaryDirectory() as control_dir:
         if control_lora is not None:
             save_control_lora(control_dir, control_lora)
@@ -2062,7 +2097,7 @@ def family_http(torch, fa, variant, res, device, card, control_lora=None, warm=F
                 data=json.dumps(request).encode()), timeout=900) as r:
             code, raw = r.status, r.read()
         wall = time.perf_counter() - t0
-        used = dict(fa.LAUNCHES)  # and ends here
+        used, used32 = dict(fa.LAUNCHES), dict(fa.FP32_LAUNCHES)  # and ends here
     finally:
         if server is not None:
             server.shutdown()
@@ -2071,15 +2106,18 @@ def family_http(torch, fa, variant, res, device, card, control_lora=None, warm=F
     reply = json.loads(raw)
     img = decode_png(base64.b64decode(reply["image"]))
     dtype = spipe.unet.conv_in.weight.dtype
-    want = render_launches(spipe.unet.config, res, guided=control_lora is not None)
-    if code != 200 or img.shape != (res, res, 3) or used != want:
+    want = render_launches(spipe.unet.config, res, guided=control_lora is not None,
+                           steps=steps)
+    want32 = want if dtype == torch.float32 else {n: 0 for n in want}
+    if code != 200 or img.shape != (res, res, 3) or used != want or used32 != want32:
         raise AssertionError(f"{variant} server: {code}, image {img.shape}, launches {used} "
-                             f"(want {want})")
+                             f"(want {want}), fp32 route {used32} (want {want32})")
     log(f"server (python -m controllora_tpu_torch.serve --model_variant {variant}"
         f"{' --warmup' * warm}): {dtype}, built{' and warmed' * warm} in {build_s:.1f} s; "
-        f"one {'guided' if 'guide' in request else 'unguided'} /generate at {res}² in "
+        f"one {'guided' if 'guide' in request else 'unguided'} {steps}-step /generate at "
+        f"{res}² in "
         f"{wall:.3f} s (server says {reply['seconds']} s), {res}x{res}x3 PNG; launches "
-        f"{used}; {card}")
+        f"{used}, on the fp32 route {used32}; {card}")
     return used
 
 
@@ -2117,11 +2155,11 @@ def phase_families(torch, fa, device, card):
     plain versions, a ToMe 0.5 eval with K1 against its plain version on shared merge
     maps (tome_check), guided renders through the BatchingEngine under exact, tome and
     turbo with exact launches and one profiled render each; SDXL's HTTP server; the
-    refiner's folded UNet eval (5 ids) and text tower against their fp32 copies, then
-    `serve --model_variant sdxl-refiner --warmup` (bf16) answering one unguided 1024²
-    request (K2 in every long self-attention). The stacks are built one at a time and
-    freed. Returns the launches of the main paths (renders and requests), each counted
-    from 0."""
+    refiner's folded UNet eval (5 ids) and text tower against their fp32 copies, and
+    its unguided eval as the ensemble runs it (the refiner's server, fp32 as
+    scripts/serve.py serves it, is driven in phase "fp32"). The stacks are built one
+    at a time and freed. Returns the launches of the main paths (renders and
+    requests), each counted from 0."""
     from controllora_tpu_torch.schedulers import DPMSolverMultistepScheduler
     from controllora_tpu_torch.schedulers.common import DiffusionSchedule
 
@@ -2152,10 +2190,6 @@ def phase_families(torch, fa, device, card):
     family_parity(torch, fa, refiner, REFINER_RES, device, "refiner", ("unet", "text"))
     refiner_unguided_parity(torch, fa, refiner, REFINER_RES, device)
     del refiner
-    gc.collect()
-    torch.cuda.empty_cache()
-    used = family_http(torch, fa, REFINER, REFINER_RES, device, card, warm=True)
-    total = {n: total[n] + used[n] for n in total}
     gc.collect()
     torch.cuda.empty_cache()
     log(f"families phase {time.perf_counter() - t_phase:.1f} s; main-path launches {total}")
@@ -2288,7 +2322,7 @@ def family_train_parity(torch, pipe, res, label):
 
 def family_train(torch, fa, pipe, label, res, batch, remat, card):
     """The family's training main path: ControlLoRATrainer.train_step at res² on
-    native fill50k batches, bf16 stack, `base` re-derived: 2 warm-up and 5 timed
+    native fill50k batches, bf16 stack, `base` re-derived: 2 warm-up and 3 timed
     steps on the host clock with exact launches per step, finite losses, nonzero
     gradients, params updated, peak memory; then one profiled step. Returns the
     launches of the timed steps, counted from 0."""
@@ -3057,26 +3091,35 @@ def phase_weights(torch, fa, card):
         if len(steps) != 3 or "frozen" not in stdout or f"from {ckpt}" not in stdout:
             raise AssertionError(f"train_canny:\n{stdout[-1500:]}")
         samples = os.path.join(tmp, "samples")
+        export = os.path.join(tmp, "export")
+
+        def export_and_import():
+            return (run_cli("controllora_tpu_torch.convert_checkpoint", [
+                        "export-controllora", "--run_dir", run, "--config",
+                        os.path.join(run, "config.json"), "--out", export, "--device",
+                        CLI_DEVICE]),
+                    run_cli("controllora_tpu_torch.convert_checkpoint",
+                            ["import-controllora", export, "--device", CLI_DEVICE]))
+
+        # test_canny, import-sd and export -> import-controllora need only the run and
+        # the checkpoint: three subprocess chains side by side
         t0 = time.perf_counter()
-        run_cli("controllora_tpu_torch.tasks", [
-            "test_canny", "--control_lora_dir", run, "--pretrained_model_name_or_path", ckpt,
-            "--num_validation_images", "1", "--num_inference_steps", str(STEPS),
-            "--output_dir", samples, *common])
-        test_s = time.perf_counter() - t0
+        with ThreadPoolExecutor(3) as pool:
+            tested = pool.submit(run_cli, "controllora_tpu_torch.tasks", [
+                "test_canny", "--control_lora_dir", run, "--pretrained_model_name_or_path",
+                ckpt, "--num_validation_images", "1", "--num_inference_steps", str(STEPS),
+                "--output_dir", samples, *common])
+            imports = pool.submit(run_cli, "controllora_tpu_torch.convert_checkpoint",
+                                  ["import-sd", ckpt, "--device", CLI_DEVICE])
+            exports = pool.submit(export_and_import)
+            tested.result()
+            imported = imports.result().splitlines()
+            exported, reimported = exports.result()
+        side_s = time.perf_counter() - t0
         with open(os.path.join(samples, "0.png"), "rb") as f:
             montage = decode_png(f.read())
         if montage.shape != (RES, 3 * RES, 3):
             raise AssertionError(f"test_canny: montage {montage.shape}")
-        t0 = time.perf_counter()
-        imported = run_cli("controllora_tpu_torch.convert_checkpoint",
-                           ["import-sd", ckpt, "--device", CLI_DEVICE]).splitlines()
-        export = os.path.join(tmp, "export")
-        exported = run_cli("controllora_tpu_torch.convert_checkpoint", [
-            "export-controllora", "--run_dir", run, "--config",
-            os.path.join(run, "config.json"), "--out", export, "--device", CLI_DEVICE])
-        reimported = run_cli("controllora_tpu_torch.convert_checkpoint",
-                             ["import-controllora", export, "--device", CLI_DEVICE])
-        convert_s = time.perf_counter() - t0
         a, b = (torch.load(os.path.join(d, "diffusion_pytorch_model.bin"), weights_only=True)
                 for d in (run, export))
         if (list(a) != list(b) or not all(torch.equal(a[k], b[k]) for k in a)
@@ -3090,11 +3133,10 @@ def phase_weights(torch, fa, card):
         os.environ["CLIP_VOCAB_DIR"] = old_vocab
     log(f"weights tasks: python -m controllora_tpu_torch.tasks train_canny (3 steps, {RES}² "
         f"batch 1, diffusiondb_canny on the card) {train_s:.1f} s with start and load, "
-        f"ms/step as logged {ms_step}; tasks test_canny (1 image, {STEPS} steps) "
-        f"{test_s:.1f} s, montage {montage.shape}; convert_checkpoint import-sd "
+        f"ms/step as logged {ms_step}; then side by side, {side_s:.1f} s: tasks test_canny (1 "
+        f"image, {STEPS} steps), montage {montage.shape}; convert_checkpoint import-sd "
         f"({'; '.join(imported)}), export-controllora ({exported.strip()}; {len(a)} tensors "
-        f"equal the run's artifact), import-controllora ({reimported.strip()}): "
-        f"{convert_s:.1f} s; {card}")
+        f"equal the run's artifact), import-controllora ({reimported.strip()}); {card}")
     log(f"weights phase {time.perf_counter() - t_phase:.1f} s; main-path launches {total}")
     return total
 
@@ -3666,11 +3708,13 @@ def phase_parallel(torch, fa, device, card):
 
 
 
-EVAL_PRESETS_STEPS = 300  # the eval presets phase's --train_steps
+# the eval presets phase's --train_steps (300 until PR 14; cut to keep the script in its
+# time beside phase "fp32": a shorter-trained adapter moves less, see PERF.md)
+EVAL_PRESETS_STEPS = 100
 
 
 def phase_eval_presets(torch, fa, card):
-    """`python -m controllora_tpu_torch.eval_presets --train_steps 300` in this process
+    """`python -m controllora_tpu_torch.eval_presets --train_steps 100` in this process
     on the card (--device CLI_DEVICE): trains the smoke ControlLoRA at 64² through the
     train CLI, renders its evaluation specs under every preset and prints the report.
     The report must have the JAX script's keys (docs/presets_quality_r5.json), every
@@ -3703,6 +3747,470 @@ def phase_eval_presets(torch, fa, card):
             f"{e['exact_retrieval_acc']} drift {e['drift_vs_exact_u8_mean']}"
             for n, e in report["presets"].items()) + f"; launches {used}; {card}")
     return used
+
+
+# ---------------------------------------------------------------------------- fp32
+
+# The fp32 route of every kernel (csrc/flash_attn_fp32.cu), which the JAX package's fp32
+# stacks reach: training under --mixed_precision no, the smoke stacks (fp32 in every
+# CLI) at the CLIs' default 512², and the SDXL refiner served in fp32 as
+# scripts/serve.py serves it. Outputs are held to FP32_BOUND * max(1, max|ref|), LSE and
+# m to FP32_BOUND, and l (a sum of thousands of terms, whose error grows with it) to
+# FP32_BOUND relative, which is FP32_BOUND on log l; the references are the plain
+# versions in fp32, TF32 off. A product rounded to TF32 (about three decimal digits)
+# would miss these on the peaked cases (q scaled x4).
+FP32_BOUND = 1e-4
+# fp32-accurate products at the H100's peaks (NVIDIA H100 SXM data sheet): 3xTF32 on the
+# tensor cores (495 TF32 / 3), the least time the card can take for them, and fp32 FMA
+# on the CUDA cores, the most the fp32 kernels' SIMT design can reach
+PEAK_FLOPS_3XTF32, PEAK_FLOPS_FP32 = 165e12, 67e12
+# (B, H, L, D), the factor q is scaled by, timed (the main paths' shapes) or checked
+# only, and the path
+FP32_K1 = (((2, 8, 4096, 40), 1, True, "SD1.5 512² render in fp32"),
+           ((2, 12, 4096, 64), 1, True, "refiner 1024² level 1, guided"),
+           ((2, 4, 4096, 8), 1, True, "smoke 512² level 0"),
+           ((2, 2, 4096, 16), 1, True, "smoke2 512² level 0"),
+           ((2, 8, 4225, 40), 4, False, "ragged L, q x4"))
+FP32_K2 = (((8, 8, 4096, 40), 1, True, "SD1.5 512² training batch 8"),
+           ((8, 8, 4096, 40), 4, False, "SD1.5 training shape, q x4"),
+           ((8, 1, 4096, 512), 1, True, "SD1.5 512² VAE encoder batch 8"),
+           ((2, 12, 4096, 64), 1, True, "refiner 1024² level 1, unguided"),
+           ((1, 1, 16384, 512), 1, True, "refiner 1024² VAE decode"),
+           ((1, 1, 4096, 32), 1, True, "smoke 512² VAE"),
+           ((2, 8, 4225, 40), 1, False, "ragged L"))
+FP32_BWD = (((8, 8, 4096, 40), 1, True, "SD1.5 512² training batch 8"),
+            ((8, 8, 4096, 40), 4, False, "SD1.5 training shape, q x4"),
+            ((2, 4, 4096, 8), 1, True, "smoke 512² training batch 2"),
+            ((2, 2, 4096, 16), 1, True, "smoke2 512² level 0"),
+            ((2, 8, 4225, 40), 1, False, "ragged L"))
+# K5: (B, H, L, D), the softmax scale (None: D^-1/2), the q factor, the backward too,
+# timed, the path
+FP32_K5 = (((8, 8, 4096, 40), None, 1, True, True, "stock step batch 8"),
+           ((8, 1, 4096, 512), None, 1, False, True, "stock step VAE encoder batch 8"),
+           ((2, 8, 1024, 40), -0.3, 4, True, False, "negative scale, q x4"))
+FP32_VARIANT = "sd15"  # trained with --mixed_precision no, remat dots
+FP32_TRAIN_BATCH, FP32_TRAIN_STEPS = 8, 3
+FP32_REFINER_STEPS = 20  # the refiner request's steps: 400 + 1 K2 launches
+FP32_ROUTES = {  # each kernel's CUDA kernels on the fp32 route
+    "k1": ["bias_add_f32_kernel", "flash_fwd_f32_kernel"], "k2": ["flash_fwd_f32_kernel"],
+    "k3": ["flash_bwd_dkv_f32_kernel"], "k4": ["flash_bwd_dq_f32_kernel"],
+    "k5_fwd": ["flash_fwd_f32_kernel"], "k5_dkv": ["flash_bwd_dkv_f32_kernel"],
+    "k5_dq": ["flash_bwd_dq_f32_kernel"]}
+
+
+def fp32_roofline(products, b, h, lq, lk, d, n_q, n_k, rows):
+    """The least time the card could take for an fp32 attention kernel: `products`
+    L x L x D products a head (2 flops each) at the 3xTF32 rate, or its bytes (n_q /
+    n_k fp32 B x L x H*D tensors of the query / key length, `rows` fp32 values per
+    query row and head) at the memory rate, whichever is larger; and the time of those
+    products at the fp32 FMA rate (fma_bound_ms)."""
+    flops = 2 * products * b * h * lq * lk * d
+    nbytes = 4 * b * h * d * (n_q * lq + n_k * lk) + 4 * rows * b * h * lq
+    t_ops, t_bytes = flops / PEAK_FLOPS_3XTF32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    bound = ({"bound_ms": t_ops, "bound_by": "operations"} if t_ops >= t_bytes
+             else {"bound_ms": t_bytes, "bound_by": "bytes"})
+    return dict(bound, fma_bound_ms=flops / PEAK_FLOPS_FP32 * 1e3)
+
+
+def fp32_error(torch, name, out, ref, rows=None):
+    """max|out - ref| of an fp32 output, held to FP32_BOUND * max(1, max|ref|); of row
+    terms to FP32_BOUND, `rows` "absolute" (LSE, m) or "relative" (l). Returns it or
+    raises."""
+    diff = (out - ref).abs()
+    err = (diff / ref.abs() if rows == "relative" else diff).max().item()
+    tol = FP32_BOUND * (1.0 if rows else max(1.0, ref.abs().max().item()))
+    if not (out.dtype == torch.float32 and out.shape == ref.shape
+            and bool(torch.isfinite(out).all()) and err <= tol):
+        raise AssertionError(f"fp32 {name}: {out.dtype} {tuple(out.shape)}, max|d| {err} > "
+                             f"{tol}")
+    return err
+
+
+def fp32_timed(record, name, shape, label, kernel, plain, bound, library, timed=True):
+    """One fp32 kernel call's times (events and device), its plain version's, with its
+    bounds and the fp32 SDPA yardstick (`library`, called here), as an entry of
+    record[name]["shapes"]; returns the log text. A shape not `timed` is checked only:
+    "" is returned."""
+    if not timed:
+        return ""
+    library = library()
+    ms = cuda_ms(kernel)
+    dms = device_ms(kernel, floor_ms=bound["bound_ms"])
+    pms = cuda_ms(plain)
+    entry = shape_entry(shape, ms, dms, pms, bound, library)
+    entry["path"] = label
+    record[name]["shapes"].append(entry)
+    share = "" if dms is None else (
+        f"; {100 * bound['bound_ms'] / dms:.1f}% of the bound, "
+        f"{100 * bound['fma_bound_ms'] / dms:.1f}% of the fp32 FMA peak")
+    return (f"\n  {name} {ms:.4f} ms (device {num(dms)}{share}), plain {pms:.4f} ms, bound "
+            f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} (3xTF32), fp32 FMA "
+            f"{bound['fma_bound_ms']:.4f} ms; SDPA fp32 {fmt_sdpa(library)}")
+
+
+def phase_fp32_kernels(torch, fa, fs, device):
+    """Each kernel's fp32 route against its plain version at the fp32 stacks' shapes
+    (FP32_K1, FP32_K2, FP32_BWD, FP32_K5), each shape timed with its bounds and fp32
+    SDPA. Returns {kernel: {"max_abs_err", "shapes", and the first shape's numbers}}."""
+    from controllora_tpu_torch.ops.attention import split_heads
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(15)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    record = {n: {"max_abs_err": 0.0, "shapes": []} for n in FP32_ROUTES}
+
+    def worst(name, *errs):
+        record[name]["max_abs_err"] = max(record[name]["max_abs_err"], *errs)
+
+    for (b, h, l, d), q_mul, timed, label in FP32_K1:
+        q, k, v = q_mul * rnd(b, l, h * d), rnd(b, l, h * d), rnd(b, l, h * d)
+        qb, kb, vb = (0.25 * rnd(1, l, h * d) for _ in range(3))
+        out = fa.biased_attention(q, k, v, h, qb, kb, vb)
+        torch.cuda.synchronize()
+        err = fp32_error(torch, f"K1 {label}", out, plain_fp32(fa, q, k, v, h, qb, kb, vb))
+        worst("k1", err)
+        biased = [split_heads(x + xb, h) for x, xb in ((q, qb), (k, kb), (v, vb))]
+        bound = fp32_roofline(2, b, h, l, l, d, 2 + 1 / b, 2 + 2 / b, 0)
+        log(f"K1 fp32 ({label}) B={b} H={h} L={l} D={d}: max|dO| {err:.3e}" + fp32_timed(
+            record, "k1", (b, h, l, d, 1), label,
+            lambda: fa.biased_attention(q, k, v, h, qb, kb, vb),
+            lambda: fa.biased_attention_plain(q, k, v, h, qb, kb, vb), bound,
+            lambda: sdpa_ms(torch, *biased, floor_ms=bound["bound_ms"]), timed))
+        del q, k, v, qb, kb, vb, out, biased
+    for (b, h, l, d), q_mul, timed, label in FP32_K2:
+        q, k, v = q_mul * rnd(b, l, h * d), rnd(b, l, h * d), rnd(b, l, h * d)
+        o, lse = fa.flash_attention(q, k, v, h)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = fa.attention_lse_plain(q, k, v, h)
+        err = fp32_error(torch, f"K2 {label}", o, o_ref)
+        lerr = fp32_error(torch, f"K2 {label} LSE", lse, lse_ref, rows="absolute")
+        worst("k2", err)
+        del o_ref, lse_ref
+        bound = fp32_roofline(2, b, h, l, l, d, 2, 2, 1)
+        log(f"K2 fp32 ({label}) B={b} H={h} L={l} D={d}: max|dO| {err:.3e}, max|dLSE| "
+            f"{lerr:.3e}" + fp32_timed(
+                record, "k2", (b, h, l, d), label, lambda: fa.flash_attention(q, k, v, h),
+                lambda: fa.attention_lse_plain(q, k, v, h), bound,
+                lambda: sdpa_ms(torch, *(split_heads(x, h) for x in (q, k, v)),
+                                floor_ms=bound["bound_ms"]), timed))
+        del q, k, v, o, lse
+    for (b, h, l, d), q_mul, timed, label in FP32_BWD:
+        q, k, v, do = q_mul * rnd(b, l, h * d), rnd(b, l, h * d), rnd(b, l, h * d), rnd(b, l, h * d)
+        o, lse = fa.flash_attention(q, k, v, h)
+        dcap = fa.attention_dcap(o, do, h)
+        bwd = (q, k, v, do, lse, dcap, h)
+        dk, dv = fa.flash_bwd_dkv(*bwd)
+        dq = fa.flash_bwd_dq(*bwd)
+        torch.cuda.synchronize()
+        ref_dk, ref_dv = fa.flash_bwd_dkv_plain(*bwd)
+        errs = {"dk": fp32_error(torch, f"K3 dK {label}", dk, ref_dk),
+                "dv": fp32_error(torch, f"K3 dV {label}", dv, ref_dv)}
+        del ref_dk, ref_dv
+        errs["dq"] = fp32_error(torch, f"K4 dQ {label}", dq, fa.flash_bwd_dq_plain(*bwd))
+        worst("k3", errs["dk"], errs["dv"])
+        worst("k4", errs["dq"])
+        library = sdpa_ms(torch, *(split_heads(x, h) for x in (q, k, v)),
+                          do=split_heads(do, h)) if timed else None  # of K3 + K4
+        log(f"K3/K4 fp32 ({label}) B={b} H={h} L={l} D={d}: max|d| dQ {errs['dq']:.3e}, dK "
+            f"{errs['dk']:.3e}, dV {errs['dv']:.3e}"
+            + fp32_timed(record, "k3", (b, h, l, d), label, lambda: fa.flash_bwd_dkv(*bwd),
+                         lambda: fa.flash_bwd_dkv_plain(*bwd),
+                         fp32_roofline(4, b, h, l, l, d, 2, 4, 2),
+                         lambda: library, timed)
+            + fp32_timed(record, "k4", (b, h, l, d), label, lambda: fa.flash_bwd_dq(*bwd),
+                         lambda: fa.flash_bwd_dq_plain(*bwd),
+                         fp32_roofline(3, b, h, l, l, d, 3, 2, 2),
+                         lambda: library, timed))
+        del q, k, v, do, o, lse, dcap, dk, dv, dq, bwd
+    for (b, h, l, d), scale, q_mul, grads, timed, label in FP32_K5:
+        scale = d**-0.5 if scale is None else scale
+        q = split_heads(q_mul * rnd(b, l, h * d), h)  # head-split views, as routed
+        k, v, do = (split_heads(rnd(b, l, h * d), h) for _ in range(3))
+        o, m, lsum = fs.stock_flash_fwd(q, k, v, scale)
+        torch.cuda.synchronize()
+        o_ref, m_ref, l_ref = fs.stock_flash_fwd_plain(q, k, v, scale)
+        err = fp32_error(torch, f"K5 fwd {label}", o, o_ref)
+        merr = fp32_error(torch, f"K5 m {label}", m, m_ref, rows="absolute")
+        lerr = fp32_error(torch, f"K5 l {label}", lsum, l_ref, rows="relative")
+        worst("k5_fwd", err)
+        del o_ref, m_ref, l_ref
+        bound = fp32_roofline(2, b, h, l, l, d, 2, 2, 2)
+        line = (f"K5 fp32 ({label}) B={b} H={h} L={l} D={d} scale {scale:.4g}: max|dO| "
+                f"{err:.3e}, max|dm| {merr:.3e}, relative l {lerr:.3e}" + fp32_timed(
+                    record, "k5_fwd", (b, h, l, d), label,
+                    lambda: fs.stock_flash_fwd(q, k, v, scale),
+                    lambda: fs.stock_flash_fwd_plain(q, k, v, scale), bound,
+                    lambda: sdpa_ms(torch, q, k, v, scale=scale, floor_ms=bound["bound_ms"]),
+                    timed))
+        if grads:
+            di = (o * do).sum(-1)
+            bwd = (q, k, v, do, m, lsum, di, scale)
+            dk, dv = fs.stock_flash_bwd_dkv(*bwd)
+            dq = fs.stock_flash_bwd_dq(*bwd)
+            torch.cuda.synchronize()
+            ref_dk, ref_dv = fs.stock_flash_bwd_dkv_plain(*bwd)
+            errs = {"dk": fp32_error(torch, f"K5 dK {label}", dk, ref_dk),
+                    "dv": fp32_error(torch, f"K5 dV {label}", dv, ref_dv)}
+            del ref_dk, ref_dv
+            errs["dq"] = fp32_error(torch, f"K5 dQ {label}", dq,
+                                    fs.stock_flash_bwd_dq_plain(*bwd))
+            worst("k5_dkv", errs["dk"], errs["dv"])
+            worst("k5_dq", errs["dq"])
+            library = sdpa_ms(torch, q, k, v, scale=scale, do=do) if timed else None
+            line += (f"\n  max|d| dQ {errs['dq']:.3e}, dK {errs['dk']:.3e}, dV {errs['dv']:.3e}"
+                     + fp32_timed(record, "k5_dkv", (b, h, l, d), label,
+                                  lambda: fs.stock_flash_bwd_dkv(*bwd),
+                                  lambda: fs.stock_flash_bwd_dkv_plain(*bwd),
+                                  fp32_roofline(4, b, h, l, l, d, 2, 4, 3),
+                                  lambda: library, timed)
+                     + fp32_timed(record, "k5_dq", (b, h, l, d), label,
+                                  lambda: fs.stock_flash_bwd_dq(*bwd),
+                                  lambda: fs.stock_flash_bwd_dq_plain(*bwd),
+                                  fp32_roofline(3, b, h, l, l, d, 3, 2, 3),
+                                  lambda: library, timed))
+            del di, bwd, dk, dv, dq
+        log(line)
+        del q, k, v, do, o, m, lsum
+    for entry in record.values():  # the first shape is the main path's
+        entry.update({k: v for k, v in entry["shapes"][0].items() if k not in ("shape", "path")})
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"fp32 kernels {time.perf_counter() - t0:.1f} s; every output within {FP32_BOUND} * "
+        f"max(1, max|ref|), LSE and m within {FP32_BOUND}, l within {FP32_BOUND} relative")
+    return record
+
+
+def fp32_cli(torch, fa, fs, module, args):
+    """`python -m <module> <args>` run by its main in this process, its launches counted
+    from 0: (stdout, launches of every kernel, those on the fp32 route)."""
+    import contextlib
+    import importlib
+    import io
+
+    cli = importlib.import_module(module)
+    gc.collect()
+    torch.cuda.empty_cache()
+    buf = io.StringIO()
+    fa.reset_launch_counts()
+    fs.reset_launch_counts()  # the main path starts here
+    with contextlib.redirect_stdout(buf):
+        cli.main(args)
+    used = {**fa.LAUNCHES, **fs.LAUNCHES}
+    used32 = {**fa.FP32_LAUNCHES, **fs.FP32_LAUNCHES}  # and ends here
+    return buf.getvalue(), used, used32
+
+
+def fp32_train_parity(torch, fa, device):
+    """One SD1.5 ControlLoRA train step in fp32 at 512², batch 1 (latents, guide, ids,
+    noise and t from a seed): the loss and adapter gradient with the long
+    self-attentions on the fp32 kernels (K2 forward, K3 + K4 backward, launches exact)
+    against the same step with every attention plain (attention_backend "xla"), within
+    FP32_BOUND relative."""
+    import functools
+
+    import numpy as np
+
+    from controllora_tpu_torch.training.trainer import ControlLoRATrainer
+
+    t0 = time.perf_counter()
+    pipe = build_stack(torch, device, FP32_VARIANT, dtype=torch.float32)
+    rng = np.random.default_rng(16)
+    side = RES // 8
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device)
+
+    batch = {"latents": t(rng.normal(size=(1, 4, side, side))),
+             "guide_values": t(rng.uniform(-1, 1, (1, 3, RES, RES))),
+             "input_ids": torch.from_numpy(rng.integers(0, 49407, (1, 77))).to(device)}
+    draws = dict(noise=t(rng.normal(size=(1, 4, side, side))),
+                 timesteps=torch.tensor([500], device=device))
+    unet = pipe.unet
+
+    def run(backend):
+        if backend:
+            unet.forward = functools.partial(type(unet).forward, unet, attention_backend=backend)
+        try:
+            trainer = ControlLoRATrainer(pipe.control_lora, unet, pipe.vae, pipe.text_encoder,
+                                         remat_unet=False)
+            before = dict(fa.FP32_LAUNCHES)
+            loss = trainer.loss(batch, **draws)
+            grad = torch.cat([g.detach().flatten() for g in trainer.grads(loss)])
+            torch.cuda.synchronize()
+            return loss.item(), grad, {n: fa.FP32_LAUNCHES[n] - before[n] for n in before}
+        finally:
+            if backend:
+                del unet.forward
+
+    loss, grad, used = run(None)
+    ref_loss, ref_grad, used_ref = run("xla")
+    n = k1_per_eval(unet.config, RES)
+    want = {"k1": 0, "k2": n, "k3": n, "k4": n}
+    errs = {"loss": abs(loss - ref_loss) / abs(ref_loss), "adapter gradient": rel_l2(grad, ref_grad)}
+    del pipe, unet, grad, ref_grad
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"fp32 train parity {FP32_VARIANT} {RES}² batch 1: kernels (fp32 route {used}) vs plain "
+        f"(attention_backend xla, {used_ref}): loss {loss:.7f} vs {ref_loss:.7f}, relative "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" <= {FP32_BOUND}; {time.perf_counter() - t0:.1f} s")
+    if used != want or any(used_ref.values()):
+        raise AssertionError(f"fp32 train parity launches {used} (want {want}), plain {used_ref}")
+    bad = {k: v for k, v in errs.items() if not v <= FP32_BOUND}
+    if bad or not math.isfinite(loss):
+        raise AssertionError(f"fp32 train parity outside {FP32_BOUND}: {bad}, loss {loss}")
+
+
+def fp32_refiner_parity(torch, fa, device):
+    """The SDXL refiner's unguided CFG UNet eval at 1024² in fp32, as the fp32 server
+    runs it (K2 on its fp32 route in every long self-attention, launches exact),
+    against the same eval with every attention plain: max|d eps| within FP32_BOUND *
+    max|ref|."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    refiner = build_stack(torch, device, REFINER, dtype=torch.float32)
+    rng = np.random.default_rng(17)
+    side = REFINER_RES // 8
+    lat = torch.from_numpy(rng.normal(size=(2, 4, side, side)).astype(np.float32)).to(device)
+    ids = torch.from_numpy(rng.integers(0, 49407, (2, 77))).to(device)
+    steps = torch.tensor([300.0, 300.0], device=device)
+    with torch.inference_mode():
+        ctx, pooled = refiner.text_encoder(ids)
+        added = dict(added_text_embeds=pooled, added_time_ids=refiner.text_time_ids(
+            pooled, REFINER_RES, REFINER_RES, 6.0, 2.5))
+        before = dict(fa.FP32_LAUNCHES)
+        eps = refiner.unet(lat, steps, ctx, **added)
+        torch.cuda.synchronize()
+        used = {n: fa.FP32_LAUNCHES[n] - before[n] for n in before}
+        ref = refiner.unet(lat, steps, ctx, attention_backend="xla", **added)
+        err = (eps - ref).abs().max().item()
+        tol = FP32_BOUND * ref.abs().max().item()
+    want = {"k1": 0, "k2": k1_per_eval(refiner.unet.config, REFINER_RES), "k3": 0, "k4": 0}
+    del refiner, eps, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"fp32 refiner parity unguided UNet eval {REFINER_RES}²: kernels (fp32 route "
+        f"{used}) vs plain max|d eps| {err:.3e} <= {tol:.3e} (FP32_BOUND * max|ref|); "
+        f"{time.perf_counter() - t0:.1f} s")
+    if used != want or not err <= tol:
+        raise AssertionError(f"fp32 refiner parity: launches {used} (want {want}), max|d| "
+                             f"{err} > {tol}")
+
+
+def phase_fp32(torch, fa, fs, device, card):
+    """The fp32 stacks end to end on the kernels' fp32 route: `python -m
+    controllora_tpu_torch.train --model_variant sd15 --mixed_precision no` at 512²,
+    batch 8, remat dots for FP32_TRAIN_STEPS steps, then one step under
+    CONTROLLORA_FLASH_IMPL=stock (K5), each with exact launches (train_launches,
+    STOCK_LAUNCHES), all on the fp32 route; one step's gradient on the kernels against
+    plain attention (fp32_train_parity); the smoke stack's train step and sample CLI at
+    512² (K2-K4 at D 8 and 32, K1 at D 8); the refiner's eval parity in fp32 and `serve
+    --model_variant sdxl-refiner --warmup` (fp32) answering one unguided 20-step 1024²
+    request, {k1 0, k2 401}. Returns the main paths' launches, each counted from 0:
+    ({kernel: launches}, {kernel: fp32-route launches})."""
+    from controllora_tpu_torch import sample as sample_cli
+    from controllora_tpu_torch.models import zoo
+    from controllora_tpu_torch.utils.png import decode_png
+
+    t_phase = time.perf_counter()
+    total, total32 = {}, {}
+
+    def add(name, out, used, used32, want):
+        """Hold a main path's launches to `want` (k5 counters 0 unless given), every
+        one on the fp32 route; add them to the totals."""
+        want = {n: want.get(n, 0) for n in used}
+        if used != want or used32 != used:
+            raise AssertionError(f"fp32 {name}: launches {used} (want {want}), fp32 route "
+                                 f"{used32}\n" + out[-2000:])
+        for n in used:
+            total[n] = total.get(n, 0) + used[n]
+            total32[n] = total32.get(n, 0) + used32[n]
+
+    def steps_of(out):
+        lines = [ln for ln in out.splitlines() if ln.startswith("step ")]
+        return ([float(ln.split()[-2]) for ln in lines],
+                [float(ln.split("loss=")[1].split()[0]) for ln in lines])
+
+    sd15 = zoo.VARIANTS[FP32_VARIANT][0]
+    smoke = zoo.VARIANTS["smoke"][0]
+    with tempfile.TemporaryDirectory() as tmp:
+        common = ["--resolution", str(RES), "--log_every", "1", "--checkpointing_steps", "0",
+                  "--mixed_precision", "no", "--device", CLI_DEVICE]
+        train = common + ["--model_variant", FP32_VARIANT, "--train_batch_size",
+                          str(FP32_TRAIN_BATCH), "--gradient_checkpointing", "--remat_policy",
+                          "dots", "--output_dir", os.path.join(tmp, "sd15")]
+        t0 = time.perf_counter()
+        out, used, used32 = fp32_cli(torch, fa, fs, "controllora_tpu_torch.train",
+                                     train + ["--max_train_steps", str(FP32_TRAIN_STEPS)])
+        per_step = train_launches(sd15, RES, "dots")
+        add("train", out, used, used32, {n: c * FP32_TRAIN_STEPS for n, c in per_step.items()})
+        ms, losses = steps_of(out)
+        if len(ms) != FP32_TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"fp32 train: steps {ms}, losses {losses}\n{out[-2000:]}")
+        log(f"fp32 train (python -m controllora_tpu_torch.train --mixed_precision no) "
+            f"{FP32_VARIANT} {RES}² batch {FP32_TRAIN_BATCH}, remat dots: steps " + ", ".join(
+                f"{x:.1f}" for x in ms) + " ms, losses " + ", ".join(f"{x:.4f}" for x in losses)
+            + f"; launches per step {per_step}, all on the fp32 route; "
+            f"{time.perf_counter() - t0:.1f} s with the stack's build; {card}")
+        os.environ["CONTROLLORA_FLASH_IMPL"] = "stock"
+        try:
+            t0 = time.perf_counter()
+            out, used, used32 = fp32_cli(torch, fa, fs, "controllora_tpu_torch.train",
+                                         train + ["--max_train_steps", "1"])
+        finally:
+            del os.environ["CONTROLLORA_FLASH_IMPL"]
+        add("stock train", out, used, used32, STOCK_LAUNCHES["dots"])
+        ms, losses = steps_of(out)
+        if len(ms) != 1 or not math.isfinite(losses[0]):
+            raise AssertionError(f"fp32 stock train: {ms}, {losses}\n{out[-2000:]}")
+        log(f"fp32 stock train (K5, CONTROLLORA_FLASH_IMPL=stock) {FP32_VARIANT} {RES}² batch "
+            f"{FP32_TRAIN_BATCH}: 1 step {ms[0]:.1f} ms, loss {losses[0]:.4f}; launches "
+            f"{used}, all on the fp32 route; {time.perf_counter() - t0:.1f} s")
+        fp32_train_parity(torch, fa, device)
+
+        t0 = time.perf_counter()
+        smoke_dir = os.path.join(tmp, "smoke")
+        out, used, used32 = fp32_cli(torch, fa, fs, "controllora_tpu_torch.train",
+                                     common + ["--model_variant", "smoke", "--train_batch_size",
+                                               "2", "--max_train_steps", "1",
+                                               "--output_dir", smoke_dir])
+        add("smoke train", out, used, used32, train_launches(smoke, RES, None))
+        log(f"fp32 smoke train (--model_variant smoke --mixed_precision no) {RES}² batch 2, "
+            f"1 step: launches {used}, all on the fp32 route; {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        sample_dir = os.path.join(tmp, "sample")
+        out, used, used32 = fp32_cli(torch, fa, fs, "controllora_tpu_torch.sample",
+                                     ["--model_variant", "smoke", "--control_lora_dir",
+                                      smoke_dir, "--resolution", str(RES),
+                                      "--num_validation_images", "1",
+                                      "--output_dir", sample_dir, "--device", CLI_DEVICE])
+        steps = sample_cli.parse_args(["--control_lora_dir", smoke_dir]).num_inference_steps
+        with open(os.path.join(sample_dir, "0.png"), "rb") as f:
+            montage = decode_png(f.read())
+        add("smoke sample", out, used, used32,
+            {"k1": steps * k1_per_eval(smoke, RES), "k2": vae_launches(RES)})
+        if montage.shape != (RES, 3 * RES, 3):
+            raise AssertionError(f"fp32 smoke sample: montage {montage.shape}")
+        log(f"fp32 smoke sample (python -m controllora_tpu_torch.sample --model_variant smoke "
+            f"at {RES}², its default, and its default {steps} steps): montage {montage.shape}; launches {used}, "
+            f"all on the fp32 route; {time.perf_counter() - t0:.1f} s")
+
+    fp32_refiner_parity(torch, fa, device)
+    fs.reset_launch_counts()  # family_http resets the K1-K4 counts itself
+    used = family_http(torch, fa, REFINER, REFINER_RES, device, card, warm=True,
+                       steps=FP32_REFINER_STEPS)
+    # read just after the request, as family_http read its own: nothing launched since
+    add("refiner server", "", {**used, **fs.LAUNCHES}, {**fa.FP32_LAUNCHES, **fs.FP32_LAUNCHES},
+        used)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"fp32 phase {time.perf_counter() - t_phase:.1f} s; main-path launches {total}, on "
+        f"the fp32 route {total32}")
+    return total, total32
 
 
 def main_cards(torch, fa, device, card):
@@ -3756,6 +4264,7 @@ def main():
 
     record = phase_kernels(torch, fa, device)
     phase_family_kernels(torch, fa, device, record)
+    fp32_record = phase_fp32_kernels(torch, fa, fs, device)
     phase_mode_kernels(torch, fa, device, record)
     record.update(phase_backward_kernels(torch, fa, device))
     phase_family_train_kernels(torch, fa, device, record)
@@ -3787,10 +4296,11 @@ def main():
     torch.cuda.empty_cache()
     parallel = phase_parallel(torch, fa, device, card)
     mark("parallel")
-    phase_entry_point(torch)
+    phase_entry_point(torch, beside=lambda: phase_cli_resume(torch))
     stock = phase_stock_train(torch, fa, fs)
-    phase_cli_resume(torch)
-    mark("entry, stock train, CLI smoke")
+    mark("entry, CLI smoke, stock train")
+    fp32_paths, fp32_paths32 = phase_fp32(torch, fa, fs, device, card)
+    mark("fp32")
     families = phase_families(torch, fa, device, card)
     mark("families")
     family_train = phase_family_train(torch, fa, device, card)
@@ -3810,11 +4320,13 @@ def main():
     # turbo) and requests (SDXL, the refiner), their training and DreamBooth's steps,
     # the loaded stack's renders and the canny2image request, the pose2image request,
     # every rank's mesh renders and dp step, the presets' quality check, then training
-    # under CONTROLLORA_FLASH_IMPL=stock (K5)
+    # under CONTROLLORA_FLASH_IMPL=stock (K5), then the fp32 stacks' paths (K1-K5 on
+    # their fp32 route)
     paths = (serve, presets, train, modes, families, family_train, dreambooth, weights,
              annotators, parallel, eval_presets)
     launches = {n: sum(p.get(n, 0) for p in paths) for n in serve}
     launches.update({n: stock[n] for n in fs.LAUNCHES})
+    launches = {n: c + fp32_paths[n] for n, c in launches.items()}
 
     fwd = "controllora_tpu_torch/csrc/flash_attn_fwd.cu"
     bwd = "controllora_tpu_torch/csrc/flash_attn_bwd.cu"
@@ -3823,11 +4335,18 @@ def main():
 
     def route(name, source, replaces, counter, cuda_kernels):
         """One kernel's record: the CUDA kernels its route launches, with the ptxas
-        report of their instances."""
-        ptxas = [ptxas_line(e) for e in report if e["kernel"].split("<")[0] in cuda_kernels]
+        report of their instances, its launches on the main paths (both routes) and
+        its fp32 route's own record under "fp32" (the CUDA kernels, ptxas, launches,
+        errors and times)."""
+        def lines(kernels):
+            return [ptxas_line(e) for e in report if e["kernel"].split("<")[0] in kernels]
+
+        fp32 = dict(route="cuda", source="controllora_tpu_torch/csrc/flash_attn_fp32.cu",
+                    cuda_kernels=FP32_ROUTES[counter], ptxas=lines(FP32_ROUTES[counter]),
+                    launches=fp32_paths32[counter], **fp32_record[counter])
         return dict(name=name, route="cuda", source=source, replaces=replaces,
-                    launches=launches[counter], cuda_kernels=cuda_kernels, ptxas=ptxas,
-                    **record[counter])
+                    launches=launches[counter], cuda_kernels=cuda_kernels,
+                    ptxas=lines(cuda_kernels), **record[counter], fp32=fp32)
 
     kernels = [
         route("k1_biased_flash_fwd", fwd, "controllora_tpu/ops/pallas_attention.py:56", "k1",
@@ -3843,8 +4362,9 @@ def main():
               ["flash_bwd_dq_kernel"]),
     ]
     for k in kernels:
-        if k["launches"] < 1:
-            raise AssertionError(f"{k['name']} never launched on the main path")
+        if k["launches"] < 1 or k["fp32"]["launches"] < 1:
+            raise AssertionError(f"{k['name']} never launched on the main path (launches "
+                                 f"{k['launches']}, on the fp32 route {k['fp32']['launches']})")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -16,25 +16,32 @@ Counterparts of the JAX package's flash-attention Pallas kernels:
 ``FlashAttention`` ties K2 to K3 + K4 as one ``torch.autograd.Function``, the
 counterpart of the JAX ``flash_attention`` ``custom_vjp``.
 
-K1 and K2 live in ``csrc/flash_attn_fwd.cu`` (wgmma, a TMA-fed K/V ring, softmax in
-registers; ``csrc/hopper.cuh``), K3 and K4 in ``csrc/flash_attn_bwd.cu`` (wgmma: K3's
-kernel keeps 128 keys a block and streams query tiles through a TMA ring, K4's keeps
-128 queries and streams key tiles; K5's backward runs on the same two kernels; see
-the headers for the design). All take the projections in the (B, L, H*D) layout the
-attention layers produce, so no head split or padding copy is made; they read them
-through TMA tensor maps (``tma_geometry``, one case of ``head_geometry``). The JAX
-block-size policy (``pick_block``, ``serving_blocks``) does not carry over: each
-kernel sizes its own tiles (``fwd_tiles`` reports K1/K2's), and heads wider than 80
-split the key range where the query tiles alone leave SMs idle (``kv_splits``).
+Each kernel has two routes, picked by the inputs' dtype (``kernel_dtype``): bf16
+and fp32, the dtypes the JAX package's stacks give its kernels. On bf16, K1 and K2
+run in ``csrc/flash_attn_fwd.cu`` (wgmma, a TMA-fed K/V ring, softmax in registers;
+``csrc/hopper.cuh``), K3 and K4 in ``csrc/flash_attn_bwd.cu`` (wgmma: K3's kernel
+keeps 128 keys a block and streams query tiles through a TMA ring, K4's keeps 128
+queries and streams key tiles; K5's backward runs on the same two kernels; see the
+headers for the design). They read the projections through TMA tensor maps
+(``tma_geometry``, one case of ``head_geometry``). On fp32 all five run in
+``csrc/flash_attn_fp32.cu``: fp32 FMA products on the CUDA cores, as the JAX kernels
+multiply fp32 blocks with fp32 results, with K/V (or Q/dO) tiles fed by ``cp.async``
+(plain 16-byte loads: ``vector_geometry``). Both take the projections in the (B, L,
+H*D) layout the attention layers produce, so no head split or padding copy is made.
+The JAX block-size policy (``pick_block``, ``serving_blocks``) does not carry over:
+each kernel sizes its own tiles (``fwd_tiles`` reports K1/K2's), and bf16 heads wider
+than 80 split the key range where the query tiles alone leave SMs idle
+(``kv_splits``; the fp32 forward never splits).
 
 Device rule: a tensor on the CPU takes the plain PyTorch version beside each kernel;
-a CUDA tensor launches the kernel or raises. Every ``csrc/*.cu`` is compiled with
-``nvcc`` for ``sm_90a`` at the first CUDA call (one ``nvcc`` per source, all started
-together, then one link) into one library in ``csrc/_build/``, keyed by the hash of
-all the sources, and bound with ``ctypes``.
+a CUDA tensor launches the kernel of its dtype or raises. Every ``csrc/*.cu`` is
+compiled with ``nvcc`` for ``sm_90a`` at the first CUDA call (one ``nvcc`` per
+source, all started together, then one link) into one library in ``csrc/_build/``,
+keyed by the hash of all the sources, and bound with ``ctypes``.
 
-``LAUNCHES`` counts kernel launches per kernel ("k1".."k4"); only the CUDA branch of
-each wrapper increments it, so a run can show that its main path went through them.
+``LAUNCHES`` counts kernel launches per kernel ("k1".."k4") whatever the dtype, and
+``FP32_LAUNCHES`` those of the fp32 route alone; only the CUDA branch of each wrapper
+increments them, so a run can show that its main path went through them.
 """
 
 from __future__ import annotations
@@ -56,18 +63,30 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "_build"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-MAX_HEAD_DIM = 512  # the forward's instances (K1, K2, K5): D <= 48, 64, 80, 512
-MAX_BWD_HEAD_DIM = 80  # the backward's (K3, K4, K5): DS 48, 64, 80
+MAX_HEAD_DIM = 512  # the forward's (K1, K2, K5): bf16 D <= 48, 64, 80, 512; fp32 16-80, 512
+MAX_BWD_HEAD_DIM = 80  # the backward's (K3, K4, K5): bf16 DS 48, 64, 80; fp32 16-80
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)  # the two routes of every kernel
 
 LAUNCHES: Dict[str, int] = {"k1": 0, "k2": 0, "k3": 0, "k4": 0}
+FP32_LAUNCHES: Dict[str, int] = {"k1": 0, "k2": 0, "k3": 0, "k4": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, FP32_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def count_launch(counts: Dict[str, int], fp32_counts: Dict[str, int], name: str,
+                 dtype: torch.dtype) -> None:
+    """One launch of kernel `name`: counted in `counts`, and in `fp32_counts` too on
+    the fp32 route."""
+    counts[name] += 1
+    if dtype == torch.float32:
+        fp32_counts[name] += 1
 
 
 # ---------------------------------------------------------------------------- build
@@ -149,6 +168,12 @@ def build_kernels() -> ctypes.CDLL:
         lib.k5_stock_flash_bwd_dkv.restype = i
         lib.k5_stock_flash_bwd_dq.argtypes = [p] * 8 + [i] * 5 + strides + [f, p]
         lib.k5_stock_flash_bwd_dq.restype = i
+        for name in ("k1_biased_flash_fwd", "k2_flash_fwd_lse", "k3_flash_bwd_dkv",
+                     "k4_flash_bwd_dq", "flash_fwd_tiles", "k5_stock_flash_fwd",
+                     "k5_stock_flash_bwd_dkv", "k5_stock_flash_bwd_dq"):
+            fp32 = getattr(lib, name + "_f32")  # csrc/flash_attn_fp32.cu, same arguments
+            fp32.argtypes = getattr(lib, name).argtypes
+            fp32.restype = i
         _lib = lib
         return lib
 
@@ -187,12 +212,52 @@ def tma_geometry(x, heads: int, name: str = "x") -> Tuple[Tuple[int, ...], Tuple
     return head_geometry(split_heads(x, heads), name)
 
 
-def fwd_tiles(d: int) -> Tuple[int, int, int]:
+def vector_geometry(x, name: str = "x") -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """What the fp32 kernels need of a (B, H, L, D) fp32 tensor, which they read by its
+    strides with plain 16-byte loads (``cp.async``): a contiguous last dim, a 16-byte
+    aligned base, and D and every element stride a multiple of 4. Returns the dims
+    (D, H, L, B) and the element strides of H, L and B; raises ValueError otherwise."""
+    if x.dim() != 4:
+        raise ValueError(f"{name} must be (B, H, L, D), got {tuple(x.shape)}")
+    b, h, length, d = x.shape
+    sb, sh, sl, sd = x.stride()
+    if sd != 1 and d > 1:
+        raise ValueError(f"{name} {tuple(x.shape)} with strides {x.stride()} needs a "
+                         "contiguous last dim")
+    if x.data_ptr() % 16 or d % 4 or any(st % 4 for st in (sh, sl, sb)):
+        raise ValueError(f"{name}: the fp32 kernels read 16-byte vectors, so they need a "
+                         f"16-byte aligned base (offset {x.data_ptr() % 16}) and D and "
+                         f"every element stride a multiple of 4, got D {d}, strides "
+                         f"{(sh, sl, sb)}")
+    return (d, h, length, b), (sh, sl, sb)
+
+
+def kernel_dtype(*named) -> torch.dtype:
+    """The route the kernels take for these (name, tensor) inputs (None tensors are
+    skipped): bf16 launches the bf16 kernels, fp32 those of csrc/flash_attn_fp32.cu.
+    Any other dtype, or inputs of two dtypes, raise TypeError naming both routes."""
+    given = [(name, t.dtype) for name, t in named if t is not None]
+    dtypes = {dtype for _, dtype in given}
+    if len(dtypes) == 1 and given[0][1] in KERNEL_DTYPES:
+        return given[0][1]
+    listing = ", ".join(f"{name} {dtype}" for name, dtype in given)
+    raise TypeError(f"the flash kernels take bfloat16 or float32 inputs, all of one "
+                    f"dtype; got {listing}")
+
+
+def entry(lib: ctypes.CDLL, name: str, dtype: torch.dtype):
+    """The library's entry point `name` for the route of `dtype`: the bf16 kernel, or
+    its fp32 namesake (``<name>_f32``), which takes the same arguments."""
+    return getattr(lib, name if dtype == torch.bfloat16 else name + "_f32")
+
+
+def fwd_tiles(d: int, dtype: torch.dtype = torch.bfloat16) -> Tuple[int, int, int]:
     """(query rows a block, keys a tile, most key splits) of the K1/K2 instance that
-    takes head dim `d`, as csrc/flash_attn_fwd.cu sets them (``flash_fwd_tiles``)."""
+    takes head dim `d` on the route of `dtype`, as csrc/flash_attn_fwd.cu (bf16) or
+    csrc/flash_attn_fp32.cu (fp32, never a split) set them (``flash_fwd_tiles``)."""
     lib = build_kernels()
     vals = [ctypes.c_int() for _ in range(3)]
-    err = lib.flash_fwd_tiles(d, *(ctypes.byref(x) for x in vals))
+    err = entry(lib, "flash_fwd_tiles", dtype)(d, *(ctypes.byref(x) for x in vals))
     if err:
         raise ValueError(f"no K1/K2 instance takes head dim {d} (cudaError {err})")
     return tuple(x.value for x in vals)
@@ -214,7 +279,7 @@ def kv_splits(bh: int, lq: int, lk: int, tiles: Tuple[int, int, int], sms: int) 
 
 
 def _check_cuda_inputs(q, k, v, heads: int, biases=()) -> Tuple[int, int, int, int, int]:
-    """Validate what the kernels take; returns (B, H, Lq, Lk, D)."""
+    """Validate what the kernels of the inputs' dtype take; returns (B, H, Lq, Lk, D)."""
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
         raise ValueError("q, k, v must be (B, L, H*D)")
     b, lq, inner = q.shape
@@ -226,14 +291,20 @@ def _check_cuda_inputs(q, k, v, heads: int, biases=()) -> Tuple[int, int, int, i
     d = inner // heads
     if d % 8 or d > MAX_HEAD_DIM:
         raise ValueError(f"head dim {d} must be a multiple of 8 and <= {MAX_HEAD_DIM}")
-    for name, t in (("q", q), ("k", k), ("v", v)) + tuple(biases):
+    named = (("q", q), ("k", k), ("v", v)) + tuple(biases)
+    dtype = kernel_dtype(*named)
+    for name, t in named:
         if t is None:
             continue
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"{name} must be on {q.device}, got {t.device}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name} must be bfloat16 for the kernel, got {t.dtype}")
-        tma_geometry(t, heads, name)
+        if dtype == torch.bfloat16:
+            tma_geometry(t, heads, name)
+        elif not t.is_contiguous():
+            raise ValueError(f"{name} {tuple(t.shape)} with strides {t.stride()} is not "
+                             "contiguous")
+        else:
+            vector_geometry(split_heads(t, heads), name)
     return b, heads, lq, k.shape[1], d
 
 
@@ -335,9 +406,10 @@ def flash_bwd_dq_plain(q, k, v, do, lse, dcap, heads: int, scale: Optional[float
 
 
 def _split_scratch(q, b, h, lq, lk, d):
-    """(splits, o_part, lse_part): the key-split plan and its fp32 scratch."""
+    """(splits, o_part, lse_part): the key-split plan of q's route and its fp32
+    scratch."""
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    splits = kv_splits(b * h, lq, lk, fwd_tiles(d), sms)
+    splits = kv_splits(b * h, lq, lk, fwd_tiles(d, q.dtype), sms)
     if splits == 1:
         return 1, None, None
     o_part = torch.empty((splits, b * h, lq, d), dtype=torch.float32, device=q.device)
@@ -349,7 +421,8 @@ def flash_attention(q, k, v, heads: int):
     """K2: softmax(q k^T / sqrt(D)) v over (B, L, H*D) projections.
 
     Returns (O (B, Lq, H*D) in q.dtype, LSE (B*H, Lq) fp32). CPU tensors take the
-    plain version; CUDA tensors launch the kernel (bf16 only) or raise."""
+    plain version; CUDA tensors launch the kernel of their dtype (bf16 or fp32) or
+    raise."""
     if q.device.type == "cpu":
         return attention_lse_plain(q, k, v, heads)
     b, h, lq, lk, d = _check_cuda_inputs(q, k, v, heads)
@@ -359,12 +432,12 @@ def flash_attention(q, k, v, heads: int):
     splits, o_part, lse_part = _split_scratch(q, b, h, lq, lk, d)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.k2_flash_fwd_lse(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                   o.data_ptr(), lse.data_ptr(), _ptr(o_part),
-                                   _ptr(lse_part), b, h, lq, lk, d, d**-0.5, splits, stream)
+        err = entry(lib, "k2_flash_fwd_lse", q.dtype)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            _ptr(o_part), _ptr(lse_part), b, h, lq, lk, d, d**-0.5, splits, stream)
     if err:
-        raise RuntimeError(f"k2_flash_fwd_lse launch failed: cudaError {err}")
-    LAUNCHES["k2"] += 1
+        raise RuntimeError(f"k2_flash_fwd_lse ({q.dtype}) launch failed: cudaError {err}")
+    count_launch(LAUNCHES, FP32_LAUNCHES, "k2", q.dtype)
     return o, lse
 
 
@@ -374,8 +447,9 @@ def biased_attention(q, k, v, heads: int, q_bias=None, k_bias=None, v_bias=None)
     Biases are (Bc, L, H*D) with Bc dividing B; batch b reads bias row b % Bc, i.e.
     the bias batch is TILED over the [uncond || cond] CFG batch (JAX
     ``unet.py`` folded-path ``fit``). The kernel's pre-pass writes each biased sum
-    once, rounded to bf16, into scratch allocated here. CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise."""
+    once, in the input dtype (rounded to bf16 on bf16), into scratch allocated here.
+    CPU tensors take the plain version; CUDA tensors launch the kernel of their dtype
+    or raise."""
     if q.device.type == "cpu":
         return biased_attention_plain(q, k, v, heads, q_bias, k_bias, v_bias)
     biases = (("q_bias", q_bias), ("k_bias", k_bias), ("v_bias", v_bias))
@@ -391,14 +465,13 @@ def biased_attention(q, k, v, heads: int, q_bias=None, k_bias=None, v_bias=None)
     splits, o_part, lse_part = _split_scratch(q, b, h, lq, lk, d)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.k1_biased_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                      _ptr(q_bias), _ptr(k_bias), _ptr(v_bias),
-                                      qbb, kbb, vbb, *map(_ptr, sums), o.data_ptr(),
-                                      _ptr(o_part), _ptr(lse_part), b, h, lq, lk, d,
-                                      d**-0.5, splits, stream)
+        err = entry(lib, "k1_biased_flash_fwd", q.dtype)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(q_bias), _ptr(k_bias),
+            _ptr(v_bias), qbb, kbb, vbb, *map(_ptr, sums), o.data_ptr(), _ptr(o_part),
+            _ptr(lse_part), b, h, lq, lk, d, d**-0.5, splits, stream)
     if err:
-        raise RuntimeError(f"k1_biased_flash_fwd launch failed: cudaError {err}")
-    LAUNCHES["k1"] += 1
+        raise RuntimeError(f"k1_biased_flash_fwd ({q.dtype}) launch failed: cudaError {err}")
+    count_launch(LAUNCHES, FP32_LAUNCHES, "k1", q.dtype)
     return o
 
 
@@ -413,12 +486,12 @@ def flash_bwd_dkv(q, k, v, do, lse, dcap, heads: int):
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.k3_flash_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                                   lse.data_ptr(), dcap.data_ptr(), dk.data_ptr(),
-                                   dv.data_ptr(), b, h, lq, lk, d, d**-0.5, stream)
+        err = entry(lib, "k3_flash_bwd_dkv", q.dtype)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            dcap.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, lq, lk, d, d**-0.5, stream)
     if err:
-        raise RuntimeError(f"k3_flash_bwd_dkv launch failed: cudaError {err}")
-    LAUNCHES["k3"] += 1
+        raise RuntimeError(f"k3_flash_bwd_dkv ({q.dtype}) launch failed: cudaError {err}")
+    count_launch(LAUNCHES, FP32_LAUNCHES, "k3", q.dtype)
     return dk, dv
 
 
@@ -432,12 +505,12 @@ def flash_bwd_dq(q, k, v, do, lse, dcap, heads: int):
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.k4_flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                                  lse.data_ptr(), dcap.data_ptr(), dq.data_ptr(),
-                                  b, h, lq, lk, d, d**-0.5, stream)
+        err = entry(lib, "k4_flash_bwd_dq", q.dtype)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            dcap.data_ptr(), dq.data_ptr(), b, h, lq, lk, d, d**-0.5, stream)
     if err:
-        raise RuntimeError(f"k4_flash_bwd_dq launch failed: cudaError {err}")
-    LAUNCHES["k4"] += 1
+        raise RuntimeError(f"k4_flash_bwd_dq ({q.dtype}) launch failed: cudaError {err}")
+    count_launch(LAUNCHES, FP32_LAUNCHES, "k4", q.dtype)
     return dq
 
 

@@ -13,20 +13,24 @@ bundled ``jax/experimental/pallas/ops/tpu/flash_attention.py``: the forward
   * ``FlashStockAttention`` (``torch.autograd.Function``) ties them together, and
     ``stock_flash_attention`` is the entry point with ``_flash_stock``'s block rule.
 
-The forward runs on K1/K2's wgmma kernel (``csrc/flash_attn_fwd.cu``, which writes m
-and l in place of LSE), the backward on K3's and K4's (``csrc/flash_attn_bwd.cu``,
-which form LSE = m + log l as they read a row). All take (B, H, L, D) tensors by their
-strides, so the head-split views of the (B, L, H*D) projections go in without a copy:
-they read them through TMA tensor maps (``head_geometry``) and write O, dQ by q's
-strides and dK, dV by k's.
+On bf16 the forward runs on K1/K2's wgmma kernel (``csrc/flash_attn_fwd.cu``, which
+writes m and l in place of LSE), the backward on K3's and K4's
+(``csrc/flash_attn_bwd.cu``, which form LSE = m + log l as they read a row); on fp32
+all three run on the fp32 kernels of K1-K4 (``csrc/flash_attn_fp32.cu``), which do the
+same (``flash_attention.kernel_dtype`` picks the route). All take (B, H, L, D)
+tensors by their strides, so the head-split views of the (B, L, H*D) projections go in
+without a copy: they read them through TMA tensor maps in bf16 (``head_geometry``) or
+by plain 16-byte loads in fp32 (``vector_geometry``), and write O, dQ by q's strides
+and dK, dV by k's.
 The softmax scale is a runtime argument. Lengths are whole blocks: ``pick_block``
 (copied from ``controllora_tpu/ops/pallas_attention.py``) picks the block as
 ``_flash_stock`` does, and the same exception types are raised where jax's kernel
 refuses a shape.
 
 Device rule: a tensor on the CPU takes the plain PyTorch version beside each kernel;
-a CUDA tensor launches the kernel or raises. ``LAUNCHES`` counts kernel launches
-("k5_fwd", "k5_dkv", "k5_dq"); only the CUDA branch of each wrapper increments it.
+a CUDA tensor launches the kernel of its dtype or raises. ``LAUNCHES`` counts kernel
+launches ("k5_fwd", "k5_dkv", "k5_dq") whatever the dtype, ``FP32_LAUNCHES`` those of
+the fp32 route alone; only the CUDA branch of each wrapper increments them.
 """
 
 from __future__ import annotations
@@ -36,16 +40,20 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from controllora_tpu_torch.ops.flash_attention import (MAX_BWD_HEAD_DIM, MAX_HEAD_DIM,
-                                                       build_kernels, head_geometry)
+                                                       build_kernels, count_launch, entry,
+                                                       head_geometry, kernel_dtype,
+                                                       vector_geometry)
 
 MIN_BLOCK_SIZE = 128  # the stock kernel's smallest block (jax NUM_LANES)
 
 LAUNCHES: Dict[str, int] = {"k5_fwd": 0, "k5_dkv": 0, "k5_dq": 0}
+FP32_LAUNCHES: Dict[str, int] = {"k5_fwd": 0, "k5_dkv": 0, "k5_dq": 0}
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, FP32_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 # ---------------------------------------------------------------------------- shapes
@@ -84,8 +92,8 @@ def stock_block(q_len: int, kv_len: int, head_dim: int) -> int:
 
 
 def _check_cuda(q, k, v, max_d: int, q_side=(), k_side=()) -> Tuple[int, int, int, int, int]:
-    """Validate what the K5 kernels take; returns (B, H, Lq, Lk, D). q_side tensors
-    must share q's strides, k_side tensors (and v) k's."""
+    """Validate what the K5 kernels of the inputs' dtype take; returns (B, H, Lq, Lk,
+    D). q_side tensors must share q's strides, k_side tensors (and v) k's."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be (B, H, L, D)")
     b, h, lq, d = q.shape
@@ -94,16 +102,17 @@ def _check_cuda(q, k, v, max_d: int, q_side=(), k_side=()) -> Tuple[int, int, in
                          f"v {tuple(v.shape)}")
     if d % 8 or d > max_d:
         raise ValueError(f"head dim {d} must be a multiple of 8 and <= {max_d}")
-    for ref, group in ((q, (("q", q),) + tuple(q_side)), (k, (("k", k), ("v", v)) + tuple(k_side))):
+    groups = ((q, (("q", q),) + tuple(q_side)), (k, (("k", k), ("v", v)) + tuple(k_side)))
+    dtype = kernel_dtype(*(named for _, group in groups for named in group))
+    geometry = head_geometry if dtype == torch.bfloat16 else vector_geometry
+    for ref, group in groups:
         for name, t in group:
             if t.device.type != "cuda" or t.device != q.device:
                 raise ValueError(f"{name} must be on {q.device}, got {t.device}")
-            if t.dtype != torch.bfloat16:
-                raise TypeError(f"{name} must be bfloat16 for the kernel, got {t.dtype}")
             if t.shape != ref.shape or t.stride() != ref.stride():
                 raise ValueError(f"{name} {tuple(t.shape)} {t.stride()} must have the shape "
                                  f"and strides of {tuple(ref.shape)} {ref.stride()}")
-            head_geometry(t, name)
+            geometry(t, name)
     return b, h, lq, k.shape[2], d
 
 
@@ -119,13 +128,16 @@ def _strides(q, k):
     return (*q.stride()[:3], *k.stride()[:3])
 
 
-def _launch(name: str, fn, *args) -> None:
+def _launch(name: str, fn_name: str, *args) -> None:
+    """Launch `fn_name` on the route of the first argument's dtype (q's)."""
+    dtype = args[0].dtype
+    fn = entry(build_kernels(), fn_name, dtype)
     with torch.cuda.device(args[0].device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(*(a.data_ptr() if torch.is_tensor(a) else a for a in args), stream)
     if err:
         raise RuntimeError(f"{fn.__name__} launch failed: cudaError {err}")
-    LAUNCHES[name] += 1
+    count_launch(LAUNCHES, FP32_LAUNCHES, name, dtype)
 
 
 # ---------------------------------------------------------------------------- plain
@@ -170,15 +182,15 @@ def stock_flash_bwd_dq_plain(q, k, v, do, m, l, di, sm_scale: float):
 
 def stock_flash_fwd(q, k, v, sm_scale: float):
     """K5 forward over (B, H, L, D): (O with q's strides, m, l). CPU tensors take the
-    plain version; CUDA tensors launch the kernel (bf16) or raise."""
+    plain version; CUDA tensors launch the kernel of their dtype (bf16 or fp32) or
+    raise."""
     if q.device.type == "cpu":
         return stock_flash_fwd_plain(q, k, v, sm_scale)
     b, h, lq, lk, d = _check_cuda(q, k, v, MAX_HEAD_DIM)
-    lib = build_kernels()
     o = torch.empty_like(q)
     m = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
-    _launch("k5_fwd", lib.k5_stock_flash_fwd, q, k, v, o, m, l, b, h, lq, lk, d,
+    _launch("k5_fwd", "k5_stock_flash_fwd", q, k, v, o, m, l, b, h, lq, lk, d,
             *_strides(q, k), float(sm_scale))
     return o, m, l
 
@@ -191,9 +203,8 @@ def stock_flash_bwd_dkv(q, k, v, do, m, l, di, sm_scale: float):
         return stock_flash_bwd_dkv_plain(q, k, v, do, m, l, di, sm_scale)
     b, h, lq, lk, d = _check_cuda(q, k, v, MAX_BWD_HEAD_DIM, (("dout", do),))
     _check_rows(b, h, lq, q.device, m=m, l=l, di=di)
-    lib = build_kernels()
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("k5_dkv", lib.k5_stock_flash_bwd_dkv, q, k, v, do, m, l, di, dk, dv, b, h, lq,
+    _launch("k5_dkv", "k5_stock_flash_bwd_dkv", q, k, v, do, m, l, di, dk, dv, b, h, lq,
             lk, d, *_strides(q, k), float(sm_scale))
     return dk, dv
 
@@ -205,9 +216,8 @@ def stock_flash_bwd_dq(q, k, v, do, m, l, di, sm_scale: float):
         return stock_flash_bwd_dq_plain(q, k, v, do, m, l, di, sm_scale)
     b, h, lq, lk, d = _check_cuda(q, k, v, MAX_BWD_HEAD_DIM, (("dout", do),))
     _check_rows(b, h, lq, q.device, m=m, l=l, di=di)
-    lib = build_kernels()
     dq = torch.empty_like(q)
-    _launch("k5_dq", lib.k5_stock_flash_bwd_dq, q, k, v, do, m, l, di, dq, b, h, lq, lk, d,
+    _launch("k5_dq", "k5_stock_flash_bwd_dq", q, k, v, do, m, l, di, dq, b, h, lq, lk, d,
             *_strides(q, k), float(sm_scale))
     return dq
 

@@ -15,18 +15,15 @@ random weights (there are none in the repository) and a warning says so.
 without one the guide is not used.
 
 Model families (``--model_variant``): sd15, sd21 (768², v-prediction is the
-scheduler's) and sdxl (1024²) run in bf16, the smoke stacks smoke, smoke2 and
-smokexl in fp32, as ``scripts/serve.py`` runs them. The render size comes with each
-request (``"width": 1024, "height": 1024``). The SDXL refiner serves too
-(``--model_variant sdxl-refiner``; its smoke stack ``smokeref``): a request is
-unguided unless ``--control_lora_dir`` is given, and the refiner's text tower alone
-(``text_encoder_2/``) encodes the prompt. ``sdxl-refiner`` runs in bf16, with the base
-family. This deviates from ``scripts/serve.py``, whose dtype rule makes only sd15,
-sd21 and sdxl bf16 and so serves the refiner in fp32: the flash kernels K1 and K2
-take bf16 only (``ops/flash_attention.py``), and a plain attention on the card would
-hide them. It is the rule the sampling CLI's base -> refiner ensemble already follows
-(``python -m controllora_tpu_torch.sample --refiner_variant``). ``smokeref`` stays
-fp32, as ``scripts/serve.py`` has it.
+scheduler's) and sdxl (1024²) run in bf16, everything else in fp32: the smoke stacks
+smoke, smoke2 and smokexl, and the SDXL refiner (``--model_variant sdxl-refiner``; its
+smoke stack ``smokeref``), as ``scripts/serve.py`` runs them (``zoo.model_dtype``).
+fp32 stacks reach the flash kernels' fp32 route (``csrc/flash_attn_fp32.cu``) in their
+long self-attentions and VAE. The render size comes with each request (``"width":
+1024, "height": 1024``). A refiner request is unguided unless ``--control_lora_dir``
+is given, and the refiner's text tower alone (``text_encoder_2/``) encodes the prompt.
+(The sampling CLI's base -> refiner ensemble gives the refiner the base's dtype, as
+``scripts/sample.py`` does.)
 
 Speed presets (deployment-wide, applied to every batch): ``exact`` (the exact
 sampler), ``tome`` (token merging 0.5) and ``turbo`` (token merging 0.5 + DeepCache
@@ -81,12 +78,6 @@ SCHEDULERS = {"dpm++": DPMSolverMultistepScheduler, "ddim": DDIMScheduler,
               "unipc": UniPCMultistepScheduler}
 
 
-def serve_dtype(variant: str) -> torch.dtype:
-    """The dtype the server builds ``variant`` in: ``model_dtype``'s, except the SDXL
-    refiner, which runs in bf16 with its base family (see the module docstring)."""
-    return torch.bfloat16 if variant == "sdxl-refiner" else model_dtype(variant)
-
-
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -136,15 +127,15 @@ def parse_args(argv=None):
 
 def build_pipeline(args, mesh=None):
     """The pipeline the server renders with: the frozen stack of ``--model_variant``
-    (``serve_dtype``) loaded from ``--pretrained_model_name_or_path`` or with seeded
-    random weights, the ControlLoRA of ``--control_lora_dir`` if given,
+    (in ``zoo.model_dtype``'s dtype) loaded from ``--pretrained_model_name_or_path``
+    or with seeded random weights, the ControlLoRA of ``--control_lora_dir`` if given,
     ``--scheduler``, over ``mesh``."""
     from controllora_tpu_torch.data.tokenizer import default_tokenizer
     from controllora_tpu_torch.models import zoo
     from controllora_tpu_torch.pipelines import StableDiffusionControlLoRAPipeline
 
     device = torch.device(args.device)
-    dtype = serve_dtype(args.model_variant)
+    dtype = model_dtype(args.model_variant)
     unet, vae, text_encoder = zoo.frozen_stack(args.pretrained_model_name_or_path,
                                                args.model_variant, dtype, device,
                                                torch.Generator(device).manual_seed(0))

@@ -5,7 +5,10 @@ fp32, atol 2e-5 (forward) and 1e-4 * max(1, max|ref|) (gradients) cover the
 different summation orders (online softmax over blocks vs one softmax); bf16 outputs
 get 1e-2 * max(1, max|ref|), about two bf16 ulps.
 
-The kernels themselves run only on the card: tests/test_torch_kernels_gpu.py.
+The kernels themselves run only on the card: tests/test_torch_kernels_gpu.py. The
+card runs each kernel on bf16 inputs (the bf16 route) or on fp32 inputs (the fp32
+route, csrc/flash_attn_fp32.cu); here the plain versions are held in fp32 at the head
+dims of both, the smoke stacks' 8, 16 and 32 among them.
 """
 
 import functools
@@ -33,8 +36,9 @@ def interpret_pallas(monkeypatch):
     with torch.enable_grad():  # whatever an earlier test file left (see test_torch_flash_stock.py)
         yield
     # on CPU tensors every wrapper takes its plain version: nothing launched
-    assert set(fa.LAUNCHES) == {"k1", "k2", "k3", "k4"}
+    assert set(fa.LAUNCHES) == set(fa.FP32_LAUNCHES) == {"k1", "k2", "k3", "k4"}
     assert all(n == 0 for n in fa.LAUNCHES.values()), fa.LAUNCHES
+    assert all(n == 0 for n in fa.FP32_LAUNCHES.values()), fa.FP32_LAUNCHES
 
 
 def rand(shape, seed):
@@ -45,9 +49,10 @@ def t(x):
     return torch.from_numpy(x)
 
 
-@pytest.mark.parametrize("d", [40, 80])
+@pytest.mark.parametrize("d", [8, 16, 32, 40, 80])
 def test_k1_plain_matches_flash_attention_fwd(d):
-    """Exact tiling: the JAX kernel at blocks of 64, no biases."""
+    """Exact tiling: the JAX kernel at blocks of 64, no biases; the smoke stacks' head
+    dims 8, 16 (UNet) and 32 (VAE) beside SD1.5's 40 and 80."""
     from controllora_tpu.ops.pallas_attention import flash_attention_fwd
 
     q, k, v = (rand((4, 128, d), s) for s in range(3))
@@ -79,6 +84,23 @@ def test_k1_plain_matches_biased_attention(l, d, kv_biases):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
 
 
+@pytest.mark.parametrize("d", [8, 16, 32])
+def test_k1_plain_matches_biased_attention_at_smoke_head_dims(d):
+    """The fp32 smoke stacks' K1 at 512² runs at head dims 8 (smoke) and 16 (smoke2):
+    ragged L, 4 heads, q/k/v biases of batch 1 over the CFG batch 2, added in fp32 on
+    both sides."""
+    from controllora_tpu.ops.pallas_attention import biased_attention
+
+    heads, l = 4, 200
+    q, k, v = (rand((2, l, heads * d), s) for s in range(3))
+    qb, kb, vb = (rand((1, l, heads * d), s) for s in range(3, 6))
+    j = jnp.asarray
+    ref = biased_attention(j(q), j(k), j(v), heads, j(qb), j(kb), j(vb))
+    out = fa.biased_attention(t(q), t(k), t(v), heads, t(qb), t(kb), t(vb))
+    assert out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
+
+
 def test_k1_per_image_biases_tile():
     """Bias batch n under a 2n batch tiles: rows i and n + i share bias i."""
     q, k, v = (rand((4, 64, 16), s) for s in range(3))
@@ -88,10 +110,12 @@ def test_k1_per_image_biases_tile():
     np.testing.assert_array_equal(out.numpy(), ref.numpy())
 
 
-@pytest.mark.parametrize("l,d", [(128, 40), (96, 40), (288, 80), (144, 512)])
+@pytest.mark.parametrize("l,d", [(128, 40), (96, 40), (288, 80), (144, 512), (128, 8),
+                                 (96, 16), (160, 32)])
 def test_k2_plain_matches_fwd(l, d):
     """O and LSE of the JAX forward kernel; ragged L runs it padded to blocks of 64
-    with kv_valid masking, then slices."""
+    with kv_valid masking, then slices. D 8, 16 and 32: the fp32 smoke stacks' UNet
+    and VAE."""
     from controllora_tpu.ops.pallas_attention_vjp import _fwd
 
     q, k, v = (rand((2, l, d), s) for s in range(3))
@@ -150,12 +174,13 @@ def jnp_to_np(x):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [40, 80])
+@pytest.mark.parametrize("d", [8, 16, 40, 80])
 @pytest.mark.parametrize("l", [256, 300])
 def test_k3_k4_plain_match_jax_bwd(l, d, dtype):
     """dQ (K4), dK and dV (K3) of the plain versions against the JAX backward: the
     Pallas `_bwd` kernels straight at L 256 (blocks of 64), and the VJP of
-    `flash_attention_padded` at the ragged L 300 (padded to 320, KV-masked)."""
+    `flash_attention_padded` at the ragged L 300 (padded to 320, KV-masked); D 8 and
+    16 are the fp32 smoke stacks' training head dims."""
     from controllora_tpu.ops.pallas_attention_vjp import _bwd, _fwd, flash_attention_padded
 
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
@@ -177,6 +202,42 @@ def test_k3_k4_plain_match_jax_bwd(l, d, dtype):
     for name, out, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
         assert out.dtype == tdt, name
         assert_grad_close(out.float().numpy(), jnp_to_np(ref), name, rel)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernel_dtype_takes_the_two_routes(dtype):
+    """bf16 inputs take the bf16 kernels and fp32 inputs the fp32 ones (None, a
+    missing bias, is skipped)."""
+    x = torch.zeros((1, 4, 8), dtype=dtype)
+    assert fa.kernel_dtype(("q", x), ("k", x), ("v", x), ("q_bias", None)) == dtype
+
+
+@pytest.mark.parametrize("dtypes", [(torch.float16,) * 3, (torch.float64,) * 3,
+                                    (torch.float32, torch.float32, torch.bfloat16),
+                                    (torch.bfloat16, torch.float16, torch.bfloat16)],
+                         ids=["fp16", "fp64", "fp32+bf16", "bf16+fp16"])
+def test_kernel_dtype_refuses_with_the_reason(dtypes):
+    """fp16 (no JAX CLI builds an fp16 stack), fp64, and inputs of two dtypes raise
+    TypeError naming both routes and every input's dtype."""
+    named = [(n, torch.zeros((1, 4, 8), dtype=dt)) for n, dt in zip("qkv", dtypes)]
+    with pytest.raises(TypeError, match="bfloat16 or float32 inputs, all of one dtype") as e:
+        fa.kernel_dtype(*named)
+    assert all(str(dt) in str(e.value) for dt in dtypes)
+
+
+def test_vector_geometry_of_the_fp32_route():
+    """The fp32 kernels read (B, H, L, D) fp32 tensors by plain 16-byte loads: the
+    projection's head-split view gives its element strides (D, H*D, L*H*D); a base 4
+    bytes off, a D of 4k + 2 and a strided last dim raise before any launch."""
+    x = torch.zeros((2, 333, 4 * 40))
+    assert fa.vector_geometry(split_heads(x, 4)) == ((40, 4, 333, 2), (40, 160, 333 * 160))
+    base = torch.zeros(2 * 64 * 40 + 4)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.vector_geometry(base[1:1 + 2 * 64 * 40].view(1, 2, 64, 40))
+    with pytest.raises(ValueError, match="multiple of 4"):
+        fa.vector_geometry(torch.zeros((1, 2, 64, 6)))
+    with pytest.raises(ValueError, match="contiguous last dim"):
+        fa.vector_geometry(torch.zeros((1, 2, 64, 64)).transpose(2, 3))
 
 
 def test_flash_attention_vjp_matches_jax():

@@ -91,11 +91,28 @@ def jax_serve_dtype(variant, monkeypatch):
     return {jnp.bfloat16: torch.bfloat16, jnp.float32: torch.float32}[built.value.args[1]]
 
 
+def port_serve_dtype(variant, monkeypatch):
+    """The dtype serve.build_pipeline builds ``variant`` in, read off its call of
+    zoo.frozen_stack."""
+    class Built(Exception):
+        pass
+
+    def frozen_stack(path, name, dtype, device, gen):
+        raise Built(name, dtype)
+
+    monkeypatch.setattr(zoo, "frozen_stack", frozen_stack)
+    with pytest.raises(Built) as built:
+        serve.build_pipeline(serve.parse_args(["--model_variant", variant, "--device", "cpu"]))
+    assert built.value.args[0] == variant
+    return built.value.args[1]
+
+
 @pytest.mark.parametrize("variant", zoo.BASE_VARIANTS)
 def test_model_dtype_as_scripts_serve(variant, monkeypatch):
-    """The dtype scripts/serve.py builds each base variant in is the port's."""
+    """The dtype scripts/serve.py builds each base variant in is the port's, and the
+    port's server builds it so."""
     assert zoo.model_dtype(variant) == jax_serve_dtype(variant, monkeypatch)
-    assert serve.serve_dtype(variant) == zoo.model_dtype(variant)
+    assert port_serve_dtype(variant, monkeypatch) == zoo.model_dtype(variant)
 
 
 @pytest.mark.parametrize("argv", [
@@ -112,13 +129,13 @@ def test_refiner_flags_parse_as_scripts_serve(argv):
 
 @pytest.mark.parametrize("variant", ["smokeref", "sdxl-refiner"])
 def test_refiner_dtype_rule(variant, monkeypatch):
-    """smokeref is fp32, as scripts/serve.py builds it. sdxl-refiner is bf16 with its
-    base family, where scripts/serve.py builds it in fp32: the recorded deviation (K1
-    and K2 take bf16 only)."""
+    """Both refiner stacks are served in fp32, as scripts/serve.py builds them (its
+    rule makes only sd15, sd21 and sdxl bf16); on the card the refiner's long
+    self-attentions and VAE take the flash kernels' fp32 route."""
     jax_dtype = jax_serve_dtype(variant, monkeypatch)
     assert jax_dtype == torch.float32
-    want = torch.bfloat16 if variant == "sdxl-refiner" else jax_dtype
-    assert serve.serve_dtype(variant) == want
+    assert zoo.model_dtype(variant) == jax_dtype
+    assert port_serve_dtype(variant, monkeypatch) == jax_dtype
 
 
 @pytest.fixture(scope="module")

@@ -287,6 +287,52 @@ def test_train_step_loss_and_grads(stack, controls, version, snr_gamma, predicti
         assert_close(g, ref[name], name)
 
 
+def test_flash_route_train_step_matches_jax(stack, controls, monkeypatch):
+    """One fp32 train step with every self-attention on the flash route, against the
+    JAX step with its Pallas flash kernels (forward and backward) in interpret mode:
+    the smoke stack's self-attentions at head dims 8, 16 and 24 (levels 0-2; L 256, 64
+    and 16 at 128², padded to the JAX blocks and KV-masked there). The port runs its UNet with attention_backend="flash"
+    (FlashAttention: on the CPU the plain K2 and K3/K4, whose fp32 route the card
+    runs in csrc/flash_attn_fp32.cu); the JAX side takes _flash wherever q and kv have
+    one length. Loss and every adapter gradient within 1e-4 * max(1, max|ref|)."""
+    import functools
+
+    from controllora_tpu.ops import attention as jattention
+    from controllora_tpu.ops import pallas_attention_vjp as jvjp
+
+    padded = jvjp.flash_attention_padded
+    monkeypatch.setattr(jvjp, "flash_attention_padded",
+                        lambda q, k, v, block_q=512, block_k=512, interpret=False:
+                        padded(q, k, v, block_q, block_k, True))
+    monkeypatch.setattr(jattention, "_use_flash", lambda q_len, kv_len, backend: q_len == kv_len)
+    tu = stack["tu"]
+    monkeypatch.setattr(tu, "forward", functools.partial(type(tu).forward, tu,
+                                                         attention_backend="flash"))
+    cl, params, port = controls["v1"]
+    rng = np.random.default_rng(41)
+    batch = {"guide_values": make_guides(2),
+             "input_ids": rng.integers(0, 49408, (2, 77)).astype(np.int32),
+             "latent_mean": rng.normal(size=(2, 16, 16, 4)).astype(np.float32),
+             "latent_logvar": rng.uniform(-3, 0, (2, 16, 16, 4)).astype(np.float32)}
+    jt = jtrainer.ControlLoRATrainer(cl, stack["unet"], stack["frozen"], vae=stack["vae"],
+                                     text_encoder=stack["text"], remat_unet=False)
+    key = jax.random.PRNGKey(8)
+    loss_ref, grads_ref = jax.jit(jax.value_and_grad(jt._loss_fn))(
+        params, stack["frozen"], {k: jnp.asarray(v) for k, v in batch.items()}, key)
+    k_sample, k_noise, k_t = jax.random.split(key, 3)
+    draws = dict(sample_noise=nchw(np.array(jax.random.normal(k_sample, (2, 16, 16, 4)))),
+                 noise=nchw(np.array(jax.random.normal(k_noise, (2, 16, 16, 4)))),
+                 timesteps=torch.from_numpy(np.array(jax.random.randint(k_t, (2,), 0, 1000))))
+    tt = ttrainer.ControlLoRATrainer(port, tu, stack["tv"], stack["tc"], remat_unet=False)
+    loss = tt.loss(ttrainer.to_device_batch(batch, "cpu"), **draws)
+    grads = dict(zip([n for n, _ in port.named_parameters()], tt.grads(loss)))
+    ref = control_lora_to_torch(grads_ref, port.config)
+    assert max(float(np.abs(v).max()) for v in ref.values()) > 0
+    assert_close(loss.detach(), np.asarray(loss_ref), "loss")
+    for name, g in grads.items():
+        assert_close(g, ref[name], name)
+
+
 # ---------------------------------------------------------------------------- optimizer
 
 
