@@ -3791,10 +3791,11 @@ FP32_K5 = (((8, 8, 4096, 40), None, 1, True, True, "stock step batch 8"),
 FP32_VARIANT = "sd15"  # trained with --mixed_precision no, remat dots
 FP32_TRAIN_BATCH, FP32_TRAIN_STEPS = 8, 3
 FP32_REFINER_STEPS = 20  # the refiner request's steps: 400 + 1 K2 launches
-FP32_ROUTES = {  # each kernel's CUDA kernels on the fp32 route
-    "k1": ["bias_add_f32_kernel", "flash_fwd_f32_kernel"], "k2": ["flash_fwd_f32_kernel"],
-    "k3": ["flash_bwd_dkv_f32_kernel"], "k4": ["flash_bwd_dq_f32_kernel"],
-    "k5_fwd": ["flash_fwd_f32_kernel"], "k5_dkv": ["flash_bwd_dkv_f32_kernel"],
+FP32_FWD = ["flash_fwd_3xtf32_kernel", "flash_fwd_wide_3xtf32_kernel"]  # D <= 80, wider
+FP32_ROUTES = {  # each kernel's CUDA kernels on the fp32 route (3xTF32 but dQ's)
+    "k1": ["bias_add_f32_kernel"] + FP32_FWD, "k2": FP32_FWD,
+    "k3": ["flash_bwd_dkv_3xtf32_kernel"], "k4": ["flash_bwd_dq_f32_kernel"],
+    "k5_fwd": FP32_FWD, "k5_dkv": ["flash_bwd_dkv_3xtf32_kernel"],
     "k5_dq": ["flash_bwd_dq_f32_kernel"]}
 
 

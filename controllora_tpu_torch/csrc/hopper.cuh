@@ -2,7 +2,8 @@
 // flash_attn_fwd.cu, the backward in flash_attn_bwd.cu): mbarriers, TMA loads through
 // tensor maps of (B, H, L, D) bf16 views given by their strides, wgmma shared-memory
 // descriptors for 128-byte swizzled tiles, the wgmma instructions the kernels issue,
-// and the steps and epilogue they share.
+// and the steps and epilogue they share. The tensor maps also read fp32 views, for the
+// 3xTF32 kernels of flash_attn_fp32.cu (their tf32 instructions: wgmma_tf32.cuh).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is reached through the runtime
@@ -101,26 +102,29 @@ inline HeadView projection_view(const void* base, int L, int H, int D) {
   return {base, (long long)L * H * D, D, (long long)H * D};
 }
 
-// The view as the 4-D tensor (D, H, L, B), innermost first. A box is 64 columns (one
-// 128-byte swizzle span) of `rows` rows of one head of one batch; columns past D and
-// rows past L are filled with zeros by the copy engine. Needs a 16-byte aligned base,
-// D and every stride a multiple of 8 elements (16 bytes); ops/flash_attention.py's
-// head_geometry makes the same checks on the host.
+// The view as the 4-D tensor (D, H, L, B), innermost first. A box is one 128-byte
+// swizzle span of columns (64 bf16 or, with fp32, 32 floats) of `rows` rows of one head
+// of one batch; columns past D and rows past L are filled with zeros by the copy engine.
+// Needs a 16-byte aligned base, and D and every stride a multiple of 16 bytes (8 bf16
+// or 4 floats); ops/flash_attention.py's head_geometry and vector_geometry make the same
+// checks on the host.
 inline cudaError_t encode_heads(CUtensorMap* map, HeadView x, int B, int H, int L, int D,
-                                int rows) {
+                                int rows, bool fp32 = false) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
-  if (reinterpret_cast<uintptr_t>(x.base) % 16 || D % 8 || x.sb % 8 || x.sh % 8 || x.sl % 8 ||
-      x.sb < 0 || x.sh < 0 || x.sl < 0)
+  const int size = fp32 ? 4 : 2, per16 = 16 / size;
+  if (reinterpret_cast<uintptr_t>(x.base) % 16 || D % per16 || x.sb % per16 || x.sh % per16 ||
+      x.sl % per16 || x.sb < 0 || x.sh < 0 || x.sl < 0)
     return cudaErrorInvalidValue;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)L, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)x.sh * 2, (cuuint64_t)x.sl * 2,
-                                 (cuuint64_t)x.sb * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint64_t strides[3] = {(cuuint64_t)x.sh * size, (cuuint64_t)x.sl * size,
+                                 (cuuint64_t)x.sb * size};
+  const cuuint32_t box[4] = {(cuuint32_t)(128 / size), 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   const CUresult r =
-      fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x.base), dims, strides,
-         box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      fn(map, fp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+         const_cast<void*>(x.base), dims, strides, box, elem_strides,
+         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
          CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

@@ -24,10 +24,13 @@ keeps 128 keys a block and streams query tiles through a TMA ring, K4's keeps 12
 queries and streams key tiles; K5's backward runs on the same two kernels; see the
 headers for the design). They read the projections through TMA tensor maps
 (``tma_geometry``, one case of ``head_geometry``). On fp32 all five run in
-``csrc/flash_attn_fp32.cu``: fp32 FMA products on the CUDA cores, as the JAX kernels
-multiply fp32 blocks with fp32 results, with K/V (or Q/dO) tiles fed by ``cp.async``
-(plain 16-byte loads: ``vector_geometry``). Both take the projections in the (B, L,
-H*D) layout the attention layers produce, so no head split or padding copy is made.
+``csrc/flash_attn_fp32.cu``, with fp32-accurate products, as the JAX kernels multiply
+fp32 blocks with fp32 results: the forward and dK/dV as 3xTF32 on wgmma (each operand
+split into two tf32 parts, three tensor-core products a product) fed by a TMA ring,
+each tile split and transposed in shared memory by the kernel, dQ as fp32 FMA on the CUDA
+cores with ``cp.async`` copies (both need ``vector_geometry``). Both routes take the
+projections in the (B, L, H*D) layout the attention layers produce, so no head split or
+padding copy is made.
 The JAX block-size policy (``pick_block``, ``serving_blocks``) does not carry over:
 each kernel sizes its own tiles (``fwd_tiles`` reports K1/K2's), and bf16 heads wider
 than 80 split the key range where the query tiles alone leave SMs idle
@@ -63,8 +66,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "_build"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-MAX_HEAD_DIM = 512  # the forward's (K1, K2, K5): bf16 D <= 48, 64, 80, 512; fp32 16-80, 512
-MAX_BWD_HEAD_DIM = 80  # the backward's (K3, K4, K5): bf16 DS 48, 64, 80; fp32 16-80
+MAX_HEAD_DIM = 512  # the forward's (K1, K2, K5): bf16 D <= 48, 64, 80, 512; fp32 8-80, 512
+MAX_BWD_HEAD_DIM = 80  # the backward's (K3, K4, K5): bf16 DS 48, 64, 80; fp32 8-80
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)  # the two routes of every kernel
 
 LAUNCHES: Dict[str, int] = {"k1": 0, "k2": 0, "k3": 0, "k4": 0}
@@ -214,9 +217,12 @@ def tma_geometry(x, heads: int, name: str = "x") -> Tuple[Tuple[int, ...], Tuple
 
 def vector_geometry(x, name: str = "x") -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
     """What the fp32 kernels need of a (B, H, L, D) fp32 tensor, which they read by its
-    strides with plain 16-byte loads (``cp.async``): a contiguous last dim, a 16-byte
-    aligned base, and D and every element stride a multiple of 4. Returns the dims
-    (D, H, L, B) and the element strides of H, L and B; raises ValueError otherwise."""
+    strides: the forward and dK/dV through TMA tensor maps (``encode_heads`` with fp32 in
+    csrc/hopper.cuh), dQ by 16-byte ``cp.async`` copies. Both move 16-byte units, and the
+    copy engine takes only a 16-byte aligned base and row strides that are multiples of
+    16 bytes: so a contiguous last dim, a 16-byte aligned base, and D and every element
+    stride a multiple of 4. Returns the dims (D, H, L, B) and the element strides of H,
+    L and B; raises ValueError otherwise."""
     if x.dim() != 4:
         raise ValueError(f"{name} must be (B, H, L, D), got {tuple(x.shape)}")
     b, h, length, d = x.shape
@@ -225,10 +231,10 @@ def vector_geometry(x, name: str = "x") -> Tuple[Tuple[int, ...], Tuple[int, ...
         raise ValueError(f"{name} {tuple(x.shape)} with strides {x.stride()} needs a "
                          "contiguous last dim")
     if x.data_ptr() % 16 or d % 4 or any(st % 4 for st in (sh, sl, sb)):
-        raise ValueError(f"{name}: the fp32 kernels read 16-byte vectors, so they need a "
-                         f"16-byte aligned base (offset {x.data_ptr() % 16}) and D and "
-                         f"every element stride a multiple of 4, got D {d}, strides "
-                         f"{(sh, sl, sb)}")
+        raise ValueError(f"{name}: the fp32 kernels copy 16-byte units (TMA, cp.async), "
+                         f"so they need a 16-byte aligned base (offset {x.data_ptr() % 16}) "
+                         f"and D and every element stride a multiple of 4, got D {d}, "
+                         f"strides {(sh, sl, sb)}")
     return (d, h, length, b), (sh, sl, sb)
 
 
@@ -254,7 +260,8 @@ def entry(lib: ctypes.CDLL, name: str, dtype: torch.dtype):
 def fwd_tiles(d: int, dtype: torch.dtype = torch.bfloat16) -> Tuple[int, int, int]:
     """(query rows a block, keys a tile, most key splits) of the K1/K2 instance that
     takes head dim `d` on the route of `dtype`, as csrc/flash_attn_fwd.cu (bf16) or
-    csrc/flash_attn_fp32.cu (fp32, never a split) set them (``flash_fwd_tiles``)."""
+    csrc/flash_attn_fp32.cu (fp32: 128 rows up to D 80, 64 above, 64-key tiles, never a
+    split) set them (``flash_fwd_tiles``)."""
     lib = build_kernels()
     vals = [ctypes.c_int() for _ in range(3)]
     err = entry(lib, "flash_fwd_tiles", dtype)(d, *(ctypes.byref(x) for x in vals))

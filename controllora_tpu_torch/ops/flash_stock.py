@@ -19,9 +19,9 @@ writes m and l in place of LSE), the backward on K3's and K4's
 all three run on the fp32 kernels of K1-K4 (``csrc/flash_attn_fp32.cu``), which do the
 same (``flash_attention.kernel_dtype`` picks the route). All take (B, H, L, D)
 tensors by their strides, so the head-split views of the (B, L, H*D) projections go in
-without a copy: they read them through TMA tensor maps in bf16 (``head_geometry``) or
-by plain 16-byte loads in fp32 (``vector_geometry``), and write O, dQ by q's strides
-and dK, dV by k's.
+without a copy: they read them through TMA tensor maps (``head_geometry`` in bf16,
+``vector_geometry`` in fp32, whose dQ kernel copies 16-byte units with ``cp.async``),
+and write O, dQ by q's strides and dK, dV by k's.
 The softmax scale is a runtime argument. Lengths are whole blocks: ``pick_block``
 (copied from ``controllora_tpu/ops/pallas_attention.py``) picks the block as
 ``_flash_stock`` does, and the same exception types are raised where jax's kernel

@@ -43,9 +43,13 @@ MERGES = ["a </w>", "r e", "re d</w>", "s q", "sq u", "squ a", "squa re</w>", "t
 
 @pytest.fixture(autouse=True, scope="module")
 def one_intra_op_thread():
+    """One torch thread for this file, and autograd on, whatever an earlier file in this
+    worker left (tests/test_parity_fixtures.py switches it off process-wide): the train
+    CLIs run in process here."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with torch.enable_grad():
+        yield
     torch.set_num_threads(n)
 
 

@@ -46,10 +46,13 @@ PIXEL = ("drift_vs_exact_u8_mean", "drift_vs_exact_u8_max")
 
 @pytest.fixture(autouse=True, scope="module")
 def one_intra_op_thread():
-    """One torch thread for this file (see tests/test_torch_train_families.py)."""
+    """One torch thread for this file (see tests/test_torch_train_families.py), and
+    autograd on, whatever an earlier file in this worker left: `trained` runs the train
+    CLI, and tests/test_parity_fixtures.py switches autograd off process-wide."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with torch.enable_grad():
+        yield
     torch.set_num_threads(n)
 
 

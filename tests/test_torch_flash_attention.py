@@ -226,9 +226,10 @@ def test_kernel_dtype_refuses_with_the_reason(dtypes):
 
 
 def test_vector_geometry_of_the_fp32_route():
-    """The fp32 kernels read (B, H, L, D) fp32 tensors by plain 16-byte loads: the
-    projection's head-split view gives its element strides (D, H*D, L*H*D); a base 4
-    bytes off, a D of 4k + 2 and a strided last dim raise before any launch."""
+    """The fp32 kernels read (B, H, L, D) fp32 tensors in 16-byte units (TMA, and the
+    dQ kernel's cp.async): the projection's head-split view gives its element strides
+    (D, H*D, L*H*D); a base 4 bytes off, a D of 4k + 2 and a strided last dim raise
+    before any launch."""
     x = torch.zeros((2, 333, 4 * 40))
     assert fa.vector_geometry(split_heads(x, 4)) == ((40, 4, 333, 2), (40, 160, 333 * 160))
     base = torch.zeros(2 * 64 * 40 + 4)

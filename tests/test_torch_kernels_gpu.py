@@ -9,8 +9,9 @@ bounds (O 1e-2, LSE 1e-3, gradients 1e-2 * max(1, max|ref|)) cover the kernels' 
 rounding of P (and dS) and of their own outputs; K1 has no LSE to check, so its O is
 also held to 2e-2 * max|ref|: at long L, O shrinks as 1/sqrt(L) toward 1e-2 itself.
 On fp32 every output is held to 1e-4 * max(1, max|ref|), LSE and m to 1e-4 and l to
-1e-4 relative (the kernels and the reference differ in summation order only; a TF32
-product, about three decimal digits, would miss these).
+1e-4 relative: the forward and dK/dV multiply as 3xTF32 (about 2^-21 of each product;
+tests/test_torch_tf32_split.py), dQ in fp32; a single TF32 product, about three
+decimal digits, would miss these.
 """
 
 import numpy as np
@@ -187,12 +188,49 @@ def test_fwd_tiles_of_each_instance(cuda, d):
 
 @pytest.mark.parametrize("d", [8, 16, 32, 40, 64, 80, 88, 512])
 def test_fwd_tiles_of_each_fp32_instance(cuda, d):
-    """The fp32 forward's tiles: 64 query rows a block and 32-key tiles up to D 80, 32
-    and 16 above; it never splits the key range, so kv_splits plans 1 even at batch 1."""
+    """The fp32 forward's tiles (3xTF32 on wgmma): 128 query rows a block (two consumer
+    warpgroups of 64) up to D 80, 64 in the wide design above, 64-key tiles in both; it
+    never splits the key range, so kv_splits plans 1 even at batch 1."""
     rows, keys, max_splits = fa.fwd_tiles(d, FP32)
-    assert (rows, keys, max_splits) == ((64, 32, 1) if d <= 80 else (32, 16, 1))
+    assert (rows, keys, max_splits) == ((128, 64, 1) if d <= 80 else (64, 64, 1))
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     assert fa.kv_splits(1, 4096, 4096, (rows, keys, max_splits), sms) == 1
+
+
+@pytest.mark.parametrize("l", [300, 4225])
+@pytest.mark.parametrize("d", [8, 16, 32, 40, 48, 64, 80, 512])
+def test_fp32_instances_at_ragged_lengths(cuda, d, l):
+    """Every instance of the fp32 forward and dK/dV kernels (3xTF32) at a length that is
+    not a whole number of their tiles (128 or 64 query rows, 64-key tiles; 64 or 128 keys
+    and 32-query tiles in dK/dV): K2's O and LSE, the K5 forward's O, m and l at the
+    stock scale negated, and K3's and K5's dK, dV (up to D 80), each against its plain
+    version at the fp32 bounds. D 48 runs on the D 64 instance."""
+    b, heads = 1, 2
+    q, k, v, do = (randn((b, l, heads * d), s, cuda, FP32) for s in range(4))
+    o, lse = fa.flash_attention(q, k, v, heads)
+    o_ref, lse_ref = fa.attention_lse_plain(q, k, v, heads)
+    torch.cuda.synchronize()
+    assert fp32_close(o, o_ref) and (lse - lse_ref).abs().max().item() <= 1e-4
+    qh, kh, vh, doh = (split_heads(x, heads) for x in (q, k, v, do))
+    scale = -(d**-0.5)
+    o5, m, lsum = fs.stock_flash_fwd(qh, kh, vh, scale)
+    o5_ref, m_ref, l_ref = fs.stock_flash_fwd_plain(qh, kh, vh, scale)
+    assert fp32_close(o5, o5_ref) and (m - m_ref).abs().max().item() <= 1e-4
+    assert ((lsum - l_ref).abs() / l_ref).max().item() <= 1e-4
+    if d > fa.MAX_BWD_HEAD_DIM:
+        return
+    dcap = fa.attention_dcap(o, do, heads)
+    grads = fa.flash_bwd_dkv(q, k, v, do, lse, dcap, heads)
+    refs = fa.flash_bwd_dkv_plain(q, k, v, do, lse, dcap, heads)
+    di = (o5 * doh).sum(-1)
+    grads += fs.stock_flash_bwd_dkv(qh, kh, vh, doh, m, lsum, di, scale)
+    refs += fs.stock_flash_bwd_dkv_plain(qh, kh, vh, doh, m, lsum, di, scale)
+    torch.cuda.synchronize()
+    for name, out, ref in zip(("K3 dK", "K3 dV", "K5 dK", "K5 dV"), grads, refs):
+        assert out.dtype == FP32 and torch.isfinite(out).all(), name
+        assert (out - ref).abs().max().item() <= bound(ref, FP32), name
+    assert fa.FP32_LAUNCHES == {"k1": 0, "k2": 1, "k3": 1, "k4": 0}
+    assert fs.FP32_LAUNCHES == {"k5_fwd": 1, "k5_dkv": 1, "k5_dq": 0}
 
 
 @pytest.mark.parametrize("dtype", [BF16, FP32])
