@@ -3762,7 +3762,7 @@ def phase_eval_presets(torch, fa, card):
 FP32_BOUND = 1e-4
 # fp32-accurate products at the H100's peaks (NVIDIA H100 SXM data sheet): 3xTF32 on the
 # tensor cores (495 TF32 / 3), the least time the card can take for them, and fp32 FMA
-# on the CUDA cores, the most the fp32 kernels' SIMT design can reach
+# on the CUDA cores, the most a SIMT design could reach
 PEAK_FLOPS_3XTF32, PEAK_FLOPS_FP32 = 165e12, 67e12
 # (B, H, L, D), the factor q is scaled by, timed (the main paths' shapes) or checked
 # only, and the path
@@ -3792,11 +3792,11 @@ FP32_VARIANT = "sd15"  # trained with --mixed_precision no, remat dots
 FP32_TRAIN_BATCH, FP32_TRAIN_STEPS = 8, 3
 FP32_REFINER_STEPS = 20  # the refiner request's steps: 400 + 1 K2 launches
 FP32_FWD = ["flash_fwd_3xtf32_kernel", "flash_fwd_wide_3xtf32_kernel"]  # D <= 80, wider
-FP32_ROUTES = {  # each kernel's CUDA kernels on the fp32 route (3xTF32 but dQ's)
+FP32_ROUTES = {  # each kernel's CUDA kernels on the fp32 route (all 3xTF32)
     "k1": ["bias_add_f32_kernel"] + FP32_FWD, "k2": FP32_FWD,
-    "k3": ["flash_bwd_dkv_3xtf32_kernel"], "k4": ["flash_bwd_dq_f32_kernel"],
+    "k3": ["flash_bwd_dkv_3xtf32_kernel"], "k4": ["flash_bwd_dq_3xtf32_kernel"],
     "k5_fwd": FP32_FWD, "k5_dkv": ["flash_bwd_dkv_3xtf32_kernel"],
-    "k5_dq": ["flash_bwd_dq_f32_kernel"]}
+    "k5_dq": ["flash_bwd_dq_3xtf32_kernel"]}
 
 
 def fp32_roofline(products, b, h, lq, lk, d, n_q, n_k, rows):

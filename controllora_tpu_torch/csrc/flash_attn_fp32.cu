@@ -21,7 +21,7 @@
 //   flash_bwd_dkv_3xtf32_kernel   K3  pallas_attention_vjp.py::_bwd_dkv_kernel
 //                                     (k3_flash_bwd_dkv_f32) and K5's
 //                                     _flash_attention_dkv_kernel (k5_stock_flash_bwd_dkv_f32);
-//   flash_bwd_dq_f32_kernel       K4  pallas_attention_vjp.py::_bwd_dq_kernel
+//   flash_bwd_dq_3xtf32_kernel    K4  pallas_attention_vjp.py::_bwd_dq_kernel
 //                                     (k4_flash_bwd_dq_f32) and K5's _flash_attention_dq_kernel
 //                                     (k5_stock_flash_bwd_dq_f32).
 // Each entry point has the C signature of its bf16 namesake, so the wrappers in
@@ -33,14 +33,12 @@
 // kernels multiply fp32 blocks with fp32 results, and the port runs fp32 with TF32 off
 // (outputs within 1e-4 * max(1, max|ref|) of fp32). One TF32 product keeps 11 bits of
 // each operand and misses that bound; three do not (tests/test_torch_tf32_split.py
-// emulates both). So the forward and dK/dV run every product as 3xTF32 on the tensor
+// emulates both). So every kernel here runs every product as 3xTF32 on the tensor
 // cores: each operand x is split into hi = x with its 13 low mantissa bits dropped and
 // lo = tf32_rna(x - hi) (cvt.rna.tf32.f32's rounding), and a product is lo*hi + hi*lo +
 // hi*hi into one fp32 accumulator, the two small terms first. Their bound is the
 // card's 495 TF32 TFLOP/s over three, 165 TFLOP/s. Every operand is split explicitly
-// (no product reads raw fp32 and leaves the truncation to the tensor core). The dQ
-// kernel is still the first design, fp32 FMA on the CUDA cores (67 TFLOP/s; described
-// at the kernel).
+// (no product reads raw fp32 and leaves the truncation to the tensor core).
 //
 // The 3xTF32 kernels are built like the bf16 ones (hopper.cuh): a producer warpgroup
 // and consumer warpgroups that issue wgmma.mma_async (m64nNk8, tf32; wgmma_tf32.cuh)
@@ -49,17 +47,17 @@
 // strides (encode_heads with fp32: 32 floats a swizzle span, zero filled past L and past
 // D). What differs is the split and one layout constraint: tf32 wgmma reads a shared
 // operand K-major only (it has no transpose bit), so an operand whose reduction runs
-// over tokens (V in O += P V, dO in dV += P^T dO, Q in dK += dS^T Q) is needed with the
-// tokens contiguous, which TMA cannot give. So the kernels split as well as copy: one
-// thread keeps TMA loads of raw fp32 tiles in flight through a ring of mbarriers, and
-// the split writes each raw tile's hi and lo in the same swizzled layout and the
-// transposed ones (V^T, Q^T, dO^T, hi and lo) with the tokens contiguous, then fences
-// the async proxy before wgmma reads them. In the forward up to D 80 and in dK/dV the
-// producer warpgroup's 128 threads split and arrive on a "derived" barrier that the
-// consumers wait on; in the wide forward each consumer warpgroup splits its own next
-// step while its products run. The split sets the pace (a build that skipped it ran
-// far faster), so each thread issues its shared-memory loads in batches (split_tile)
-// and rounds with integer operations (tf32_rna).
+// over tokens (V in O += P V, dO in dV += P^T dO, Q in dK += dS^T Q, K in dQ += dS K)
+// is needed with the tokens contiguous, which TMA cannot give. So the kernels split as
+// well as copy: one thread keeps TMA loads of raw fp32 tiles in flight through a ring
+// of mbarriers, and the split writes each raw tile's hi and lo in the same swizzled
+// layout and the transposed ones (V^T, Q^T, dO^T, K^T, hi and lo) with the tokens
+// contiguous, then fences the async proxy before wgmma reads them. In the forward up
+// to D 80, dK/dV and dQ the producer warpgroups' threads split and arrive on a
+// "derived" barrier that the consumers wait on; in the wide forward each consumer
+// warpgroup splits its own next step while its products run. The split sets the pace
+// (a build that skipped it ran far faster), so each thread issues its shared-memory
+// loads in batches (split_tile) and rounds with integer operations (tf32_rna).
 // P and dS are split in registers and go in as the A operand (but in the wide
 // forward). An accumulator holds columns 2 t4 and
 // 2 t4 + 1 of each 8 where a tf32 A fragment holds t4 and t4 + 4, so the transposed
@@ -109,12 +107,29 @@
 //     parts are released apart (the Q, dO part once S^T and dP^T are formed, the
 //     transposed part at the tile's end), so the next tile's split overlaps this one's
 //     products.
-//   * ragged L: scores of keys at or past Lk are -inf in the forward, and P^T is 0 by
-//     index for queries at or past Lq in dK/dV; stationary rows past L are computed on
-//     zeros and never stored. The softmax scale is a runtime argument of either sign;
-//     the forward tracks its running max on S * scale * log2(e).
+//   * dQ, D <= 80 (flash_bwd_dq_3xtf32_kernel): queries stay stationary, 64 per consumer
+//     warpgroup, each thread with its two rows' LSE (K5: m + log l) and Dcap in
+//     registers. The ring carries raw K and V tiles; each derived stage holds K hi, lo
+//     (the B operand of S = Q K^T), V hi, lo (of dP = dO V^T) and K^T hi, lo (of dQ +=
+//     dS K, which reduces over keys: D rows of the tile's keys). dS is split in
+//     registers into the A operand, a k-step of 8 keys at a time. Instances, shared
+//     memory:
+//       D 8, 16, 32: 2 consumer warpgroups (128 queries), Q and dO as hi and lo A
+//       fragments in registers (loaded once), 64-key tiles, 2 raw + 3 derived stages,
+//       140, 152, 176 KB; D 40: the same with 1 + 2 stages, 200 KB (2 + 2 do not fit);
+//       D 64 (also 48, 56): 1 consumer warpgroup (64 queries), Q in registers and dO's
+//       hi and lo split once into shared memory (both as fragments, 2 DP registers, do
+//       not fit beside S, dP and dQ), 32-key tiles (64-key stages do not fit beside
+//       dO), 2 + 3 stages, 208 KB; D 80: the same with 1 + 2 stages, 208 KB.
+//     Two producer warpgroups split; registers: consumers 184 up to D 32, 200 at D 40,
+//     232 with one warpgroup; producers 72, 56, 136.
+//   * ragged L: scores of keys at or past Lk are -inf in the forward and P is 0 by index
+//     in dQ, and P^T is 0 by index for queries at or past Lq in dK/dV; stationary rows
+//     past L are computed on zeros and never stored. The softmax scale is a runtime
+//     argument of either sign; the forward tracks its running max on S * scale *
+//     log2(e).
 // The fp32 loads need a 16-byte aligned base and D and every element stride a multiple
-// of 4 floats: 16 bytes, what TMA asks and what the dQ kernel's cp.async copies take
+// of 4 floats: 16 bytes, what TMA asks and what dQ's 16-byte loads of dO take
 // (ops/flash_attention.py::vector_geometry checks the same on the host). The launch
 // bounds name one block an SM: with the thread count alone ptxas capped some instances
 // and spilled.
@@ -135,162 +150,6 @@ using hopper::smem_u32;
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-
-// ---------------------------------------------------------------- the dQ kernel's tiles
-//
-// The dQ kernel (flash_bwd_dq_f32_kernel) is the first design of this file: products
-// as fp32 FMA on the CUDA cores, as an SGEMM does. A block keeps R stationary query
-// rows (Q and dO) in shared memory and streams C-key stages of K and V through two
-// cp.async stages (16 bytes a copy, zero filled past L and past D); thread t owns the
-// stationary rows (t / CG) * TM .. + TM, and register micro-tiles hold its part of S,
-// dP and dQ; dS goes through shared memory. Head dims padded to 16, 32, 48, 64 or 80.
-
-// ---------------------------------------------------------------- copies
-
-// 16 bytes from global to shared memory without passing through registers; zeros where
-// !ok (then nothing is read).
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// ---------------------------------------------------------------- tiles
-
-// R stationary rows against C streamed rows a step, NT threads in row groups of CG
-// lanes (see the header); rows of DP floats (the head dim padded) in shared memory.
-template <int DP, int R, int C, int CG, int NT>
-struct Tile {
-  static constexpr int kDP = DP, kR = R, kC = C, kCG = CG, kNT = NT;
-  static constexpr int kStride = DP + 4;  // floats a shared row: distinct banks by row
-  static constexpr int kPStride = C + 4;  // floats a shared row of P or dS
-  static constexpr int kTM = R * CG / NT;  // stationary rows a thread
-  static constexpr int kTN = C / CG;       // streamed rows a thread (product over D)
-  static constexpr int kCD = DP / 4 / CG;  // float4 head chunks a thread (product into D)
-  static_assert(DP % 8 == 0 && NT % 32 == 0 && 32 % CG == 0, "tile shape");
-  static_assert(C % CG == 0 && C % 4 == 0 && (DP / 4) % CG == 0, "tile shape");
-  static_assert(kTM >= 1 && kTM * (NT / CG) == R, "tile shape");
-};
-
-// Rows [r0, r0 + ROWS) of one head (element row stride sl) into shared rows; rows at or
-// past L and columns at or past D are zero filled. Every thread of the block takes part.
-template <class T, int ROWS>
-__device__ __forceinline__ void load_rows(float* dst, const float* src, long long sl, int r0,
-                                          int L, int D) {
-  constexpr int kC4 = T::kDP / 4;
-  for (int i = threadIdx.x; i < ROWS * kC4; i += T::kNT) {
-    const int r = i / kC4, c = (i - r * kC4) * 4;
-    const bool ok = r0 + r < L && c < D;
-    cp_async16(dst + r * T::kStride + c, ok ? src + (r0 + r) * sl + c : src, ok);
-  }
-}
-
-// acc[i][j] = x[row i] . y[row j] over the head dim: the thread's TM stationary rows
-// (x) against its TN streamed rows (y).
-template <class T>
-__device__ __forceinline__ void dot_rows(float (&acc)[T::kTM][T::kTN], const float* x,
-                                         const float* y, int rg, int cg) {
-#pragma unroll
-  for (int i = 0; i < T::kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < T::kTN; ++j) acc[i][j] = 0.f;
-  const float* xr = x + rg * T::kTM * T::kStride;
-  const float* yr = y + cg * T::kStride;
-#pragma unroll 4
-  for (int d = 0; d < T::kDP; d += 4) {
-    float4 a[T::kTM];
-#pragma unroll
-    for (int i = 0; i < T::kTM; ++i)
-      a[i] = *reinterpret_cast<const float4*>(xr + i * T::kStride + d);
-#pragma unroll
-    for (int j = 0; j < T::kTN; ++j) {
-      const float4 b = *reinterpret_cast<const float4*>(yr + j * T::kCG * T::kStride + d);
-#pragma unroll
-      for (int i = 0; i < T::kTM; ++i) {
-        acc[i][j] = fmaf(a[i].x, b.x, acc[i][j]);
-        acc[i][j] = fmaf(a[i].y, b.y, acc[i][j]);
-        acc[i][j] = fmaf(a[i].z, b.z, acc[i][j]);
-        acc[i][j] = fmaf(a[i].w, b.w, acc[i][j]);
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ float lane4(const float4& v, int k) {
-  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
-}
-
-__device__ __forceinline__ void fma4(float4& acc, float w, const float4& z) {
-  acc.x = fmaf(w, z.x, acc.x);
-  acc.y = fmaf(w, z.y, acc.y);
-  acc.z = fmaf(w, z.z, acc.z);
-  acc.w = fmaf(w, z.w, acc.w);
-}
-
-__device__ __forceinline__ void scale4(float4& acc, float s) {
-  acc.x *= s;
-  acc.y *= s;
-  acc.z *= s;
-  acc.w *= s;
-}
-
-// acc[i][c] += sum over the C streamed rows j of pm[row i][j] * z[row j][chunk c]: the
-// thread's TM stationary rows of P (or dS, rows of kPStride floats) times the streamed
-// rows' head columns in its float4 chunks.
-template <class T>
-__device__ __forceinline__ void acc_rows(float4 (&acc)[T::kTM][T::kCD], const float* pm,
-                                         const float* z, int rg, int cg) {
-  const float* pr = pm + rg * T::kTM * T::kPStride;
-  const float* zc = z + 4 * cg;
-#pragma unroll 2
-  for (int j = 0; j < T::kC; j += 4) {
-    float4 w[T::kTM];
-#pragma unroll
-    for (int i = 0; i < T::kTM; ++i)
-      w[i] = *reinterpret_cast<const float4*>(pr + i * T::kPStride + j);
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-#pragma unroll
-      for (int c = 0; c < T::kCD; ++c) {
-        const float4 zv =
-            *reinterpret_cast<const float4*>(zc + (j + k) * T::kStride + 4 * c * T::kCG);
-#pragma unroll
-        for (int i = 0; i < T::kTM; ++i) fma4(acc[i][c], lane4(w[i], k), zv);
-      }
-  }
-}
-
-template <class T>
-__device__ __forceinline__ void zero(float4 (&acc)[T::kTM][T::kCD]) {
-#pragma unroll
-  for (int i = 0; i < T::kTM; ++i)
-#pragma unroll
-    for (int c = 0; c < T::kCD; ++c) acc[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
-}
-
-// Row i of the thread's accumulator, times mul, into out (a row of the head) at the
-// thread's chunks below D.
-template <class T>
-__device__ __forceinline__ void store_row(float* out, const float4 (&acc)[T::kTM][T::kCD],
-                                          int i, float mul, int cg, int D) {
-#pragma unroll
-  for (int c = 0; c < T::kCD; ++c) {
-    const int col = 4 * (cg + c * T::kCG);
-    if (col < D) {
-      float4 x = acc[i][c];
-      scale4(x, mul);
-      *reinterpret_cast<float4*>(out + col) = x;
-    }
-  }
-}
 
 // ---------------------------------------------------------------- 3xTF32
 
@@ -366,6 +225,21 @@ __device__ __forceinline__ void acc_to_a_tf32(uint32_t* hi, uint32_t* lo, const 
   split(acc[4 * t + 2], hi[1], lo[1]);
   split(acc[4 * t + 1], hi[2], lo[2]);
   split(acc[4 * t + 3], hi[3], lo[3]);
+}
+
+// The split A fragments of a 64-row operand for every k-step of the head, from global
+// memory: rows r0 and r0 + 8 of x (row stride sl), zeros past L and past D.
+template <int DP>
+__device__ __forceinline__ void load_a_tf32(uint32_t (&hi)[DP / 8][4], uint32_t (&lo)[DP / 8][4],
+                                            const float* x, long long sl, int r0, int L, int D,
+                                            int t4) {
+#pragma unroll
+  for (int kk = 0; kk < DP / 8; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = r0 + 8 * (e & 1), col = kk * 8 + t4 + 4 * (e >> 1);
+      split(row < L && col < D ? x[row * sl + col] : 0.f, hi[kk][e], lo[kk][e]);
+    }
 }
 
 // d (64 x N) [+]= A B over `steps` k-steps of depth 8, 3xTF32, both operands from
@@ -677,16 +551,8 @@ __global__ void __launch_bounds__(FwdCfg<DP, RAW, DER>::kThreads, 1)
 
   // Q's hi and lo A fragments for every k-step of the head, zeros past Lq and past D
   uint32_t qh[DP / 8][4], ql[DP / 8][4];
-  {
-    const float* qg = static_cast<const float*>(p.q.base) + b * p.q.sb + h * p.q.sh;
-#pragma unroll
-    for (int kk = 0; kk < DP / 8; ++kk)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = r0 + 8 * (e & 1), col = kk * 8 + t4 + 4 * (e >> 1);
-        split(row < p.Lq && col < p.D ? qg[row * p.q.sl + col] : 0.f, qh[kk][e], ql[kk][e]);
-      }
-  }
+  load_a_tf32<DP>(qh, ql, static_cast<const float*>(p.q.base) + b * p.q.sb + h * p.q.sh,
+                  p.q.sl, r0, p.Lq, p.D, t4);
 
   float o[DP / 2];
 #pragma unroll
@@ -1204,101 +1070,242 @@ __global__ void __launch_bounds__(DkvCfg<DP, NW, RAW>::kThreads, 1)
   store_acc_f32<DP>(p.out1 + head, p.sl, dv, 1.f, 1.f, r0, p.Lk, 0, p.D, t4);
 }
 
-
 // ---------------------------------------------------------------- dQ
 
-// dQ: R queries a block (Q and dO stationary, each thread's rows' LSE and Dcap in
-// registers), C-key stages of K and V.
-template <int DP, int R, int C, int CG, int NT>
-__global__ void __launch_bounds__(NT, 1) flash_bwd_dq_f32_kernel(const BwdParams p) {
-  using T = Tile<DP, R, C, CG, NT>;
-  extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);
-  float* do_s = q_s + R * T::kStride;
-  float* ring = do_s + R * T::kStride;        // two stages of K and V
-  float* ds_s = ring + 4 * C * T::kStride;    // dS, R x C
+// DP: the head dim rounded up to an instance; NW consumer warpgroups of 64 queries;
+// KEYS keys a tile; RAW raw stages (K, V) and DER derived ones (K, V, K^T: hi and lo).
+// With two consumer warpgroups (up to D 40) each thread keeps Q's and dO's hi and lo A
+// fragments in registers; with one (D 64, 80) Q's, and dO's hi and lo tiles sit in
+// shared memory, split once at the block's start.
+template <int DP, int NW, int KEYS, int RAW, int DER>
+struct DqCfg {
+  static constexpr int kDP = DP, kNW = NW, kKeys = KEYS, kRaw = RAW, kDer = DER;
+  static constexpr bool kDoSmem = NW == 1;
+  static constexpr int kSpans = (DP + kSpan - 1) / kSpan;
+  static constexpr int kRows = 64 * NW;                       // queries a block
+  static constexpr int kTile = kSpans * KEYS * kSpanRow;      // raw K or V; K or V hi or lo
+  static constexpr int kKT = (KEYS / kSpan) * DP * kSpanRow;  // K^T hi or lo
+  static constexpr int kRawStage = 2 * kTile;
+  static constexpr int kDerStage = 4 * kTile + 2 * kKT;
+  static constexpr int kDoTile = kDoSmem ? kSpans * 64 * kSpanRow : 0;  // dO hi or lo
+  static constexpr int kProducerThreads = 256;  // two producer warpgroups split
+  static constexpr int kThreads = 128 * NW + kProducerThreads;
+  // registers a thread (setmaxnreg): the consumers hold the A fragments (2 DP with two
+  // warpgroups, DP with one), dQ (DP / 2), S and dP (KEYS) or dS's fragments (KEYS);
+  // the producers take the rest of the launch allocation (FwdCfg)
+  static constexpr int kConsumerRegs = NW == 1 ? 232 : DP <= 32 ? 184 : 200;
+  static constexpr int kProducerRegs =
+      (kThreads * (65536 / kThreads / 8 * 8) - 128 * NW * kConsumerRegs) / kProducerThreads /
+      8 * 8;
+  static constexpr size_t kSmem = 1024 + (size_t)RAW * kRawStage + (size_t)DER * kDerStage +
+                                  2 * (size_t)kDoTile + 8 * (RAW + 2 * DER);
+  static_assert(DP % 8 == 0 && DP <= 80, "the backward covers head dims up to 80");
+  static_assert(KEYS % kSpan == 0 && (NW == 1 || NW == 2), "dQ tile shape");
+  static_assert(kProducerRegs >= 56, "the producers' batched copies need 56 registers");
+  static_assert(kSmem <= 232448, "a block has 227 KB of shared memory");
+};
 
-  // block -> (batch*head, query tile)
-  const int q_tiles = (p.Lq + R - 1) / R;
+constexpr int kDqConsumerBar = 2;  // named barrier of the dQ kernel's one consumer warpgroup
+
+// Rows [r0, r0 + 64) of a head (row stride sl) split into hi and lo tiles laid out as
+// TMA lays out a raw tile (SPANS spans of 64 rows, 128-byte swizzled); zeros past L and
+// past D; 16-byte units at or past column COLS are skipped (no k-step reads them). NT
+// threads, this one tid.
+template <int SPANS, int COLS, int NT>
+__device__ __forceinline__ void split_rows(const float* src, long long sl, int r0, int L, int D,
+                                           unsigned char* hi, unsigned char* lo, int tid) {
+#pragma unroll 1
+  for (int u = tid; u < SPANS * 64 * 8; u += NT) {
+    const int s = u / (64 * 8), r = (u / 8) % 64, c = (u % 8) * 4, col = s * kSpan + c;
+    if (col >= COLS) continue;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + r < L && col < D) x = *reinterpret_cast<const float4*>(src + (r0 + r) * sl + col);
+    uint4 h, l;
+    split4(x, h, l);
+    const int off = s * (64 * kSpanRow) + sw128(r, c);
+    *reinterpret_cast<uint4*>(hi + off) = h;
+    *reinterpret_cast<uint4*>(lo + off) = l;
+  }
+}
+
+template <int DP, int NW, int KEYS, int RAW, int DER>
+__global__ void __launch_bounds__(DqCfg<DP, NW, KEYS, RAW, DER>::kThreads, 1)
+    flash_bwd_dq_3xtf32_kernel(const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv, const BwdParams p) {
+  using C = DqCfg<DP, NW, KEYS, RAW, DER>;
+  constexpr int kKSpan = KEYS * kSpanRow;  // bytes of one span of a K or V tile
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* raw = base;                              // RAW x (K, V)
+  unsigned char* der = raw + (size_t)RAW * C::kRawStage;  // DER x (K, V, K^T: hi, lo)
+  unsigned char* do_hi = der + (size_t)DER * C::kDerStage;
+  unsigned char* do_lo = do_hi + C::kDoTile;
+  uint64_t* raw_full = reinterpret_cast<uint64_t*>(do_lo + C::kDoTile);
+  uint64_t* der_full = raw_full + RAW;
+  uint64_t* der_empty = der_full + DER;
+
+  const int q_tiles = (p.Lq + C::kRows - 1) / C::kRows;
   const int qt = blockIdx.x % q_tiles, bh = blockIdx.x / q_tiles;
   const int b = bh / p.H, h = bh % p.H;
-  const int q0 = qt * R;
-  const float* qg = static_cast<const float*>(p.q.base) + b * p.q.sb + h * p.q.sh;
-  const float* dog = static_cast<const float*>(p.dout.base) + b * p.dout.sb + h * p.dout.sh;
-  const float* kg = static_cast<const float*>(p.k.base) + b * p.k.sb + h * p.k.sh;
-  const float* vg = static_cast<const float*>(p.v.base) + b * p.v.sb + h * p.v.sh;
-  const int n_k = (p.Lk + C - 1) / C;
+  const int q0 = qt * C::kRows;
+  const int n_tiles = (p.Lk + KEYS - 1) / KEYS;
 
-  load_rows<T, R>(q_s, qg, p.q.sl, q0, p.Lq, p.D);
-  load_rows<T, R>(do_s, dog, p.dout.sl, q0, p.Lq, p.D);
-  load_rows<T, C>(ring, kg, p.k.sl, 0, p.Lk, p.D);
-  load_rows<T, C>(ring + C * T::kStride, vg, p.v.sl, 0, p.Lk, p.D);
-  cp_async_commit();
-
-  const int rg = threadIdx.x / CG, cg = threadIdx.x % CG;
-  // this thread's query rows: LSE * log2(e) and Dcap, 0 past Lq (never stored)
-  float lse2[T::kTM], dc[T::kTM];
-#pragma unroll
-  for (int i = 0; i < T::kTM; ++i) {
-    const int row = q0 + rg * T::kTM + i;
-    const size_t r = (size_t)bh * p.Lq + row;
-    lse2[i] = 0.f;
-    dc[i] = 0.f;
-    if (row < p.Lq) {
-      lse2[i] = (p.l == nullptr ? p.lse[r] : p.lse[r] + logf(p.l[r])) * kLog2e;
-      dc[i] = p.dcap[r];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < RAW; ++s) mbar_init(&raw_full[s], 1);
+    for (int s = 0; s < DER; ++s) {
+      mbar_init(&der_full[s], 1);
+      mbar_init(&der_empty[s], 4 * NW);  // the consumer warps
     }
+    mbar_init_fence();
   }
-  float4 dq[T::kTM][T::kCD];
-  zero<T>(dq);
+  __syncthreads();
 
-  for (int j = 0; j < n_k; ++j) {
-    cp_async_wait_all();
-    __syncthreads();  // stage j is in; every thread is done with stage j - 1 and dS
-    if (j + 1 < n_k) {
-      float* next = ring + ((j + 1) & 1) * 2 * C * T::kStride;
-      load_rows<T, C>(next, kg, p.k.sl, (j + 1) * C, p.Lk, p.D);
-      load_rows<T, C>(next + C * T::kStride, vg, p.v.sl, (j + 1) * C, p.Lk, p.D);
-      cp_async_commit();
-    }
-    const float* ks = ring + (j & 1) * 2 * C * T::kStride;
-    const float* vs = ks + C * T::kStride;
-
-    // S = Q K^T and dP = dO V^T, unscaled; P = exp(S * scale - LSE), 0 for keys at or
-    // past Lk; dS = P (dP - Dcap)
-    float s[T::kTM][T::kTN], dp[T::kTM][T::kTN];
-    dot_rows<T>(s, q_s, ks, rg, cg);
-    dot_rows<T>(dp, do_s, vs, rg, cg);
-    const int key0 = j * C;
-#pragma unroll
-    for (int t = 0; t < T::kTN; ++t) {
-      const int col = cg + t * CG;
-      const bool ok = key0 + col < p.Lk;
-#pragma unroll
-      for (int i = 0; i < T::kTM; ++i) {
-        const float pv = ok ? exp2f(fmaf(s[i][t], p.scale_log2, -lse2[i])) : 0.f;
-        ds_s[(rg * T::kTM + i) * T::kPStride + col] = pv * (dp[i][t] - dc[i]);
+  if (warp >= 4 * NW) {
+    // ---------------------------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(C::kProducerRegs));
+    const int tid = threadIdx.x - 128 * NW;
+    constexpr int NT = C::kProducerThreads;
+    auto issue = [&](int j) {
+      const int s = j % RAW;
+      unsigned char* ks = raw + (size_t)s * C::kRawStage;
+      mbar_expect_tx(&raw_full[s], C::kRawStage);
+      for (int c = 0; c < C::kSpans; ++c) {
+        tma_load_4d(ks + c * kKSpan, &tk, &raw_full[s], c * kSpan, h, j * KEYS, b);
+        tma_load_4d(ks + C::kTile + c * kKSpan, &tv, &raw_full[s], c * kSpan, h, j * KEYS, b);
+      }
+    };
+    if (tid == 0)
+      for (int j = 0; j < RAW && j < n_tiles; ++j) issue(j);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int rs = j % RAW, ds = j % DER;
+      mbar_wait(&raw_full[rs], (j / RAW) & 1);
+      mbar_wait(&der_empty[ds], ((j / DER) & 1) ^ 1);
+      const unsigned char* ks = raw + (size_t)rs * C::kRawStage;
+      unsigned char* d = der + (size_t)ds * C::kDerStage;
+      split_tile<KEYS, C::kSpans, DP, NT>(ks, d, d + C::kTile, tid);
+      split_tile<KEYS, C::kSpans, DP, NT>(ks + C::kTile, d + 2 * C::kTile, d + 3 * C::kTile,
+                                          tid);
+      transpose_split<KEYS, DP, NT>(ks, d + 4 * C::kTile, d + 4 * C::kTile + C::kKT, tid);
+      fence_async_shared();
+      named_sync(kProducerBar, NT);  // raw stage read, derived one written
+      if (tid == 0) {
+        mbar_arrive(&der_full[ds]);
+        if (j + RAW < n_tiles) issue(j + RAW);
       }
     }
-    __syncthreads();  // dS is in
-    acc_rows<T>(dq, ds_s, ks, rg, cg);  // dQ += dS K
+    return;
   }
 
-#pragma unroll
-  for (int i = 0; i < T::kTM; ++i) {
-    const int row = q0 + rg * T::kTM + i;
-    if (row >= p.Lq) continue;
-    store_row<T>(p.out0 + b * p.sb + h * p.sh + row * p.sl, dq, i, p.scale, cg, p.D);
+  // ------------------------------------------------------------------ consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(C::kConsumerRegs));
+  const int wg = warp / 4, wl = warp % 4;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r0 = q0 + wg * 64 + wl * 16 + g;  // this thread's rows r0 and r0 + 8
+
+  // Q's hi and lo A fragments, and dO's (with one warpgroup: dO's hi and lo tiles in
+  // shared memory), zeros past Lq and past D
+  const float* qg = static_cast<const float*>(p.q.base) + b * p.q.sb + h * p.q.sh;
+  const float* dog = static_cast<const float*>(p.dout.base) + b * p.dout.sb + h * p.dout.sh;
+  uint32_t qh[DP / 8][4], ql[DP / 8][4], oh[DP / 8][4], ol[DP / 8][4];
+  load_a_tf32<DP>(qh, ql, qg, p.q.sl, r0, p.Lq, p.D, t4);
+  if constexpr (C::kDoSmem) {
+    split_rows<C::kSpans, DP, 128>(dog, p.dout.sl, q0, p.Lq, p.D, do_hi, do_lo, threadIdx.x);
+    fence_async_shared();
+    named_sync(kDqConsumerBar, 128);
+  } else {
+    load_a_tf32<DP>(oh, ol, dog, p.dout.sl, r0, p.Lq, p.D, t4);
   }
+
+  // the rows' LSE * log2(e) (K5: m + log l) and Dcap, 0 past Lq (never stored)
+  float lse2[2], dc[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + 8 * i;
+    const size_t row = (size_t)bh * p.Lq + r;
+    lse2[i] = dc[i] = 0.f;
+    if (r < p.Lq) {
+      lse2[i] = (p.l == nullptr ? p.lse[row] : p.lse[row] + logf(p.l[row])) * kLog2e;
+      dc[i] = p.dcap[row];
+    }
+  }
+
+  float dq[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dq[i] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int ds = j % DER;
+    mbar_wait(&der_full[ds], (j / DER) & 1);
+    const unsigned char* k_hi = der + (size_t)ds * C::kDerStage;
+    const unsigned char* k_lo = k_hi + C::kTile;
+    const unsigned char* v_hi = k_lo + C::kTile;
+    const unsigned char* v_lo = v_hi + C::kTile;
+    const unsigned char* kt_hi = v_lo + C::kTile;
+    const unsigned char* kt_lo = kt_hi + C::kKT;
+
+    // S = Q K^T and dP = dO V^T: 64 queries x KEYS keys each, unscaled
+    float s[KEYS / 2], dp[KEYS / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 8; ++kk)
+      rs_3xtf32<KEYS>(s, qh[kk], ql[kk], kdesc(k_hi, kk, kKSpan), kdesc(k_lo, kk, kKSpan),
+                      kk > 0);
+    wgmma_commit();
+    if constexpr (C::kDoSmem) {
+      ss_3xtf32<KEYS>(dp, do_hi, do_lo, 64 * kSpanRow, v_hi, v_lo, kKSpan, DP / 8, true);
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < DP / 8; ++kk)
+        rs_3xtf32<KEYS>(dp, oh[kk], ol[kk], kdesc(v_hi, kk, kKSpan), kdesc(v_lo, kk, kKSpan),
+                        kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs<KEYS / 2>(s);
+
+    // P = 2^(S * scale * log2(e) - LSE * log2(e)) by query row; 0 for keys at or past
+    // Lk (there S is 0, from TMA's zero fill, and P would not be)
+#pragma unroll
+    for (int i = 0; i < KEYS / 2; ++i) s[i] = ex2(fmaf(s[i], p.scale_log2, -lse2[(i >> 1) & 1]));
+    const int key0 = j * KEYS;
+    if (key0 + KEYS > p.Lk) {  // the ragged tail
+#pragma unroll
+      for (int i = 0; i < KEYS / 2; ++i)
+        if (key0 + (i / 4) * 8 + t4 * 2 + (i & 1) >= p.Lk) s[i] = 0.f;
+    }
+    wgmma_wait<0>();
+    fence_regs<KEYS / 2>(dp);
+
+    // dS = P (dP - Dcap), by query row
+#pragma unroll
+    for (int i = 0; i < KEYS / 2; ++i) dp[i] = s[i] * (dp[i] - dc[(i >> 1) & 1]);
+
+    // dQ += dS K over the tile's keys: dS split in registers a k-step at a time, K^T
+    // from the derived stage
+    uint32_t dh[KEYS / 8][4], dl[KEYS / 8][4];
+#pragma unroll
+    for (int t = 0; t < KEYS / 8; ++t) acc_to_a_tf32(dh[t], dl[t], dp, t);
+    wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < KEYS / 8; ++t)
+      rs_3xtf32<DP>(dq, dh[t], dl[t], kdesc(kt_hi, t, DP * kSpanRow),
+                    kdesc(kt_lo, t, DP * kSpanRow), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<DP / 2>(dq);
+    fence_regs<KEYS / 2>(&dh[0][0]);
+    fence_regs<KEYS / 2>(&dl[0][0]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&der_empty[ds]);
+  }
+
+  // ------------------------------------------------------------------ epilogue
+  store_acc_f32<DP>(p.out0 + b * p.sb + h * p.sh, p.sl, dq, p.scale, p.scale, r0, p.Lq, 0,
+                    p.D, t4);
 }
 
 // ---------------------------------------------------------------- launches
-
-template <class T>
-size_t dq_smem() {
-  return sizeof(float) * ((2 * (size_t)T::kR + 4 * (size_t)T::kC) * T::kStride +
-                          (size_t)T::kR * T::kPStride);
-}
 
 // Set the kernel's dynamic shared memory and launch it over `blocks` blocks.
 template <class Kernel, class... Args>
@@ -1341,15 +1348,19 @@ cudaError_t with_dkv_cfg(int D, F&& f) {
   return f(DkvCfg<80, 1, 1>{});
 }
 
-// The dQ kernel's instances: D padded to DP columns in shared memory (zero filled).
+// dQ instances: D rounded up as in the forward. Up to D 40 two consumer warpgroups
+// (128 queries) with Q and dO in registers and 64-key tiles; at D 64 and 80 one (64
+// queries) with dO in shared memory and 32-key tiles: there the fragments would not fit
+// in registers, nor 64-key stages beside dO in shared memory.
 template <class F>
-cudaError_t with_bwd_tile(int D, F&& f) {
+cudaError_t with_dq_cfg(int D, F&& f) {
   if (D < 8 || D % 8 != 0 || D > 80) return cudaErrorInvalidValue;
-  if (D <= 16) return f(Tile<16, 64, 32, 4, 128>{});
-  if (D <= 32) return f(Tile<32, 64, 32, 8, 128>{});
-  if (D <= 48) return f(Tile<48, 64, 32, 4, 128>{});
-  if (D <= 64) return f(Tile<64, 64, 32, 8, 128>{});
-  return f(Tile<80, 64, 32, 4, 128>{});
+  if (D <= 8) return f(DqCfg<8, 2, 64, 2, 3>{});
+  if (D <= 16) return f(DqCfg<16, 2, 64, 2, 3>{});
+  if (D <= 32) return f(DqCfg<32, 2, 64, 2, 3>{});
+  if (D <= 40) return f(DqCfg<40, 2, 64, 1, 2>{});
+  if (D <= 64) return f(DqCfg<64, 1, 32, 2, 3>{});
+  return f(DqCfg<80, 1, 32, 1, 2>{});
 }
 
 // What the loads need: a 16-byte aligned base and element strides in whole 16-byte
@@ -1459,11 +1470,15 @@ cudaError_t run_dkv(const Views& x, const BwdParams& p, cudaStream_t stream) {
 
 cudaError_t run_dq(const Views& x, const BwdParams& p, cudaStream_t stream) {
   if (!valid_bwd(x, p.B, p.H, p.Lq, p.Lk)) return cudaErrorInvalidValue;
-  return with_bwd_tile(p.D, [&](auto tile) {
-    using T = decltype(tile);
-    const long long blocks = (long long)p.B * p.H * ((p.Lq + T::kR - 1) / T::kR);
-    return run(flash_bwd_dq_f32_kernel<T::kDP, T::kR, T::kC, T::kCG, T::kNT>, blocks, T::kNT,
-               dq_smem<T>(), stream, p);
+  return with_dq_cfg(p.D, [&](auto cfg) {
+    using C = decltype(cfg);
+    CUtensorMap tk, tv;
+    cudaError_t err = encode_heads(&tk, x.k, p.B, p.H, p.Lk, p.D, C::kKeys, true);
+    if (err == cudaSuccess) err = encode_heads(&tv, x.v, p.B, p.H, p.Lk, p.D, C::kKeys, true);
+    if (err != cudaSuccess) return err;
+    const long long blocks = (long long)p.B * p.H * ((p.Lq + C::kRows - 1) / C::kRows);
+    return run(flash_bwd_dq_3xtf32_kernel<C::kDP, C::kNW, C::kKeys, C::kRaw, C::kDer>, blocks,
+               C::kThreads, C::kSmem, stream, tk, tv, p);
   });
 }
 

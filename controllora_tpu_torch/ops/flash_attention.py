@@ -25,10 +25,10 @@ queries and streams key tiles; K5's backward runs on the same two kernels; see t
 headers for the design). They read the projections through TMA tensor maps
 (``tma_geometry``, one case of ``head_geometry``). On fp32 all five run in
 ``csrc/flash_attn_fp32.cu``, with fp32-accurate products, as the JAX kernels multiply
-fp32 blocks with fp32 results: the forward and dK/dV as 3xTF32 on wgmma (each operand
-split into two tf32 parts, three tensor-core products a product) fed by a TMA ring,
-each tile split and transposed in shared memory by the kernel, dQ as fp32 FMA on the CUDA
-cores with ``cp.async`` copies (both need ``vector_geometry``). Both routes take the
+fp32 blocks with fp32 results: every product as 3xTF32 on wgmma (each operand split
+into two tf32 parts, three tensor-core products a product) fed by a TMA ring, each tile
+split and transposed in shared memory by the kernel (the loads need
+``vector_geometry``). Both routes take the
 projections in the (B, L, H*D) layout the attention layers produce, so no head split or
 padding copy is made.
 The JAX block-size policy (``pick_block``, ``serving_blocks``) does not carry over:

@@ -9,9 +9,9 @@ bounds (O 1e-2, LSE 1e-3, gradients 1e-2 * max(1, max|ref|)) cover the kernels' 
 rounding of P (and dS) and of their own outputs; K1 has no LSE to check, so its O is
 also held to 2e-2 * max|ref|: at long L, O shrinks as 1/sqrt(L) toward 1e-2 itself.
 On fp32 every output is held to 1e-4 * max(1, max|ref|), LSE and m to 1e-4 and l to
-1e-4 relative: the forward and dK/dV multiply as 3xTF32 (about 2^-21 of each product;
-tests/test_torch_tf32_split.py), dQ in fp32; a single TF32 product, about three
-decimal digits, would miss these.
+1e-4 relative: every fp32 kernel multiplies as 3xTF32 (about 2^-21 of each product;
+tests/test_torch_tf32_split.py); a single TF32 product, about three decimal digits,
+would miss these.
 """
 
 import numpy as np
@@ -200,11 +200,12 @@ def test_fwd_tiles_of_each_fp32_instance(cuda, d):
 @pytest.mark.parametrize("l", [300, 4225])
 @pytest.mark.parametrize("d", [8, 16, 32, 40, 48, 64, 80, 512])
 def test_fp32_instances_at_ragged_lengths(cuda, d, l):
-    """Every instance of the fp32 forward and dK/dV kernels (3xTF32) at a length that is
-    not a whole number of their tiles (128 or 64 query rows, 64-key tiles; 64 or 128 keys
-    and 32-query tiles in dK/dV): K2's O and LSE, the K5 forward's O, m and l at the
-    stock scale negated, and K3's and K5's dK, dV (up to D 80), each against its plain
-    version at the fp32 bounds. D 48 runs on the D 64 instance."""
+    """Every instance of the fp32 forward, dK/dV and dQ kernels (3xTF32) at a length
+    that is not a whole number of their tiles (128 or 64 query rows, 64-key tiles; 64 or
+    128 keys and 32-query tiles in dK/dV; 128 queries and 64-key tiles, or 64 queries
+    and 32-key tiles, in dQ): K2's O and LSE, the K5 forward's O, m and l at the stock
+    scale negated, and K3's and K5's dK, dV and K4's and K5's dQ (up to D 80), each
+    against its plain version at the fp32 bounds. D 48 runs on the D 64 instance."""
     b, heads = 1, 2
     q, k, v, do = (randn((b, l, heads * d), s, cuda, FP32) for s in range(4))
     o, lse = fa.flash_attention(q, k, v, heads)
@@ -225,12 +226,17 @@ def test_fp32_instances_at_ragged_lengths(cuda, d, l):
     di = (o5 * doh).sum(-1)
     grads += fs.stock_flash_bwd_dkv(qh, kh, vh, doh, m, lsum, di, scale)
     refs += fs.stock_flash_bwd_dkv_plain(qh, kh, vh, doh, m, lsum, di, scale)
+    grads += (fa.flash_bwd_dq(q, k, v, do, lse, dcap, heads),
+              fs.stock_flash_bwd_dq(qh, kh, vh, doh, m, lsum, di, scale))
+    refs += (fa.flash_bwd_dq_plain(q, k, v, do, lse, dcap, heads),
+             fs.stock_flash_bwd_dq_plain(qh, kh, vh, doh, m, lsum, di, scale))
     torch.cuda.synchronize()
-    for name, out, ref in zip(("K3 dK", "K3 dV", "K5 dK", "K5 dV"), grads, refs):
+    for name, out, ref in zip(("K3 dK", "K3 dV", "K5 dK", "K5 dV", "K4 dQ", "K5 dQ"), grads,
+                              refs):
         assert out.dtype == FP32 and torch.isfinite(out).all(), name
         assert (out - ref).abs().max().item() <= bound(ref, FP32), name
-    assert fa.FP32_LAUNCHES == {"k1": 0, "k2": 1, "k3": 1, "k4": 0}
-    assert fs.FP32_LAUNCHES == {"k5_fwd": 1, "k5_dkv": 1, "k5_dq": 0}
+    assert fa.FP32_LAUNCHES == {"k1": 0, "k2": 1, "k3": 1, "k4": 1}
+    assert fs.FP32_LAUNCHES == {"k5_fwd": 1, "k5_dkv": 1, "k5_dq": 1}
 
 
 @pytest.mark.parametrize("dtype", [BF16, FP32])

@@ -1,18 +1,20 @@
 """The arithmetic of the fp32 route's 3xTF32 kernels, emulated on the CPU.
 
-The fp32 forward and dK/dV kernels (csrc/flash_attn_fp32.cu) multiply on the tensor
-cores, which read tf32 operands: 1 sign, 8 exponent and 10 stored mantissa bits. Each
-fp32 operand x is split into hi = x with its 13 low mantissa bits dropped and lo =
-tf32_rna(x - hi) (x - hi is exact in fp32; cvt.rna.tf32.f32 rounds to nearest, ties
-away from zero), and a product a*b is taken as lo_a*hi_b + hi_a*lo_b + hi_a*hi_b: the
-split of P and dS in registers, of Q, K, V, dO and their transposes by the producer
-warpgroup. Here the same split is done in plain torch, every product of tf32 values is
-exact in float64 (22 significant bits), and attention runs through it at each head dim
-of the fp32 paths (8, 16, 32, 40, 64, 80 and the VAE's 512) at a small length, with q
-as drawn and scaled x4 (a peaked softmax): the forward (S = Q K^T, O = P V) and the
-products of dK/dV (S^T = K Q^T, dP^T = V dO^T, dV = P^T dO, dK = dS^T Q) against float64.
-Three products stay within the fp32 route's bound, 1e-4 * max(1, max|ref|) on every
-output (tests/test_torch_kernels_gpu.py, chip_smoke.py); one TF32 product (both operands
+Every fp32 flash kernel (csrc/flash_attn_fp32.cu: the forward, dK/dV and dQ) multiplies
+on the tensor cores, which read tf32 operands: 1 sign, 8 exponent and 10 stored
+mantissa bits. Each fp32 operand x is split into hi = x with its 13 low mantissa bits
+dropped and lo = tf32_rna(x - hi) (x - hi is exact in fp32; cvt.rna.tf32.f32 rounds to
+nearest, ties away from zero), and a product a*b is taken as lo_a*hi_b + hi_a*lo_b +
+hi_a*hi_b: the split of P and dS in registers, of Q, K, V, dO and their transposes by
+the producer warpgroups (or, for Q and dO in dQ, by the consumers). Here the same split
+is done in plain torch, every product of tf32 values is exact in float64 (22
+significant bits), and attention runs through it at each head dim of the fp32 paths (8,
+16, 32, 40, 64, 80 and the VAE's 512) at a small length, with q as drawn and scaled x4
+(a peaked softmax): the forward (S = Q K^T, O = P V), the products of dK/dV (S^T = K
+Q^T, dP^T = V dO^T, dV = P^T dO, dK = dS^T Q) and the chain of dQ (S = Q K^T, dP = dO
+V^T, dS in fp32, dQ = dS K * scale) against float64. Three products stay within the fp32
+route's bound, 1e-4 * max(1, max|ref|) on every output
+(tests/test_torch_kernels_gpu.py, chip_smoke.py); one TF32 product (both operands
 rounded, tf32_rna) misses it, which is why the kernels issue three.
 """
 
@@ -115,3 +117,37 @@ def test_three_tf32_products_hold_the_fp32_bound_and_one_does_not(d, q_mul):
     one = errors(attention(q, k, v, do, mm_tf32, scale), ref)
     assert max(three) <= BOUND, f"3xTF32 O, dK, dV: {three}"
     assert max(one) > BOUND, f"one TF32 product O, dK, dV: {one}"
+
+
+def dq_chain(q, k, v, do, mm, scale):
+    """dQ in the dQ kernel's order: S = Q K^T and dP = dO V^T taken by `mm` (unscaled),
+    P = exp(S * scale - LSE) and dS = P (dP - Dcap) in fp32 from the caller's fp32 LSE
+    and Dcap, then dQ = dS K * scale by `mm`."""
+    s = mm(q, k.transpose(-1, -2)).float()
+    dp = mm(do, v.transpose(-1, -2)).float()
+    s64 = q.double() @ k.double().transpose(-1, -2) * scale
+    lse = torch.logsumexp(s64, -1).float()  # as K2 hands it, fp32
+    dcap = (do.double() * (torch.softmax(s64, -1) @ v.double())).sum(-1).float()
+    ds = torch.exp(s * scale - lse[..., None]) * (dp - dcap[..., None])
+    return mm(ds, k) * scale
+
+
+def reference_dq(q, k, v, do, scale):
+    q, k, v, do = (x.double() for x in (q, k, v, do))
+    p = torch.softmax(q @ k.transpose(-1, -2) * scale, dim=-1)
+    ds = p * (do @ v.transpose(-1, -2) - (do * (p @ v)).sum(-1, keepdim=True))
+    return ds @ k * scale
+
+
+@pytest.mark.parametrize("q_mul", [1, 4])
+@pytest.mark.parametrize("d", [8, 16, 32, 40, 64, 80])
+def test_dq_chain_holds_the_fp32_bound_through_3xtf32_and_not_through_one(d, q_mul):
+    """dQ through the dQ kernel's chain of three 3xTF32 products within 1e-4 *
+    max(1, max|ref|) of float64; through one TF32 product each, outside it."""
+    q, k, v, do = inputs(d, q_mul)
+    scale = d**-0.5
+    ref = reference_dq(q, k, v, do, scale)
+    three = errors([dq_chain(q, k, v, do, mm_3xtf32, scale)], ref[None])[0]
+    one = errors([dq_chain(q, k, v, do, mm_tf32, scale)], ref[None])[0]
+    assert three <= BOUND, f"3xTF32 dQ: {three}"
+    assert one > BOUND, f"one TF32 product dQ: {one}"
