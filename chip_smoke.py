@@ -180,6 +180,16 @@ PR 14, cut to keep the script inside its time); the counts below are at those va
               plain attention and `serve --model_variant sdxl-refiner --warmup` (fp32, as
               scripts/serve.py serves it) answering one unguided 1024² request, {k1 0,
               k2 401}. Every launch exact and on the fp32 route.
+ 23. datasets (run after "weights") `python -m controllora_tpu_torch.tasks
+              make_dataset_fill50k` and `make_dataset_diffusiondb_canny` (Canny on the
+              card) side by side, 16 pairs each at 512²: every PNG decodes at 512² (the
+              Canny guides gray), each guide equal to the CPU's Canny of its image at the
+              JAX script's thresholds bit for bit, prompt.jsonl read back through
+              _JsonlGuideDataset; both again in this process for ms a pair (host clock),
+              their files equal to the CLI's. Then the smoke train CLI at 512², batch 2,
+              9 steps with --profile (K2-K4 at its bf16 D 8 and D 32 shapes checked
+              first): exact launches {k2 4, k3 3, k4 3} a step, and the trace of steps 3-7
+              names the hand-written kernels.
 The last lines are the kernel record (each route with the CUDA kernel it launches, and
 under "fp32" its fp32 route's kernels, launches and times),
 the card's name and power limit, and {"ok": true, "device": {...}}.
@@ -3142,6 +3152,181 @@ def phase_weights(torch, fa, card):
 
 
 
+# phase "datasets": the builders' pairs at RES (the JAX scripts' default), and the
+# smoke train CLI's --profile run (batch 2, bf16, no remat; steps 3-7 traced)
+DATASET_NUM, PROFILE_STEPS, PROFILE_BATCH = 16, 9, 2
+HAND_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")
+
+
+def dataset_kernels(torch, fa, device, record, res, batch):
+    """K2, K3 and K4 (bf16) at the shapes the smoke stack's train step at `res` and
+    `batch` gives them, against their plain versions, untimed: the long
+    self-attentions and the VAE encoder's mid-attention (K2 only)."""
+    from controllora_tpu_torch.models import zoo
+
+    unet, vae = zoo.VARIANTS["smoke"][:2]
+    gen = torch.Generator(device=device).manual_seed(23)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+
+    heads = unet.attention_head_dim
+    attn = (batch, heads, (res // 8) ** 2, unet.block_out_channels[0] // heads)
+    for b, h, l, d in (attn, (batch, 1, (res // 8) ** 2, vae.block_out_channels[-1])):
+        q, k, v = rnd(b, l, h * d), rnd(b, l, h * d), rnd(b, l, h * d)
+        o, lse = fa.flash_attention(q, k, v, h)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = fa.attention_lse_plain(q.float(), k.float(), v.float(), h)
+        err, lerr = (o.float() - o_ref).abs().max().item(), (lse - lse_ref).abs().max().item()
+        if not (torch.isfinite(o).all() and err <= O_BOUND and lerr <= LSE_BOUND):
+            raise AssertionError(f"K2 B{b} H{h} L{l} D{d}: max|dO| {err}, max|dLSE| {lerr}")
+        record["k2"]["max_abs_err"] = max(record["k2"]["max_abs_err"], err)
+        log(f"K2 (smoke {res}² training batch {batch}) B={b} H={h} L={l} D={d}: max|dO| "
+            f"{err:.3e} <= {O_BOUND}, max|dLSE| {lerr:.3e} <= {LSE_BOUND}")
+    bwd_case(torch, fa, rnd, record, *attn, timed=False,
+             label=f" (smoke {res}² training batch {batch})")
+
+
+def phase_datasets(torch, fa, fs, device, card, record):
+    """The dataset builders as a user runs them, `python -m controllora_tpu_torch.tasks
+    make_dataset_fill50k` and `make_dataset_diffusiondb_canny` (Canny on --device
+    CLI_DEVICE), side by side at RES with --num DATASET_NUM: every PNG decodes at RES x
+    RES (the Canny guides as 8-bit gray), each card guide equals `canny` of the same
+    image on the CPU at the JAX script's thresholds bit for bit, prompt.jsonl has
+    DATASET_NUM lines and the pairs read back through _JsonlGuideDataset. Both builders
+    again in this process, timed (ms a pair, host clock), their files equal to the
+    CLI's. Then `python -m controllora_tpu_torch.train --model_variant smoke --profile`
+    at RES for PROFILE_STEPS steps in this process (its K2-K4 shapes first checked
+    against their plain versions): exact launches, and the trace under
+    <output_dir>/profile names the hand-written kernels. Returns the train run's
+    launches."""
+    import glob
+
+    import numpy as np
+
+    from controllora_tpu_torch import make_dataset
+    from controllora_tpu_torch.annotators import canny
+    from controllora_tpu_torch.data.process_datasets import _JsonlGuideDataset
+    from controllora_tpu_torch.data.tokenizer import HashTokenizer
+    from controllora_tpu_torch.models import zoo
+    from controllora_tpu_torch.utils.png import decode_png
+
+    t_phase = time.perf_counter()
+    n = DATASET_NUM
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = {name: os.path.join(tmp, name) for name in ("fill50k", "canny")}
+        common = ["--num", str(n), "--resolution", str(RES), "--device", CLI_DEVICE]
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(2) as pool:
+            runs = [pool.submit(run_cli, "controllora_tpu_torch.tasks",
+                                ["make_dataset_fill50k", "--out", dirs["fill50k"], *common]),
+                    pool.submit(run_cli, "controllora_tpu_torch.tasks",
+                                ["make_dataset_diffusiondb_canny", "--out", dirs["canny"],
+                                 *common, "--seed", "0"])]
+            said = [r.result().strip().splitlines()[-1] for r in runs]
+        cli_s = time.perf_counter() - t0
+        if said != [f"wrote {n} pairs to {dirs['fill50k']}", f"wrote {n} pairs to {dirs['canny']}"]:
+            raise AssertionError(f"datasets: the builders said {said}")
+
+        rng = np.random.default_rng(0)  # the Canny builder's thresholds, in its order
+        edges = 0
+        for i in range(n):
+            lo, hi = int(rng.integers(1, 10)), int(rng.integers(130, 150))
+            for name, root in dirs.items():
+                for kind in ("images", "guides"):
+                    with open(os.path.join(root, kind, f"{i}.png"), "rb") as f:
+                        data = f.read()
+                    gray = name == "canny" and kind == "guides"
+                    if decode_png(data).shape != (RES, RES, 3) or (data[25] == 0) != gray:
+                        raise AssertionError(f"datasets: {name} {kind}/{i}.png is not a "
+                                             f"{RES}² {'gray' if gray else 'RGB'} PNG")
+            with open(os.path.join(dirs["canny"], "images", f"{i}.png"), "rb") as f:
+                img = decode_png(f.read())
+            with open(os.path.join(dirs["canny"], "guides", f"{i}.png"), "rb") as f:
+                guide = decode_png(f.read())[..., 0]
+            ref = canny(torch.from_numpy(img), lo, hi).numpy()
+            if not np.array_equal(guide, ref):
+                raise AssertionError(f"datasets: Canny guide {i} ({lo}, {hi}) on the card "
+                                     f"differs from the CPU's in {int((guide != ref).sum())} "
+                                     "pixels")
+            edges += int((ref > 0).sum())
+        for name, root in dirs.items():
+            with open(os.path.join(root, "prompt.jsonl")) as f:
+                lines = f.read().splitlines()
+            ds = _JsonlGuideDataset(HashTokenizer(), resolution=RES, data_root=root)
+            items = [ds[i] for i in range(len(ds))]
+            if len(lines) != n or len(items) != n or not all(
+                    it["pixel_values"].shape == it["guide_values"].shape == (RES, RES, 3)
+                    and np.isfinite(it["pixel_values"]).all() for it in items):
+                raise AssertionError(f"datasets: {name}: {len(lines)} prompt lines, "
+                                     f"{len(items)} pairs read back")
+
+        # the same builders in this process, timed; the same files
+        ms = {}
+        for name, build in (("fill50k", lambda out: make_dataset.fill50k(out, n, RES)),
+                            ("canny", lambda out: make_dataset.diffusiondb_canny(
+                                out, n, RES, 0, CLI_DEVICE))):
+            again = os.path.join(tmp, name + "_again")
+            t0 = time.perf_counter()
+            build(again)
+            ms[name] = (time.perf_counter() - t0) * 1e3 / n
+            for path in glob.glob(os.path.join(dirs[name], "*", "*.png")):
+                with open(path, "rb") as f, open(path.replace(dirs[name], again), "rb") as g:
+                    if f.read() != g.read():
+                        raise AssertionError(f"datasets: {name} in process differs from the "
+                                             f"CLI's at {path}")
+        log(f"datasets: python -m controllora_tpu_torch.tasks make_dataset_fill50k and "
+            f"make_dataset_diffusiondb_canny (--device {CLI_DEVICE}) side by side, {n} pairs "
+            f"each at {RES}², {cli_s:.1f} s with start; every PNG decodes at {RES}² (Canny "
+            f"guides gray), the card's Canny guides equal the CPU's bit for bit ({edges} edge "
+            f"pixels), prompt.jsonl {n} lines each, the pairs read back through "
+            f"_JsonlGuideDataset; in process: fill50k {ms['fill50k']:.1f} ms a pair, "
+            f"diffusiondb_canny {ms['canny']:.1f} ms a pair (host clock, files equal the "
+            f"CLI's); {card}")
+
+        # the train CLI's --profile
+        dataset_kernels(torch, fa, device, record, RES, PROFILE_BATCH)
+        run = os.path.join(tmp, "run")
+        t0 = time.perf_counter()
+        out, used, used32 = fp32_cli(torch, fa, fs, "controllora_tpu_torch.train", [
+            "--model_variant", "smoke", "--resolution", str(RES), "--train_batch_size",
+            str(PROFILE_BATCH), "--max_train_steps", str(PROFILE_STEPS), "--log_every", "1",
+            "--checkpointing_steps", "0", "--profile", "--output_dir", run,
+            "--device", CLI_DEVICE])
+        train_s = time.perf_counter() - t0
+        per_step = train_launches(zoo.VARIANTS["smoke"][0], RES, None)
+        want = {k: per_step.get(k, 0) * PROFILE_STEPS for k in used}
+        steps = [ln for ln in out.splitlines() if ln.startswith("step ")]
+        if used != want or any(used32.values()) or len(steps) != PROFILE_STEPS:
+            raise AssertionError(f"datasets: profiled train launches {used} (want {want}), "
+                                 f"fp32 route {used32}\n{out[-2000:]}")
+        traces = glob.glob(os.path.join(run, "profile", "*.pt.trace.json"))
+        if f"profiler trace written to {run}/profile" not in out or len(traces) != 1:
+            raise AssertionError(f"datasets: traces {traces}\n{out[-2000:]}")
+        size = os.path.getsize(traces[0])
+        with open(traces[0]) as f:
+            events = json.load(f)["traceEvents"]
+        found = {k: 0 for k in HAND_KERNELS}
+        kernel_events = 0
+        for e in events:
+            if e.get("cat") == "kernel":
+                kernel_events += 1
+                for k in HAND_KERNELS:
+                    found[k] += k in e.get("name", "")
+        if not any(found.values()):
+            raise AssertionError(f"datasets: the trace ({kernel_events} kernel events) "
+                                 f"names none of {HAND_KERNELS}")
+    log(f"datasets profile: python -m controllora_tpu_torch.train --model_variant smoke "
+        f"--resolution {RES} --train_batch_size {PROFILE_BATCH} --max_train_steps "
+        f"{PROFILE_STEPS} --profile: {train_s:.1f} s with the stack's build and the trace; "
+        f"launches {used} (per step {per_step}); one trace of {size / 2 ** 20:.1f} MiB, "
+        f"{len(events)} events, {kernel_events} kernels, the hand-written ones {found} "
+        f"(steps 3-7: {5 * per_step['k2']} K2, {5 * per_step['k3']} K3, "
+        f"{5 * per_step['k4']} K4 launched); {steps[-1]}; {card}")
+    log(f"datasets phase {time.perf_counter() - t_phase:.1f} s")
+    return used
+
+
 ANNOTATOR_RES = 512  # the reference's detect_resolution and MLSD's, HED's working size
 MIDAS_SIZES = (384, 512)
 ANNOTATOR_REL = 1e-3  # max|card - CPU| / max|CPU| of each net's raw maps
@@ -4310,6 +4495,8 @@ def main():
     mark("family train, train CLI, dreambooth")
     weights = phase_weights(torch, fa, card)
     mark("weights")
+    datasets = phase_datasets(torch, fa, fs, device, card, record)
+    mark("datasets")
     annotators = phase_annotators(torch, fa, card)
     mark("annotators")
     eval_presets = phase_eval_presets(torch, fa, card)
@@ -4319,12 +4506,13 @@ def main():
     # launches on the main paths, each counted from 0: serving, the serving presets,
     # training (K1-K4), the render modes, the other families' renders (exact, tome,
     # turbo) and requests (SDXL, the refiner), their training and DreamBooth's steps,
-    # the loaded stack's renders and the canny2image request, the pose2image request,
-    # every rank's mesh renders and dp step, the presets' quality check, then training
+    # the loaded stack's renders and the canny2image request, the smoke train CLI's
+    # --profile run, the pose2image request, every rank's mesh renders and dp step,
+    # the presets' quality check, then training
     # under CONTROLLORA_FLASH_IMPL=stock (K5), then the fp32 stacks' paths (K1-K5 on
     # their fp32 route)
     paths = (serve, presets, train, modes, families, family_train, dreambooth, weights,
-             annotators, parallel, eval_presets)
+             datasets, annotators, parallel, eval_presets)
     launches = {n: sum(p.get(n, 0) for p in paths) for n in serve}
     launches.update({n: stock[n] for n in fs.LAUNCHES})
     launches = {n: c + fp32_paths[n] for n, c in launches.items()}

@@ -2,6 +2,7 @@
 
     python -m controllora_tpu_torch.tasks train_canny --pretrained_model_name_or_path <dir>
     python -m controllora_tpu_torch.tasks test_canny --num_validation_images 1
+    python -m controllora_tpu_torch.tasks make_dataset_fill50k --out data/fill50k --num 50000
     python -m controllora_tpu_torch.tasks --list
 
 Each task pins the reference's hyperparameters (reference tasks/train_canny.py:14-25:
@@ -9,7 +10,9 @@ Each task pins the reference's hyperparameters (reference tasks/train_canny.py:1
 controllora_tpu_torch.<cli>`` with the JAX launcher's argument list, element for
 element (``tasks/_launch.py`` and ``tasks/{train,test}_*.py``, copied here); the
 arguments after the task's name go last, so a repeated flag overrides the pinned one.
-The exit code is the CLI's.
+The exit code is the CLI's. The two dataset builders, ``make_dataset_fill50k`` and
+``make_dataset_diffusiondb_canny`` (``tasks/make_dataset_*.py``), run in this process
+through ``make_dataset.main`` with the user's arguments.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ from __future__ import annotations
 import subprocess
 import sys
 from typing import Dict, List, Tuple
+
+from controllora_tpu_torch import make_dataset
 
 
 # Reference hyperparameters shared across tasks (reference tasks/train_canny.py:14-25):
@@ -113,10 +118,16 @@ TASKS: Dict[str, Tuple[str, List[str]]] = {
 }
 
 
+# builder task -> make_dataset's builder
+BUILDERS = {"make_dataset_fill50k": "fill50k",
+            "make_dataset_diffusiondb_canny": "diffusiondb_canny"}
+
+
 def command(task: str, extra: List[str]) -> List[str]:
     """The command line of ``task`` with the user's ``extra`` arguments last."""
     if task not in TASKS:
-        raise SystemExit(f"unknown task {task!r}; known: {', '.join(sorted(TASKS))}")
+        raise SystemExit(f"unknown task {task!r}; known: "
+                         f"{', '.join(sorted([*TASKS, *BUILDERS]))}")
     cli, args = TASKS[task]
     return [sys.executable, "-m", f"controllora_tpu_torch.{cli}", *args, *extra]
 
@@ -126,7 +137,10 @@ def main(argv=None) -> int:
     if not argv or argv[0] in ("-h", "--help", "--list"):
         print(__doc__)
         print("tasks: " + ", ".join(sorted(TASKS)))
+        print("dataset builders: " + ", ".join(sorted(BUILDERS)))
         return 0
+    if argv[0] in BUILDERS:
+        return make_dataset.main([BUILDERS[argv[0]], *argv[1:]])
     cmd = command(argv[0], argv[1:])
     print("+", " ".join(cmd), flush=True)
     return subprocess.call(cmd)

@@ -35,9 +35,12 @@ stream fast-forwarded to the step; the seed recorded in ``run_meta.json`` wins o
 ``--seed`` for the random weights, data order and noise. SIGTERM or SIGINT finishes the step, saves a
 checkpoint and exits 0 (a second signal aborts). The run ends by writing the
 adapter artifact (``training/checkpoint.py``) and a model card (``README.md``, the
-checkpoint directory as ``base_model``) to ``--output_dir``. Flags of
-``scripts/train.py`` not taken here: ``--push_to_hub`` and the ``--hub_*`` flags (no
-network) and ``--profile``.
+checkpoint directory as ``base_model``) to ``--output_dir``. ``--profile`` records
+steps start+3 to start+8 with ``torch.profiler`` (the card's kernels too) into a trace
+under ``<output_dir>/profile`` (view with tensorboard or chrome://tracing); a shorter
+run writes none. ``--no_remat`` is accepted and ignored, as in ``scripts/train.py``.
+Flags of ``scripts/train.py`` not taken here: ``--push_to_hub`` and the ``--hub_*``
+flags (no network).
 
 Data parallelism (``scripts/train.py`` :118-150): under torchrun every rank is one
 process (``--dist_backend`` nccl, one card per rank; gloo on the CPU or a shared
@@ -110,6 +113,9 @@ def parse_args(argv=None):
                    help="block-wise int8 AdamW moments (training/adam8bit.py)")
     p.add_argument("--gradient_checkpointing", action="store_true",
                    help="rematerialise the UNet in the backward")
+    p.add_argument("--no_remat", action="store_true",
+                   help="deprecated: remat is off by default; use "
+                        "--gradient_checkpointing to enable it")
     p.add_argument("--remat_policy", type=str, default="dots",
                    choices=["nothing", "dots", "dots_all"],
                    help="what the UNet remat keeps: nothing, the projections' outputs "
@@ -133,6 +139,9 @@ def parse_args(argv=None):
                    help="metrics sinks beside metrics.jsonl")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--log_every", type=int, default=10)
+    p.add_argument("--profile", action="store_true",
+                   help="capture a torch.profiler trace of steps 3..8 to "
+                        "<output_dir>/profile (view with tensorboard)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; the flash kernels run on cuda")
     distributed.add_dist_args(p)
@@ -288,6 +297,19 @@ ControlLoRA adapter trained with controllora_tpu_torch (PyTorch/CUDA) on
 """)
 
 
+def start_profile(device):
+    """A started torch.profiler recording the host's operators and, on a card, its
+    kernels and copies."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
 def main(argv=None):
     args = parse_args(argv)
     started = distributed.start(args)
@@ -408,9 +430,22 @@ def train(args):
               "after the current step", flush=True)
 
     prev_handlers = {s: signal.signal(s, request_stop) for s in (signal.SIGTERM, signal.SIGINT)}
+    prof = None  # --profile: steps start+3 to start+8, as scripts/train.py traces
     try:
         t_last = time.perf_counter()
         for step in range(start_step, args.max_train_steps):
+            if args.profile and step == start_step + 3:
+                prof = start_profile(device)
+            if args.profile and step == start_step + 8:
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                t_trace = time.perf_counter()
+                prof.stop()
+                torch.profiler.tensorboard_trace_handler(
+                    os.path.join(args.output_dir, "profile"))(prof)
+                prof = None
+                say(f"profiler trace written to {args.output_dir}/profile", flush=True)
+                t_last += time.perf_counter() - t_trace  # writing it is no step's time
             batch = shard_batch(next(batches), mesh)
             metrics = trainer.train_step(to_device_batch(batch, device), step_gen)
             done = step + 1
@@ -442,6 +477,8 @@ def train(args):
                 return
         checkpointer.finalize()
     finally:
+        if prof is not None:  # the run ended before the trace's last step: no trace
+            prof.stop()
         logger.close()
         for s, h in prev_handlers.items():
             signal.signal(s, h)

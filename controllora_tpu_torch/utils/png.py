@@ -2,7 +2,7 @@
 server (counterpart of ``apps/_webui.py`` ``_png_bytes`` / ``_decode_image``, which
 use PIL; the card's machine has no PIL).
 
-Encodes 8-bit RGB. Decodes 8-bit grayscale, RGB and RGBA, non-interlaced, with any of
+Encodes 8-bit grayscale and RGB. Decodes 8-bit grayscale, RGB and RGBA, non-interlaced, with any of
 the five filter types, to (H, W, 3) uint8 RGB (grayscale is replicated, alpha is
 dropped, as PIL's ``convert("RGB")``). Anything else raises ValueError.
 """
@@ -24,13 +24,16 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
 
 
 def encode_png(image: np.ndarray) -> bytes:
-    """(H, W, 3) uint8 RGB -> PNG bytes (filter type 0 on every row)."""
+    """(H, W, 3) uint8 RGB or (H, W) uint8 grayscale (PIL's mode "L") -> PNG bytes
+    (filter type 0 on every row)."""
     img = np.asarray(image)
-    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
-        raise ValueError(f"encode_png takes (H, W, 3) uint8, got {img.shape} {img.dtype}")
-    h, w, _ = img.shape
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * 3)], axis=1)
-    header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    if img.dtype != np.uint8 or not (img.ndim == 2 or (img.ndim == 3 and img.shape[2] == 3)):
+        raise ValueError(f"encode_png takes (H, W, 3) or (H, W) uint8, got {img.shape} "
+                         f"{img.dtype}")
+    h, w = img.shape[:2]
+    ch = 1 if img.ndim == 2 else 3
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * ch)], axis=1)
+    header = struct.pack(">IIBBBBB", w, h, 8, 2 if ch == 3 else 0, 0, 0, 0)
     return (SIGNATURE + _chunk(b"IHDR", header)
             + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)) + _chunk(b"IEND", b""))
 

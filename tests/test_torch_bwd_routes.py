@@ -17,6 +17,7 @@ tests/test_torch_kernels_gpu.py.
 """
 
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -52,12 +53,31 @@ def rand(shape, seed):
     return np.random.default_rng(seed).normal(size=shape).astype(np.float32)
 
 
-def assert_close(out, ref, what, rel):
+def assert_close(out, ref, what, rel, explain=None):
+    """max|out - ref| <= rel * max(1, max|ref|); a failure also reports ``explain()``."""
     out = out.detach().float().numpy() if torch.is_tensor(out) else np.asarray(out)
     ref = ref.detach().float().numpy() if torch.is_tensor(ref) else np.asarray(ref)
     assert out.shape == ref.shape, (what, out.shape, ref.shape)
     err, bound = np.abs(out - ref).max(), rel * max(1.0, float(np.abs(ref).max()))
-    assert err <= bound, f"{what}: max|delta| {err} > {bound}"
+    assert err <= bound, f"{what}: max|delta| {err} > {bound}" + (
+        f"; {explain()}" if explain else "")
+
+
+def float64_grads(q, k, v, do, scale):
+    """(dQ, dK, dV) of softmax(Q K^T * scale) V by autograd in float64."""
+    q, k, v = (x.double().requires_grad_() for x in (q, k, v))
+    o = torch.softmax(torch.matmul(q, k.transpose(-1, -2)) * scale, dim=-1) @ v
+    return torch.autograd.grad(o, (q, k, v), do.double())
+
+
+def diagnosis(routes, exact):
+    """Each route's max error against the float64 gradients, and what the process ran
+    with: the cause of a failure, where the bound alone cannot tell whose error it is."""
+    errs = ", ".join(f"{route} {name} {(out.double() - ref).abs().max().item():.3e}"
+                     for route, grads in routes.items()
+                     for name, out, ref in zip(("dq", "dk", "dv"), grads, exact))
+    return (f"against float64: {errs}; torch threads {torch.get_num_threads()}; xdist "
+            f"worker {os.environ.get('PYTEST_XDIST_WORKER', 'none')}")
 
 
 def inputs(d, scale, seed):
@@ -90,8 +110,13 @@ def test_k3_k4_contract_equals_stock_plain(d, scale):
     di = (o * do).sum(-1)
     ref_dk, ref_dv = fs.stock_flash_bwd_dkv(q, k, v, do, m, lsum, di, scale)
     ref_dq = fs.stock_flash_bwd_dq(q, k, v, do, m, lsum, di, scale)
+
+    def explain():
+        return diagnosis({"K3/K4 route": (dq, dk, dv), "stock plain": (ref_dq, ref_dk, ref_dv)},
+                         float64_grads(q, k, v, do, scale))
+
     for name, out, ref in (("dq", dq, ref_dq), ("dk", dk, ref_dk), ("dv", dv, ref_dv)):
-        assert_close(out, ref, f"{name} D {d} scale {scale}", 1e-5)
+        assert_close(out, ref, f"{name} D {d} scale {scale}", 1e-5, explain)
 
 
 @pytest.mark.parametrize("scale", SCALES)

@@ -70,7 +70,7 @@ def test_port_imports_nothing_of_jax():
                    "annotators.openpose", "annotators.hed", "annotators.mlsd",
                    "annotators.midas", "annotators.uniformer", "apps.pose2image",
                    "parallel", "parallel.distributed", "parallel.mesh", "parallel.tp",
-                   "eval_presets"):
+                   "eval_presets", "make_dataset"):
         assert f"controllora_tpu_torch.{module}" in names.split(), module
 
 

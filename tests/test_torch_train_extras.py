@@ -7,6 +7,7 @@ Inputs come from a numpy seed; the smoke stacks and weights are those of
 tests/test_torch_training.py. fp32 throughout; each test states its bound.
 """
 
+import json
 import os
 import signal
 import subprocess
@@ -232,6 +233,29 @@ def test_cli_sigterm_saves_and_exits_0(tmp_path):
     steps = [s for s, _ in checkpoint_step_dirs(str(out))]
     assert len(steps) == 1 and steps[0] >= 1 and f"preempted at step {steps[0]}" in stdout
     assert not (out / "diffusion_pytorch_model.bin").exists()
+
+
+@pytest.mark.parametrize("steps,traced", [(9, True), (8, False)])
+def test_cli_profile_traces_steps_3_to_8(tmp_path, capsys, steps, traced):
+    """--profile records steps start+3 to start+8 (scripts/train.py's window) into one
+    trace under <output_dir>/profile; a run that ends before step start+8 writes none.
+    --no_remat parses and leaves remat off."""
+    out = tmp_path / "run"
+    args = SMOKE + ["--train_batch_size", "1", "--max_train_steps", str(steps),
+                    "--checkpointing_steps", "0", "--profile", "--no_remat",
+                    "--output_dir", str(out)]
+    ns = cli.parse_args(args)
+    assert ns.no_remat and not ns.gradient_checkpointing
+    cli.main(args)
+    said = capsys.readouterr().out
+    traces = list((out / "profile").glob("*.pt.trace.json")) if traced else []
+    assert (f"profiler trace written to {out}/profile" in said) == traced
+    if traced:
+        assert len(traces) == 1
+        with open(traces[0]) as f:
+            assert json.load(f)["traceEvents"]
+    else:
+        assert not (out / "profile").exists()
 
 
 # ---------------------------------------------------------------------------- latent cache
