@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Phases, each of which raises (non-zero exit, no result line) when it fails. A render
-runs STEPS (10) steps and a timed training run TRAIN_STEPS (3) steps (20 and 5 until
-PR 14, cut to keep the script inside its time); the counts below are at those values.
+runs STEPS (6) steps and a timed training run TRAIN_WARMUP (1) + TRAIN_STEPS (3) steps
+(cut from 20 render steps and 2 + 5 training steps, then from 10 and 2 + 3, to keep the
+script inside its time); the counts below are at those values.
   1. device   the CUDA device, its name and power limit (nvidia-smi); TF32 off.
   2. build    nvcc builds the hand-written kernels from controllora_tpu_torch/csrc;
               the -Xptxas -v report of each kernel (registers, spills, wgmma
@@ -56,7 +57,7 @@ PR 14, cut to keep the script inside its time); the counts below are at those va
               SDPA; DeepCache's shallow(cache_of(full)) == full and a ToMe UNet eval
               with K1 against its plain version, at full width; then guided renders
               through the engine at bucket 1 and 4 under the exact, tome and turbo
-              presets (turbo: 5 full and 5 shallow UNet evals) and an unguided tome
+              presets (turbo: 3 full and 3 shallow UNet evals) and an unguided tome
               render, one guided render each with DDIM, PNDM, Euler and UniPC, and the
               HTTP server (turbo, buckets 1,4, --warmup) answering 4 concurrent
               /generate requests with PNG guides in one batch; exact launches and
@@ -71,7 +72,7 @@ PR 14, cut to keep the script inside its time); the counts below are at those va
               card's optimizer step against the CPU's on the same gradients, and one
               8-bit train step's loss card against CPU.
   9. train    ControlLoRATrainer.train_step on full-width SD1.5 + `base` at 512²,
-              batch 8 of fill50k, bf16 frozen stack, no remat: 2 warm-up and 5
+              batch 8 of fill50k, bf16 frozen stack, no remat: 1 warm-up and 3
               timed steps, exact launches per step (K2-K4), finite loss, nonzero
               gradient, params updated; ms/step, img/s, peak memory, one profiled step.
  10. modes    the render modes and sampling entry points at full width (seeded bf16
@@ -83,7 +84,7 @@ PR 14, cut to keep the script inside its time); the counts below are at those va
               D 40 and 80); the threaded eval against an fp32 copy with every
               attention plain and a zero-up chain (K2) against the folded eval (K1);
               inpaint's unmasked latents equal to the init's; the SDXL 1024² base
-              [0, 8) -> refiner [8, 10) ensemble through `controllora_tpu_torch.
+              [0, 5) -> refiner [5, 6) ensemble through `controllora_tpu_torch.
               sample`'s main in this process; `python -m controllora_tpu_torch.
               mix_lora` from a .safetensors LoRA written by the port. (The new K1/K2
               shapes are checked and timed in phase 3; the refiner's unguided eval
@@ -92,7 +93,7 @@ PR 14, cut to keep the script inside its time); the counts below are at those va
               subprocess that runs while phase 13's run in turn (then phase 12 runs
               alone); its artifact loads back into the port's ControlLoRA strictly.
  12. stock train  the K5 path: the same CLI in this process under
-              CONTROLLORA_FLASH_IMPL=stock at 512² batch 16 with remat `dots`: 2
+              CONTROLLORA_FLASH_IMPL=stock at 512² batch 16 with remat `dots`: 1
               warm-up and 3 timed steps, exact K5 launches per step, ms/step, peak
               memory, the native data plane reported by the CLI (and the host's time
               to make a batch in Python and in C); then 2 steps each of remat
@@ -108,8 +109,8 @@ PR 14, cut to keep the script inside its time); the counts below are at those va
               attention plain; a ToMe 0.5 eval with K1 against its plain version on
               one set of merge maps (within 2x the exact eval's gap); guided
               renders through the BatchingEngine under exact, tome and turbo with
-              exact launches (derived from the configs: SD2.1 {k1 100, k2 1} and
-              {75, 1} under turbo, SDXL {100, 1} and {50, 1}) and a profiled
+              exact launches (derived from the configs: SD2.1 {k1 60, k2 1} and
+              {45, 1} under turbo, SDXL {60, 1} and {30, 1}) and a profiled
               render each; `python -m controllora_tpu_torch.serve --model_variant
               sdxl` answering one 1024² /generate with a PNG guide; the refiner's UNet
               (5 ids) and text tower against fp32 and its unguided eval (K2) as the
@@ -119,7 +120,7 @@ PR 14, cut to keep the script inside its time); the counts below are at those va
               random bf16 weights with `base` re-derived (K2-K4 at their D 64 and VAE
               shapes are checked and timed in phase 3): per family one train step's loss
               and adapter gradient against an fp32 copy on the card with every attention
-              plain; 2 warm-up and 3 timed steps on native fill50k batches with exact
+              plain; 1 warm-up and 3 timed steps on native fill50k batches with exact
               launches per step (from the configs: K2 per long self-attention, again per
               remat recompute, once in the VAE encoder; K3 and K4 per long
               self-attention), peak memory and one profiled step.
@@ -136,10 +137,10 @@ PR 14, cut to keep the script inside its time); the counts below are at those va
               CLIP_VOCAB_DIR; zoo.load_frozen onto the card (every tensor bitwise the
               F16 source cast to bf16; seconds, peak GiB); one guided 512² render
               through the loaded stack bitwise equal to the in-memory stack's cast the
-              same way, launches exactly {k1 50, k2 1} each; the Canny annotator on
+              same way, launches exactly {k1 30, k2 1} each; the Canny annotator on
               the card equal to the CPU's at 512² and 1024², three threshold pairs (ms
               an image); the canny2image web UI answering one POST /api with a 512²
-              PNG ({k1 50, k2 1}); `python -m controllora_tpu_torch.tasks train_canny`
+              PNG ({k1 30, k2 1}); `python -m controllora_tpu_torch.tasks train_canny`
               (3 steps, batch 1, diffusiondb_canny's Canny on the card, K2-K4) and
               `tasks test_canny` on its output beside convert_checkpoint import-sd,
               export-controllora (its artifact equal to the run's) and
@@ -150,15 +151,16 @@ PR 14, cut to keep the script inside its time); the counts below are at those va
               same detector on the CPU (raw maps within 1e-3 relative max error; the
               decoded peaks, centres and labels and the uint8 maps equal, or differing
               only at near-ties and level boundaries, counted), ms an image; the
-              pose2image web UI answering one POST /api at 512² with the app's defaults
-              (30 steps, CFG 9): exact launches {k1 150, k2 1}, wall and device busy
+              pose2image web UI answering one POST /api at 512², POSE_STEPS (10; the
+              app's default is 30) steps at CFG 9: exact launches {k1 50, k2 1}, wall
+              and device busy
               time, the PNGs written.
  20. parallel  (run after "modes") the serving mesh and data-parallel training: 4 rank
               processes share cuda:0 over gloo (NCCL takes one card a rank; the
               kernels are built by this process first), each with the seeded SD1.5
               stack and `base` ControlLoRA: (a) the guided 512² render (STEPS steps,
               CFG 9) on a cfg,model=2 mesh, each rank's image against this process's
-              1-process render (relative L2 <= 5e-2) with launches exactly {k1 50,
+              1-process render (relative L2 <= 5e-2) with launches exactly {k1 30,
               k2 1} and K1 at (1, 4, 4096, 40); (b) two images on data,cfg (K1 at
               (1, 8, 4096, 40)); (c) a dp train step at global batch 8 on ranks 0 and
               1, the loss and all-reduced gradient against a 1-process batch-8 step
@@ -167,7 +169,7 @@ PR 14, cut to keep the script inside its time); the counts below are at those va
               controllora_tpu_torch.sample --serving_mesh cfg --dist_backend gloo`,
               rank 0 alone writing. The new kernel shapes are checked and timed in
               phase 3 (phase_parallel_kernels). One line "parallel: {...}".
- 21. eval presets  `python -m controllora_tpu_torch.eval_presets --train_steps 100` on the
+ 21. eval presets  `python -m controllora_tpu_torch.eval_presets --train_steps 30` on the
               card: the smoke ControlLoRA trained at 64², 6 specs rendered under exact,
               tome50, dc2 and turbo, the report (the JAX script's keys) printed; no
               kernel launches at 64².
@@ -179,7 +181,7 @@ PR 14, cut to keep the script inside its time); the counts below are at those va
               step and sample CLI at 512²; the refiner's unguided eval in fp32 against
               plain attention and `serve --model_variant sdxl-refiner --warmup` (fp32, as
               scripts/serve.py serves it) answering one unguided 1024² request, {k1 0,
-              k2 401}. Every launch exact and on the fp32 route.
+              k2 201}. Every launch exact and on the fp32 route.
  23. datasets (run after "weights") `python -m controllora_tpu_torch.tasks
               make_dataset_fill50k` and `make_dataset_diffusiondb_canny` (Canny on the
               card) side by side, 16 pairs each at 512²: every PNG decodes at 512² (the
@@ -190,6 +192,26 @@ PR 14, cut to keep the script inside its time); the counts below are at those va
               9 steps with --profile (K2-K4 at its bf16 D 8 and D 32 shapes checked
               first): exact launches {k2 4, k3 3, k4 3} a step, and the trace of steps 3-7
               names the hand-written kernels.
+ 24. hires train (run after "family train") SD1.5 ControlLoRA training at 1536², batch 1,
+              where level 2's self-attentions run K2-K4 at D 160 (L 2304), as the JAX
+              trainer runs them. Its kernel cases run in phase 3, each in bf16
+              (phase_hires_kernels, phase_flash_grad, phase_stock_kernels) and in fp32
+              (rows of FP32_K2, FP32_BWD, FP32_K5) against its plain version: K2 at (1,
+              8, 2304, 160) on the wide forward and K3/K4 there (wide instances: bf16
+              wgmma, fp32 FMA tiles), timed with bounds and SDPA; K3/K4 at the ragged
+              (1, 8, 2116, 160), a short D 160, D 96 and 128, and q scaled x4; K2-K4
+              at the step's other lengths and head dims, checked only: level 1 (1, 8,
+              9216, 80) and level 0 (L 36864, D 40) at one head of its 8, and K2 at the
+              VAE encoder's (1, 1, 36864, 512), where the plain versions' fp32 logits
+              take 2.7-5.4 GB; FlashAttention's gradient at D 160 against plain
+              autograd; K5's backward at D 128. Here: one bf16 step's adapter gradient against the same step
+              with the D 160 attentions' backward on the plain versions (relative
+              5e-2); `python -m controllora_tpu_torch.train --model_variant sd15
+              --resolution 1536 --train_batch_size 1` in this process, bf16 with no
+              remat, 2 warm-up and 3 timed steps (ms a step, peak GiB), and fp32
+              --gradient_checkpointing --remat_policy dots for 2 steps: exact launches
+              per step ({k2 16, k3 15, k4 15}, with remat k2 31) and K3's head dims per
+              step {40: 5, 80: 5, 160: 5}.
 The last lines are the kernel record (each route with the CUDA kernel it launches, and
 under "fp32" its fp32 route's kernels, launches and times),
 the card's name and power limit, and {"ok": true, "device": {...}}.
@@ -220,10 +242,10 @@ K1_SCALED_BOUND = 2e-2
 TOME_NOISE_FACTOR, TOME_LAYER_BOUND = 2, 1e-2
 # H100 SXM peaks (NVIDIA data sheet): bf16 dense tensor-core FLOP/s, HBM3 bytes/s
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
-# a render's steps (20 until PR 14) and the timed train steps (5 until PR 14): the
-# paths' depth, cut to keep the script inside its time as it grew (PERF.md, PR 15)
-STEPS, CFG, RES = 10, 9.0, 512
-TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS = 8, 2, 3
+# a render's steps (20, then 10) and the train runs' warm-up and timed steps (2 + 5,
+# then 2 + 3): the paths' depth, cut to keep the script inside its time as it grew
+STEPS, CFG, RES = 6, 9.0, 512
+TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS = 8, 1, 3
 TRAIN_LAUNCHES = {"k1": 0, "k2": 6, "k3": 5, "k4": 5}  # per step: 5 UNet + 1 VAE
 # the K5 path (CONTROLLORA_FLASH_IMPL=stock), batch 16, launches per step by remat
 # policy: 5 UNet self-attentions at L 4096, 5 more where the remat recomputes them,
@@ -494,10 +516,11 @@ def k1_case(torch, fa, rnd, record, b, h, l, d, bc, timed, label=""):
     return entry
 
 
-def k2_case(torch, fa, device, rnd, record, b, h, l, d, label=""):
-    """K2 at (B, H, L, D) against its plain version (O and LSE), timed as k1_case;
-    where the plan splits the key range, also the same call in one pass (both held to
-    the plain version). Returns the entry appended to record["k2"]["shapes"]."""
+def k2_case(torch, fa, device, rnd, record, b, h, l, d, label="", timed=True):
+    """K2 at (B, H, L, D) against its plain version (O and LSE), with `timed` timed as
+    k1_case; where the plan splits the key range, also the same call in one pass (both
+    held to the plain version). Returns the entry appended to record["k2"]["shapes"],
+    or None untimed."""
     from controllora_tpu_torch.ops.attention import split_heads
 
     q, k, v = rnd(b, l, h * d), rnd(b, l, h * d), rnd(b, l, h * d)
@@ -510,6 +533,10 @@ def k2_case(torch, fa, device, rnd, record, b, h, l, d, label=""):
         raise AssertionError(f"K2 B{b} H{h} L{l} D{d}: max|dO| {err}, max|dLSE| {lerr}")
     line = (f"K2{label} B={b} H={h} L={l} D={d}: max|dO| {err:.3e} <= {O_BOUND}, "
             f"max|dLSE| {lerr:.3e} <= {LSE_BOUND}")
+    record["k2"]["max_abs_err"] = max(record["k2"]["max_abs_err"], err)
+    if not timed:
+        log(line)
+        return None
     bound = attention_roofline(2, b, h, l, l, d, 2, 2, 1)
     ms = cuda_ms(lambda: fa.flash_attention(q, k, v, h))
     dms = device_ms(lambda: fa.flash_attention(q, k, v, h), floor_ms=bound["bound_ms"])
@@ -542,7 +569,6 @@ def k2_case(torch, fa, device, rnd, record, b, h, l, d, label=""):
                  f"{one_ms:.4f} ms (device {num(one_dms)}; max|dO| {oerr:.3e}, max|dLSE| "
                  f"{lerr1:.3e})")
     record["k2"]["shapes"].append(entry)
-    record["k2"]["max_abs_err"] = max(record["k2"]["max_abs_err"], err)
     log(line)
     return entry
 
@@ -1159,15 +1185,16 @@ def grad_check(name, out, ref):
     return err
 
 
-def bwd_case(torch, fa, rnd, record, b, h, l, d, timed, label=""):
-    """K3/K4 at (B, H, L, D) against their plain versions (fp32 on the same bf16
-    inputs, O and LSE from K2); with `timed`, the kernels' times (events and
-    device), the plain versions', the bounds and one SDPA backward (dq, dk and dv
-    together: the yardstick of K3 + K4), appended to record["k3"/"k4"]["shapes"].
-    Returns (K3 entry, K4 entry), or None untimed."""
+def bwd_case(torch, fa, rnd, record, b, h, l, d, timed, label="", q_mul=1):
+    """K3/K4 at (B, H, L, D), q scaled by q_mul, against their plain versions (fp32
+    on the same bf16 inputs, O and LSE from K2); with `timed`, the kernels' times
+    (events and device), the plain versions', the bounds and one SDPA backward (dq,
+    dk and dv together: the yardstick of K3 + K4), appended to
+    record["k3"/"k4"]["shapes"]. Returns (K3 entry, K4 entry), or None untimed."""
     from controllora_tpu_torch.ops.attention import split_heads
 
     q, k, v, do = (rnd(b, l, h * d) for _ in range(4))
+    q = q * q_mul
     o, lse = fa.flash_attention(q, k, v, h)
     dcap = fa.attention_dcap(o, do, h)
     dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, dcap, h)
@@ -1176,7 +1203,7 @@ def bwd_case(torch, fa, rnd, record, b, h, l, d, timed, label=""):
     args = [x.float() for x in (q, k, v, do)] + [lse, dcap]
     ref_dk, ref_dv = fa.flash_bwd_dkv_plain(*args, h)
     ref_dq = fa.flash_bwd_dq_plain(*args, h)
-    tag = f"B={b} H={h} L={l} D={d}"
+    tag = f"B={b} H={h} L={l} D={d}" + (f" q x{q_mul}" if q_mul != 1 else "")
     errs = {n: grad_check(f"{n} {tag}", out, ref)
             for n, out, ref in (("dq", dq, ref_dq), ("dk", dk, ref_dk), ("dv", dv, ref_dv))}
     del ref_dk, ref_dv, ref_dq, args
@@ -1237,17 +1264,23 @@ def phase_backward_kernels(torch, fa, device):
 
 def phase_flash_grad(torch, fa, device):
     """Gradients through dot_product_attention (the route that used to drop them)
-    against autograd of the plain fp32 attention: the training shape, and a ragged L."""
+    against autograd of the plain fp32 attention: the training shape, a ragged L, and
+    SD1.5's 1536² level 2 (D 160) in bf16 and fp32."""
     for b, h, l, d in ((8, 8, 4096, 40), (2, 8, 4225, 40)):
         flash_grad_case(torch, fa, device, b, h, l, d)
+    for dtype in (torch.bfloat16, torch.float32):
+        flash_grad_case(torch, fa, device, *HIRES_LEVEL2, dtype=dtype)
 
 
-def flash_grad_case(torch, fa, device, b, h, l, d):
+def flash_grad_case(torch, fa, device, b, h, l, d, dtype=None):
+    """FlashAttention's gradients on `dtype` inputs (bf16 by default) within GRAD_BOUND
+    (bf16) or FP32_BOUND (fp32) times max(1, max|ref|) of plain fp32 autograd."""
     from controllora_tpu_torch.ops.attention import dot_product_attention, merge_heads, split_heads
 
+    dtype = dtype or torch.bfloat16
     gen = torch.Generator(device=device).manual_seed(4)
     q, k, v, do = (torch.randn((b, l, h * d), generator=gen, device=device)
-                   .to(torch.bfloat16) for _ in range(4))
+                   .to(dtype) for _ in range(4))
     q, k, v = (x.requires_grad_() for x in (q, k, v))
     before = dict(fa.LAUNCHES)
     dot_product_attention(q, k, v, h).backward(do)
@@ -1259,11 +1292,14 @@ def flash_grad_case(torch, fa, device, b, h, l, d):
     qh, kh, vh = (split_heads(x, h) for x in ref_in)
     merge_heads(torch.softmax(qh @ kh.transpose(-1, -2) * d**-0.5, dim=-1) @ vh
                 ).backward(do.float())
-    errs = {n: grad_check(f"FlashAttention d{n}", x.grad, r.grad)
+    bf16 = dtype == torch.bfloat16
+    errs = {n: grad_check(f"FlashAttention d{n}", x.grad, r.grad) if bf16 else
+            fp32_error(torch, f"FlashAttention d{n}", x.grad, r.grad)
             for n, x, r in zip("qkv", (q, k, v), ref_in)}
-    log(f"FlashAttention grad B={b} H={h} L={l} D={d} vs plain fp32 autograd: "
-        + ", ".join(f"max|d{n}| {e:.3e}" for n, e in errs.items())
-        + f" <= {GRAD_BOUND} * max(1, max|ref|); |dq| max {q.grad.abs().max().item():.3e}")
+    log(f"FlashAttention grad {'bf16' if bf16 else 'fp32'} B={b} H={h} L={l} D={d} vs plain "
+        "fp32 autograd: " + ", ".join(f"max|d{n}| {e:.3e}" for n, e in errs.items())
+        + f" <= {GRAD_BOUND if bf16 else FP32_BOUND} * max(1, max|ref|); |dq| max "
+        f"{q.grad.abs().max().item():.3e}")
 
 
 def phase_train_parity(torch, pipe, device):
@@ -1506,7 +1542,8 @@ def phase_stock_kernels(torch, fs, device):
                                                  (2, 8, 4096, 40, 0.3, True, False),
                                                  (2, 8, 4096, 40, -0.3, True, False),
                                                  (2, 8, 1024, 64, None, True, False),
-                                                 (2, 8, 1024, 40, 0.3, True, True)):
+                                                 (2, 8, 1024, 40, 0.3, True, True),
+                                                 (2, 4, 1024, 128, 0.3, True, False)):
         scale = d**-0.5 if scale is None else scale
         q, k, v, do = (heads(b, h, l, d, contiguous) for _ in range(4))
         o, m, lsum = fs.stock_flash_fwd(q, k, v, scale)
@@ -1701,7 +1738,7 @@ def phase_stock_train(torch, fa, fs):
     """The K5 main path: ``python -m controllora_tpu_torch.train`` (in this process,
     so that the launch counters are read here) under CONTROLLORA_FLASH_IMPL=stock, on
     SD1.5 at full width with the `base` ControlLoRA, 512², batch 16,
-    --gradient_checkpointing --remat_policy dots: 2 warm-up and 3 timed steps with
+    --gradient_checkpointing --remat_policy dots: TRAIN_WARMUP + TRAIN_STEPS steps with
     exact launches per step, batches from the native data plane (C fill50k behind a
     prefetch thread), which the CLI must report; then 2 steps each of `nothing` and
     no remat, for peak memory. The host's time to make one batch of 16 in Python
@@ -2332,8 +2369,8 @@ def family_train_parity(torch, pipe, res, label):
 
 def family_train(torch, fa, pipe, label, res, batch, remat, card):
     """The family's training main path: ControlLoRATrainer.train_step at res² on
-    native fill50k batches, bf16 stack, `base` re-derived: 2 warm-up and 3 timed
-    steps on the host clock with exact launches per step, finite losses, nonzero
+    native fill50k batches, bf16 stack, `base` re-derived: TRAIN_WARMUP warm-up and
+    TRAIN_STEPS timed steps on the host clock with exact launches per step, finite losses, nonzero
     gradients, params updated, peak memory; then one profiled step. Returns the
     launches of the timed steps, counted from 0."""
     from controllora_tpu_torch.data.fastloader import NativeFill50kBatcher
@@ -2413,6 +2450,226 @@ def phase_family_train(torch, fa, device, card):
         torch.cuda.empty_cache()
     log(f"family train phase {time.perf_counter() - t_phase:.1f} s; main-path launches {total}")
     return total
+
+
+# phase "hires train": SD1.5 at the JAX trainer's --resolution 1536, batch 1 (the
+# reference tasks' batch), where level 2's five self-attentions run K2-K4 at D 160 on
+# L 2304 (1472², L 2116, is the first resolution whose level 2 takes the flash route):
+# HIRES_WARMUP + HIRES_STEPS bf16 steps with no remat, then HIRES_FP32_STEPS fp32 steps
+# with remat dots, each through the train CLI
+HIRES_VARIANT, HIRES_RES, HIRES_BATCH = "sd15", 1536, 1
+HIRES_WARMUP, HIRES_STEPS, HIRES_FP32_STEPS = 2, 3, 2
+HIRES_LEVEL2 = (1, 8, 2304, 160)
+# K3/K4 on the wide instances (D 88-160), in bf16 here and in fp32 as rows of FP32_BWD:
+# (shape, q factor, timed, label)
+HIRES_BWD = ((HIRES_LEVEL2, 1, True, "SD1.5 1536² level 2"),
+             ((1, 8, 2116, 160), 1, False, "SD1.5 1472² level 2, ragged"),
+             ((1, 2, 333, 160), 1, False, "short"),
+             ((1, 4, 1024, 96), 1, False, "D 96, zero filled to 160"),
+             ((1, 4, 1024, 128), 1, False, "D 128, zero filled to 160"),
+             (HIRES_LEVEL2, 4, False, "q x4"))
+# the step's other K2-K4 lengths and head dims (the narrow instances), checked only, in
+# the same format: level 1 whole, level 0 at one head of its 8 (the plain versions'
+# fp32 logits of all 8 would take 43 GB; a head's blocks run the same 576 query tiles),
+# and K2 alone at the VAE encoder's D 512
+HIRES_NARROW = (((1, 8, 9216, 80), 1, False, "SD1.5 1536² level 1"),
+                ((1, 1, 36864, 40), 1, False, "SD1.5 1536² level 0, one of its 8 heads"))
+HIRES_K2 = HIRES_NARROW + (((1, 1, 36864, 512), 1, False, "SD1.5 1536² VAE encoder"),)
+
+
+def flash_head_dims(unet_config, res):
+    """{head dim: count} of the self-attentions one train step at `res` sends to K2-K4
+    (those k1_per_eval counts), from the config's widths and heads per level."""
+    from controllora_tpu_torch.models.unet import (_per_block, attention_processor_names,
+                                                   processor_bucket)
+    from controllora_tpu_torch.ops.attention import FLASH_MIN_LEN
+
+    n, side = len(unet_config.block_out_channels), res // 8
+    heads = _per_block(unet_config.attention_head_dim, n)
+    dims = {}
+    for name in attention_processor_names(unet_config):
+        level = processor_bucket(name, n)
+        if ".attn1." in name and (side >> level) ** 2 >= FLASH_MIN_LEN:
+            d = unet_config.block_out_channels[level] // heads[level]
+            dims[d] = dims.get(d, 0) + 1
+    return dims
+
+
+def phase_hires_kernels(torch, fa, device, record):
+    """Phase "hires train"'s bf16 kernel cases (run with the other kernel phases, where
+    the profiler's device times hold), each against its plain version: K2 at SD1.5's
+    1536² level 2 (the wide forward instance) and K3/K4 at HIRES_BWD (the wide
+    instances), timed at HIRES_LEVEL2 with bounds and SDPA, into `record`'s shapes; K2 at
+    HIRES_K2 and K3/K4 at HIRES_NARROW, checked only. Their fp32 cases are rows of FP32_K2
+    and FP32_BWD; FlashAttention's gradient at D 160 runs in phase_flash_grad, K5's
+    backward at D 128 in phase_stock_kernels and FP32_K5."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(19)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+
+    k2_case(torch, fa, device, rnd, record, *HIRES_LEVEL2,
+            label=" (SD1.5 1536² level 2, wide forward)")
+    for shape, q_mul, timed, label in HIRES_BWD + HIRES_NARROW:
+        bwd_case(torch, fa, rnd, record, *shape, timed=timed, label=f" ({label})", q_mul=q_mul)
+    for shape, _, timed, label in HIRES_K2:
+        k2_case(torch, fa, device, rnd, record, *shape, label=f" ({label})", timed=timed)
+        torch.cuda.empty_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"hires train kernels {time.perf_counter() - t0:.1f} s")
+
+
+def hires_train_parity(torch, fa, device):
+    """One bf16 train step of SD1.5 at HIRES_RES, batch 1, no remat (`base`, seeded
+    weights, latents, guide, ids, noise and t from a numpy seed), through
+    ControlLoRATrainer with every kernel, against the same step with only the D 160
+    attentions' backward on the plain versions (fp32 on the card; patched here only):
+    the adapter gradient within REL_BOUND relative. An all-plain reference cannot run:
+    level 0's fp32 logits alone would take about 43 GB."""
+    import numpy as np
+
+    from controllora_tpu_torch.training.trainer import ControlLoRATrainer
+
+    t0 = time.perf_counter()
+    pipe = build_stack(torch, device, HIRES_VARIANT)
+    rng = np.random.default_rng(7)
+    side = HIRES_RES // 8
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device)
+
+    batch = {"latents": t(rng.normal(size=(HIRES_BATCH, 4, side, side))),
+             "guide_values": t(rng.uniform(-1, 1, (HIRES_BATCH, 3, HIRES_RES, HIRES_RES))),
+             "input_ids": torch.from_numpy(rng.integers(0, 49407, (HIRES_BATCH, 77))).to(device)}
+    draws = dict(noise=t(rng.normal(size=(HIRES_BATCH, 4, side, side))),
+                 timesteps=torch.tensor([500] * HIRES_BATCH, device=device))
+    trainer = ControlLoRATrainer(pipe.control_lora, pipe.unet, pipe.vae, pipe.text_encoder,
+                                 prediction_type=pipe.scheduler.schedule.prediction_type,
+                                 hint_compute_dtype=torch.bfloat16, remat_unet=False)
+
+    def step():
+        fa.reset_launch_counts()
+        loss = trainer.loss(batch, **draws)
+        grad = torch.cat([g.detach().float().flatten() for g in trainer.grads(loss)])
+        torch.cuda.synchronize()
+        return loss.item(), grad, dict(fa.LAUNCHES)
+
+    def plain_at_160(kernel, plain):
+        def call(q, k, v, do, lse, dcap, heads):
+            return (plain if q.shape[-1] // heads == 160 else kernel)(q, k, v, do, lse, dcap,
+                                                                       heads)
+        return call
+
+    loss, grad, used = step()
+    kernels = fa.flash_bwd_dkv, fa.flash_bwd_dq
+    fa.flash_bwd_dkv = plain_at_160(kernels[0], fa.flash_bwd_dkv_plain)
+    fa.flash_bwd_dq = plain_at_160(kernels[1], fa.flash_bwd_dq_plain)
+    try:
+        ref_loss, ref_grad, ref_used = step()
+    finally:
+        fa.flash_bwd_dkv, fa.flash_bwd_dq = kernels
+    err = rel_l2(grad, ref_grad)
+    dims = flash_head_dims(pipe.unet.config, HIRES_RES)
+    n, n160 = sum(dims.values()), dims.get(160, 0)
+    want = {"k1": 0, "k2": n, "k3": n, "k4": n}  # the latents are given: no VAE encoder
+    want_ref = dict(want, k3=n - n160, k4=n - n160)
+    log(f"hires train parity {HIRES_RES}² batch {HIRES_BATCH}: adapter gradient with every "
+        f"kernel vs the D 160 backward on the plain versions relative {err:.4e} <= "
+        f"{REL_BOUND}; loss {loss:.6f} vs {ref_loss:.6f}; |grad| {grad.norm():.4e}; launches "
+        f"{used} vs {ref_used}; {time.perf_counter() - t0:.1f} s")
+    del pipe, trainer, batch, draws
+    gc.collect()
+    torch.cuda.empty_cache()
+    if used != want or ref_used != want_ref:
+        raise AssertionError(f"hires train parity: launches {used} (want {want}), patched "
+                             f"{ref_used} (want {want_ref})")
+    if not (math.isfinite(loss) and bool(grad.isfinite().all()) and ref_grad.norm() > 0
+            and err <= REL_BOUND):
+        raise AssertionError(f"hires train parity: loss {loss}, gradient relative {err} > "
+                             f"{REL_BOUND} or not finite")
+
+
+def phase_hires_train(torch, fa, fs, device, card):
+    """SD1.5 ControlLoRA training at HIRES_RES through `python -m
+    controllora_tpu_torch.train --model_variant sd15 --resolution 1536
+    --train_batch_size 1` (in this process, so that the launch counters are read here),
+    where the JAX trainer runs its flash kernels at D 160: first the gradient check
+    (hires_train_parity); then bf16 with no remat for HIRES_WARMUP + HIRES_STEPS steps
+    (ms a step from the CLI's log, peak GiB, finite losses) and fp32 (--mixed_precision
+    no --gradient_checkpointing --remat_policy dots, the stack scripts/train.py builds)
+    for HIRES_FP32_STEPS, each with exact launches per step (train_launches) and the
+    head dims of every K3 call (flash_head_dims: 5 each of 40, 80 and 160). Returns the
+    launches of both runs: (bf16 {kernel: n}, fp32 {kernel: n}, fp32 route {kernel: n})."""
+    from controllora_tpu_torch.models import zoo
+
+    t_phase = time.perf_counter()
+    hires_train_parity(torch, fa, device)
+    sd15 = zoo.VARIANTS[HIRES_VARIANT][0]
+    dims = flash_head_dims(sd15, HIRES_RES)
+    tally = {}
+    kernel = fa.flash_bwd_dkv
+
+    def counted(q, k, v, do, lse, dcap, heads):
+        d = q.shape[-1] // heads
+        tally[d] = tally.get(d, 0) + 1
+        return kernel(q, k, v, do, lse, dcap, heads)
+
+    def run(name, steps, extra, remat, fp32, out_dir):
+        """The CLI for `steps` steps with the flags `extra`; returns (ms a step, launches,
+        fp32-route launches), each launch and K3 head dim held exactly."""
+        tally.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated() / 2**30
+        args = ["--model_variant", HIRES_VARIANT, "--resolution", str(HIRES_RES),
+                "--train_batch_size",
+                str(HIRES_BATCH), "--max_train_steps", str(steps), "--log_every", "1",
+                "--checkpointing_steps", "0", "--output_dir", out_dir, "--device", CLI_DEVICE]
+        fa.flash_bwd_dkv = counted
+        try:
+            out, used, used32 = fp32_cli(torch, fa, fs, "controllora_tpu_torch.train",
+                                         args + extra)
+        finally:
+            fa.flash_bwd_dkv = kernel
+        peak = torch.cuda.max_memory_allocated() / 2**30 - resident
+        lines = [ln for ln in out.splitlines() if ln.startswith("step ")]
+        ms = [float(ln.split()[-2]) for ln in lines]
+        losses = [float(ln.split("loss=")[1].split()[0]) for ln in lines]
+        per_step = train_launches(sd15, HIRES_RES, remat)
+        want = {n: 0 for n in used}
+        want.update({n: c * steps for n, c in per_step.items()})
+        want32 = want if fp32 else {n: 0 for n in used}
+        want_dims = {d: c * steps for d, c in dims.items()}
+        if used != want or used32 != want32 or tally != want_dims:
+            raise AssertionError(f"hires train ({name}): launches {used} (want {want}), fp32 "
+                                 f"route {used32}, K3 head dims {tally} (want {want_dims})\n"
+                                 + out[-2000:])
+        if len(ms) != steps or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"hires train ({name}): steps {ms}, losses {losses}\n"
+                                 + out[-2000:])
+        log(f"hires train ({name}: python -m controllora_tpu_torch.train "
+            + " ".join(args[:6] + extra) + "): steps " + ", ".join(f"{x:.1f}" for x in ms) + " ms, losses "
+            + ", ".join(f"{x:.4f}" for x in losses) + f"; peak {peak:.2f} GiB allocated above "
+            f"the {resident:.2f} GiB resident; launches per step {per_step}, K3 head dims per "
+            f"step {dims}; {card}")
+        return ms, used, used32
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ms, bf16_used, _ = run("bf16, no remat", HIRES_WARMUP + HIRES_STEPS, [], None, False,
+                               os.path.join(tmp, "bf16"))
+        step_ms = statistics.mean(ms[HIRES_WARMUP:])
+        log(f"hires train bf16 {HIRES_RES}² batch {HIRES_BATCH}: {step_ms:.1f} ms/step over "
+            f"steps {HIRES_WARMUP + 1}-{HIRES_WARMUP + HIRES_STEPS}, "
+            f"{HIRES_BATCH / step_ms * 1e3:.3f} img/s")
+        _, fp32_used, fp32_used32 = run(
+            "fp32, remat dots", HIRES_FP32_STEPS,
+            ["--mixed_precision", "no", "--gradient_checkpointing", "--remat_policy", "dots"],
+            "dots", True, os.path.join(tmp, "fp32"))
+    log(f"hires train phase {time.perf_counter() - t_phase:.1f} s")
+    return bf16_used, fp32_used, fp32_used32
 
 
 # the other render modes (phase "modes"): SD1.5 at RES with the `base` ControlLoRA,
@@ -3330,7 +3587,7 @@ def phase_datasets(torch, fa, fs, device, card, record):
 ANNOTATOR_RES = 512  # the reference's detect_resolution and MLSD's, HED's working size
 MIDAS_SIZES = (384, 512)
 ANNOTATOR_REL = 1e-3  # max|card - CPU| / max|CPU| of each net's raw maps
-POSE_STEPS, POSE_CFG = 30, 9.0  # the pose2image app's defaults
+POSE_STEPS, POSE_CFG = 10, 9.0  # the app's default CFG; its default 30 steps cut to 10
 POSE_VARIANT = "sd15"
 
 
@@ -3400,8 +3657,8 @@ def phase_annotators(torch, fa, card):
     at 512², MiDaS at 384² and 512², UniFormer at 512²; raw maps within
     ANNOTATOR_REL, the decoded peaks, centres, labels and uint8 maps equal or
     differing only where the text says why; ms per image (events, median of 10).
-    Then the pose2image app's web UI answers one POST /api at 512² with the app's
-    defaults (30 steps, CFG 9), launches exactly {k1 30 x 5, k2 1}, with its wall
+    Then the pose2image app's web UI answers one POST /api at 512², POSE_STEPS steps
+    at CFG 9, launches exactly {k1 POSE_STEPS x 5, k2 1}, with its wall
     and device busy time and the PNGs it answers written and read back. Returns the
     request's launches."""
     import base64
@@ -3893,13 +4150,13 @@ def phase_parallel(torch, fa, device, card):
 
 
 
-# the eval presets phase's --train_steps (300 until PR 14; cut to keep the script in its
-# time beside phase "fp32": a shorter-trained adapter moves less, see PERF.md)
-EVAL_PRESETS_STEPS = 100
+# the eval presets phase's --train_steps (300, then 100; cut to keep the script in its
+# time: a shorter-trained adapter moves less, see PERF.md)
+EVAL_PRESETS_STEPS = 30
 
 
 def phase_eval_presets(torch, fa, card):
-    """`python -m controllora_tpu_torch.eval_presets --train_steps 100` in this process
+    """`python -m controllora_tpu_torch.eval_presets --train_steps EVAL_PRESETS_STEPS` in this process
     on the card (--device CLI_DEVICE): trains the smoke ControlLoRA at 64² through the
     train CLI, renders its evaluation specs under every preset and prints the report.
     The report must have the JAX script's keys (docs/presets_quality_r5.json), every
@@ -3962,26 +4219,28 @@ FP32_K2 = (((8, 8, 4096, 40), 1, True, "SD1.5 512² training batch 8"),
            ((2, 12, 4096, 64), 1, True, "refiner 1024² level 1, unguided"),
            ((1, 1, 16384, 512), 1, True, "refiner 1024² VAE decode"),
            ((1, 1, 4096, 32), 1, True, "smoke 512² VAE"),
-           ((2, 8, 4225, 40), 1, False, "ragged L"))
+           ((2, 8, 4225, 40), 1, False, "ragged L"),
+           (HIRES_LEVEL2, 1, True, "SD1.5 1536² level 2, wide forward")) + HIRES_K2
 FP32_BWD = (((8, 8, 4096, 40), 1, True, "SD1.5 512² training batch 8"),
             ((8, 8, 4096, 40), 4, False, "SD1.5 training shape, q x4"),
             ((2, 4, 4096, 8), 1, True, "smoke 512² training batch 2"),
             ((2, 2, 4096, 16), 1, True, "smoke2 512² level 0"),
-            ((2, 8, 4225, 40), 1, False, "ragged L"))
+            ((2, 8, 4225, 40), 1, False, "ragged L")) + HIRES_BWD + HIRES_NARROW
 # K5: (B, H, L, D), the softmax scale (None: D^-1/2), the q factor, the backward too,
 # timed, the path
 FP32_K5 = (((8, 8, 4096, 40), None, 1, True, True, "stock step batch 8"),
            ((8, 1, 4096, 512), None, 1, False, True, "stock step VAE encoder batch 8"),
-           ((2, 8, 1024, 40), -0.3, 4, True, False, "negative scale, q x4"))
+           ((2, 8, 1024, 40), -0.3, 4, True, False, "negative scale, q x4"),
+           ((2, 4, 1024, 128), 0.3, 1, True, False, "D 128, the wide backward instances"))
 FP32_VARIANT = "sd15"  # trained with --mixed_precision no, remat dots
 FP32_TRAIN_BATCH, FP32_TRAIN_STEPS = 8, 3
-FP32_REFINER_STEPS = 20  # the refiner request's steps: 400 + 1 K2 launches
+FP32_REFINER_STEPS = 10  # the refiner request's steps: 200 + 1 K2 launches
 FP32_FWD = ["flash_fwd_3xtf32_kernel", "flash_fwd_wide_3xtf32_kernel"]  # D <= 80, wider
-FP32_ROUTES = {  # each kernel's CUDA kernels on the fp32 route (all 3xTF32)
-    "k1": ["bias_add_f32_kernel"] + FP32_FWD, "k2": FP32_FWD,
-    "k3": ["flash_bwd_dkv_3xtf32_kernel"], "k4": ["flash_bwd_dq_3xtf32_kernel"],
-    "k5_fwd": FP32_FWD, "k5_dkv": ["flash_bwd_dkv_3xtf32_kernel"],
-    "k5_dq": ["flash_bwd_dq_3xtf32_kernel"]}
+FP32_DKV = ["flash_bwd_dkv_3xtf32_kernel", "flash_bwd_dkv_fma_kernel"]  # D <= 80, 88-160
+FP32_DQ = ["flash_bwd_dq_3xtf32_kernel", "flash_bwd_dq_fma_kernel"]
+FP32_ROUTES = {  # each kernel's CUDA kernels on the fp32 route
+    "k1": ["bias_add_f32_kernel"] + FP32_FWD, "k2": FP32_FWD, "k3": FP32_DKV, "k4": FP32_DQ,
+    "k5_fwd": FP32_FWD, "k5_dkv": FP32_DKV, "k5_dq": FP32_DQ}
 
 
 def fp32_roofline(products, b, h, lq, lk, d, n_q, n_k, rows):
@@ -4296,7 +4555,7 @@ def phase_fp32(torch, fa, fs, device, card):
     plain attention (fp32_train_parity); the smoke stack's train step and sample CLI at
     512² (K2-K4 at D 8 and 32, K1 at D 8); the refiner's eval parity in fp32 and `serve
     --model_variant sdxl-refiner --warmup` (fp32) answering one unguided 20-step 1024²
-    request, {k1 0, k2 401}. Returns the main paths' launches, each counted from 0:
+    request, {k1 0, k2 201}. Returns the main paths' launches, each counted from 0:
     ({kernel: launches}, {kernel: fp32-route launches})."""
     from controllora_tpu_torch import sample as sample_cli
     from controllora_tpu_torch.models import zoo
@@ -4455,6 +4714,7 @@ def main():
     record.update(phase_backward_kernels(torch, fa, device))
     phase_family_train_kernels(torch, fa, device, record)
     phase_canny_train_kernels(torch, fa, device, record)
+    phase_hires_kernels(torch, fa, device, record)
     phase_parallel_kernels(torch, fa, device, record)
     phase_flash_grad(torch, fa, device)
     record.update(phase_stock_kernels(torch, fs, device))
@@ -4490,9 +4750,12 @@ def main():
     families = phase_families(torch, fa, device, card)
     mark("families")
     family_train = phase_family_train(torch, fa, device, card)
+    mark("family train")
+    hires, hires32, hires32_route = phase_hires_train(torch, fa, fs, device, card)
+    mark("hires train")
     phase_train_cli(torch, card)
     dreambooth = phase_dreambooth(torch, fa, card)
-    mark("family train, train CLI, dreambooth")
+    mark("train CLI, dreambooth")
     weights = phase_weights(torch, fa, card)
     mark("weights")
     datasets = phase_datasets(torch, fa, fs, device, card, record)
@@ -4508,14 +4771,15 @@ def main():
     # turbo) and requests (SDXL, the refiner), their training and DreamBooth's steps,
     # the loaded stack's renders and the canny2image request, the smoke train CLI's
     # --profile run, the pose2image request, every rank's mesh renders and dp step,
-    # the presets' quality check, then training
+    # the presets' quality check, SD1.5's 1536² training, then training
     # under CONTROLLORA_FLASH_IMPL=stock (K5), then the fp32 stacks' paths (K1-K5 on
-    # their fp32 route)
-    paths = (serve, presets, train, modes, families, family_train, dreambooth, weights,
+    # their fp32 route, with the 1536² fp32 run)
+    paths = (serve, presets, train, modes, families, family_train, hires, dreambooth, weights,
              datasets, annotators, parallel, eval_presets)
     launches = {n: sum(p.get(n, 0) for p in paths) for n in serve}
     launches.update({n: stock[n] for n in fs.LAUNCHES})
-    launches = {n: c + fp32_paths[n] for n, c in launches.items()}
+    launches = {n: c + fp32_paths[n] + hires32[n] for n, c in launches.items()}
+    fp32_paths32 = {n: c + hires32_route[n] for n, c in fp32_paths32.items()}
 
     fwd = "controllora_tpu_torch/csrc/flash_attn_fwd.cu"
     bwd = "controllora_tpu_torch/csrc/flash_attn_bwd.cu"

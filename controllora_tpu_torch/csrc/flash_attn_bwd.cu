@@ -46,8 +46,9 @@
 //     P and dS rounded to bf16 from the accumulators straight into the A operand, and
 //     the B operand (dO, Q or K: a row per token) read through the transpose bit of
 //     bf16 wgmma, as the forward reads V. S, P and dS never touch shared memory;
-//   * head dims up to 80 (the UNet's 40, 64 and 80; 40 runs its products at depth 48
-//     and is padded to 64 in shared memory by TMA zero fill);
+//   * head dims up to 160 (the UNets' 40, 64, 80 and SD1.5's level-2 160; 40 runs its
+//     products at depth 48 and is padded to 64 in shared memory by TMA zero fill, 88-152
+//     run at depth 160 the same way);
 //   * no atomics: each block writes its own rows of dK and dV, or of dQ, once
 //     (deterministic);
 //   * ragged L: TMA zero-fills rows past L. P (and so dS) is set to 0 by index for the
@@ -63,9 +64,22 @@
 // the stage's full barrier. Four accumulators are live: S^T, dP^T and, across all query
 // tiles, dK and dV (up to 144 registers a thread at D 80).
 //
+// dK/dV at D 160 (DS 160, the wide instance): two 64 x 160 fp32 accumulators are 160
+// registers a thread, which with S^T, dP^T and the A fragments do not fit in the 232
+// that setmaxnreg gives a consumer. So a block keeps 64 keys, and its two consumer
+// warpgroups share the work by output: one accumulates dV (S^T, P^T, dV += P^T dO), the
+// other dK (S^T and dP^T, dS^T, dK += dS^T Q), each in 80 registers, with dV and dK at
+// wgmma N 160 (B read through the transpose bit over three 64-column chunks, the last
+// one half zero filled). S^T is formed by both: five products a tile where the narrow
+// instances do four, and the dV warpgroup idles for about a third of each tile. K and V
+// (64 rows) and three 49 KB stages of Q, dO and their rows take 196 KB. One consumer
+// template (dkv_consumer) serves both designs: it keeps dV, dK or both.
+//
 // dQ (flash_bwd_dq_kernel): rows are queries, so each thread keeps the LSE and Dcap of
 // its two rows in registers for the whole block, and the ring carries K and V only. The
-// K tile that fed S is also the B operand of dQ += dS K.
+// K tile that fed S is also the B operand of dQ += dS K. At DS 160 the same design
+// holds dQ in 80 registers a thread (N 160); Q and dO (128 rows of 160) take 96 KB, so
+// the ring has 2 stages (193 KB in all).
 
 #include <climits>
 #include <type_traits>
@@ -103,11 +117,16 @@ __device__ __forceinline__ float row_lse(const float* lse, const float* l, size_
 
 // ---------------------------------------------------------------- dK, dV
 
-// DS: head dim rounded up to 16 (the depth of S^T and the width of dK, dV).
+// DS: head dim rounded up to 16 (the depth of S^T and the width of dK, dV). Up to DS 80
+// each consumer warpgroup owns 64 keys and both their dK and dV (128 keys a block); the
+// wide instance (DS 160) keeps 64 keys a block, one warpgroup accumulating their dV and
+// the other their dK (dkv_consumer).
 template <int DS, int STAGES>
 struct DkvCfg {
+  static constexpr bool kWide = DS > 80;
+  static constexpr int kDS = DS, kStages = STAGES;
   static constexpr int kCh = (DS + 63) / 64;        // 64-column chunks
-  static constexpr int kKeys = 128;                 // keys a block, 64 a warpgroup
+  static constexpr int kKeys = kWide ? 64 : 128;    // keys a block
   static constexpr int kQRows = 64;                 // queries a stage
   static constexpr int kKChunk = kKeys * kRowBytes;
   static constexpr int kKBytes = kCh * kKChunk;     // one of K, V
@@ -118,8 +137,131 @@ struct DkvCfg {
   static constexpr int kQTileRows = kQRows, kKTileRows = kKeys;  // TMA box rows
   static constexpr size_t kSmem =
       1024 + 2 * (size_t)kKBytes + (size_t)STAGES * kStage + 8 * (2 * STAGES + 1);
-  static_assert(DS % 16 == 0 && DS <= 80, "the backward covers head dims up to 80");
+  static_assert(DS % 16 == 0 && (DS <= 80 || DS == 160),
+                "the backward covers head dims up to 160");
+  static_assert(kSmem <= 232448, "a block has 227 KB of shared memory");
 };
+
+// One consumer warpgroup of the dK/dV kernel over the 64 keys at k_tile / v_tile (rows
+// key_row + g and + 8 of this warp's 16): for each query tile, S^T = K Q^T, P^T and
+// (with DK) dP^T = V dO^T and dS^T; then dV += P^T dO (DV) and dK += dS^T Q (DK, scaled
+// at the end), each in DS / 2 registers a thread. The narrow instances keep both (DV
+// and DK); the wide one gives dV to one warpgroup and dK to the other, both forming S^T
+// for the same keys: five products a tile where the narrow instances do four, the price
+// of keeping one 64 x DS accumulator a thread instead of two.
+template <class C, bool DV, bool DK>
+__device__ __forceinline__ void dkv_consumer(const unsigned char* k_tile,
+                                             const unsigned char* v_tile,
+                                             const unsigned char* ring, uint64_t* full,
+                                             uint64_t* empty, uint64_t* kv_full,
+                                             const BwdParams& p, int n_q, int key_row,
+                                             long long head, int lane) {
+  constexpr int DS = C::kDS, STAGES = C::kStages;
+  const int g = lane >> 2, t4 = lane & 3;
+  float dk[DK ? C::kAcc : 1], dv[DV ? C::kAcc : 1];
+#pragma unroll
+  for (int i = 0; i < C::kAcc; ++i) {
+    if constexpr (DK) dk[i] = 0.f;
+    if constexpr (DV) dv[i] = 0.f;
+  }
+
+  mbar_wait(kv_full, 0);
+  for (int j = 0; j < n_q; ++j) {
+    const int s = j % STAGES;
+    mbar_wait(&full[s], (j / STAGES) & 1);
+    const unsigned char* q_tile = ring + (size_t)s * C::kStage;
+    const unsigned char* do_tile = q_tile + C::kQBytes;
+    const float* lse = reinterpret_cast<const float*>(q_tile + 2 * C::kQBytes);
+    const float* dcap = lse + C::kQRows;
+
+    // S^T = K Q^T (and for dK, dP^T = V dO^T): 64 keys x 64 queries each, unscaled
+    float st[32], dpt[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DS / 16; ++kk)
+      ss_step<64>(st, k_tile, q_tile, kk, C::kKChunk, C::kQChunk);
+    wgmma_commit();
+    if constexpr (DK) {
+#pragma unroll
+      for (int kk = 0; kk < DS / 16; ++kk)
+        ss_step<64>(dpt, v_tile, do_tile, kk, C::kKChunk, C::kQChunk);
+      wgmma_commit();
+      wgmma_wait<1>();
+    } else {
+      wgmma_wait<0>();
+    }
+    fence_regs<32>(st);
+
+    // P^T = exp(S^T * scale - LSE) by query column (n-tile n holds columns 8n + 2 t4,
+    // +1); 0 for queries at or past Lq
+    const int q0 = j * C::kQRows;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int col = n * 8 + t4 * 2;
+      const float2 ls = *reinterpret_cast<const float2*>(lse + col);
+      const float l0 = ls.x * kLog2e, l1 = ls.y * kLog2e;
+      const bool ok0 = q0 + col < p.Lq, ok1 = q0 + col + 1 < p.Lq;
+      st[4 * n] = ok0 ? ex2(fmaf(st[4 * n], p.scale_log2, -l0)) : 0.f;
+      st[4 * n + 1] = ok1 ? ex2(fmaf(st[4 * n + 1], p.scale_log2, -l1)) : 0.f;
+      st[4 * n + 2] = ok0 ? ex2(fmaf(st[4 * n + 2], p.scale_log2, -l0)) : 0.f;
+      st[4 * n + 3] = ok1 ? ex2(fmaf(st[4 * n + 3], p.scale_log2, -l1)) : 0.f;
+    }
+
+    // the A operands: P^T for dV; dS^T = P^T * (dP^T - Dcap), by query column, for dK
+    uint32_t pa[4][4], da[4][4];
+    if constexpr (DV) {
+#pragma unroll
+      for (int t = 0; t < 4; ++t) acc_to_a(pa[t], st, t);
+    }
+    if constexpr (DK) {
+      wgmma_wait<0>();
+      fence_regs<32>(dpt);
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const float2 dc = *reinterpret_cast<const float2*>(dcap + n * 8 + t4 * 2);
+        dpt[4 * n] = st[4 * n] * (dpt[4 * n] - dc.x);
+        dpt[4 * n + 1] = st[4 * n + 1] * (dpt[4 * n + 1] - dc.y);
+        dpt[4 * n + 2] = st[4 * n + 2] * (dpt[4 * n + 2] - dc.x);
+        dpt[4 * n + 3] = st[4 * n + 3] * (dpt[4 * n + 3] - dc.y);
+      }
+#pragma unroll
+      for (int t = 0; t < 4; ++t) acc_to_a(da[t], dpt, t);
+    }
+
+    // dV += P^T dO and dK += dS^T Q over the tile's 64 queries (4 k-steps of 16 queries,
+    // 2 x 1024 bytes further along K each), B read through the transpose bit
+    wgmma_fence();
+    if constexpr (DV) {
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        rs_step<DS>(dv, pa[t], desc_sw128(do_tile + t * 2048, C::kQChunk, 1024));
+    }
+    if constexpr (DK) {
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        rs_step<DS>(dk, da[t], desc_sw128(q_tile + t * 2048, C::kQChunk, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    if constexpr (DV) {
+      fence_regs<C::kAcc>(dv);
+      fence_regs<16>(&pa[0][0]);
+    }
+    if constexpr (DK) {
+      fence_regs<C::kAcc>(dk);
+      fence_regs<16>(&da[0][0]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+  // ------------------------------------------------------------------ epilogue
+  if constexpr (DK)
+    store_acc_bf16<DS>(p.out0 + head, p.sl, dk, p.scale, p.scale, key_row + g, p.Lk, 0, p.D,
+                       t4);
+  if constexpr (DV)
+    store_acc_bf16<DS>(p.out1 + head, p.sl, dv, 1.f, 1.f, key_row + g, p.Lk, 0, p.D, t4);
+}
 
 template <int DS, int STAGES>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -197,93 +339,19 @@ __global__ void __launch_bounds__(kThreads, 1)
   // ------------------------------------------------------------------ consumers
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
   const int wg = warp / 4, wl = warp % 4;
-  const int g = lane >> 2, t4 = lane & 3;
-  const unsigned char* k_tile = k_smem + wg * 64 * kRowBytes;  // this warpgroup's keys
-  const unsigned char* v_tile = v_smem + wg * 64 * kRowBytes;
-
-  float dk[C::kAcc], dv[C::kAcc];
-#pragma unroll
-  for (int i = 0; i < C::kAcc; ++i) dk[i] = dv[i] = 0.f;
-
-  mbar_wait(kv_full, 0);
-  for (int j = 0; j < n_q; ++j) {
-    const int s = j % STAGES;
-    mbar_wait(&full[s], (j / STAGES) & 1);
-    const unsigned char* q_tile = ring + (size_t)s * C::kStage;
-    const unsigned char* do_tile = q_tile + C::kQBytes;
-    const float* lse = reinterpret_cast<const float*>(q_tile + 2 * C::kQBytes);
-    const float* dcap = lse + C::kQRows;
-
-    // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries each, unscaled
-    float st[32], dpt[32];
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < DS / 16; ++kk)
-      ss_step<64>(st, k_tile, q_tile, kk, C::kKChunk, C::kQChunk);
-    wgmma_commit();
-#pragma unroll
-    for (int kk = 0; kk < DS / 16; ++kk)
-      ss_step<64>(dpt, v_tile, do_tile, kk, C::kKChunk, C::kQChunk);
-    wgmma_commit();
-    wgmma_wait<1>();
-    fence_regs<32>(st);
-
-    // P^T = exp(S^T * scale - LSE) by query column (n-tile n holds columns 8n + 2 t4,
-    // +1); 0 for queries at or past Lq
-    const int q0 = j * C::kQRows;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int col = n * 8 + t4 * 2;
-      const float2 ls = *reinterpret_cast<const float2*>(lse + col);
-      const float l0 = ls.x * kLog2e, l1 = ls.y * kLog2e;
-      const bool ok0 = q0 + col < p.Lq, ok1 = q0 + col + 1 < p.Lq;
-      st[4 * n] = ok0 ? ex2(fmaf(st[4 * n], p.scale_log2, -l0)) : 0.f;
-      st[4 * n + 1] = ok1 ? ex2(fmaf(st[4 * n + 1], p.scale_log2, -l1)) : 0.f;
-      st[4 * n + 2] = ok0 ? ex2(fmaf(st[4 * n + 2], p.scale_log2, -l0)) : 0.f;
-      st[4 * n + 3] = ok1 ? ex2(fmaf(st[4 * n + 3], p.scale_log2, -l1)) : 0.f;
-    }
-    wgmma_wait<0>();
-    fence_regs<32>(dpt);
-
-    // dS^T = P^T * (dP^T - Dcap), by query column
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const float2 dc = *reinterpret_cast<const float2*>(dcap + n * 8 + t4 * 2);
-      dpt[4 * n] = st[4 * n] * (dpt[4 * n] - dc.x);
-      dpt[4 * n + 1] = st[4 * n + 1] * (dpt[4 * n + 1] - dc.y);
-      dpt[4 * n + 2] = st[4 * n + 2] * (dpt[4 * n + 2] - dc.x);
-      dpt[4 * n + 3] = st[4 * n + 3] * (dpt[4 * n + 3] - dc.y);
-    }
-
-    // dV += P^T dO and dK += dS^T Q over the tile's 64 queries (4 k-steps of 16)
-    uint32_t pa[4][4], da[4][4];
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      acc_to_a(pa[t], st, t);
-      acc_to_a(da[t], dpt, t);
-    }
-    wgmma_fence();
-#pragma unroll
-    for (int t = 0; t < 4; ++t)  // 16 queries (2 x 1024 bytes) further along K
-      rs_step<DS>(dv, pa[t], desc_sw128(do_tile + t * 2048, C::kQChunk, 1024));
-#pragma unroll
-    for (int t = 0; t < 4; ++t)
-      rs_step<DS>(dk, da[t], desc_sw128(q_tile + t * 2048, C::kQChunk, 1024));
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs<C::kAcc>(dv);
-    fence_regs<C::kAcc>(dk);
-    fence_regs<16>(&pa[0][0]);
-    fence_regs<16>(&da[0][0]);
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[s]);
-  }
-
-  // ------------------------------------------------------------------ epilogue
-  const int r0 = key0 + wg * 64 + wl * 16 + g;
   const long long head = b * p.sb + h * p.sh;
-  store_acc_bf16<DS>(p.out0 + head, p.sl, dk, p.scale, p.scale, r0, p.Lk, 0, p.D, t4);
-  store_acc_bf16<DS>(p.out1 + head, p.sl, dv, 1.f, 1.f, r0, p.Lk, 0, p.D, t4);
+  if constexpr (C::kWide) {  // 64 keys: warpgroup 0 accumulates their dV, 1 their dK
+    if (wg == 0)
+      dkv_consumer<C, true, false>(k_smem, v_smem, ring, full, empty, kv_full, p, n_q,
+                                   key0 + wl * 16, head, lane);
+    else
+      dkv_consumer<C, false, true>(k_smem, v_smem, ring, full, empty, kv_full, p, n_q,
+                                   key0 + wl * 16, head, lane);
+  } else {  // 128 keys: each warpgroup its 64 keys' dK and dV
+    dkv_consumer<C, true, true>(k_smem + wg * 64 * kRowBytes, v_smem + wg * 64 * kRowBytes,
+                                ring, full, empty, kv_full, p, n_q, key0 + wg * 64 + wl * 16,
+                                head, lane);
+  }
 }
 
 // ---------------------------------------------------------------- dQ
@@ -301,7 +369,9 @@ struct DqCfg {
   static constexpr int kQTileRows = 64, kKTileRows = kKeys;  // TMA box rows
   static constexpr size_t kSmem =
       1024 + 2 * (size_t)kQBytes + (size_t)STAGES * kStage + 8 * (2 * STAGES + 1);
-  static_assert(DS % 16 == 0 && DS <= 80, "the backward covers head dims up to 80");
+  static_assert(DS % 16 == 0 && (DS <= 80 || DS == 160),
+                "the backward covers head dims up to 160");
+  static_assert(kSmem <= 232448, "a block has 227 KB of shared memory");
 };
 
 template <int DS, int STAGES>
@@ -484,12 +554,14 @@ cudaError_t launch(Kernel kernel, long long blocks, const Views& x, const BwdPar
 }
 
 // Instances: D <= 48 (the UNet's 40) runs its products at depth 48, D <= 64 and
-// D <= 80 as they are; f is called with the instance's DS.
+// D <= 80 as they are, 88-160 (SD1.5's level-2 160; 96 and 128, which jax's stock
+// kernel takes) at depth 160; f is called with the instance's DS.
 template <class F>
 cudaError_t with_ds(int D, F&& f) {
   if (D <= 48) return f(std::integral_constant<int, 48>{});
   if (D <= 64) return f(std::integral_constant<int, 64>{});
-  return f(std::integral_constant<int, 80>{});
+  if (D <= 80) return f(std::integral_constant<int, 80>{});
+  return f(std::integral_constant<int, 160>{});
 }
 
 cudaError_t run_dkv(const Views& x, const BwdParams& p, cudaStream_t stream) {
@@ -500,16 +572,18 @@ cudaError_t run_dkv(const Views& x, const BwdParams& p, cudaStream_t stream) {
   });
 }
 
+// dQ: 3 stages of K and V up to DS 80; 2 at DS 160, where Q and dO take 96 KB.
 cudaError_t run_dq(const Views& x, const BwdParams& p, cudaStream_t stream) {
   return with_ds(p.D, [&](auto ds) {
-    using C = DqCfg<decltype(ds)::value, 3>;
+    constexpr int DS = decltype(ds)::value, S = DS > 80 ? 2 : 3;
+    using C = DqCfg<DS, S>;
     const long long blocks = (long long)p.B * p.H * ((p.Lq + C::kQueries - 1) / C::kQueries);
-    return launch<C>(flash_bwd_dq_kernel<decltype(ds)::value, 3>, blocks, x, p, stream);
+    return launch<C>(flash_bwd_dq_kernel<DS, S>, blocks, x, p, stream);
   });
 }
 
 bool valid_shape(int B, int H, int Lq, int Lk, int D) {
-  return B >= 1 && H >= 1 && Lq >= 1 && Lk >= 1 && D >= 8 && D % 8 == 0 && D <= 80;
+  return B >= 1 && H >= 1 && Lq >= 1 && Lk >= 1 && D >= 8 && D % 8 == 0 && D <= 160;
 }
 
 // out: the view whose strides the outputs take.
@@ -534,8 +608,9 @@ Views strided(const void* q, const void* k, const void* v, const void* dout, lon
 
 }  // namespace
 
-// Head dims up to 80 (the UNet's 40, 64 and 80; the VAE's D = 512 attention is frozen
-// and never differentiated, and wider heads are refused with cudaErrorInvalidValue).
+// Head dims up to 160 (the UNets' 40, 64, 80 and 160; the VAE's D = 512 attention is
+// frozen and never differentiated, and wider heads are refused with
+// cudaErrorInvalidValue).
 // Each entry point returns the cudaError_t of its launch (0 = success).
 
 // K3: dK, dV (B, Lk, H*D) bf16 from the (B, L, H*D) projections and K2's LSE.

@@ -23,7 +23,10 @@
 //                                     _flash_attention_dkv_kernel (k5_stock_flash_bwd_dkv_f32);
 //   flash_bwd_dq_3xtf32_kernel    K4  pallas_attention_vjp.py::_bwd_dq_kernel
 //                                     (k4_flash_bwd_dq_f32) and K5's _flash_attention_dq_kernel
-//                                     (k5_stock_flash_bwd_dq_f32).
+//                                     (k5_stock_flash_bwd_dq_f32);
+//   flash_bwd_dkv_fma_kernel and  K3, K4 and K5's backward at head dims 88-160 (SD1.5's
+//   flash_bwd_dq_fma_kernel       level-2 160), fp32 FMA tiles on the CUDA cores (their
+//                                 section below says why).
 // Each entry point has the C signature of its bf16 namesake, so the wrappers in
 // ops/flash_attention.py and ops/flash_stock.py pick one by the inputs' dtype.
 //
@@ -1305,6 +1308,372 @@ __global__ void __launch_bounds__(DqCfg<DP, NW, KEYS, RAW, DER>::kThreads, 1)
                     p.D, t4);
 }
 
+// ---------------------------------------------------------------- backward, D 88-160
+
+// Heads wider than 80 (SD1.5's level-2 160; 96 and 128, which jax's stock kernel takes)
+// run on two plain CUDA kernels of fp32 FMA tiles, at depth FmaTile::kDP = 160 (zero
+// filled): with 3xTF32 each operand's hi and lo would have to stay in registers or beside
+// the tiles in shared memory, and at D 160 neither has room. Their bound is the card's 67
+// TFLOP/s of fp32 FMA, not the 165 of 3xTF32 (PERF.md has their times).
+//   * a block keeps R = 64 stationary rows (keys for dK/dV, queries for dQ) in shared
+//     memory and streams the other side's rows in C = 32-row tiles through two stages
+//     filled by cp.async (16 bytes a copy, zero filled past L and past D), so the next
+//     tile's loads overlap this tile's products;
+//   * register micro-tiles: thread t owns stationary rows (t / CG) * TM .. + TM; in a
+//     product over the head dim (S^T = K Q^T, dP^T = V dO^T, S = Q K^T, dP = dO V^T) its
+//     columns are the streamed rows t % CG + j * CG, read as float4 along the head dim;
+//     in a product into the head dim (dV += P^T dO, dK += dS^T Q, dQ += dS K) its
+//     columns are the float4 chunks t % CG + c * CG of the head. Shared rows are DP + 4
+//     floats apart, so the float4 reads of distinct rows fall in distinct banks;
+//   * P^T and dS^T (dS for dQ) go through shared memory from the layout of the first
+//     product to that of the second; P = 0 by index for queries past Lq (dK/dV) and keys
+//     past Lk (dQ); stationary rows past L are computed on zeros and never stored. K5's
+//     rows come as m and l, and LSE = m + log(l) is formed as a row is read.
+
+// 16 bytes (4 bytes) from global to shared memory without passing through registers;
+// zeros where !ok (then nothing is read).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// R stationary rows against C streamed rows a step, NT threads in row groups of CG
+// lanes; rows of DP floats (the head dim padded) in shared memory.
+template <int DP, int R, int C, int CG, int NT>
+struct Tile {
+  static constexpr int kDP = DP, kR = R, kC = C, kCG = CG, kNT = NT;
+  static constexpr int kStride = DP + 4;  // floats a shared row: distinct banks by row
+  static constexpr int kPStride = C + 4;  // floats a shared row of P or dS
+  static constexpr int kTM = R * CG / NT;  // stationary rows a thread
+  static constexpr int kTN = C / CG;       // streamed rows a thread (product over D)
+  static constexpr int kCD = DP / 4 / CG;  // float4 head chunks a thread (product into D)
+  static constexpr int kStage = 2 * C * kStride + 3 * C;  // dK/dV: Q, dO and their rows
+  static constexpr size_t kDkvSmem =
+      sizeof(float) * (2 * (size_t)R * kStride + 2 * (size_t)kStage + 2 * (size_t)R * kPStride);
+  static constexpr size_t kDqSmem =
+      sizeof(float) * ((2 * (size_t)R + 4 * (size_t)C) * kStride + (size_t)R * kPStride);
+  static_assert(DP % 8 == 0 && NT % 32 == 0 && 32 % CG == 0, "tile shape");
+  static_assert(C % CG == 0 && C % 4 == 0 && (DP / 4) % CG == 0, "tile shape");
+  static_assert(kTM >= 1 && kTM * (NT / CG) == R, "tile shape");
+  static_assert(kDkvSmem <= 232448 && kDqSmem <= 232448, "a block has 227 KB of shared memory");
+};
+
+using FmaTile = Tile<160, 64, 32, 8, 256>;
+
+// Rows [r0, r0 + ROWS) of one head (element row stride sl) into shared rows; rows at or
+// past L and columns at or past D are zero filled. Every thread of the block takes part.
+template <class T, int ROWS>
+__device__ __forceinline__ void load_rows(float* dst, const float* src, long long sl, int r0,
+                                          int L, int D) {
+  constexpr int kC4 = T::kDP / 4;
+  for (int i = threadIdx.x; i < ROWS * kC4; i += T::kNT) {
+    const int r = i / kC4, c = (i - r * kC4) * 4;
+    const bool ok = r0 + r < L && c < D;
+    cp_async16(dst + r * T::kStride + c, ok ? src + (r0 + r) * sl + c : src, ok);
+  }
+}
+
+// acc[i][j] = x[row i] . y[row j] over the head dim: the thread's TM stationary rows
+// (x) against its TN streamed rows (y).
+template <class T>
+__device__ __forceinline__ void dot_rows(float (&acc)[T::kTM][T::kTN], const float* x,
+                                         const float* y, int rg, int cg) {
+#pragma unroll
+  for (int i = 0; i < T::kTM; ++i)
+#pragma unroll
+    for (int j = 0; j < T::kTN; ++j) acc[i][j] = 0.f;
+  const float* xr = x + rg * T::kTM * T::kStride;
+  const float* yr = y + cg * T::kStride;
+#pragma unroll 4
+  for (int d = 0; d < T::kDP; d += 4) {
+    float4 a[T::kTM];
+#pragma unroll
+    for (int i = 0; i < T::kTM; ++i)
+      a[i] = *reinterpret_cast<const float4*>(xr + i * T::kStride + d);
+#pragma unroll
+    for (int j = 0; j < T::kTN; ++j) {
+      const float4 b = *reinterpret_cast<const float4*>(yr + j * T::kCG * T::kStride + d);
+#pragma unroll
+      for (int i = 0; i < T::kTM; ++i) {
+        acc[i][j] = fmaf(a[i].x, b.x, acc[i][j]);
+        acc[i][j] = fmaf(a[i].y, b.y, acc[i][j]);
+        acc[i][j] = fmaf(a[i].z, b.z, acc[i][j]);
+        acc[i][j] = fmaf(a[i].w, b.w, acc[i][j]);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ float lane4(const float4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ void fma4(float4& acc, float w, const float4& z) {
+  acc.x = fmaf(w, z.x, acc.x);
+  acc.y = fmaf(w, z.y, acc.y);
+  acc.z = fmaf(w, z.z, acc.z);
+  acc.w = fmaf(w, z.w, acc.w);
+}
+
+// acc[i][c] += sum over the C streamed rows j of pm[row i][j] * z[row j][chunk c]: the
+// thread's TM stationary rows of P (or dS, rows of kPStride floats) times the streamed
+// rows' head columns in its float4 chunks.
+template <class T>
+__device__ __forceinline__ void acc_rows(float4 (&acc)[T::kTM][T::kCD], const float* pm,
+                                         const float* z, int rg, int cg) {
+  const float* pr = pm + rg * T::kTM * T::kPStride;
+  const float* zc = z + 4 * cg;
+#pragma unroll 2
+  for (int j = 0; j < T::kC; j += 4) {
+    float4 w[T::kTM];
+#pragma unroll
+    for (int i = 0; i < T::kTM; ++i)
+      w[i] = *reinterpret_cast<const float4*>(pr + i * T::kPStride + j);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int c = 0; c < T::kCD; ++c) {
+        const float4 zv =
+            *reinterpret_cast<const float4*>(zc + (j + k) * T::kStride + 4 * c * T::kCG);
+#pragma unroll
+        for (int i = 0; i < T::kTM; ++i) fma4(acc[i][c], lane4(w[i], k), zv);
+      }
+  }
+}
+
+template <class T>
+__device__ __forceinline__ void zero(float4 (&acc)[T::kTM][T::kCD]) {
+#pragma unroll
+  for (int i = 0; i < T::kTM; ++i)
+#pragma unroll
+    for (int c = 0; c < T::kCD; ++c) acc[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// Row i of the thread's accumulator, times mul, into out (a row of the head) at the
+// thread's chunks below D.
+template <class T>
+__device__ __forceinline__ void store_row(float* out, const float4 (&acc)[T::kTM][T::kCD],
+                                          int i, float mul, int cg, int D) {
+#pragma unroll
+  for (int c = 0; c < T::kCD; ++c) {
+    const int col = 4 * (cg + c * T::kCG);
+    if (col < D) {
+      const float4 x = acc[i][c];
+      *reinterpret_cast<float4*>(out + col) =
+          make_float4(x.x * mul, x.y * mul, x.z * mul, x.w * mul);
+    }
+  }
+}
+
+// dK, dV: R keys a block (K and V stationary), C-query stages of Q, dO and their row
+// terms (LSE or m, l, Dcap).
+template <int DP, int R, int C, int CG, int NT>
+__global__ void __launch_bounds__(NT, 1) flash_bwd_dkv_fma_kernel(const BwdParams p) {
+  using T = Tile<DP, R, C, CG, NT>;
+  extern __shared__ float4 smem4[];
+  float* k_s = reinterpret_cast<float*>(smem4);
+  float* v_s = k_s + R * T::kStride;
+  float* ring = v_s + R * T::kStride;     // two stages
+  float* p_s = ring + 2 * T::kStage;      // P^T, R x C
+  float* ds_s = p_s + R * T::kPStride;    // dS^T
+
+  // block -> (batch*head, key tile)
+  const int k_tiles = (p.Lk + R - 1) / R;
+  const int kt = blockIdx.x % k_tiles, bh = blockIdx.x / k_tiles;
+  const int b = bh / p.H, h = bh % p.H;
+  const int key0 = kt * R;
+  const float* qg = static_cast<const float*>(p.q.base) + b * p.q.sb + h * p.q.sh;
+  const float* dog = static_cast<const float*>(p.dout.base) + b * p.dout.sb + h * p.dout.sh;
+  const float* kg = static_cast<const float*>(p.k.base) + b * p.k.sb + h * p.k.sh;
+  const float* vg = static_cast<const float*>(p.v.base) + b * p.v.sb + h * p.v.sh;
+  const size_t row0 = (size_t)bh * p.Lq;
+  const int n_q = (p.Lq + C - 1) / C;
+
+  auto load_stage = [&](int j) {
+    float* stage = ring + (j & 1) * T::kStage;
+    const int q0 = j * C;
+    load_rows<T, C>(stage, qg, p.q.sl, q0, p.Lq, p.D);
+    load_rows<T, C>(stage + C * T::kStride, dog, p.dout.sl, q0, p.Lq, p.D);
+    float* rows = stage + 2 * C * T::kStride;
+    for (int i = threadIdx.x; i < C; i += NT) {  // 0 past Lq: masked by index below
+      const bool ok = q0 + i < p.Lq;
+      const size_t r = ok ? row0 + q0 + i : 0;
+      cp_async4(rows + i, p.lse + r, ok);
+      if (p.l != nullptr) cp_async4(rows + C + i, p.l + r, ok);
+      cp_async4(rows + 2 * C + i, p.dcap + r, ok);
+    }
+  };
+  load_rows<T, R>(k_s, kg, p.k.sl, key0, p.Lk, p.D);
+  load_rows<T, R>(v_s, vg, p.v.sl, key0, p.Lk, p.D);
+  load_stage(0);
+  cp_async_commit();
+
+  const int rg = threadIdx.x / CG, cg = threadIdx.x % CG;
+  float4 dk[T::kTM][T::kCD], dv[T::kTM][T::kCD];
+  zero<T>(dk);
+  zero<T>(dv);
+
+  for (int j = 0; j < n_q; ++j) {
+    cp_async_wait_all();
+    __syncthreads();  // stage j is in; every thread is done with stage j - 1
+    if (j + 1 < n_q) {
+      load_stage(j + 1);
+      cp_async_commit();
+    }
+    const float* qs = ring + (j & 1) * T::kStage;
+    const float* dos = qs + C * T::kStride;
+    const float* rows = dos + C * T::kStride;
+
+    // S^T = K Q^T (unscaled), then P^T = exp(S^T * scale - LSE) by query column, 0 for
+    // queries at or past Lq. P^T goes to shared memory before dP^T is formed, so that
+    // only one of the two score tiles is live beside the dK and dV accumulators.
+    const int q0 = j * C;
+    {
+      float st[T::kTM][T::kTN];
+      dot_rows<T>(st, k_s, qs, rg, cg);
+#pragma unroll
+      for (int t = 0; t < T::kTN; ++t) {
+        const int col = cg + t * CG;
+        const bool ok = q0 + col < p.Lq;
+        const float lse2 =
+            (p.l == nullptr ? rows[col] : rows[col] + logf(rows[C + col])) * kLog2e;
+#pragma unroll
+        for (int i = 0; i < T::kTM; ++i)
+          p_s[(rg * T::kTM + i) * T::kPStride + col] =
+              ok ? exp2f(fmaf(st[i][t], p.scale_log2, -lse2)) : 0.f;
+      }
+    }
+    // dP^T = V dO^T (unscaled), dS^T = P^T (dP^T - Dcap): each thread reads back the P^T
+    // values it wrote
+    {
+      float dpt[T::kTM][T::kTN];
+      dot_rows<T>(dpt, v_s, dos, rg, cg);
+#pragma unroll
+      for (int t = 0; t < T::kTN; ++t) {
+        const int col = cg + t * CG;
+        const float dc = rows[2 * C + col];
+#pragma unroll
+        for (int i = 0; i < T::kTM; ++i) {
+          const int at = (rg * T::kTM + i) * T::kPStride + col;
+          ds_s[at] = p_s[at] * (dpt[i][t] - dc);
+        }
+      }
+    }
+    __syncthreads();  // P^T and dS^T are in
+    acc_rows<T>(dv, p_s, dos, rg, cg);  // dV += P^T dO
+    acc_rows<T>(dk, ds_s, qs, rg, cg);  // dK += dS^T Q
+  }
+
+#pragma unroll
+  for (int i = 0; i < T::kTM; ++i) {
+    const int row = key0 + rg * T::kTM + i;
+    if (row >= p.Lk) continue;
+    const long long at = b * p.sb + h * p.sh + row * p.sl;
+    store_row<T>(p.out0 + at, dk, i, p.scale, cg, p.D);
+    store_row<T>(p.out1 + at, dv, i, 1.f, cg, p.D);
+  }
+}
+
+// dQ: R queries a block (Q and dO stationary, each thread's rows' LSE and Dcap in
+// registers), C-key stages of K and V.
+template <int DP, int R, int C, int CG, int NT>
+__global__ void __launch_bounds__(NT, 1) flash_bwd_dq_fma_kernel(const BwdParams p) {
+  using T = Tile<DP, R, C, CG, NT>;
+  extern __shared__ float4 smem4[];
+  float* q_s = reinterpret_cast<float*>(smem4);
+  float* do_s = q_s + R * T::kStride;
+  float* ring = do_s + R * T::kStride;        // two stages of K and V
+  float* ds_s = ring + 4 * C * T::kStride;    // dS, R x C
+
+  // block -> (batch*head, query tile)
+  const int q_tiles = (p.Lq + R - 1) / R;
+  const int qt = blockIdx.x % q_tiles, bh = blockIdx.x / q_tiles;
+  const int b = bh / p.H, h = bh % p.H;
+  const int q0 = qt * R;
+  const float* qg = static_cast<const float*>(p.q.base) + b * p.q.sb + h * p.q.sh;
+  const float* dog = static_cast<const float*>(p.dout.base) + b * p.dout.sb + h * p.dout.sh;
+  const float* kg = static_cast<const float*>(p.k.base) + b * p.k.sb + h * p.k.sh;
+  const float* vg = static_cast<const float*>(p.v.base) + b * p.v.sb + h * p.v.sh;
+  const int n_k = (p.Lk + C - 1) / C;
+
+  load_rows<T, R>(q_s, qg, p.q.sl, q0, p.Lq, p.D);
+  load_rows<T, R>(do_s, dog, p.dout.sl, q0, p.Lq, p.D);
+  load_rows<T, C>(ring, kg, p.k.sl, 0, p.Lk, p.D);
+  load_rows<T, C>(ring + C * T::kStride, vg, p.v.sl, 0, p.Lk, p.D);
+  cp_async_commit();
+
+  const int rg = threadIdx.x / CG, cg = threadIdx.x % CG;
+  // this thread's query rows: LSE * log2(e) and Dcap, 0 past Lq (never stored)
+  float lse2[T::kTM], dc[T::kTM];
+#pragma unroll
+  for (int i = 0; i < T::kTM; ++i) {
+    const int row = q0 + rg * T::kTM + i;
+    const size_t r = (size_t)bh * p.Lq + row;
+    lse2[i] = 0.f;
+    dc[i] = 0.f;
+    if (row < p.Lq) {
+      lse2[i] = (p.l == nullptr ? p.lse[r] : p.lse[r] + logf(p.l[r])) * kLog2e;
+      dc[i] = p.dcap[r];
+    }
+  }
+  float4 dq[T::kTM][T::kCD];
+  zero<T>(dq);
+
+  for (int j = 0; j < n_k; ++j) {
+    cp_async_wait_all();
+    __syncthreads();  // stage j is in; every thread is done with stage j - 1 and dS
+    if (j + 1 < n_k) {
+      float* next = ring + ((j + 1) & 1) * 2 * C * T::kStride;
+      load_rows<T, C>(next, kg, p.k.sl, (j + 1) * C, p.Lk, p.D);
+      load_rows<T, C>(next + C * T::kStride, vg, p.v.sl, (j + 1) * C, p.Lk, p.D);
+      cp_async_commit();
+    }
+    const float* ks = ring + (j & 1) * 2 * C * T::kStride;
+    const float* vs = ks + C * T::kStride;
+
+    // S = Q K^T and dP = dO V^T, unscaled; P = exp(S * scale - LSE), 0 for keys at or
+    // past Lk; dS = P (dP - Dcap)
+    float s[T::kTM][T::kTN], dp[T::kTM][T::kTN];
+    dot_rows<T>(s, q_s, ks, rg, cg);
+    dot_rows<T>(dp, do_s, vs, rg, cg);
+    const int key0 = j * C;
+#pragma unroll
+    for (int t = 0; t < T::kTN; ++t) {
+      const int col = cg + t * CG;
+      const bool ok = key0 + col < p.Lk;
+#pragma unroll
+      for (int i = 0; i < T::kTM; ++i) {
+        const float pv = ok ? exp2f(fmaf(s[i][t], p.scale_log2, -lse2[i])) : 0.f;
+        ds_s[(rg * T::kTM + i) * T::kPStride + col] = pv * (dp[i][t] - dc[i]);
+      }
+    }
+    __syncthreads();  // dS is in
+    acc_rows<T>(dq, ds_s, ks, rg, cg);  // dQ += dS K
+  }
+
+#pragma unroll
+  for (int i = 0; i < T::kTM; ++i) {
+    const int row = q0 + rg * T::kTM + i;
+    if (row >= p.Lq) continue;
+    store_row<T>(p.out0 + b * p.sb + h * p.sh + row * p.sl, dq, i, p.scale, cg, p.D);
+  }
+}
+
 // ---------------------------------------------------------------- launches
 
 // Set the kernel's dynamic shared memory and launch it over `blocks` blocks.
@@ -1451,8 +1820,17 @@ BwdParams bwd_params(const Views& x, const void* lse, const void* l, const void*
   return p;
 }
 
+// Heads of 88-160 columns take the FMA kernels (FmaTile), which read by plain loads.
+bool fma_head(int D) { return D > 80 && D <= FmaTile::kDP && D % 8 == 0; }
+
 cudaError_t run_dkv(const Views& x, const BwdParams& p, cudaStream_t stream) {
   if (!valid_bwd(x, p.B, p.H, p.Lq, p.Lk)) return cudaErrorInvalidValue;
+  if (fma_head(p.D)) {
+    using T = FmaTile;
+    const long long blocks = (long long)p.B * p.H * ((p.Lk + T::kR - 1) / T::kR);
+    return run(flash_bwd_dkv_fma_kernel<T::kDP, T::kR, T::kC, T::kCG, T::kNT>, blocks, T::kNT,
+               T::kDkvSmem, stream, p);
+  }
   return with_dkv_cfg(p.D, [&](auto cfg) {
     using C = decltype(cfg);
     CUtensorMap tq, tdo, tk, tv;
@@ -1470,6 +1848,12 @@ cudaError_t run_dkv(const Views& x, const BwdParams& p, cudaStream_t stream) {
 
 cudaError_t run_dq(const Views& x, const BwdParams& p, cudaStream_t stream) {
   if (!valid_bwd(x, p.B, p.H, p.Lq, p.Lk)) return cudaErrorInvalidValue;
+  if (fma_head(p.D)) {
+    using T = FmaTile;
+    const long long blocks = (long long)p.B * p.H * ((p.Lq + T::kR - 1) / T::kR);
+    return run(flash_bwd_dq_fma_kernel<T::kDP, T::kR, T::kC, T::kCG, T::kNT>, blocks, T::kNT,
+               T::kDqSmem, stream, p);
+  }
   return with_dq_cfg(p.D, [&](auto cfg) {
     using C = decltype(cfg);
     CUtensorMap tk, tv;
@@ -1498,7 +1882,8 @@ Views strided(const void* q, const void* k, const void* v, const void* dout, lon
 
 // Each entry point takes the arguments of its bf16 namesake (flash_attn_fwd.cu,
 // flash_attn_bwd.cu) on fp32 tensors and returns the cudaError_t of its launches
-// (0 = success). The forward takes head dims up to 512, the backward up to 80.
+// (0 = success). The forward takes head dims up to 512, the backward up to 160 (3xTF32
+// up to 80, FMA above).
 
 // The tiles of the fp32 forward instance that takes head dim D: query rows a block (128
 // up to D 80, 64 above), keys a tile (64), and 1: it never splits the key range

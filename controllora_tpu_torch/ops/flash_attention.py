@@ -20,15 +20,15 @@ Each kernel has two routes, picked by the inputs' dtype (``kernel_dtype``): bf16
 and fp32, the dtypes the JAX package's stacks give its kernels. On bf16, K1 and K2
 run in ``csrc/flash_attn_fwd.cu`` (wgmma, a TMA-fed K/V ring, softmax in registers;
 ``csrc/hopper.cuh``), K3 and K4 in ``csrc/flash_attn_bwd.cu`` (wgmma: K3's kernel
-keeps 128 keys a block and streams query tiles through a TMA ring, K4's keeps 128
-queries and streams key tiles; K5's backward runs on the same two kernels; see the
-headers for the design). They read the projections through TMA tensor maps
+keeps 128 keys a block, 64 at head dims over 80, and streams query tiles through a TMA
+ring, K4's keeps 128 queries and streams key tiles; K5's backward runs on the same two
+kernels; see the headers for the design). They read the projections through TMA tensor maps
 (``tma_geometry``, one case of ``head_geometry``). On fp32 all five run in
 ``csrc/flash_attn_fp32.cu``, with fp32-accurate products, as the JAX kernels multiply
 fp32 blocks with fp32 results: every product as 3xTF32 on wgmma (each operand split
 into two tf32 parts, three tensor-core products a product) fed by a TMA ring, each tile
 split and transposed in shared memory by the kernel (the loads need
-``vector_geometry``). Both routes take the
+``vector_geometry``); the backward above head dim 80 runs on fp32 FMA tiles. Both routes take the
 projections in the (B, L, H*D) layout the attention layers produce, so no head split or
 padding copy is made.
 The JAX block-size policy (``pick_block``, ``serving_blocks``) does not carry over:
@@ -67,7 +67,11 @@ BUILD_DIR = CSRC / "_build"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAX_HEAD_DIM = 512  # the forward's (K1, K2, K5): bf16 D <= 48, 64, 80, 512; fp32 8-80, 512
-MAX_BWD_HEAD_DIM = 80  # the backward's (K3, K4, K5): bf16 DS 48, 64, 80; fp32 8-80
+# the backward's (K3, K4, K5): bf16 DS 48, 64, 80, 160; fp32 8-80 (3xTF32), 88-160 (FMA)
+MAX_BWD_HEAD_DIM = 160
+BWD_LIMIT_REASON = ("the widest UNet head of the zoo (SD1.5's level 2); no path "
+                    "differentiates through a wider one (the VAE's D 512 attention "
+                    "stays frozen)")
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)  # the two routes of every kernel
 
 LAUNCHES: Dict[str, int] = {"k1": 0, "k2": 0, "k3": 0, "k4": 0}
@@ -331,7 +335,8 @@ def _check_bwd_inputs(q, k, v, do, lse, dcap, heads: int) -> Tuple[int, int, int
         raise ValueError(f"dout {tuple(do.shape)} must match q {tuple(q.shape)}")
     if d > MAX_BWD_HEAD_DIM:
         raise ValueError(f"head dim {d} > {MAX_BWD_HEAD_DIM}: the backward kernels "
-                         f"K3/K4 take head dims up to {MAX_BWD_HEAD_DIM}")
+                         f"K3/K4 take head dims up to {MAX_BWD_HEAD_DIM}, "
+                         f"{BWD_LIMIT_REASON}")
     for name, t in (("lse", lse), ("dcap", dcap)):
         if t.shape != (b * h, lq) or t.dtype != torch.float32 or t.device != q.device \
                 or not t.is_contiguous():

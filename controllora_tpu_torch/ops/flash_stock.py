@@ -39,10 +39,10 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from controllora_tpu_torch.ops.flash_attention import (MAX_BWD_HEAD_DIM, MAX_HEAD_DIM,
-                                                       build_kernels, count_launch, entry,
-                                                       head_geometry, kernel_dtype,
-                                                       vector_geometry)
+from controllora_tpu_torch.ops.flash_attention import (BWD_LIMIT_REASON, MAX_BWD_HEAD_DIM,
+                                                       MAX_HEAD_DIM, build_kernels,
+                                                       count_launch, entry, head_geometry,
+                                                       kernel_dtype, vector_geometry)
 
 MIN_BLOCK_SIZE = 128  # the stock kernel's smallest block (jax NUM_LANES)
 
@@ -91,9 +91,11 @@ def stock_block(q_len: int, kv_len: int, head_dim: int) -> int:
     return blk
 
 
-def _check_cuda(q, k, v, max_d: int, q_side=(), k_side=()) -> Tuple[int, int, int, int, int]:
+def _check_cuda(q, k, v, max_d: int, q_side=(), k_side=(),
+                why: str = "") -> Tuple[int, int, int, int, int]:
     """Validate what the K5 kernels of the inputs' dtype take; returns (B, H, Lq, Lk,
-    D). q_side tensors must share q's strides, k_side tensors (and v) k's."""
+    D). q_side tensors must share q's strides, k_side tensors (and v) k's; `why` is the
+    reason for `max_d` a refusal gives."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be (B, H, L, D)")
     b, h, lq, d = q.shape
@@ -101,7 +103,8 @@ def _check_cuda(q, k, v, max_d: int, q_side=(), k_side=()) -> Tuple[int, int, in
         raise ValueError(f"shape mismatch q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
     if d % 8 or d > max_d:
-        raise ValueError(f"head dim {d} must be a multiple of 8 and <= {max_d}")
+        raise ValueError(f"head dim {d} must be a multiple of 8 and <= {max_d}"
+                         + (f": {why}" if why else ""))
     groups = ((q, (("q", q),) + tuple(q_side)), (k, (("k", k), ("v", v)) + tuple(k_side)))
     dtype = kernel_dtype(*(named for _, group in groups for named in group))
     geometry = head_geometry if dtype == torch.bfloat16 else vector_geometry
@@ -201,7 +204,8 @@ def stock_flash_bwd_dkv(q, k, v, do, m, l, di, sm_scale: float):
     CUDA tensors launch the kernel or raise."""
     if q.device.type == "cpu":
         return stock_flash_bwd_dkv_plain(q, k, v, do, m, l, di, sm_scale)
-    b, h, lq, lk, d = _check_cuda(q, k, v, MAX_BWD_HEAD_DIM, (("dout", do),))
+    b, h, lq, lk, d = _check_cuda(q, k, v, MAX_BWD_HEAD_DIM, (("dout", do),),
+                                  why=BWD_LIMIT_REASON)
     _check_rows(b, h, lq, q.device, m=m, l=l, di=di)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("k5_dkv", "k5_stock_flash_bwd_dkv", q, k, v, do, m, l, di, dk, dv, b, h, lq,
@@ -214,7 +218,8 @@ def stock_flash_bwd_dq(q, k, v, do, m, l, di, sm_scale: float):
     launch the kernel or raise."""
     if q.device.type == "cpu":
         return stock_flash_bwd_dq_plain(q, k, v, do, m, l, di, sm_scale)
-    b, h, lq, lk, d = _check_cuda(q, k, v, MAX_BWD_HEAD_DIM, (("dout", do),))
+    b, h, lq, lk, d = _check_cuda(q, k, v, MAX_BWD_HEAD_DIM, (("dout", do),),
+                                  why=BWD_LIMIT_REASON)
     _check_rows(b, h, lq, q.device, m=m, l=l, di=di)
     dq = torch.empty_like(q)
     _launch("k5_dq", "k5_stock_flash_bwd_dq", q, k, v, do, m, l, di, dq, b, h, lq, lk, d,

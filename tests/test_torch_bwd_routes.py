@@ -6,7 +6,8 @@ stock residuals and take the stock runtime scale. This holds that contract with 
 plain versions: K3's and K4's plain backward, fed m + log(l) from the K5 forward's plain
 version, di as Dcap and the stock scale (D^-1/2, 0.3 and -0.3), equals the stock plain
 backward, and jax's stock TPU backward (its Pallas kernels in interpret mode, as
-tests/test_torch_flash_stock.py runs them) at B 1, H 2, L 256, D 40 and 80.
+tests/test_torch_flash_stock.py runs them) at B 1, H 2, L 256, D 40, 80 and 128 (the
+widest head the stock kernel takes at any length, which K3/K4's wide instances run).
 
 Inputs come from a numpy seed, in fp32. Bounds on each gradient, times
 max(1, max|ref|): 1e-5 between the two plain versions (the same products; exp(S * s -
@@ -100,7 +101,7 @@ def k3_k4_route(q, k, v, do, scale):
 
 
 @pytest.mark.parametrize("scale", SCALES)
-@pytest.mark.parametrize("d", [40, 80])
+@pytest.mark.parametrize("d", [40, 80, 128])
 def test_k3_k4_contract_equals_stock_plain(d, scale):
     """The K3/K4 plain backward on K5's residuals and scale equals K5's plain backward
     (P = exp(S * scale - m) / l, dS = P (dP - di) * scale, dK = dS^T Q, dQ = dS K)."""
@@ -120,7 +121,7 @@ def test_k3_k4_contract_equals_stock_plain(d, scale):
 
 
 @pytest.mark.parametrize("scale", SCALES)
-@pytest.mark.parametrize("d", [40, 80])
+@pytest.mark.parametrize("d", [40, 80, 128])
 def test_k3_k4_contract_equals_jax_stock_backward(d, scale):
     """The same route against jax's stock flash attention's VJP (forward, dK/dV and dQ
     Pallas kernels in interpret mode) at the stock block, with the scale passed to it."""

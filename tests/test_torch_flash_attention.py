@@ -111,11 +111,11 @@ def test_k1_per_image_biases_tile():
 
 
 @pytest.mark.parametrize("l,d", [(128, 40), (96, 40), (288, 80), (144, 512), (128, 8),
-                                 (96, 16), (160, 32)])
+                                 (96, 16), (160, 32), (256, 160)])
 def test_k2_plain_matches_fwd(l, d):
     """O and LSE of the JAX forward kernel; ragged L runs it padded to blocks of 64
     with kv_valid masking, then slices. D 8, 16 and 32: the fp32 smoke stacks' UNet
-    and VAE."""
+    and VAE; D 160: SD1.5's level 2, whose forward the backward below needs."""
     from controllora_tpu.ops.pallas_attention_vjp import _fwd
 
     q, k, v = (rand((2, l, d), s) for s in range(3))
@@ -174,13 +174,14 @@ def jnp_to_np(x):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [8, 16, 40, 80])
+@pytest.mark.parametrize("d", [8, 16, 40, 80, 96, 160])
 @pytest.mark.parametrize("l", [256, 300])
 def test_k3_k4_plain_match_jax_bwd(l, d, dtype):
     """dQ (K4), dK and dV (K3) of the plain versions against the JAX backward: the
     Pallas `_bwd` kernels straight at L 256 (blocks of 64), and the VJP of
     `flash_attention_padded` at the ragged L 300 (padded to 320, KV-masked); D 8 and
-    16 are the fp32 smoke stacks' training head dims."""
+    16 are the fp32 smoke stacks' training head dims, 160 SD1.5's level 2 (trained from
+    1472² up), 96 a head the wide instances zero fill to 160."""
     from controllora_tpu.ops.pallas_attention_vjp import _bwd, _fwd, flash_attention_padded
 
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)

@@ -198,14 +198,16 @@ def test_fwd_tiles_of_each_fp32_instance(cuda, d):
 
 
 @pytest.mark.parametrize("l", [300, 4225])
-@pytest.mark.parametrize("d", [8, 16, 32, 40, 48, 64, 80, 512])
+@pytest.mark.parametrize("d", [8, 16, 32, 40, 48, 64, 80, 160, 512])
 def test_fp32_instances_at_ragged_lengths(cuda, d, l):
-    """Every instance of the fp32 forward, dK/dV and dQ kernels (3xTF32) at a length
-    that is not a whole number of their tiles (128 or 64 query rows, 64-key tiles; 64 or
-    128 keys and 32-query tiles in dK/dV; 128 queries and 64-key tiles, or 64 queries
-    and 32-key tiles, in dQ): K2's O and LSE, the K5 forward's O, m and l at the stock
-    scale negated, and K3's and K5's dK, dV and K4's and K5's dQ (up to D 80), each
-    against its plain version at the fp32 bounds. D 48 runs on the D 64 instance."""
+    """Every instance of the fp32 forward, dK/dV and dQ kernels (3xTF32, and the FMA
+    backward at D 160) at a length that is not a whole number of their tiles (128 or 64
+    query rows, 64-key tiles; 64 or 128 keys and 32-query tiles in dK/dV; 128 queries
+    and 64-key tiles, or 64 queries and 32-key tiles, in dQ; 64 stationary rows and
+    32-row tiles in both FMA kernels): K2's O and LSE, the K5 forward's O, m and l at
+    the stock scale negated, and K3's and K5's dK, dV and K4's and K5's dQ (up to D
+    160), each against its plain version at the fp32 bounds. D 48 runs on the D 64
+    instance."""
     b, heads = 1, 2
     q, k, v, do = (randn((b, l, heads * d), s, cuda, FP32) for s in range(4))
     o, lse = fa.flash_attention(q, k, v, heads)
@@ -286,13 +288,13 @@ def test_wrappers_raise_on_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):
         fa.biased_attention(qh, qh, qh, 1, torch.zeros((3, 64, 40), device=cuda,
                                                               dtype=torch.bfloat16))
-    do = torch.zeros((1, 64, 8 * 96), device=cuda, dtype=torch.bfloat16)
+    do = torch.zeros((1, 64, 8 * 168), device=cuda, dtype=torch.bfloat16)
     lse = torch.zeros((8, 64), device=cuda)
-    with pytest.raises(ValueError, match="up to 80"):
-        fa.flash_bwd_dkv(do, do, do, do, lse, lse, 8)  # head dim 96
+    with pytest.raises(ValueError, match="up to 160, the widest UNet head"):
+        fa.flash_bwd_dkv(do, do, do, do, lse, lse, 8)  # head dim 168
     with pytest.raises(TypeError):
         fa.flash_bwd_dq(q, q, q, q, lse[:1], lse[:1], 1)  # fp16
-    with pytest.raises(ValueError, match="up to 80"):
+    with pytest.raises(ValueError, match="up to 160, the widest UNet head"):
         fa.flash_bwd_dq(do.float(), do.float(), do.float(), do.float(), lse, lse, 8)
     assert fa.LAUNCHES == {"k1": 0, "k2": 0, "k3": 0, "k4": 0}
 
@@ -302,11 +304,17 @@ def bound(ref, dtype=BF16):
     return (1e-2 if dtype == BF16 else 1e-4) * max(1.0, ref.abs().max().item())
 
 
+# SD1.5's level 2 at 1536² (L 2304) and 1472² (ragged 2116) at D 160, a short D 160
+# L, and D 96 and 128 (jax's stock kernel takes both): the wide instances of both
+# routes, zero filled to 160 below it
+K3_K4_WIDE = [(1, 8, 2304, 160), (1, 8, 2116, 160), (1, 2, 333, 160), (1, 4, 1024, 96),
+              (1, 4, 1024, 128)]
 # the fp32 route at SD1.5's --mixed_precision no training shape, the smoke stacks' D 8
 # and 16 at 512², D 32, 64 and 80, ragged and short L, and q scaled x4 (q_mul)
 K3_K4_FP32 = [(8, 8, 4096, 40, 1, FP32), (2, 4, 4096, 8, 1, FP32), (2, 2, 4096, 16, 1, FP32),
               (2, 8, 4225, 40, 1, FP32), (2, 8, 1024, 40, 4, FP32), (1, 4, 333, 64, 1, FP32),
-              (1, 8, 300, 80, 1, FP32), (2, 4, 40, 40, 1, FP32), (2, 4, 1000, 32, 4, FP32)]
+              (1, 8, 300, 80, 1, FP32), (2, 4, 40, 40, 1, FP32), (2, 4, 1000, 32, 4, FP32)] + [
+              shape + (1, FP32) for shape in K3_K4_WIDE]
 
 
 @pytest.mark.parametrize("b,heads,l,d,q_mul,dtype", [shape + (1, BF16) for shape in [
@@ -314,15 +322,15 @@ K3_K4_FP32 = [(8, 8, 4096, 40, 1, FP32), (2, 4, 4096, 8, 1, FP32), (2, 2, 4096, 
                                          (1, 8, 7744, 40), (2, 8, 4225, 40),
                                          (1, 8, 300, 80), (2, 8, 1024, 64),
                                          (1, 4, 333, 64), (2, 4, 40, 40), (1, 2, 40, 64),
-                                         (1, 8, 4096, 40)]] + K3_K4_FP32)
+                                         (1, 8, 4096, 40)] + K3_K4_WIDE] + K3_K4_FP32)
 def test_k3_k4_match_plain(cuda, b, heads, l, d, q_mul, dtype):
     """dQ, dK, dV from O and LSE of K2, against the plain versions in fp32 on the
     same bf16 inputs and the same Dcap: the training shape (batch 8, and batch 1 of
     the canned train_canny task), the 384² and 704²
     latents, D 64 (the third instance of both kernels), ragged L (not a multiple of
     the 64-row tile: the kernels set P to 0 by index past L) and L 40, under one tile
-    of 64 rows on the ring side and one 128-row stationary tile. Then the fp32 route
-    (K3_K4_FP32), counted in FP32_LAUNCHES as well."""
+    of 64 rows on the ring side and one 128-row stationary tile; the wide instances
+    (K3_K4_WIDE). Then the fp32 route (K3_K4_FP32), counted in FP32_LAUNCHES as well."""
     q, k, v, do = (randn((b, l, heads * d), s, cuda, dtype) for s in range(4))
     q = q * q_mul
     o, lse = fa.flash_attention(q, k, v, heads)
@@ -342,13 +350,14 @@ def test_k3_k4_match_plain(cuda, b, heads, l, d, q_mul, dtype):
 
 
 @pytest.mark.parametrize("dtype", [BF16, FP32])
-@pytest.mark.parametrize("b,heads,l,d", [(8, 8, 4096, 40), (2, 8, 4225, 40)])
+@pytest.mark.parametrize("b,heads,l,d", [(8, 8, 4096, 40), (2, 8, 4225, 40),
+                                         (1, 8, 2304, 160)])
 def test_flash_attention_grad_matches_plain_autograd(cuda, b, heads, l, d, dtype):
     """The repaired fault: long self-attention on the card used to return K2's
     output without a graph, dropping every gradient through it. Through
     dot_product_attention the gradients of q, k, v now exist and match the autograd
-    of the plain fp32 attention on the same bf16 values: the training shape and a
-    ragged L, in bf16 and in fp32 (the fp32 route)."""
+    of the plain fp32 attention on the same bf16 values: the training shape, a ragged
+    L and SD1.5's level 2 at 1536² (D 160), in bf16 and in fp32 (the fp32 route)."""
     q, k, v, do = (randn((b, l, heads * d), s, cuda, dtype) for s in range(4))
     q, k, v = (x.requires_grad_() for x in (q, k, v))
     dot_product_attention(q, k, v, heads).backward(do)
@@ -444,13 +453,16 @@ def test_k5_fwd_takes_any_layout(cuda, q_layout, lq, lk, d):
     (2, 4, 512, 80, -0.2, "contiguous")]] + [
     (4, 8, 4096, 40, None, "projection", FP32), (2, 8, 1024, 40, -0.3, "projection", FP32),
     (2, 4, 1024, 64, 0.3, "contiguous", FP32), (2, 4, 512, 80, -0.2, "contiguous", FP32),
-    (2, 4, 1024, 16, None, "projection", FP32)])
+    (2, 4, 1024, 16, None, "projection", FP32)] + [
+    (2, 4, 1024, 128, 0.3, "projection", dtype) for dtype in (BF16, FP32)])
 def test_k5_bwd_matches_plain(cuda, b, heads, l, d, scale, layout, dtype):
     """dK/dV and dQ of the stock backward (K3's and K4's kernels, forming m + log l)
     from the K5 forward's m and l, against the plain versions in fp32 on the same bf16
     inputs and the same di: the default, a non-default and a negative scale, D 40, 64
-    and 80, head-split views of the projections and contiguous (B, H, L, D) tensors.
-    The gradients come back with the strides of their inputs. Then the fp32 route."""
+    and 80, and 128 (the widest head jax's stock kernel takes at any length: the wide
+    instances), head-split views of the projections and contiguous (B, H, L, D)
+    tensors. The gradients come back with the strides of their inputs. Then the fp32
+    route."""
     scale = d**-0.5 if scale is None else scale
     q, k, v, do = (heads_view(b, heads, l, d, s, cuda, dtype) for s in range(4))
     if layout == "contiguous":
@@ -509,18 +521,18 @@ def test_k5_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         fs.stock_flash_fwd(q.half(), q.half(), q.half(), 0.1)  # fp16
     with pytest.raises(TypeError, match="all of one dtype"):
         fs.stock_flash_fwd(q.float(), q, q, 0.1)
-    w = heads_view(1, 2, 256, 96, 1, cuda)
+    w = heads_view(1, 2, 256, 168, 1, cuda)
     rows = torch.zeros((1, 2, 256), device=cuda)
-    with pytest.raises(ValueError, match="<= 80"):
-        fs.stock_flash_bwd_dq(w, w, w, w, rows, rows, rows, 0.1)  # head dim 96
+    with pytest.raises(ValueError, match="<= 160: the widest UNet head"):
+        fs.stock_flash_bwd_dq(w, w, w, w, rows, rows, rows, 0.1)  # head dim 168
     with pytest.raises(ValueError, match="strides"):
         fs.stock_flash_fwd(q, q.contiguous(), q, 0.1)  # k and v in different layouts
-    with pytest.raises(ValueError, match="<= 80"):
-        fs.stock_flash_bwd_dkv(w, w, w, w, rows, rows, rows, 0.1)  # head dim 96
+    with pytest.raises(ValueError, match="<= 160: the widest UNet head"):
+        fs.stock_flash_bwd_dkv(w, w, w, w, rows, rows, rows, 0.1)  # head dim 168
     with pytest.raises(TypeError):
         qf = q.half()
         fs.stock_flash_bwd_dkv(qf, qf, qf, qf, rows, rows, rows, 0.1)  # fp16
-    with pytest.raises(ValueError, match="<= 80"):
+    with pytest.raises(ValueError, match="<= 160: the widest UNet head"):
         fs.stock_flash_bwd_dq(w.float(), w.float(), w.float(), w.float(), rows, rows, rows, 0.1)
     with pytest.raises(ValueError, match="strides"):
         fs.stock_flash_bwd_dq(q, q, q, q.contiguous(), rows, rows, rows, 0.1)  # dO's layout
