@@ -196,15 +196,20 @@ script inside its time); the counts below are at those values.
               where level 2's self-attentions run K2-K4 at D 160 (L 2304), as the JAX
               trainer runs them. Its kernel cases run in phase 3, each in bf16
               (phase_hires_kernels, phase_flash_grad, phase_stock_kernels) and in fp32
-              (rows of FP32_K2, FP32_BWD, FP32_K5) against its plain version: K2 at (1,
-              8, 2304, 160) on the wide forward and K3/K4 there (wide instances: bf16
-              wgmma, fp32 FMA tiles), timed with bounds and SDPA; K3/K4 at the ragged
-              (1, 8, 2116, 160), a short D 160, D 96 and 128, and q scaled x4; K2-K4
-              at the step's other lengths and head dims, checked only: level 1 (1, 8,
-              9216, 80) and level 0 (L 36864, D 40) at one head of its 8, and K2 at the
-              VAE encoder's (1, 1, 36864, 512), where the plain versions' fp32 logits
-              take 2.7-5.4 GB; FlashAttention's gradient at D 160 against plain
-              autograd; K5's backward at D 128. Here: one bf16 step's adapter gradient against the same step
+              (rows of FP32_K1, FP32_K2, FP32_BWD, FP32_K5) against its plain version:
+              K2 at (1, 8, 2304, 160) and K1 at (2, 8, 2304, 160) + biases of batch 1
+              on the forward's DS 160 instances (bf16 wgmma, fp32 3xTF32; the
+              profiler's kernel name held to them) and K3/K4 there (wide instances:
+              bf16 wgmma, fp32 FMA tiles), timed with bounds and SDPA; K1, K2 and the
+              K5 forward at D 88, 96, 128, 152 and 160, L 2116 and 333, q as drawn and
+              x4; K3/K4 at the ragged (1, 8, 2116, 160), a short D 160, D 96 and 128,
+              and q scaled x4; K2-K4 at the step's other lengths and head dims: level 1
+              (1, 8, 9216, 80) timed, level 0 (L 36864, D 40) checked at one head of
+              its 8 and timed at all 8 with no plain version (K2's O held to SDPA's),
+              and K2 at the VAE encoder's (1, 1, 36864, 512), checked, where the plain
+              versions' fp32 logits take 2.7-5.4 GB; FlashAttention's gradient at D 160
+              against plain autograd; K5's backward at D 128. Here: one bf16 step's
+              adapter gradient against the same step
               with the D 160 attentions' backward on the plain versions (relative
               5e-2); `python -m controllora_tpu_torch.train --model_variant sd15
               --resolution 1536 --train_batch_size 1` in this process, bf16 with no
@@ -213,7 +218,8 @@ script inside its time); the counts below are at those values.
               per step ({k2 16, k3 15, k4 15}, with remat k2 31) and K3's head dims per
               step {40: 5, 80: 5, 160: 5}.
 The last lines are the kernel record (each route with the CUDA kernel it launches, and
-under "fp32" its fp32 route's kernels, launches and times),
+under "fp32" its fp32 route's kernels, launches and times; the forward routes also name
+the kernel the profiler saw at D 160, "d88_160_kernel"),
 the card's name and power limit, and {"ok": true, "device": {...}}.
 ``python3 chip_smoke.py --cards`` on a host with 4 cards runs only phase 20, one rank
 a card over nccl.
@@ -339,7 +345,7 @@ def attention_roofline(products, b, h, lq, lk, d, bf16_q, bf16_k, fp32_rows):
     return roofline(flops, nbytes)
 
 
-def sdpa_ms(torch, q, k, v, scale=None, do=None, floor_ms=None):
+def sdpa_ms(torch, q, k, v, scale=None, do=None, floor_ms=None, iters=10):
     """Time of one torch scaled_dot_product_attention call on (B, H, L, D) inputs
     (the library yardstick; the port never calls it): the forward, or with `do` the
     backward of one call, which gives dq, dk and dv together. Every fused backend that
@@ -348,7 +354,7 @@ def sdpa_ms(torch, q, k, v, scale=None, do=None, floor_ms=None):
     {"library_ms", "library_backend"} of the fastest by events,
     {"library_device_ms", "library_device_backend"} of the fastest by device time,
     and "library_backends": {backend: [ms, device ms]}. `floor_ms` (the bound)
-    goes to device_ms."""
+    goes to device_ms, `iters` to both timers."""
     import warnings
 
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -373,8 +379,8 @@ def sdpa_ms(torch, q, k, v, scale=None, do=None, floor_ms=None):
                         return torch.autograd.grad(out, (qq, kk, vv), do, retain_graph=True)
                 fn()
                 torch.cuda.synchronize()
-                times[backend.name] = cuda_ms(fn)
-                device[backend.name] = device_ms(fn, floor_ms=floor_ms)
+                times[backend.name] = cuda_ms(fn, iters=iters)
+                device[backend.name] = device_ms(fn, iters=iters, floor_ms=floor_ms)
         except RuntimeError:
             continue
         finally:
@@ -2460,6 +2466,21 @@ def phase_family_train(torch, fa, device, card):
 HIRES_VARIANT, HIRES_RES, HIRES_BATCH = "sd15", 1536, 1
 HIRES_WARMUP, HIRES_STEPS, HIRES_FP32_STEPS = 2, 3, 2
 HIRES_LEVEL2 = (1, 8, 2304, 160)
+# K1 at level 2 when serving at 1536² (the CFG batch 2, biases of batch 1), timed in
+# bf16 here and in fp32 as a row of FP32_K1
+HIRES_K1 = (2, 8, 2304, 160)
+# the forward at D 88-160 (K1, K2, K5) on its DS 160 instances, checked at ragged L
+# (1472²'s level 2, a short one) with q as drawn and x4, bf16 and fp32; the profiler's
+# name of the instance that runs K2 at HIRES_LEVEL2, by dtype name, filled in by
+# check_d160_kernel and reported in the kernel record
+FWD_D160_DIMS, FWD_D160_LENGTHS = (88, 96, 128, 152, 160), (2116, 333)
+D160_FWD_KERNELS = {"bfloat16": "flash_fwd_kernel<160, 64, 3, false>",
+                    "float32": "flash_fwd_d160_3xtf32_kernel"}
+D160_SEEN = {}
+# K2-K4 timed at the 1536² step's level 0 at all 8 heads (5 launches each a bf16 step,
+# K2 10 under remat dots) with no plain version (its fp32 logits would take 43 GB): K2's
+# O is held to the SDPA call's, its outputs checked finite; iterations of each timing
+HIRES_LEVEL0, HIRES_LEVEL0_ITERS = (1, 8, 36864, 40), 5
 # K3/K4 on the wide instances (D 88-160), in bf16 here and in fp32 as rows of FP32_BWD:
 # (shape, q factor, timed, label)
 HIRES_BWD = ((HIRES_LEVEL2, 1, True, "SD1.5 1536² level 2"),
@@ -2468,11 +2489,12 @@ HIRES_BWD = ((HIRES_LEVEL2, 1, True, "SD1.5 1536² level 2"),
              ((1, 4, 1024, 96), 1, False, "D 96, zero filled to 160"),
              ((1, 4, 1024, 128), 1, False, "D 128, zero filled to 160"),
              (HIRES_LEVEL2, 4, False, "q x4"))
-# the step's other K2-K4 lengths and head dims (the narrow instances), checked only, in
-# the same format: level 1 whole, level 0 at one head of its 8 (the plain versions'
-# fp32 logits of all 8 would take 43 GB; a head's blocks run the same 576 query tiles),
-# and K2 alone at the VAE encoder's D 512
-HIRES_NARROW = (((1, 8, 9216, 80), 1, False, "SD1.5 1536² level 1"),
+# the step's other K2-K4 lengths and head dims (the narrow instances) in the same
+# format: level 1 whole and timed (5 launches each a bf16 step), level 0 at one head of
+# its 8, checked only (the plain versions' fp32 logits of all 8 would take 43 GB; a
+# head's blocks run the same 576 query tiles; all 8 are timed at HIRES_LEVEL0), and K2
+# alone at the VAE encoder's D 512
+HIRES_NARROW = (((1, 8, 9216, 80), 1, True, "SD1.5 1536² level 1"),
                 ((1, 1, 36864, 40), 1, False, "SD1.5 1536² level 0, one of its 8 heads"))
 HIRES_K2 = HIRES_NARROW + (((1, 1, 36864, 512), 1, False, "SD1.5 1536² VAE encoder"),)
 
@@ -2495,14 +2517,157 @@ def flash_head_dims(unet_config, res):
     return dims
 
 
-def phase_hires_kernels(torch, fa, device, record):
+def check_d160_kernel(torch, fn, dtype):
+    """Run fn() (K2 at HIRES_LEVEL2) under the profiler and hold the kernel it launched
+    to the DS 160 forward instance of `dtype` (D160_FWD_KERNELS), not the wide one; the
+    name seen goes to D160_SEEN."""
+    _, _, top = device_profile(torch, fn, host=False)
+    key = str(dtype).split(".")[-1]
+    seen = [name for name, _ in top if D160_FWD_KERNELS[key] in name]
+    if not seen:
+        raise AssertionError(f"K2 {HIRES_LEVEL2} {dtype}: the profiler saw {top}, not "
+                             f"{D160_FWD_KERNELS[key]}")
+    D160_SEEN[key] = seen[0]
+    log(f"K2 {HIRES_LEVEL2} {dtype} runs {seen[0]}")
+
+
+def fwd_d160_checks(torch, fa, fs, device, dtype):
+    """K1 (biases of batch 1 under batch 2), K2 (O, LSE) and the K5 forward (O, m, l at a
+    negative scale) at FWD_D160_DIMS x FWD_D160_LENGTHS, 2 heads, q as drawn and x4, on
+    `dtype` inputs against their plain versions: bf16 O within O_BOUND (K1 also
+    K1_SCALED_BOUND * max|ref|), or with q x4 within O_BOUND + 2^-8 |ref| (the output's
+    own bf16 rounding at |O| ~ 4 is up to 1.5e-2); LSE, m (relative above 1) and l
+    (relative) within LSE_BOUND; fp32 at FP32_BOUND. Returns the largest O error of
+    K1, K2 and K5 of the cases held to O_BOUND or FP32_BOUND (bf16 with q x4 logged
+    apart)."""
+    from controllora_tpu_torch.ops.attention import split_heads
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(20)
+    bf16 = dtype == torch.bfloat16
+    worst = {"k1": 0.0, "k2": 0.0, "k5_fwd": 0.0}
+    peaked = dict(worst)  # bf16 with q x4, beside its rounding bound
+    for d in FWD_D160_DIMS:
+        for l in FWD_D160_LENGTHS:
+            for q_mul in (1, 4):
+                q, k, v = (torch.randn((2, l, 2 * d), generator=gen, device=device).to(dtype)
+                           for _ in range(3))
+                q = q * q_mul
+                qb, kb, vb = (0.25 * torch.randn((1, l, 2 * d), generator=gen, device=device)
+                              .to(dtype) for _ in range(3))
+                qh, kh, vh = (split_heads(x, 2) for x in (q, k, v))
+                scale = -(d**-0.5)
+                outs = {"k1": fa.biased_attention(q, k, v, 2, qb, kb, vb)}
+                outs["k2"], lse = fa.flash_attention(q, k, v, 2)
+                outs["k5_fwd"], m, lsum = fs.stock_flash_fwd(qh, kh, vh, scale)
+                torch.cuda.synchronize()
+                refs = {"k1": plain_fp32(fa, q, k, v, 2, qb, kb, vb)}
+                refs["k2"], lse_ref = fa.attention_lse_plain(*(x.float() for x in (q, k, v)),
+                                                             2)
+                refs["k5_fwd"], m_ref, l_ref = fs.stock_flash_fwd_plain(
+                    qh.float(), kh.float(), vh.float(), scale)
+                tag = f"D {d} L {l} q x{q_mul} {dtype}"
+                for name, out in outs.items():
+                    ref = refs[name]
+                    if not bf16:
+                        err = fp32_error(torch, f"{name} {tag}", out, ref)
+                        worst[name] = max(worst[name], err)
+                        continue
+                    err = (out.float() - ref).abs()
+                    if q_mul != 1:
+                        tol = O_BOUND + 2**-8 * ref.abs()
+                    elif name == "k1":
+                        tol = min(O_BOUND, K1_SCALED_BOUND * ref.abs().max().item())
+                    else:
+                        tol = O_BOUND
+                    if not (torch.isfinite(out).all() and bool((err <= tol).all())):
+                        raise AssertionError(f"{name} {tag}: max|dO| {err.max().item()}")
+                    held = worst if q_mul == 1 else peaked
+                    held[name] = max(held[name], err.max().item())
+                m_scale = m_ref.abs().clamp(min=1) if bf16 else 1.0
+                errs = ((lse - lse_ref).abs().max().item(),
+                        ((m - m_ref).abs() / m_scale).max().item(),
+                        ((lsum - l_ref).abs() / l_ref).max().item())
+                if max(errs) > (LSE_BOUND if bf16 else FP32_BOUND):
+                    raise AssertionError(f"{tag}: |dLSE|, |dm|, relative |dl| {errs}")
+    each = ", ".join(f"{n} {e:.3e}" for n, e in worst.items())
+    if bf16:
+        each += (f" (q x4, within {O_BOUND} + 2^-8 |ref|: "
+                 + ", ".join(f"{n} {e:.3e}" for n, e in peaked.items()) + ")")
+    log(f"forward D 88-160 ({dtype}; D {FWD_D160_DIMS}, L {FWD_D160_LENGTHS}, q x1 and x4): "
+        f"max|dO| {each}; {time.perf_counter() - t0:.1f} s")
+    return worst
+
+
+def level0_timed(torch, fa, device, dtype, record):
+    """K2, K3 and K4 at HIRES_LEVEL0 on `dtype` inputs, timed (events and device,
+    HIRES_LEVEL0_ITERS each) with their bounds (bf16 or 3xTF32) and SDPA (forward, and
+    one backward as the yardstick of K3 + K4), no plain version: the outputs finite and
+    K2's O within O_BOUND (bf16) or FP32_BOUND * max(1, max|ref|) (fp32) of SDPA's
+    efficient backend's (it takes both dtypes). Appended to record["k2" / "k3" /
+    "k4"]["shapes"] with plain_ms None."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from controllora_tpu_torch.ops.attention import merge_heads, split_heads
+
+    t0 = time.perf_counter()
+    b, h, l, d = HIRES_LEVEL0
+    gen = torch.Generator(device=device).manual_seed(21)
+    q, k, v, do = (torch.randn((b, l, h * d), generator=gen, device=device).to(dtype)
+                   for _ in range(4))
+    o, lse = fa.flash_attention(q, k, v, h)
+    dcap = fa.attention_dcap(o, do, h)
+    bwd = (q, k, v, do, lse, dcap, h)
+    dk, dv = fa.flash_bwd_dkv(*bwd)
+    dq = fa.flash_bwd_dq(*bwd)
+    qkv = [split_heads(x, h) for x in (q, k, v)]
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+        ref = merge_heads(torch.nn.functional.scaled_dot_product_attention(*qkv))
+    torch.cuda.synchronize()
+    bf16 = dtype == torch.bfloat16
+    err = (o.float() - ref.float()).abs().max().item()
+    tol = O_BOUND if bf16 else FP32_BOUND * max(1.0, ref.abs().max().item())
+    if not (err <= tol and all(bool(torch.isfinite(x).all()) for x in (o, lse, dk, dv, dq))):
+        raise AssertionError(f"level 0 {dtype}: max|dO| against SDPA {err} > {tol}")
+    del ref
+    roof = attention_roofline if bf16 else fp32_roofline
+    n = HIRES_LEVEL0_ITERS
+    fwd_sdpa = sdpa_ms(torch, *qkv, iters=n)
+    bwd_sdpa = sdpa_ms(torch, *qkv, do=split_heads(do, h), iters=n)
+    text = []
+    for name, fn, bound, library, launches in (
+            ("k2", lambda: fa.flash_attention(q, k, v, h), roof(2, b, h, l, l, d, 2, 2, 1),
+             fwd_sdpa, "5 a bf16 step, 10 under remat dots"),
+            ("k3", lambda: fa.flash_bwd_dkv(*bwd), roof(4, b, h, l, l, d, 2, 4, 2), bwd_sdpa,
+             "5 a step"),
+            ("k4", lambda: fa.flash_bwd_dq(*bwd), roof(3, b, h, l, l, d, 3, 2, 2), bwd_sdpa,
+             "5 a step")):
+        ms = cuda_ms(fn, iters=n)
+        dms = device_ms(fn, iters=n, floor_ms=bound["bound_ms"])
+        entry = shape_entry(HIRES_LEVEL0, ms, dms, None, bound, library)
+        entry["path"] = f"SD1.5 1536² level 0, {launches}, no plain version"
+        record[name]["shapes"].append(entry)
+        text.append(f"{name} {ms:.4f} ms (device {num(dms)}, bound {bound['bound_ms']:.4f})")
+    log(f"K2-K4 {dtype} at {HIRES_LEVEL0} (SD1.5 1536² level 0; max|dO| against SDPA "
+        f"{err:.3e}): " + ", ".join(text) + f"; SDPA forward {fmt_sdpa(fwd_sdpa)}; SDPA "
+        f"backward {fmt_sdpa(bwd_sdpa)}; {time.perf_counter() - t0:.1f} s")
+    del q, k, v, do, o, lse, dcap, dk, dv, dq, qkv, bwd
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_hires_kernels(torch, fa, fs, device, record):
     """Phase "hires train"'s bf16 kernel cases (run with the other kernel phases, where
     the profiler's device times hold), each against its plain version: K2 at SD1.5's
-    1536² level 2 (the wide forward instance) and K3/K4 at HIRES_BWD (the wide
-    instances), timed at HIRES_LEVEL2 with bounds and SDPA, into `record`'s shapes; K2 at
-    HIRES_K2 and K3/K4 at HIRES_NARROW, checked only. Their fp32 cases are rows of FP32_K2
-    and FP32_BWD; FlashAttention's gradient at D 160 runs in phase_flash_grad, K5's
-    backward at D 128 in phase_stock_kernels and FP32_K5."""
+    1536² level 2 and K1 at HIRES_K1 (the DS 160 forward instance, its name checked in
+    the profiler) and K3/K4 at HIRES_BWD (the wide instances), timed at HIRES_LEVEL2 with
+    bounds and SDPA, into `record`'s shapes; the forward at D 88-160 (fwd_d160_checks);
+    K2 at HIRES_K2 and K3/K4 at HIRES_NARROW, timed at level 1; K2-K4 at level 0 timed
+    with no plain version (level0_timed). Returns the D 88-160 checks' largest O errors
+    of K1, K2 and K5's forward, for the kernel record once it holds K5. Their fp32 cases
+    are rows of FP32_K1, FP32_K2 and FP32_BWD and the same checks in phase_fp32_kernels;
+    FlashAttention's gradient at D 160 runs in phase_flash_grad, K5's backward at D 128
+    in phase_stock_kernels and FP32_K5."""
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(19)
 
@@ -2510,15 +2675,24 @@ def phase_hires_kernels(torch, fa, device, record):
         return torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
 
     k2_case(torch, fa, device, rnd, record, *HIRES_LEVEL2,
-            label=" (SD1.5 1536² level 2, wide forward)")
+            label=" (SD1.5 1536² level 2, DS 160 forward)")
+    b, h, l, d = HIRES_LEVEL2
+    q, k, v = (rnd(b, l, h * d) for _ in range(3))
+    check_d160_kernel(torch, lambda: fa.flash_attention(q, k, v, h), torch.bfloat16)
+    del q, k, v
+    k1_case(torch, fa, rnd, record, *HIRES_K1, 1, timed=True,
+            label=" (SD1.5 1536² level 2, serving)")
+    d160 = fwd_d160_checks(torch, fa, fs, device, torch.bfloat16)
     for shape, q_mul, timed, label in HIRES_BWD + HIRES_NARROW:
         bwd_case(torch, fa, rnd, record, *shape, timed=timed, label=f" ({label})", q_mul=q_mul)
     for shape, _, timed, label in HIRES_K2:
         k2_case(torch, fa, device, rnd, record, *shape, label=f" ({label})", timed=timed)
         torch.cuda.empty_cache()
+    level0_timed(torch, fa, device, torch.bfloat16, record)
     gc.collect()
     torch.cuda.empty_cache()
     log(f"hires train kernels {time.perf_counter() - t0:.1f} s")
+    return d160
 
 
 def hires_train_parity(torch, fa, device):
@@ -4212,7 +4386,8 @@ FP32_K1 = (((2, 8, 4096, 40), 1, True, "SD1.5 512² render in fp32"),
            ((2, 12, 4096, 64), 1, True, "refiner 1024² level 1, guided"),
            ((2, 4, 4096, 8), 1, True, "smoke 512² level 0"),
            ((2, 2, 4096, 16), 1, True, "smoke2 512² level 0"),
-           ((2, 8, 4225, 40), 4, False, "ragged L, q x4"))
+           ((2, 8, 4225, 40), 4, False, "ragged L, q x4"),
+           (HIRES_K1, 1, True, "SD1.5 1536² level 2, serving"))
 FP32_K2 = (((8, 8, 4096, 40), 1, True, "SD1.5 512² training batch 8"),
            ((8, 8, 4096, 40), 4, False, "SD1.5 training shape, q x4"),
            ((8, 1, 4096, 512), 1, True, "SD1.5 512² VAE encoder batch 8"),
@@ -4220,7 +4395,7 @@ FP32_K2 = (((8, 8, 4096, 40), 1, True, "SD1.5 512² training batch 8"),
            ((1, 1, 16384, 512), 1, True, "refiner 1024² VAE decode"),
            ((1, 1, 4096, 32), 1, True, "smoke 512² VAE"),
            ((2, 8, 4225, 40), 1, False, "ragged L"),
-           (HIRES_LEVEL2, 1, True, "SD1.5 1536² level 2, wide forward")) + HIRES_K2
+           (HIRES_LEVEL2, 1, True, "SD1.5 1536² level 2, DS 160 forward")) + HIRES_K2
 FP32_BWD = (((8, 8, 4096, 40), 1, True, "SD1.5 512² training batch 8"),
             ((8, 8, 4096, 40), 4, False, "SD1.5 training shape, q x4"),
             ((2, 4, 4096, 8), 1, True, "smoke 512² training batch 2"),
@@ -4235,7 +4410,9 @@ FP32_K5 = (((8, 8, 4096, 40), None, 1, True, True, "stock step batch 8"),
 FP32_VARIANT = "sd15"  # trained with --mixed_precision no, remat dots
 FP32_TRAIN_BATCH, FP32_TRAIN_STEPS = 8, 3
 FP32_REFINER_STEPS = 10  # the refiner request's steps: 200 + 1 K2 launches
-FP32_FWD = ["flash_fwd_3xtf32_kernel", "flash_fwd_wide_3xtf32_kernel"]  # D <= 80, wider
+# D <= 80, 88-160, 168-512
+FP32_FWD = ["flash_fwd_3xtf32_kernel", "flash_fwd_d160_3xtf32_kernel",
+            "flash_fwd_wide_3xtf32_kernel"]
 FP32_DKV = ["flash_bwd_dkv_3xtf32_kernel", "flash_bwd_dkv_fma_kernel"]  # D <= 80, 88-160
 FP32_DQ = ["flash_bwd_dq_3xtf32_kernel", "flash_bwd_dq_fma_kernel"]
 FP32_ROUTES = {  # each kernel's CUDA kernels on the fp32 route
@@ -4278,6 +4455,7 @@ def fp32_timed(record, name, shape, label, kernel, plain, bound, library, timed=
     "" is returned."""
     if not timed:
         return ""
+    t0 = time.perf_counter()
     library = library()
     ms = cuda_ms(kernel)
     dms = device_ms(kernel, floor_ms=bound["bound_ms"])
@@ -4290,13 +4468,16 @@ def fp32_timed(record, name, shape, label, kernel, plain, bound, library, timed=
         f"{100 * bound['fma_bound_ms'] / dms:.1f}% of the fp32 FMA peak")
     return (f"\n  {name} {ms:.4f} ms (device {num(dms)}{share}), plain {pms:.4f} ms, bound "
             f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} (3xTF32), fp32 FMA "
-            f"{bound['fma_bound_ms']:.4f} ms; SDPA fp32 {fmt_sdpa(library)}")
+            f"{bound['fma_bound_ms']:.4f} ms; SDPA fp32 {fmt_sdpa(library)}; timed in "
+            f"{time.perf_counter() - t0:.1f} s")
 
 
 def phase_fp32_kernels(torch, fa, fs, device):
     """Each kernel's fp32 route against its plain version at the fp32 stacks' shapes
     (FP32_K1, FP32_K2, FP32_BWD, FP32_K5), each shape timed with its bounds and fp32
-    SDPA. Returns {kernel: {"max_abs_err", "shapes", and the first shape's numbers}}."""
+    SDPA; the forward at D 88-160 (fwd_d160_checks, the DS 160 instance's name checked
+    at HIRES_LEVEL2) and K2-K4 at the 1536² level 0 (level0_timed). Returns {kernel:
+    {"max_abs_err", "shapes", and the first shape's numbers}}."""
     from controllora_tpu_torch.ops.attention import split_heads
 
     t0 = time.perf_counter()
@@ -4341,7 +4522,11 @@ def phase_fp32_kernels(torch, fa, fs, device):
                 lambda: fa.attention_lse_plain(q, k, v, h), bound,
                 lambda: sdpa_ms(torch, *(split_heads(x, h) for x in (q, k, v)),
                                 floor_ms=bound["bound_ms"]), timed))
+        if (b, h, l, d) == HIRES_LEVEL2:
+            check_d160_kernel(torch, lambda: fa.flash_attention(q, k, v, h), torch.float32)
         del q, k, v, o, lse
+    for name, err in fwd_d160_checks(torch, fa, fs, device, torch.float32).items():
+        worst(name, err)
     for (b, h, l, d), q_mul, timed, label in FP32_BWD:
         q, k, v, do = q_mul * rnd(b, l, h * d), rnd(b, l, h * d), rnd(b, l, h * d), rnd(b, l, h * d)
         o, lse = fa.flash_attention(q, k, v, h)
@@ -4419,6 +4604,7 @@ def phase_fp32_kernels(torch, fa, fs, device):
             del di, bwd, dk, dv, dq
         log(line)
         del q, k, v, do, o, m, lsum
+    level0_timed(torch, fa, device, torch.float32, record)
     for entry in record.values():  # the first shape is the main path's
         entry.update({k: v for k, v in entry["shapes"][0].items() if k not in ("shape", "path")})
     gc.collect()
@@ -4714,10 +4900,12 @@ def main():
     record.update(phase_backward_kernels(torch, fa, device))
     phase_family_train_kernels(torch, fa, device, record)
     phase_canny_train_kernels(torch, fa, device, record)
-    phase_hires_kernels(torch, fa, device, record)
+    d160 = phase_hires_kernels(torch, fa, fs, device, record)
     phase_parallel_kernels(torch, fa, device, record)
     phase_flash_grad(torch, fa, device)
     record.update(phase_stock_kernels(torch, fs, device))
+    for name, err in d160.items():
+        record[name]["max_abs_err"] = max(record[name]["max_abs_err"], err)
     phase_stock_grad(torch, fs, device)
     mark("kernels")
     pipe = build_stack(torch, device)
@@ -4814,6 +5002,10 @@ def main():
         route("k5_stock_flash_bwd_dq", bwd, f"{stock_tpu}:1146", "k5_dq",
               ["flash_bwd_dq_kernel"]),
     ]
+    for k in kernels:  # the forward's instance at D 88-160, as the profiler named it
+        if k["name"] in ("k1_biased_flash_fwd", "k2_flash_fwd_lse", "k5_stock_flash_fwd"):
+            k["d88_160_kernel"] = D160_SEEN["bfloat16"]
+            k["fp32"]["d88_160_kernel"] = D160_SEEN["float32"]
     for k in kernels:
         if k["launches"] < 1 or k["fp32"]["launches"] < 1:
             raise AssertionError(f"{k['name']} never launched on the main path (launches "

@@ -8,9 +8,11 @@
 // flash_attn_fwd.cu and flash_attn_bwd.cu take bf16 only; this file holds their fp32
 // counterparts:
 //   flash_fwd_3xtf32_kernel       K1  controllora_tpu/ops/pallas_attention.py::_attn_kernel
-//   (head dims up to 80) and          (entry point k1_biased_flash_fwd_f32, with
-//   flash_fwd_wide_3xtf32_kernel      bias_add_f32_kernel adding the biases in fp32 first,
-//   (up to 512)                       as the JAX caller adds them),
+//   (head dims up to 80),             (entry point k1_biased_flash_fwd_f32, with
+//   flash_fwd_d160_3xtf32_kernel      bias_add_f32_kernel adding the biases in fp32 first,
+//   (88-160) and                      as the JAX caller adds them),
+//   flash_fwd_wide_3xtf32_kernel
+//   (168-512)
 //                                 K2  controllora_tpu/ops/pallas_attention_vjp.py::_fwd_kernel
 //                                     (k2_flash_fwd_lse_f32: O and LSE),
 //                                 K5  the forward of jax's stock TPU flash attention
@@ -77,7 +79,8 @@
 //     D 40 runs its products at depth 40 (k8 steps) and O at N = 40. Up to D 40 two
 //     producer warpgroups split (512 threads); registers a thread (setmaxnreg):
 //     consumers 184, 216 or 224 (up to D 40, 64, 80), producers the rest (72, 72, 56).
-//   * forward, D up to 512 (flash_fwd_wide_3xtf32_kernel): 64 query rows a block and
+//   * forward, D 168-512 (flash_fwd_wide_3xtf32_kernel) and 88-160
+//     (flash_fwd_d160_3xtf32_kernel), one template (wide_fwd): 64 query rows a block and
 //     64-key tiles. Q with its lo (256 KB) cannot stay resident, and a 64 x 512 fp32 O
 //     needs 256 registers a thread, so the two consumer warpgroups split the head: each
 //     owns 256 columns of O (128 registers) and forms S over its own 256 columns of the
@@ -93,8 +96,15 @@
 //     while the products of step i run: with the producer's four warps splitting for
 //     both, the first design of this kernel ran at 23% of its bound (chip_smoke.py's
 //     timing). Shared memory: 3
-//     stages of 32 KB per warpgroup and the 32 KB exchange: 224 KB. Narrower heads above
-//     80 are zero filled to 512.
+//     stages of 32 KB per warpgroup and the 32 KB exchange: 224 KB. Heads of 168-504 are
+//     zero filled to 512. Heads of 88-160 are zero filled to 160, five spans: warpgroup 0
+//     forms S over spans 0-2 and owns O's spans 0-1, warpgroup 1 S over 3-4 and O's 2-4,
+//     so a key tile takes five steps of each and O 48 registers. Ownership is by whole
+//     spans: a split inside one would start a TMA box and a K-major operand mid swizzle
+//     span. The 128-row alternative (each warpgroup all 160 columns of its 64 rows, O 80
+//     registers, P split in registers) must split Q again for every key tile as this
+//     design does, and holds K, V^T and Q's hi and lo for both warpgroups in the same
+//     227 KB; this one reuses the D 512 kernel whole.
 //   * dK/dV, D <= 80 (flash_bwd_dkv_3xtf32_kernel): keys stay stationary, 64 per
 //     consumer warpgroup. K and V are loaded once and split in place (hi) beside their
 //     lo; S^T = K Q^T and dP^T = V dO^T read both operands from shared memory, dV +=
@@ -425,18 +435,20 @@ __device__ __forceinline__ void store_acc_f32(float* out, long long row_stride, 
 }
 
 // The epilogue of both forward designs: the row sums reduced over the quad, O = acc / l
-// (N columns from col0), and, by the threads with write_rows, LSE or K5's m and l.
+// (N columns from col0, none at or past col_end), and, by the threads with write_rows,
+// LSE or K5's m and l.
 template <int N>
 __device__ __forceinline__ void fwd_epilogue(const FwdParams& p, const float* o, float m0,
                                              float m1, float l0, float l1, int b, int h,
-                                             int r0, int col0, int t4, bool write_rows) {
+                                             int r0, int col0, int col_end, int t4,
+                                             bool write_rows) {
 #pragma unroll
   for (int off = 1; off < 4; off <<= 1) {
     l0 += __shfl_xor_sync(0xffffffffu, l0, off);
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
   store_acc_f32<N>(p.o + b * p.o_sb + h * p.o_sh, p.o_sl, o, 1.f / l0, 1.f / l1, r0, p.Lq,
-                   col0, p.D, t4);
+                   col0, min(p.D, col_end), t4);
   if (!write_rows) return;
   const size_t row = ((size_t)b * p.H + h) * p.Lq + r0;
   const float m[2] = {m0, m1}, l[2] = {l0, l1};
@@ -608,33 +620,40 @@ __global__ void __launch_bounds__(FwdCfg<DP, RAW, DER>::kThreads, 1)
     __syncwarp();
     if (lane == 0) mbar_arrive(&der_empty[ds]);
   }
-  fwd_epilogue<DP>(p, o, m0, m1, l0, l1, b, h, r0, 0, t4, t4 == 0);
+  fwd_epilogue<DP>(p, o, m0, m1, l0, l1, b, h, r0, 0, DP, t4, t4 == 0);
 }
 
-// The wide design (D up to 512): STAGES stages per consumer warpgroup, each 32 KB: the
-// raw tiles TMA writes (Q and K chunks, split to hi in place; or a V chunk) and the
-// derived ones (Q and K lo; or V^T hi and lo).
-template <int STAGES>
+// The wide designs (D 88-160 and up to 512): STAGES stages per consumer warpgroup, each
+// 32 KB: the raw tiles TMA writes (Q and K chunks, split to hi in place; or a V chunk)
+// and the derived ones (Q and K lo; or V^T hi and lo). The head is SPANS spans of 32
+// columns; warpgroup 0 forms S over spans [0, S0) and owns O's spans [0, O0), warpgroup
+// 1 the rest, so a key tile takes S0 + O0 steps of warpgroup 0 and the rest of 1.
+template <int STAGES, int SPANS, int S0, int O0>
 struct WideCfg {
-  static constexpr int kStages = STAGES;
+  static constexpr int kStages = STAGES, kSpans = SPANS, kS0 = S0, kO0 = O0;
   static constexpr int kRows = 64;              // queries a block
-  static constexpr int kCols = 256;             // columns of the head a warpgroup owns
-  static constexpr int kSteps = kCols / kSpan;  // S steps (and O steps) a tile
+  // O spans a warpgroup holds registers for: the larger of the two parts
+  static constexpr int kOSpans = O0 > SPANS - O0 ? O0 : SPANS - O0;
   static constexpr int kChunk = 64 * kSpanRow;  // one 64-row span: 8 KB
   static constexpr int kStage = 4 * kChunk;
   static constexpr int kExchange = 32 * 128 * 4;  // one warpgroup's S tile, or P hi or lo
   static constexpr int kThreads = 384;
   static constexpr size_t kSmem =
       1024 + 2 * (size_t)STAGES * kStage + 2 * kExchange + 8 * 4 * STAGES;
+  static_assert(0 < S0 && S0 < SPANS && 0 < O0 && O0 < SPANS, "both warpgroups take spans");
+  static_assert(S0 + O0 == SPANS, "the two warpgroups take equal steps a key tile");
 };
+
+// D 512: 8 + 8 spans each; D 88-160: S over 3 + 2 spans and O over 2 + 3, five steps a
+// tile for each warpgroup (a 2.5 / 2.5 split would start an operand mid span).
+using Wide = WideCfg<3, 16, 8, 8>;
+using Wide160 = WideCfg<3, 5, 3, 2>;
 
 constexpr int kWarpgroupBar = 4;  // the wide forward's per-warpgroup barriers (4, 5)
 
-__global__ void __launch_bounds__(384, 1)
-    flash_fwd_wide_3xtf32_kernel(const __grid_constant__ CUtensorMap tq,
-                                 const __grid_constant__ CUtensorMap tk,
-                                 const __grid_constant__ CUtensorMap tv, const FwdParams p) {
-  using C = WideCfg<3>;
+template <class C>
+__device__ __forceinline__ void wide_fwd(const CUtensorMap* tq, const CUtensorMap* tk,
+                                         const CUtensorMap* tv, const FwdParams& p) {
   constexpr int S = C::kStages;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -648,8 +667,6 @@ __global__ void __launch_bounds__(384, 1)
   const int b = bh / p.H, h = bh % p.H;
   const int q0 = qt * C::kRows;
   const int n_tiles = (p.Lk + kFwdKeys - 1) / kFwdKeys;
-  // a warpgroup's steps: 16 a tile, 8 of S (its Q and K chunk c) then 8 of O (V chunk c)
-  const int n_steps = n_tiles * 2 * C::kSteps;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (threadIdx.x == 0) {
@@ -661,25 +678,36 @@ __global__ void __launch_bounds__(384, 1)
   }
   __syncthreads();
 
+  // warpgroup w's spans: S over [s_first, s_first + n_s), O over [o_first, o_first + n_o);
+  // its steps: n_s + n_o a tile, n_s of S (its Q and K chunk) then n_o of O (V chunk)
+  auto spans = [](int w, int& s_first, int& n_s, int& o_first, int& n_o) {
+    s_first = w == 0 ? 0 : C::kS0;
+    n_s = w == 0 ? C::kS0 : C::kSpans - C::kS0;
+    o_first = w == 0 ? 0 : C::kO0;
+    n_o = w == 0 ? C::kO0 : C::kSpans - C::kO0;
+  };
+
   if (warp >= 8) {
     // ---------------------------------------------------------------- producer
     // Warp 8 + w keeps warpgroup w's TMA loads in flight; the copies are all it does.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     const int w = warp - 8;
     if (w < 2 && lane == 0) {
+      int s_first, n_s, o_first, n_o;
+      spans(w, s_first, n_s, o_first, n_o);
+      const int per_tile = C::kSpans, n_steps = n_tiles * per_tile;  // n_s + n_o
       for (int i = 0; i < n_steps; ++i) {
-        const int s = i % S, r = i % (2 * C::kSteps);
-        const int col = (w * C::kSteps + r % C::kSteps) * kSpan, key0 = (i / (2 * C::kSteps)) * kFwdKeys;
+        const int s = i % S, r = i % per_tile, key0 = (i / per_tile) * kFwdKeys;
         uint64_t* f = &full[w * S + s];
         mbar_wait(&empty[w * S + s], ((i / S) & 1) ^ 1);
         unsigned char* st = stages + (size_t)(w * S + s) * C::kStage;
-        if (r < C::kSteps) {
+        if (r < n_s) {
           mbar_expect_tx(f, 2 * C::kChunk);
-          tma_load_4d(st, &tq, f, col, h, q0, b);
-          tma_load_4d(st + C::kChunk, &tk, f, col, h, key0, b);
+          tma_load_4d(st, tq, f, (s_first + r) * kSpan, h, q0, b);
+          tma_load_4d(st + C::kChunk, tk, f, (s_first + r) * kSpan, h, key0, b);
         } else {
           mbar_expect_tx(f, C::kChunk);
-          tma_load_4d(st, &tv, f, col, h, key0, b);
+          tma_load_4d(st, tv, f, (o_first + r - n_s) * kSpan, h, key0, b);
         }
       }
     }
@@ -695,6 +723,9 @@ __global__ void __launch_bounds__(384, 1)
   const int g = lane >> 2, t4 = lane & 3;
   const int wtid = threadIdx.x % 128;
   const int r0 = q0 + wl * 16 + g;
+  int s_first, n_s, o_first, n_o;
+  spans(wg, s_first, n_s, o_first, n_o);
+  const int per_tile = C::kSpans, n_steps = n_tiles * per_tile;  // n_s + n_o
   unsigned char* my = stages + (size_t)wg * S * C::kStage;
   uint64_t* my_full = full + wg * S;
   uint64_t* my_empty = empty + wg * S;
@@ -704,7 +735,7 @@ __global__ void __launch_bounds__(384, 1)
     const int s = i % S;
     unsigned char* st = my + (size_t)s * C::kStage;
     mbar_wait(&my_full[s], (i / S) & 1);
-    if (i % (2 * C::kSteps) < C::kSteps) {
+    if (i % per_tile < n_s) {
       split_tile<64, 1, kSpan, 128>(st, st, st + 2 * C::kChunk, wtid);
       split_tile<64, 1, kSpan, 128>(st + C::kChunk, st + C::kChunk, st + 3 * C::kChunk, wtid);
     } else {
@@ -719,18 +750,18 @@ __global__ void __launch_bounds__(384, 1)
     if (lane == 0) mbar_arrive(&my_empty[i % S]);
   };
 
-  float o[C::kCols / 2];
+  float o[C::kOSpans * 16];
 #pragma unroll
-  for (int i = 0; i < C::kCols / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < C::kOSpans * 16; ++i) o[i] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
   int step = 0;
   split_step(0);
 
   for (int j = 0; j < n_tiles; ++j) {
-    // this warpgroup's half of S = Q K^T over its 8 chunks of the head
+    // this warpgroup's part of S = Q K^T over its spans of the head
     float s[32];
 #pragma unroll 1
-    for (int c = 0; c < C::kSteps; ++c, ++step) {
+    for (int c = 0; c < n_s; ++c, ++step) {
       const unsigned char* st = my + (size_t)(step % S) * C::kStage;
       wgmma_fence();
       ss_3xtf32<64>(s, st, st + 2 * C::kChunk, C::kChunk, st + C::kChunk, st + 3 * C::kChunk,
@@ -742,7 +773,7 @@ __global__ void __launch_bounds__(384, 1)
     }
     fence_regs<32>(s);
 
-    // S = the sum of both halves: each warpgroup adds the other's tile to its own
+    // S = the sum of both parts: each warpgroup adds the other's tile to its own
     float* mine = xch + wg * (C::kExchange / 4);
     const float* other = xch + (1 - wg) * (C::kExchange / 4);
     named_sync(kExchangeBar + 1, 256);  // both are done with the last tile's P
@@ -771,7 +802,7 @@ __global__ void __launch_bounds__(384, 1)
       fence_async_shared();
     }
 #pragma unroll
-    for (int i = 0; i < C::kCols / 2; i += 4) {
+    for (int i = 0; i < C::kOSpans * 16; i += 4) {
       o[i] *= alpha.x;
       o[i + 1] *= alpha.x;
       o[i + 2] *= alpha.y;
@@ -781,9 +812,10 @@ __global__ void __launch_bounds__(384, 1)
     const unsigned char* p_hi = reinterpret_cast<const unsigned char*>(xch);
     const unsigned char* p_lo = p_hi + C::kExchange;
 
-    // O (this warpgroup's 256 columns) += P V, 32 columns a step
+    // O (this warpgroup's spans of the head) += P V, 32 columns a step
 #pragma unroll
-    for (int c = 0; c < C::kSteps; ++c, ++step) {
+    for (int c = 0; c < C::kOSpans; ++c) {
+      if (c >= n_o) break;
       const unsigned char* st = my + (size_t)(step % S) * C::kStage;
       wgmma_fence();
       ss_3xtf32<kSpan>(o + c * 16, p_hi, p_lo, C::kChunk, st + 2 * C::kChunk,
@@ -792,11 +824,28 @@ __global__ void __launch_bounds__(384, 1)
       if (step + 1 < n_steps) split_step(step + 1);  // the next tile's first S step
       wgmma_wait<0>();
       release(step);
+      ++step;
     }
-    fence_regs<C::kCols / 2>(o);
+    fence_regs<C::kOSpans * 16>(o);
   }
-  fwd_epilogue<C::kCols>(p, o, m0, m1, l0, l1, b, h, r0, wg * C::kCols, t4,
-                         t4 == 0 && wg == 0);
+  fwd_epilogue<C::kOSpans * kSpan>(p, o, m0, m1, l0, l1, b, h, r0, o_first * kSpan,
+                                   (o_first + n_o) * kSpan, t4, t4 == 0 && wg == 0);
+}
+
+// D 168-512, zero filled to 512: each warpgroup 8 spans of S and 8 of O a key tile.
+__global__ void __launch_bounds__(384, 1)
+    flash_fwd_wide_3xtf32_kernel(const __grid_constant__ CUtensorMap tq,
+                                 const __grid_constant__ CUtensorMap tk,
+                                 const __grid_constant__ CUtensorMap tv, const FwdParams p) {
+  wide_fwd<Wide>(&tq, &tk, &tv, p);
+}
+
+// D 88-160, zero filled to 160: five steps a key tile for each warpgroup.
+__global__ void __launch_bounds__(384, 1)
+    flash_fwd_d160_3xtf32_kernel(const __grid_constant__ CUtensorMap tq,
+                                 const __grid_constant__ CUtensorMap tk,
+                                 const __grid_constant__ CUtensorMap tv, const FwdParams p) {
+  wide_fwd<Wide160>(&tq, &tk, &tv, p);
 }
 
 // out = x + bias[batch % bias_batch] over a (B, L, H*D) fp32 tensor, 4 values a thread.
@@ -1689,9 +1738,8 @@ cudaError_t run(Kernel kernel, long long blocks, int threads, size_t smem, cudaS
 }
 
 // Forward instances by head dim: D rounded up to 8, 16, 32, 40, 64 or 80 in the narrow
-// design, anything wider up to 512 in the wide one. f is called with the instance's Cfg.
-using Wide = WideCfg<3>;
-
+// design, 88-160 and 168-512 in the wide one (zero filled to 160 or 512). f is called
+// with the instance's Cfg.
 template <class F>
 cudaError_t with_fwd_cfg(int D, F&& f) {
   if (D < 8 || D % 8 != 0 || D > 512) return cudaErrorInvalidValue;
@@ -1701,6 +1749,7 @@ cudaError_t with_fwd_cfg(int D, F&& f) {
   if (D <= 40) return f(FwdCfg<40, 2, 2>{});
   if (D <= 64) return f(FwdCfg<64, 2, 2>{});
   if (D <= 80) return f(FwdCfg<80, 1, 2>{});
+  if (D <= 160) return f(Wide160{});
   return f(Wide{});
 }
 
@@ -1750,11 +1799,12 @@ cudaError_t run_fwd(const FwdParams& p, cudaStream_t stream) {
     cudaError_t err = encode_heads(&tk, p.k, p.B, p.H, p.Lk, p.D, kFwdKeys, true);
     if (err == cudaSuccess) err = encode_heads(&tv, p.v, p.B, p.H, p.Lk, p.D, kFwdKeys, true);
     if (err != cudaSuccess) return err;
-    if constexpr (std::is_same_v<C, Wide>) {
+    if constexpr (std::is_same_v<C, Wide> || std::is_same_v<C, Wide160>) {
       err = encode_heads(&tq, p.q, p.B, p.H, p.Lq, p.D, C::kRows, true);
       if (err != cudaSuccess) return err;
-      return run(flash_fwd_wide_3xtf32_kernel, blocks, C::kThreads, C::kSmem, stream, tq, tk,
-                 tv, p);
+      return run(std::is_same_v<C, Wide> ? flash_fwd_wide_3xtf32_kernel
+                                         : flash_fwd_d160_3xtf32_kernel,
+                 blocks, C::kThreads, C::kSmem, stream, tq, tk, tv, p);
     } else {
       return run(flash_fwd_3xtf32_kernel<C::kDP, C::kRaw, C::kDer>, blocks, C::kThreads,
                  C::kSmem, stream, tk, tv, p);

@@ -45,8 +45,26 @@
 //     fills the 24 columns by itself), but S issues only the 3 k-steps of depth 48 that
 //     hold data, and P V runs N = 48; so the multiplies are those of padding to 48 and
 //     the loads need no second box or 32-byte swizzle;
-//   * wide heads (the VAE's single D 512 head; any D up to 512, zero filled to 512):
-//     a 64 x 512 fp32 accumulator would need 256 registers a thread, so two consumer
+//   * head dims 88-160 (SD1.5's level-2 160; 96 and 128, which jax's stock kernel
+//     takes): the narrow design at DS 160, zero filled from D up to 160 as the backward
+//     does. Each consumer warpgroup owns 64 query rows and a 64 x 160 fp32 O (80
+//     registers); S issues the 10 k-steps of depth 16 that hold data over three 64-column
+//     chunks (the third half zero filled), and O += P V runs at wgmma N 160 with V read
+//     through the transpose bit from the start of chunk 0 over all three (the layout of
+//     the backward's dV += P^T dO at N 160), so no operand starts mid swizzle atom. Three
+//     consumer warpgroups, 192 query rows a block, 64-key tiles through 3 stages: Q 72 KB
+//     + 3 x 48 KB of K and V, 217 KB, one block an SM. The producer is a warpgroup that
+//     gives its registers to the consumers (setmaxnreg 24 / 160: O, S (32), P's fragments
+//     (16) and the softmax state fit without a spill). At SD1.5's 1536² level 2, (1, 8,
+//     2304, 160), 192-row blocks are 96 for 132 SMs, one wave; 128-row blocks (two
+//     consumer warpgroups) are 144, a full wave and a tail of 12, and took 0.089 ms of
+//     device time where 192 rows take 0.064 (chip_smoke.py's K2 row on an H100 SXM at
+//     700 W); splitting the keys of the 144 blocks gained little, the combine's fp32
+//     round trip of O eating the shorter tail. The instance takes key splits (up to 8)
+//     where the query tiles alone leave SMs idle (batch 1 with few heads; the wrapper's
+//     plan, kv_splits, as in the wide design); K5 never splits;
+//   * wide heads (the VAE's single D 512 head; D 168-504 zero filled to 512): a 64 x 512
+//     fp32 accumulator would need 256 registers a thread, so two consumer
 //     warpgroups share the block's 64 query rows and each owns 256 output columns (128
 //     registers). Each computes the whole S tile itself (the two agree bit for bit),
 //     which costs 1.5x the products of a shared S but needs no exchange. 32-key tiles
@@ -77,7 +95,6 @@ namespace {
 using namespace hopper;
 typedef __nv_bfloat16 bf16;
 
-constexpr int kConsumerWarps = 8;          // two consumer warpgroups
 constexpr int kChunkCols = 64;             // columns of one swizzle span
 constexpr int kRowBytes = kChunkCols * 2;  // 128
 
@@ -99,10 +116,16 @@ template <int DS, int BN, int STAGES, bool WIDE>
 struct Cfg {
   static constexpr int kDS = DS, kBN = BN, kStages = STAGES;
   static constexpr bool kWide = WIDE;
+  // consumer warpgroups: three at DS 160 (192 query rows a block), else two
+  static constexpr int kWG = !WIDE && DS == 160 ? 3 : 2;
+  static constexpr int kConsumerWarps = 4 * kWG;
+  // a producer warpgroup that hands its registers to the consumers (setmaxnreg), where
+  // O is wide: the wide design and the narrow one at DS 160
+  static constexpr bool kProducerGroup = WIDE || DS > 80;
   // key splits a query tile may take (the wrapper's plan, through flash_fwd_tiles)
-  static constexpr int kMaxSplits = WIDE ? 8 : 1;
+  static constexpr int kMaxSplits = kProducerGroup ? 8 : 1;
   static constexpr int kCh = (DS + kChunkCols - 1) / kChunkCols;  // 64-column chunks
-  static constexpr int kRows = WIDE ? 64 : 128;                   // query rows a block
+  static constexpr int kRows = WIDE ? 64 : 64 * kWG;              // query rows a block
   static constexpr int kN = WIDE ? 256 : DS;  // output columns of one warpgroup
   static constexpr int kQChunk = 64 * kRowBytes;
   static constexpr int kQBytes = (kRows / 64) * kCh * kQChunk;
@@ -110,14 +133,19 @@ struct Cfg {
   static constexpr int kKVBytes = kCh * kKVChunk;  // one of K, V at one stage
   static constexpr int kS = BN / 2;                // S accumulator registers
   static constexpr int kO = kN / 2;                // O accumulator registers
-  // narrow: one producer warp (9 warps; two blocks an SM at D <= 64). wide: a producer
-  // warpgroup, so that setmaxnreg can move its registers to the consumers (24 + 2 x
-  // 240 a thread slot): with 9 warps one SM quarter holds 3 and caps them at 168.
-  static constexpr int kThreads = 32 * kConsumerWarps + (WIDE ? 128 : 32);
+  // up to DS 80: one producer warp (9 warps; two blocks an SM at D <= 64). DS 160 and
+  // wide: a producer warpgroup, so that setmaxnreg can move its registers to the
+  // consumers (24 + 2 x 240 or 3 x 160 a thread slot): with 9 warps one SM quarter holds
+  // 3 and caps them at 168.
+  static constexpr int kThreads = 32 * kConsumerWarps + (kProducerGroup ? 128 : 32);
+  // registers a consumer thread takes (setmaxnreg) beside the producer warpgroup's 24
+  static constexpr int kConsumerRegs = (65536 - 128 * 24) / (128 * kWG) / 8 * 8;
   static constexpr size_t kSmem =
       1024 + kQBytes + (size_t)STAGES * 2 * kKVBytes + 8 * (2 * STAGES + 1);
   static_assert(!WIDE || DS == 512, "the wide design covers 512 columns");
-  static_assert(WIDE || DS <= 80, "the narrow design covers head dims up to 80");
+  static_assert(WIDE || DS <= 80 || DS == 160,
+                "the narrow design covers head dims up to 80, and 160");
+  static_assert(kSmem <= 232448, "a block has 227 KB of shared memory");
 };
 
 template <int DS, int BN, int STAGES, bool WIDE>
@@ -126,6 +154,7 @@ __global__ void __launch_bounds__(Cfg<DS, BN, STAGES, WIDE>::kThreads, (WIDE || 
                      const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv, const Params p) {
   using C = Cfg<DS, BN, STAGES, WIDE>;
+  constexpr int kConsumerWarps = C::kConsumerWarps;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* q_smem = base;
@@ -163,7 +192,7 @@ __global__ void __launch_bounds__(Cfg<DS, BN, STAGES, WIDE>::kThreads, (WIDE || 
     // ---------------------------------------------------------------- producer
     // Every chunk is loaded, also those wholly past D (zeros), so that the products
     // run over compile-time depths.
-    if constexpr (WIDE) asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if constexpr (C::kProducerGroup) asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (warp == kConsumerWarps && lane == 0) {
       mbar_expect_tx(q_full, (C::kRows / 64) * C::kCh * C::kQChunk);
       for (int r = 0; r < C::kRows / 64; ++r)
@@ -187,7 +216,8 @@ __global__ void __launch_bounds__(Cfg<DS, BN, STAGES, WIDE>::kThreads, (WIDE || 
   }
 
   // ------------------------------------------------------------------ consumers
-  if constexpr (WIDE) asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  if constexpr (C::kProducerGroup)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(C::kConsumerRegs));
   const int wg = warp / 4, wl = warp % 4;
   const int g = lane >> 2, t4 = lane & 3;
   // narrow: warpgroup wg owns rows q0 + 64 wg.. and all columns;
@@ -429,13 +459,15 @@ cudaError_t launch(HeadView q, HeadView k, HeadView v, const Params& p, cudaStre
 }
 
 // Instances: D <= 48 (the UNet's 40) pads to 48, D <= 64 and D <= 80 run as they are,
-// anything wider up to 512 takes the wide design. f is called with the instance's Cfg.
+// 88-160 (SD1.5's level 2) run at DS 160, anything wider up to 512 takes the wide
+// design. f is called with the instance's Cfg.
 template <class F>
 cudaError_t with_instance(int D, F&& f) {
   if (D < 8 || D % 8 != 0 || D > 512) return cudaErrorInvalidValue;
   if (D <= 48) return f(Cfg<48, 64, 3, false>{});
   if (D <= 64) return f(Cfg<64, 64, 3, false>{});
   if (D <= 80) return f(Cfg<80, 64, 2, false>{});
+  if (D <= 160) return f(Cfg<160, 64, 3, false>{});
   return f(Cfg<512, 32, 2, true>{});
 }
 
@@ -493,7 +525,7 @@ extern "C" int flash_fwd_tiles(int D, int* rows, int* keys, int* max_splits) {
 // K1: O =softmax((q + q_bias)(k + k_bias)^T * scale)(v + v_bias). Any bias pointer
 // may be null; a bias has bias_batch rows of batch and B % bias_batch == 0. The sums
 // go to q_sum, k_sum, v_sum (scratch of q's shape, needed where the bias is given).
-// o_part / lse_part: scratch for `splits` key splits (wide heads only), else null.
+// o_part / lse_part: scratch for `splits` key splits (heads over 80 only), else null.
 // Returns the cudaError_t of the launches (0 = success).
 extern "C" int k1_biased_flash_fwd(const void* q, const void* k, const void* v,
                                    const void* q_bias, const void* k_bias,

@@ -66,7 +66,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "_build"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-MAX_HEAD_DIM = 512  # the forward's (K1, K2, K5): bf16 D <= 48, 64, 80, 512; fp32 8-80, 512
+# the forward's (K1, K2, K5): bf16 D <= 48, 64, 80, 160, 512; fp32 8-80, 88-160, 168-512
+MAX_HEAD_DIM = 512
 # the backward's (K3, K4, K5): bf16 DS 48, 64, 80, 160; fp32 8-80 (3xTF32), 88-160 (FMA)
 MAX_BWD_HEAD_DIM = 160
 BWD_LIMIT_REASON = ("the widest UNet head of the zoo (SD1.5's level 2); no path "

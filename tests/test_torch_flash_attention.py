@@ -64,11 +64,12 @@ def test_k1_plain_matches_flash_attention_fwd(d):
 
 
 @pytest.mark.parametrize("l", [96, 288, 144])
-@pytest.mark.parametrize("d", [40, 80])
+@pytest.mark.parametrize("d", [40, 80, 160])
 @pytest.mark.parametrize("kv_biases", [False, True])
 def test_k1_plain_matches_biased_attention(l, d, kv_biases):
     """Ragged L (pad + in-kernel KV mask on the JAX side), 2 heads, q/k/v biases of
-    batch 1 broadcast over the CFG batch 2."""
+    batch 1 broadcast over the CFG batch 2; D 160 is SD1.5's level 2, which serving at
+    1472² and above sends to K1."""
     from controllora_tpu.ops.pallas_attention import biased_attention
 
     heads = 2
@@ -111,11 +112,13 @@ def test_k1_per_image_biases_tile():
 
 
 @pytest.mark.parametrize("l,d", [(128, 40), (96, 40), (288, 80), (144, 512), (128, 8),
-                                 (96, 16), (160, 32), (256, 160)])
+                                 (96, 16), (160, 32), (256, 160), (300, 160), (256, 96),
+                                 (256, 128)])
 def test_k2_plain_matches_fwd(l, d):
     """O and LSE of the JAX forward kernel; ragged L runs it padded to blocks of 64
     with kv_valid masking, then slices. D 8, 16 and 32: the fp32 smoke stacks' UNet
-    and VAE; D 160: SD1.5's level 2, whose forward the backward below needs."""
+    and VAE; D 160: SD1.5's level 2, whose forward the backward below needs, also at a
+    ragged L; D 96 and 128: heads the card's DS 160 instance takes zero filled."""
     from controllora_tpu.ops.pallas_attention_vjp import _fwd
 
     q, k, v = (rand((2, l, d), s) for s in range(3))
@@ -349,7 +352,8 @@ def test_head_geometry_refuses_what_a_tensor_map_cannot_read():
         fa.head_geometry(torch.zeros((2, 64, 40), dtype=torch.bfloat16))
 
 
-WIDE, NARROW = (64, 32, 8), (128, 64, 1)  # (rows, keys, most splits) of K1/K2's instances
+# (rows, keys, most splits) of K1/K2's bf16 instances: D 168-512, up to 80, 88-160
+WIDE, NARROW, D160 = (64, 32, 8), (128, 64, 1), (192, 64, 8)
 
 
 @pytest.mark.parametrize("bh,l,tiles,sms,want", [
@@ -359,6 +363,9 @@ WIDE, NARROW = (64, 32, 8), (128, 64, 1)  # (rows, keys, most splits) of K1/K2's
     (1, 1000, WIDE, 132, 8),    # 16 tiles: at most 8 splits
     (1, 200, WIDE, 132, 1),     # 7 key tiles: fewer than 4 a split
     (1, 300, WIDE, 132, 2),     # 10 key tiles: 2 splits of at least 4
+    (8, 2304, D160, 132, 1),    # SD1.5 1536² level 2: 96 query tiles, one wave
+    (1, 2304, D160, 132, 8),    # one head: 12 tiles, 11 by the SMs, at most 8 splits
+    (1, 2116, D160, 132, 7),    # 1472² level 2, one head: 34 key tiles; 8 leave one empty
 ])
 def test_kv_splits_plan(bh, l, tiles, sms, want):
     splits = fa.kv_splits(bh, l, l, tiles, sms)
