@@ -200,7 +200,8 @@ script inside its time); the counts below are at those values.
               K2 at (1, 8, 2304, 160) and K1 at (2, 8, 2304, 160) + biases of batch 1
               on the forward's DS 160 instances (bf16 wgmma, fp32 3xTF32; the
               profiler's kernel name held to them) and K3/K4 there (wide instances:
-              bf16 wgmma, fp32 FMA tiles), timed with bounds and SDPA; K1, K2 and the
+              bf16 wgmma, fp32 3xTF32 wgmma; the fp32 ones' kernel names held to them
+              too), timed with bounds and SDPA; K1, K2 and the
               K5 forward at D 88, 96, 128, 152 and 160, L 2116 and 333, q as drawn and
               x4; K3/K4 at the ragged (1, 8, 2116, 160), a short D 160, D 96 and 128,
               and q scaled x4; K2-K4 at the step's other lengths and head dims: level 1
@@ -2477,6 +2478,11 @@ FWD_D160_DIMS, FWD_D160_LENGTHS = (88, 96, 128, 152, 160), (2116, 333)
 D160_FWD_KERNELS = {"bfloat16": "flash_fwd_kernel<160, 64, 3, false>",
                     "float32": "flash_fwd_d160_3xtf32_kernel"}
 D160_SEEN = {}
+# the same for the fp32 backward's D 160 instances, which K3 (and K5's dkv) and K4 (and
+# K5's dq) run at D 88-160: the names seen at HIRES_LEVEL2, by kernel
+D160_BWD_KERNELS = {"k3": "flash_bwd_dkv_d160_3xtf32_kernel",
+                    "k4": "flash_bwd_dq_d160_3xtf32_kernel"}
+D160_BWD_SEEN = {}
 # K2-K4 timed at the 1536² step's level 0 at all 8 heads (5 launches each a bf16 step,
 # K2 10 under remat dots) with no plain version (its fp32 logits would take 43 GB): K2's
 # O is held to the SDPA call's, its outputs checked finite; iterations of each timing
@@ -2517,18 +2523,19 @@ def flash_head_dims(unet_config, res):
     return dims
 
 
-def check_d160_kernel(torch, fn, dtype):
-    """Run fn() (K2 at HIRES_LEVEL2) under the profiler and hold the kernel it launched
-    to the DS 160 forward instance of `dtype` (D160_FWD_KERNELS), not the wide one; the
-    name seen goes to D160_SEEN."""
+def check_d160_kernel(torch, fn, label, expected):
+    """Run fn() (a kernel at HIRES_LEVEL2) under the profiler and hold the flash kernel
+    it launched to the D 160 instance `expected` (D160_FWD_KERNELS, D160_BWD_KERNELS),
+    not another instance (the wide forward, an earlier backward); returns the name
+    seen."""
     _, _, top = device_profile(torch, fn, host=False)
-    key = str(dtype).split(".")[-1]
-    seen = [name for name, _ in top if D160_FWD_KERNELS[key] in name]
-    if not seen:
-        raise AssertionError(f"K2 {HIRES_LEVEL2} {dtype}: the profiler saw {top}, not "
-                             f"{D160_FWD_KERNELS[key]}")
-    D160_SEEN[key] = seen[0]
-    log(f"K2 {HIRES_LEVEL2} {dtype} runs {seen[0]}")
+    seen = [name for name, _ in top if expected in name]
+    others = [name for name, _ in top if "flash_" in name and expected not in name]
+    if not seen or others:
+        raise AssertionError(f"{label} {HIRES_LEVEL2}: the profiler saw {top}, not "
+                             f"{expected} alone")
+    log(f"{label} {HIRES_LEVEL2} runs {seen[0]}")
+    return seen[0]
 
 
 def fwd_d160_checks(torch, fa, fs, device, dtype):
@@ -2678,7 +2685,8 @@ def phase_hires_kernels(torch, fa, fs, device, record):
             label=" (SD1.5 1536² level 2, DS 160 forward)")
     b, h, l, d = HIRES_LEVEL2
     q, k, v = (rnd(b, l, h * d) for _ in range(3))
-    check_d160_kernel(torch, lambda: fa.flash_attention(q, k, v, h), torch.bfloat16)
+    D160_SEEN["bfloat16"] = check_d160_kernel(torch, lambda: fa.flash_attention(q, k, v, h),
+                                              "K2 bf16", D160_FWD_KERNELS["bfloat16"])
     del q, k, v
     k1_case(torch, fa, rnd, record, *HIRES_K1, 1, timed=True,
             label=" (SD1.5 1536² level 2, serving)")
@@ -4413,8 +4421,8 @@ FP32_REFINER_STEPS = 10  # the refiner request's steps: 200 + 1 K2 launches
 # D <= 80, 88-160, 168-512
 FP32_FWD = ["flash_fwd_3xtf32_kernel", "flash_fwd_d160_3xtf32_kernel",
             "flash_fwd_wide_3xtf32_kernel"]
-FP32_DKV = ["flash_bwd_dkv_3xtf32_kernel", "flash_bwd_dkv_fma_kernel"]  # D <= 80, 88-160
-FP32_DQ = ["flash_bwd_dq_3xtf32_kernel", "flash_bwd_dq_fma_kernel"]
+FP32_DKV = ["flash_bwd_dkv_3xtf32_kernel", "flash_bwd_dkv_d160_3xtf32_kernel"]  # D <= 80, 88-160
+FP32_DQ = ["flash_bwd_dq_3xtf32_kernel", "flash_bwd_dq_d160_3xtf32_kernel"]
 FP32_ROUTES = {  # each kernel's CUDA kernels on the fp32 route
     "k1": ["bias_add_f32_kernel"] + FP32_FWD, "k2": FP32_FWD, "k3": FP32_DKV, "k4": FP32_DQ,
     "k5_fwd": FP32_FWD, "k5_dkv": FP32_DKV, "k5_dq": FP32_DQ}
@@ -4523,7 +4531,9 @@ def phase_fp32_kernels(torch, fa, fs, device):
                 lambda: sdpa_ms(torch, *(split_heads(x, h) for x in (q, k, v)),
                                 floor_ms=bound["bound_ms"]), timed))
         if (b, h, l, d) == HIRES_LEVEL2:
-            check_d160_kernel(torch, lambda: fa.flash_attention(q, k, v, h), torch.float32)
+            D160_SEEN["float32"] = check_d160_kernel(
+                torch, lambda: fa.flash_attention(q, k, v, h), "K2 fp32",
+                D160_FWD_KERNELS["float32"])
         del q, k, v, o, lse
     for name, err in fwd_d160_checks(torch, fa, fs, device, torch.float32).items():
         worst(name, err)
@@ -4554,6 +4564,11 @@ def phase_fp32_kernels(torch, fa, fs, device):
                          lambda: fa.flash_bwd_dq_plain(*bwd),
                          fp32_roofline(3, b, h, l, l, d, 3, 2, 2),
                          lambda: library, timed))
+        if (b, h, l, d) == HIRES_LEVEL2 and q_mul == 1:
+            for name, fn, tag in (("k3", fa.flash_bwd_dkv, "K3 fp32"),
+                                  ("k4", fa.flash_bwd_dq, "K4 fp32")):
+                D160_BWD_SEEN[name] = check_d160_kernel(torch, lambda: fn(*bwd), tag,
+                                                        D160_BWD_KERNELS[name])
         del q, k, v, do, o, lse, dcap, dk, dv, dq, bwd
     for (b, h, l, d), scale, q_mul, grads, timed, label in FP32_K5:
         scale = d**-0.5 if scale is None else scale
@@ -5006,6 +5021,8 @@ def main():
         if k["name"] in ("k1_biased_flash_fwd", "k2_flash_fwd_lse", "k5_stock_flash_fwd"):
             k["d88_160_kernel"] = D160_SEEN["bfloat16"]
             k["fp32"]["d88_160_kernel"] = D160_SEEN["float32"]
+        else:  # the fp32 backward's, which K5's shares with K3 or K4
+            k["fp32"]["d88_160_kernel"] = D160_BWD_SEEN["k3" if "dkv" in k["name"] else "k4"]
     for k in kernels:
         if k["launches"] < 1 or k["fp32"]["launches"] < 1:
             raise AssertionError(f"{k['name']} never launched on the main path (launches "

@@ -21,14 +21,13 @@
 //                                     controllora_tpu/ops/attention.py::_flash_stock;
 //                                     k5_stock_flash_fwd_f32: O, m and l);
 //   flash_bwd_dkv_3xtf32_kernel   K3  pallas_attention_vjp.py::_bwd_dkv_kernel
-//                                     (k3_flash_bwd_dkv_f32) and K5's
-//                                     _flash_attention_dkv_kernel (k5_stock_flash_bwd_dkv_f32);
+//   (head dims up to 80) and          (k3_flash_bwd_dkv_f32) and K5's
+//   flash_bwd_dkv_d160_3xtf32_kernel  _flash_attention_dkv_kernel (k5_stock_flash_bwd_dkv_f32);
+//   (88-160)
 //   flash_bwd_dq_3xtf32_kernel    K4  pallas_attention_vjp.py::_bwd_dq_kernel
-//                                     (k4_flash_bwd_dq_f32) and K5's _flash_attention_dq_kernel
-//                                     (k5_stock_flash_bwd_dq_f32);
-//   flash_bwd_dkv_fma_kernel and  K3, K4 and K5's backward at head dims 88-160 (SD1.5's
-//   flash_bwd_dq_fma_kernel       level-2 160), fp32 FMA tiles on the CUDA cores (their
-//                                 section below says why).
+//   (up to 80) and                    (k4_flash_bwd_dq_f32) and K5's _flash_attention_dq_kernel
+//   flash_bwd_dq_d160_3xtf32_kernel   (k5_stock_flash_bwd_dq_f32).
+//   (88-160)
 // Each entry point has the C signature of its bf16 namesake, so the wrappers in
 // ops/flash_attention.py and ops/flash_stock.py pick one by the inputs' dtype.
 //
@@ -136,6 +135,11 @@
 //       dO), 2 + 3 stages, 208 KB; D 80: the same with 1 + 2 stages, 208 KB.
 //     Two producer warpgroups split; registers: consumers 184 up to D 32, 200 at D 40,
 //     232 with one warpgroup; producers 72, 56, 136.
+//   * dK/dV and dQ, D 88-160 (flash_bwd_dkv_d160_3xtf32_kernel,
+//     flash_bwd_dq_d160_3xtf32_kernel): 64 stationary rows a block, each consumer
+//     warpgroup holding one stationary operand raw in registers and splitting it a k-step
+//     at a time; 16-row streamed tiles, the transposed tiles in the 64-byte swizzle;
+//     their section below has the design and budgets.
 //   * ragged L: scores of keys at or past Lk are -inf in the forward and P is 0 by index
 //     in dQ, and P^T is 0 by index for queries at or past Lq in dK/dV; stationary rows
 //     past L are computed on zeros and never stored. The softmax scale is a runtime
@@ -224,10 +228,23 @@ __device__ __forceinline__ int sw128(int row, int c) {
   return row * kSpanRow + ((((c >> 2) ^ row) & 7) << 4) + (c & 3) * 4;
 }
 
+// Byte offset of the 16-byte unit u (< 4) of row n in a tile of 64-byte rows in the
+// 64-byte swizzle (1024-byte aligned; 8-row atoms of 512 bytes): the unit is stored at
+// u ^ (n / 2) % 4, as TMA's and wgmma's 64-byte swizzle place it.
+__device__ __forceinline__ int sw64(int n, int u) { return n * 64 + (((u ^ (n >> 1)) & 3) << 4); }
+
 // Shared-memory descriptor of a K-major operand in 128-byte swizzled spans: k-step kk
 // (8 tf32 columns, 32 bytes) of a tile whose span s starts at tile + s * span_bytes.
 __device__ __forceinline__ uint64_t kdesc(const unsigned char* tile, int kk, int span_bytes) {
   return desc_sw128(tile + (kk >> 2) * span_bytes + (kk & 3) * 32, 16, 1024);
+}
+
+// Shared-memory descriptor of a K-major operand in the 64-byte swizzle (layout type 2):
+// k-step t (8 tf32 columns, 32 bytes) of a tile of 64-byte rows (sw64), 8-row atoms 512
+// bytes apart.
+__device__ __forceinline__ uint64_t kdesc64(const unsigned char* tile, int t) {
+  const uint64_t addr = smem_u32(tile + t * 32);
+  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(512 >> 4) << 32) | (2ull << 62);
 }
 
 // The split A fragments of k-step t (accumulator columns 8t..8t + 7) of a 64-row fp32
@@ -351,6 +368,34 @@ __device__ __forceinline__ void transpose_split(const unsigned char* src, unsign
       const int off = (u >> 3) * (COLS * kSpanRow) + n * kSpanRow + ((((u & 7) ^ n) & 7) << 4);
       *reinterpret_cast<uint4*>(hi + off) = h;
       *reinterpret_cast<uint4*>(lo + off) = l;
+    }
+  }
+}
+
+// The same for a 16-token tile (spans of 16 rows): COLS rows of the 16 tokens, 64 bytes
+// each in the 64-byte swizzle (sw64). A thread takes whole columns: it reads a column's
+// 16 tokens (a warp's threads read 32 neighbouring columns of one token, so no two
+// share a bank) and writes the row's four 16-byte units of hi and of lo.
+template <int COLS, int NT>
+__device__ __forceinline__ void transpose_split16(const unsigned char* src, unsigned char* hi,
+                                                  unsigned char* lo, int tid) {
+#pragma unroll 1
+  for (int n = tid; n < COLS; n += NT) {
+    const unsigned char* col = src + (n >> 5) * (16 * kSpanRow) + (n & 3) * 4;
+    const int q = (n >> 2) & 7;  // the column's 16-byte unit, swizzled by the row
+    float x[16];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {  // tokens k and k + 8 share a swizzle phase
+      x[k] = *reinterpret_cast<const float*>(col + k * kSpanRow + ((q ^ k) << 4));
+      x[k + 8] = *reinterpret_cast<const float*>(col + (k + 8) * kSpanRow + ((q ^ k) << 4));
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int k0 = (u >> 1) * 8 + (u & 1);  // tokens k0, k0 + 2, k0 + 4, k0 + 6
+      uint4 h, l;
+      split4(make_float4(x[k0], x[k0 + 2], x[k0 + 4], x[k0 + 6]), h, l);
+      *reinterpret_cast<uint4*>(hi + sw64(n, u)) = h;
+      *reinterpret_cast<uint4*>(lo + sw64(n, u)) = l;
     }
   }
 }
@@ -894,6 +939,7 @@ struct DkvCfg {
   static constexpr int kDP = DP, kNW = NW, kRaw = RAW;
   static constexpr int kSpans = (DP + kSpan - 1) / kSpan;
   static constexpr int kKeys = 64 * NW;                              // keys a block
+  static constexpr int kQueries = kDkvQueries;                       // queries a tile
   static constexpr int kKTile = kSpans * kKeys * kSpanRow;           // K, K lo, V, V lo
   static constexpr int kQTile = kSpans * kDkvQueries * kSpanRow;     // raw Q or dO; hi, lo
   static constexpr int kTTile = DP * kSpanRow;                       // Q^T or dO^T, hi or lo
@@ -1360,367 +1406,538 @@ __global__ void __launch_bounds__(DqCfg<DP, NW, KEYS, RAW, DER>::kThreads, 1)
 // ---------------------------------------------------------------- backward, D 88-160
 
 // Heads wider than 80 (SD1.5's level-2 160; 96 and 128, which jax's stock kernel takes)
-// run on two plain CUDA kernels of fp32 FMA tiles, at depth FmaTile::kDP = 160 (zero
-// filled): with 3xTF32 each operand's hi and lo would have to stay in registers or beside
-// the tiles in shared memory, and at D 160 neither has room. Their bound is the card's 67
-// TFLOP/s of fp32 FMA, not the 165 of 3xTF32 (PERF.md has their times).
-//   * a block keeps R = 64 stationary rows (keys for dK/dV, queries for dQ) in shared
-//     memory and streams the other side's rows in C = 32-row tiles through two stages
-//     filled by cp.async (16 bytes a copy, zero filled past L and past D), so the next
-//     tile's loads overlap this tile's products;
-//   * register micro-tiles: thread t owns stationary rows (t / CG) * TM .. + TM; in a
-//     product over the head dim (S^T = K Q^T, dP^T = V dO^T, S = Q K^T, dP = dO V^T) its
-//     columns are the streamed rows t % CG + j * CG, read as float4 along the head dim;
-//     in a product into the head dim (dV += P^T dO, dK += dS^T Q, dQ += dS K) its
-//     columns are the float4 chunks t % CG + c * CG of the head. Shared rows are DP + 4
-//     floats apart, so the float4 reads of distinct rows fall in distinct banks;
-//   * P^T and dS^T (dS for dQ) go through shared memory from the layout of the first
-//     product to that of the second; P = 0 by index for queries past Lq (dK/dV) and keys
-//     past Lk (dQ); stationary rows past L are computed on zeros and never stored. K5's
-//     rows come as m and l, and LSE = m + log(l) is formed as a row is read.
+// are zero filled to 160, five spans, and run on their own instances of both backward
+// kernels. The D <= 80 design keeps its stationary operands (K and V, or Q and dO)
+// split into hi and lo in shared memory, and 64 rows of 160 split that way take 160 KB
+// before one streamed tile. But those four are the A operands of their products (K of S^T
+// = K Q^T, V of dP^T = V dO^T; Q of S = Q K^T, dO of dP = dO V^T), and tf32 wgmma takes A
+// from registers. So each consumer warpgroup takes one stationary operand and holds its
+// raw fragments in registers for the whole block (80 a thread, loaded once from the TMA
+// tile), splitting them a k-step at a time into a ring of two register sets just before
+// that step's three wgmma (reg_products): hi and lo of all 20 k-steps would take 160.
+// With an accumulator of 64 x 160 (80 registers) beside them, a consumer takes 208 and
+// the producer warpgroup 88. The warpgroups exchange P (or P^T) through shared memory,
+// two tiles deep (one named barrier a tile). Once both hold their fragments (kv_held,
+// qo_held), the stationary tiles' 80 KB become the second stage of the derived buffer,
+// so that the producer splits tile j + 1 while the consumers multiply tile j.
+// Streamed tiles are 16 rows: at 32, two stages of the derived buffer would not fit.
+// The producer splits a raw stage's two tensors as one tile of ten spans (split_tile)
+// and transposes them by whole columns (transpose_split16). A 16-token row of a
+// transposed tile (Q^T, dO^T, K^T: the B operands of dK, dV and dQ, tokens contiguous)
+// is 64 bytes, half a 128-byte span, which desc_sw128 cannot describe; those tiles are
+// laid out and read in wgmma's 64-byte swizzle mode instead (sw64, kdesc64: rows of 64
+// bytes, 8-row atoms of 512 bytes), which keeps both the transpose's 16-byte stores and
+// the tensor core's reads free of bank conflicts. Products run at wgmma N 16 (S^T, dP^T,
+// S, dP: 20 k-steps) or N 160 (dK, dV, dQ: 2 k-steps), three wgmma a k-step.
+//   * dK/dV (flash_bwd_dkv_d160_3xtf32_kernel): 64 keys a block. Warpgroup 0 holds K:
+//     S^T, P^T (by query column: 0 at or past Lq) and dV += P^T dO; warpgroup 1 holds V:
+//     dP^T, dS^T = P^T (dP^T - Dcap) with P^T from warpgroup 0, and dK += dS^T Q. Each
+//     accumulates one output in 80 registers, as the bf16 DS 160 instance does
+//     (flash_attn_bwd.cu), and neither forms S^T twice. 16-query tiles of Q and dO come
+//     through 2 raw stages; the derived buffer is in two parts released apart, as at D
+//     <= 80: A (Q, dO hi and lo, beside the tile's LSE (K5: m + log l) and Dcap rows),
+//     which S^T and dP^T read, and B (Q^T, dO^T hi and lo), which dV and dK read.
+//     Shared memory: K and V (then stage 1 of A and B) 80 KB, raw stages 40 KB, stage 0
+//     of A and B 80 KB, the exchange 8 KB: 209 KB.
+//   * dQ (flash_bwd_dq_d160_3xtf32_kernel): 64 queries a block, each thread with its two
+//     rows' LSE (K5: m + log l) and Dcap in registers. Warpgroup 0 holds Q: S, P (0 for
+//     keys at or past Lk); warpgroup 1 holds dO: dP, dS = P (dP - Dcap) with P from
+//     warpgroup 0, and dQ += dS K. The ring carries raw 16-key tiles of K and V (3
+//     stages); a derived stage holds K hi, lo (B of S = Q K^T), V hi, lo (B of dP = dO
+//     V^T) and K^T hi, lo (B of dQ += dS K). Shared memory: Q and dO (then derived stage
+//     1) 80 KB, raw stages 60 KB, derived stage 0 60 KB, the exchange 8 KB: 209 KB.
 
-// 16 bytes (4 bytes) from global to shared memory without passing through registers;
-// zeros where !ok (then nothing is read).
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
+constexpr int kWideDP = 160;                       // the head, zero filled past D
+constexpr int kWideSpans = kWideDP / kSpan;        // 5
+constexpr int kWideRows = 64;                      // stationary rows a block
+constexpr int kWideTile = 16;                      // streamed rows a tile
+constexpr int kWideRing = 2;  // register sets of the stationary fragments (3 spilled)
+constexpr int kStatSpan = kWideRows * kSpanRow;    // 8 KB: one span of a stationary tile
+constexpr int kStatTile = kWideSpans * kStatSpan;  // 40 KB: 64 rows of 160, raw
+constexpr int kRowSpan = kWideTile * kSpanRow;     // 2 KB: one span of a streamed tile
+constexpr int kRowTile = kWideSpans * kRowSpan;    // 10 KB: 16 rows of 160 (raw, hi or lo)
+constexpr int kColRow = kWideTile * 4;             // 64 bytes: a row of a transposed tile
+constexpr int kColTile = kWideDP * kColRow;        // 10 KB: 160 rows of 16 tokens, hi or lo
+
+// The raw A fragment of k-step kk of a 64-row stationary tile as TMA writes it (spans of
+// 64 rows, kStatSpan apart): rows r and r + 8 at columns 8 kk + t4 and + 4, in
+// load_a_tf32's order.
+__device__ __forceinline__ void stat_a_raw(float* x, const unsigned char* tile, int r, int kk,
+                                           int t4) {
+  const unsigned char* s = tile + (kk >> 2) * kStatSpan;
+  const int c = (kk & 3) * 8 + t4;
+  x[0] = *reinterpret_cast<const float*>(s + sw128(r, c));
+  x[1] = *reinterpret_cast<const float*>(s + sw128(r + 8, c));
+  x[2] = *reinterpret_cast<const float*>(s + sw128(r, c + 4));
+  x[3] = *reinterpret_cast<const float*>(s + sw128(r + 8, c + 4));
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
+__device__ __forceinline__ void split_a(uint32_t* hi, uint32_t* lo, const float* x) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) split(x[e], hi[e], lo[e]);
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+// acc (64 x 160) += A B over a 16-token tile: A (P^T, dS^T or dS, 64 x 16) split from
+// the accumulator x in registers, B's hi and lo the transposed tiles (kdesc64).
+__device__ __forceinline__ void col_products(float* acc, const float* x, const unsigned char* b_hi,
+                                             const unsigned char* b_lo) {
+  uint32_t ah[kWideTile / 8][4], al[kWideTile / 8][4];
+#pragma unroll
+  for (int t = 0; t < kWideTile / 8; ++t) acc_to_a_tf32(ah[t], al[t], x, t);
+  wgmma_fence();
+#pragma unroll
+  for (int t = 0; t < kWideTile / 8; ++t)
+    rs_3xtf32<kWideDP>(acc, ah[t], al[t], kdesc64(b_hi, t), kdesc64(b_lo, t), 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs<kWideDP / 2>(acc);
+  fence_regs<kWideTile / 2>(&ah[0][0]);
+  fence_regs<kWideTile / 2>(&al[0][0]);
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+// d = A B^T (64 x 16, unscaled) over the head's 20 k-steps: A's raw fragments held in
+// registers (x, this thread's rows of a stationary tile, loaded once a block) and split
+// a k-step at a time into a ring of kWideRing register sets, each set written once the
+// group that last read it is done; B's hi and lo from a streamed tile's derived spans (16 rows,
+// kRowSpan apart). Each k-step's three products are one commit group.
+__device__ __forceinline__ void reg_products(float* d, float (&x)[kWideDP / 8][4],
+                                             const unsigned char* b_hi,
+                                             const unsigned char* b_lo) {
+  constexpr int kSteps = kWideDP / 8, R = kWideRing;
+  uint32_t ah[R][4], al[R][4];
+  split_a(ah[0], al[0], x[0]);
+#pragma unroll
+  for (int kk = 0; kk < kSteps; ++kk) {
+    const int c = kk % R, n = (kk + 1) % R;
+    wgmma_fence();
+    rs_3xtf32<kWideTile>(d, ah[c], al[c], kdesc(b_hi, kk, kRowSpan), kdesc(b_lo, kk, kRowSpan),
+                         kk > 0);
+    wgmma_commit();
+    if (kk + 1 < kSteps) {
+      wgmma_wait<R - 1>();  // the group of step kk + 1 - R, set n's reader
+      fence_regs<4>(ah[n]);
+      fence_regs<4>(al[n]);
+      fence_regs<4>(x[kk + 1]);  // else the compiler splits every step up front
+      split_a(ah[n], al[n], x[kk + 1]);
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs<kWideTile / 2>(d);
+  fence_regs<4 * R>(&ah[0][0]);
+  fence_regs<4 * R>(&al[0][0]);
 }
 
-// R stationary rows against C streamed rows a step, NT threads in row groups of CG
-// lanes; rows of DP floats (the head dim padded) in shared memory.
-template <int DP, int R, int C, int CG, int NT>
-struct Tile {
-  static constexpr int kDP = DP, kR = R, kC = C, kCG = CG, kNT = NT;
-  static constexpr int kStride = DP + 4;  // floats a shared row: distinct banks by row
-  static constexpr int kPStride = C + 4;  // floats a shared row of P or dS
-  static constexpr int kTM = R * CG / NT;  // stationary rows a thread
-  static constexpr int kTN = C / CG;       // streamed rows a thread (product over D)
-  static constexpr int kCD = DP / 4 / CG;  // float4 head chunks a thread (product into D)
-  static constexpr int kStage = 2 * C * kStride + 3 * C;  // dK/dV: Q, dO and their rows
-  static constexpr size_t kDkvSmem =
-      sizeof(float) * (2 * (size_t)R * kStride + 2 * (size_t)kStage + 2 * (size_t)R * kPStride);
-  static constexpr size_t kDqSmem =
-      sizeof(float) * ((2 * (size_t)R + 4 * (size_t)C) * kStride + (size_t)R * kPStride);
-  static_assert(DP % 8 == 0 && NT % 32 == 0 && 32 % CG == 0, "tile shape");
-  static_assert(C % CG == 0 && C % 4 == 0 && (DP / 4) % CG == 0, "tile shape");
-  static_assert(kTM >= 1 && kTM * (NT / CG) == R, "tile shape");
-  static_assert(kDkvSmem <= 232448 && kDqSmem <= 232448, "a block has 227 KB of shared memory");
+// dK/dV at D 88-160: 64 keys a block (kKeys), 16-query tiles (kQueries) through kRaw raw
+// stages of Q and dO, and two stages of each part of the derived buffer, A (Q, dO hi and
+// lo) and B (Q^T, dO^T hi and lo): stage 0 of each has its own room, stage 1 takes K's
+// (A) and V's (B) once the consumers hold them in registers. Byte offsets from the
+// block's 1024-byte aligned base (constants, so that the consumers address all of it
+// from one register).
+struct DkvWide {
+  static constexpr int kKeys = kWideRows, kQueries = kWideTile, kRaw = 2;
+  static constexpr int kRawStage = 2 * kRowTile;
+  static constexpr int kDerA = 4 * kRowTile;  // = kStatTile: stage 1 is K's room
+  static constexpr int kDerB = 4 * kColTile;  // = kStatTile: stage 1 is V's room
+  static constexpr int kExchange = 128 * (kWideTile / 2) * 4;  // a warpgroup's P^T tile
+  static constexpr int kOffK = 0, kOffV = kStatTile, kOffRaw = 2 * kStatTile;
+  static constexpr int kOffA0 = kOffRaw + kRaw * kRawStage, kOffB0 = kOffA0 + kDerA;
+  static constexpr int kOffXch = kOffB0 + kDerB;        // P^T, two tiles
+  static constexpr int kOffRows = kOffXch + 2 * kExchange;  // per stage: LSE * log2(e), Dcap
+  static constexpr int kOffBars = kOffRows + 2 * 2 * kWideTile * 4;
+  static constexpr size_t kSmem = 1024 + kOffBars + 8 * (kRaw + 10);  // DkvBars
+  static constexpr int kThreads = 384;  // two consumer warpgroups and a producer warpgroup
+  static constexpr int kConsumerRegs = 208;
+  static constexpr int kProducerRegs =  // within the launch allocation (FwdCfg)
+      (kThreads * (65536 / kThreads / 8 * 8) - 256 * kConsumerRegs) / 128 / 8 * 8;
+  static_assert(kDerA == kStatTile && kDerB == kStatTile, "stage 1 fills K's and V's rooms");
+  static_assert(kProducerRegs >= 56, "the producer's batched copies need 56 registers");
+  static_assert(kSmem <= 232448, "a block has 227 KB of shared memory");
 };
 
-using FmaTile = Tile<160, 64, 32, 8, 256>;
+// The barriers of the D 160 dK/dV kernel: raw_full of the raw stages; by stage of the
+// derived buffer a_full, a_empty (part A), b_full, b_empty (part B); kv_full (K and V
+// in), kv_held (the consumers hold them in registers: stage 1 may overwrite them).
+struct DkvBars {
+  uint64_t raw_full[DkvWide::kRaw], a_full[2], a_empty[2], b_full[2], b_empty[2];
+  uint64_t kv_full, kv_held;
+};
 
-// Rows [r0, r0 + ROWS) of one head (element row stride sl) into shared rows; rows at or
-// past L and columns at or past D are zero filled. Every thread of the block takes part.
-template <class T, int ROWS>
-__device__ __forceinline__ void load_rows(float* dst, const float* src, long long sl, int r0,
-                                          int L, int D) {
-  constexpr int kC4 = T::kDP / 4;
-  for (int i = threadIdx.x; i < ROWS * kC4; i += T::kNT) {
-    const int r = i / kC4, c = (i - r * kC4) * 4;
-    const bool ok = r0 + r < L && c < D;
-    cp_async16(dst + r * T::kStride + c, ok ? src + (r0 + r) * sl + c : src, ok);
-  }
-}
+static_assert(sizeof(DkvBars) == 8 * (DkvWide::kRaw + 10), "DkvWide::kSmem counts them");
 
-// acc[i][j] = x[row i] . y[row j] over the head dim: the thread's TM stationary rows
-// (x) against its TN streamed rows (y).
-template <class T>
-__device__ __forceinline__ void dot_rows(float (&acc)[T::kTM][T::kTN], const float* x,
-                                         const float* y, int rg, int cg) {
-#pragma unroll
-  for (int i = 0; i < T::kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < T::kTN; ++j) acc[i][j] = 0.f;
-  const float* xr = x + rg * T::kTM * T::kStride;
-  const float* yr = y + cg * T::kStride;
-#pragma unroll 4
-  for (int d = 0; d < T::kDP; d += 4) {
-    float4 a[T::kTM];
-#pragma unroll
-    for (int i = 0; i < T::kTM; ++i)
-      a[i] = *reinterpret_cast<const float4*>(xr + i * T::kStride + d);
-#pragma unroll
-    for (int j = 0; j < T::kTN; ++j) {
-      const float4 b = *reinterpret_cast<const float4*>(yr + j * T::kCG * T::kStride + d);
-#pragma unroll
-      for (int i = 0; i < T::kTM; ++i) {
-        acc[i][j] = fmaf(a[i].x, b.x, acc[i][j]);
-        acc[i][j] = fmaf(a[i].y, b.y, acc[i][j]);
-        acc[i][j] = fmaf(a[i].z, b.z, acc[i][j]);
-        acc[i][j] = fmaf(a[i].w, b.w, acc[i][j]);
-      }
-    }
-  }
-}
+constexpr int kWideExchangeBar = 2;  // named barrier of the two consumer warpgroups (P)
 
-__device__ __forceinline__ float lane4(const float4& v, int k) {
-  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
-}
-
-__device__ __forceinline__ void fma4(float4& acc, float w, const float4& z) {
-  acc.x = fmaf(w, z.x, acc.x);
-  acc.y = fmaf(w, z.y, acc.y);
-  acc.z = fmaf(w, z.z, acc.z);
-  acc.w = fmaf(w, z.w, acc.w);
-}
-
-// acc[i][c] += sum over the C streamed rows j of pm[row i][j] * z[row j][chunk c]: the
-// thread's TM stationary rows of P (or dS, rows of kPStride floats) times the streamed
-// rows' head columns in its float4 chunks.
-template <class T>
-__device__ __forceinline__ void acc_rows(float4 (&acc)[T::kTM][T::kCD], const float* pm,
-                                         const float* z, int rg, int cg) {
-  const float* pr = pm + rg * T::kTM * T::kPStride;
-  const float* zc = z + 4 * cg;
-#pragma unroll 2
-  for (int j = 0; j < T::kC; j += 4) {
-    float4 w[T::kTM];
+// One consumer warpgroup of the D 160 dK/dV kernel, its stationary operand's raw
+// fragments (K with DV, else V) in registers. With DV: S^T = K Q^T, P^T (into the
+// exchange buffer of the tile's parity), dV += P^T dO; else dP^T = V dO^T, P^T from
+// the exchange, dS^T = P^T (dP^T - Dcap), dK += dS^T Q (scaled at the store). Rows r and
+// r + 8 of the block's 64 keys; wtid this thread's index in its warpgroup.
+template <bool DV>
+__device__ __forceinline__ void dkv_wide_consumer(const BwdParams& p, unsigned char* base,
+                                                  int n_q, int key0, long long head, int r,
+                                                  int wtid, int lane) {
+  using C = DkvWide;
+  constexpr int kQ = kWideTile;
+  const int t4 = lane & 3;
+  DkvBars* bars = reinterpret_cast<DkvBars*>(base + C::kOffBars);
+  float acc[kWideDP / 2];  // dV or dK
 #pragma unroll
-    for (int i = 0; i < T::kTM; ++i)
-      w[i] = *reinterpret_cast<const float4*>(pr + i * T::kPStride + j);
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-#pragma unroll
-      for (int c = 0; c < T::kCD; ++c) {
-        const float4 zv =
-            *reinterpret_cast<const float4*>(zc + (j + k) * T::kStride + 4 * c * T::kCG);
-#pragma unroll
-        for (int i = 0; i < T::kTM; ++i) fma4(acc[i][c], lane4(w[i], k), zv);
-      }
-  }
-}
+  for (int i = 0; i < kWideDP / 2; ++i) acc[i] = 0.f;
 
-template <class T>
-__device__ __forceinline__ void zero(float4 (&acc)[T::kTM][T::kCD]) {
+  mbar_wait(&bars->kv_full, 0);
+  float x[kWideDP / 8][4];  // K's or V's raw fragments, every k-step
 #pragma unroll
-  for (int i = 0; i < T::kTM; ++i)
-#pragma unroll
-    for (int c = 0; c < T::kCD; ++c) acc[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
-}
-
-// Row i of the thread's accumulator, times mul, into out (a row of the head) at the
-// thread's chunks below D.
-template <class T>
-__device__ __forceinline__ void store_row(float* out, const float4 (&acc)[T::kTM][T::kCD],
-                                          int i, float mul, int cg, int D) {
-#pragma unroll
-  for (int c = 0; c < T::kCD; ++c) {
-    const int col = 4 * (cg + c * T::kCG);
-    if (col < D) {
-      const float4 x = acc[i][c];
-      *reinterpret_cast<float4*>(out + col) =
-          make_float4(x.x * mul, x.y * mul, x.z * mul, x.w * mul);
-    }
-  }
-}
-
-// dK, dV: R keys a block (K and V stationary), C-query stages of Q, dO and their row
-// terms (LSE or m, l, Dcap).
-template <int DP, int R, int C, int CG, int NT>
-__global__ void __launch_bounds__(NT, 1) flash_bwd_dkv_fma_kernel(const BwdParams p) {
-  using T = Tile<DP, R, C, CG, NT>;
-  extern __shared__ float4 smem4[];
-  float* k_s = reinterpret_cast<float*>(smem4);
-  float* v_s = k_s + R * T::kStride;
-  float* ring = v_s + R * T::kStride;     // two stages
-  float* p_s = ring + 2 * T::kStage;      // P^T, R x C
-  float* ds_s = p_s + R * T::kPStride;    // dS^T
-
-  // block -> (batch*head, key tile)
-  const int k_tiles = (p.Lk + R - 1) / R;
-  const int kt = blockIdx.x % k_tiles, bh = blockIdx.x / k_tiles;
-  const int b = bh / p.H, h = bh % p.H;
-  const int key0 = kt * R;
-  const float* qg = static_cast<const float*>(p.q.base) + b * p.q.sb + h * p.q.sh;
-  const float* dog = static_cast<const float*>(p.dout.base) + b * p.dout.sb + h * p.dout.sh;
-  const float* kg = static_cast<const float*>(p.k.base) + b * p.k.sb + h * p.k.sh;
-  const float* vg = static_cast<const float*>(p.v.base) + b * p.v.sb + h * p.v.sh;
-  const size_t row0 = (size_t)bh * p.Lq;
-  const int n_q = (p.Lq + C - 1) / C;
-
-  auto load_stage = [&](int j) {
-    float* stage = ring + (j & 1) * T::kStage;
-    const int q0 = j * C;
-    load_rows<T, C>(stage, qg, p.q.sl, q0, p.Lq, p.D);
-    load_rows<T, C>(stage + C * T::kStride, dog, p.dout.sl, q0, p.Lq, p.D);
-    float* rows = stage + 2 * C * T::kStride;
-    for (int i = threadIdx.x; i < C; i += NT) {  // 0 past Lq: masked by index below
-      const bool ok = q0 + i < p.Lq;
-      const size_t r = ok ? row0 + q0 + i : 0;
-      cp_async4(rows + i, p.lse + r, ok);
-      if (p.l != nullptr) cp_async4(rows + C + i, p.l + r, ok);
-      cp_async4(rows + 2 * C + i, p.dcap + r, ok);
-    }
-  };
-  load_rows<T, R>(k_s, kg, p.k.sl, key0, p.Lk, p.D);
-  load_rows<T, R>(v_s, vg, p.v.sl, key0, p.Lk, p.D);
-  load_stage(0);
-  cp_async_commit();
-
-  const int rg = threadIdx.x / CG, cg = threadIdx.x % CG;
-  float4 dk[T::kTM][T::kCD], dv[T::kTM][T::kCD];
-  zero<T>(dk);
-  zero<T>(dv);
+  for (int kk = 0; kk < kWideDP / 8; ++kk)
+    stat_a_raw(x[kk], base + (DV ? C::kOffK : C::kOffV), r, kk, t4);
+  __syncwarp();
+  if (lane == 0) mbar_arrive(&bars->kv_held);
 
   for (int j = 0; j < n_q; ++j) {
-    cp_async_wait_all();
-    __syncthreads();  // stage j is in; every thread is done with stage j - 1
-    if (j + 1 < n_q) {
-      load_stage(j + 1);
-      cp_async_commit();
-    }
-    const float* qs = ring + (j & 1) * T::kStage;
-    const float* dos = qs + C * T::kStride;
-    const float* rows = dos + C * T::kStride;
+    const int s = j & 1, phase = (j >> 1) & 1;
+    const unsigned char* a = base + (s ? C::kOffK : C::kOffA0);  // Q hi, dO hi, Q lo, dO lo
+    const float* rs = reinterpret_cast<const float*>(base + C::kOffRows) + s * 2 * kQ;
+    float* pt = reinterpret_cast<float*>(base + C::kOffXch) + s * (128 * kQ / 2);
+    mbar_wait(&bars->a_full[s], phase);
 
-    // S^T = K Q^T (unscaled), then P^T = exp(S^T * scale - LSE) by query column, 0 for
-    // queries at or past Lq. P^T goes to shared memory before dP^T is formed, so that
-    // only one of the two score tiles is live beside the dK and dV accumulators.
-    const int q0 = j * C;
-    {
-      float st[T::kTM][T::kTN];
-      dot_rows<T>(st, k_s, qs, rg, cg);
+    // S^T = K Q^T (dV) or dP^T = V dO^T (dK): 64 keys x 16 queries, unscaled
+    float st[kQ / 2];
+    if constexpr (DV) reg_products(st, x, a, a + 2 * kRowTile);
+    else reg_products(st, x, a + kRowTile, a + 3 * kRowTile);
+
+    const int q0 = j * kQ;
+    if constexpr (DV) {
+      // P^T = exp(S^T * scale - LSE) by query column; 0 for queries at or past Lq
 #pragma unroll
-      for (int t = 0; t < T::kTN; ++t) {
-        const int col = cg + t * CG;
-        const bool ok = q0 + col < p.Lq;
-        const float lse2 =
-            (p.l == nullptr ? rows[col] : rows[col] + logf(rows[C + col])) * kLog2e;
+      for (int n = 0; n < kQ / 8; ++n) {
+        const int col = n * 8 + t4 * 2;
+        const float2 ls = *reinterpret_cast<const float2*>(rs + col);
+        const bool ok0 = q0 + col < p.Lq, ok1 = q0 + col + 1 < p.Lq;
+        st[4 * n] = ok0 ? ex2(fmaf(st[4 * n], p.scale_log2, -ls.x)) : 0.f;
+        st[4 * n + 1] = ok1 ? ex2(fmaf(st[4 * n + 1], p.scale_log2, -ls.y)) : 0.f;
+        st[4 * n + 2] = ok0 ? ex2(fmaf(st[4 * n + 2], p.scale_log2, -ls.x)) : 0.f;
+        st[4 * n + 3] = ok1 ? ex2(fmaf(st[4 * n + 3], p.scale_log2, -ls.y)) : 0.f;
+      }
 #pragma unroll
-        for (int i = 0; i < T::kTM; ++i)
-          p_s[(rg * T::kTM + i) * T::kPStride + col] =
-              ok ? exp2f(fmaf(st[i][t], p.scale_log2, -lse2)) : 0.f;
+      for (int i = 0; i < kQ / 2; ++i) pt[i * 128 + wtid] = st[i];
+      named_sync(kWideExchangeBar, 256);  // P^T is in
+    } else {
+      // dS^T = P^T * (dP^T - Dcap), by query column
+      named_sync(kWideExchangeBar, 256);
+#pragma unroll
+      for (int n = 0; n < kQ / 8; ++n) {
+        const float2 dc = *reinterpret_cast<const float2*>(rs + kQ + n * 8 + t4 * 2);
+        st[4 * n] = pt[(4 * n) * 128 + wtid] * (st[4 * n] - dc.x);
+        st[4 * n + 1] = pt[(4 * n + 1) * 128 + wtid] * (st[4 * n + 1] - dc.y);
+        st[4 * n + 2] = pt[(4 * n + 2) * 128 + wtid] * (st[4 * n + 2] - dc.x);
+        st[4 * n + 3] = pt[(4 * n + 3) * 128 + wtid] * (st[4 * n + 3] - dc.y);
       }
     }
-    // dP^T = V dO^T (unscaled), dS^T = P^T (dP^T - Dcap): each thread reads back the P^T
-    // values it wrote
-    {
-      float dpt[T::kTM][T::kTN];
-      dot_rows<T>(dpt, v_s, dos, rg, cg);
-#pragma unroll
-      for (int t = 0; t < T::kTN; ++t) {
-        const int col = cg + t * CG;
-        const float dc = rows[2 * C + col];
-#pragma unroll
-        for (int i = 0; i < T::kTM; ++i) {
-          const int at = (rg * T::kTM + i) * T::kPStride + col;
-          ds_s[at] = p_s[at] * (dpt[i][t] - dc);
-        }
-      }
-    }
-    __syncthreads();  // P^T and dS^T are in
-    acc_rows<T>(dv, p_s, dos, rg, cg);  // dV += P^T dO
-    acc_rows<T>(dk, ds_s, qs, rg, cg);  // dK += dS^T Q
+    __syncwarp();  // this warp's products and row reads of part A are done
+    if (lane == 0) mbar_arrive(&bars->a_empty[s]);
+
+    // dV += P^T dO or dK += dS^T Q over the tile's 16 queries: dO^T or Q^T of part B
+    // (Q^T hi, dO^T hi, Q^T lo, dO^T lo)
+    const unsigned char* bt = base + (s ? C::kOffV : C::kOffB0) + (DV ? kColTile : 0);
+    mbar_wait(&bars->b_full[s], phase);
+    col_products(acc, st, bt, bt + 2 * kColTile);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&bars->b_empty[s]);
   }
 
-#pragma unroll
-  for (int i = 0; i < T::kTM; ++i) {
-    const int row = key0 + rg * T::kTM + i;
-    if (row >= p.Lk) continue;
-    const long long at = b * p.sb + h * p.sh + row * p.sl;
-    store_row<T>(p.out0 + at, dk, i, p.scale, cg, p.D);
-    store_row<T>(p.out1 + at, dv, i, 1.f, cg, p.D);
-  }
+  // ------------------------------------------------------------------ epilogue
+  if constexpr (DV) store_acc_f32<kWideDP>(p.out1 + head, p.sl, acc, 1.f, 1.f, key0 + r, p.Lk, 0,
+                                           p.D, t4);
+  else store_acc_f32<kWideDP>(p.out0 + head, p.sl, acc, p.scale, p.scale, key0 + r, p.Lk, 0,
+                              p.D, t4);
 }
 
-// dQ: R queries a block (Q and dO stationary, each thread's rows' LSE and Dcap in
-// registers), C-key stages of K and V.
-template <int DP, int R, int C, int CG, int NT>
-__global__ void __launch_bounds__(NT, 1) flash_bwd_dq_fma_kernel(const BwdParams p) {
-  using T = Tile<DP, R, C, CG, NT>;
-  extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);
-  float* do_s = q_s + R * T::kStride;
-  float* ring = do_s + R * T::kStride;        // two stages of K and V
-  float* ds_s = ring + 4 * C * T::kStride;    // dS, R x C
+__global__ void __launch_bounds__(DkvWide::kThreads, 1)
+    flash_bwd_dkv_d160_3xtf32_kernel(const __grid_constant__ CUtensorMap tq,
+                                     const __grid_constant__ CUtensorMap tdo,
+                                     const __grid_constant__ CUtensorMap tk,
+                                     const __grid_constant__ CUtensorMap tv, const BwdParams p) {
+  using C = DkvWide;
+  constexpr int kQ = kWideTile;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  DkvBars* bars = reinterpret_cast<DkvBars*>(base + C::kOffBars);
 
-  // block -> (batch*head, query tile)
-  const int q_tiles = (p.Lq + R - 1) / R;
-  const int qt = blockIdx.x % q_tiles, bh = blockIdx.x / q_tiles;
+  const int k_tiles = (p.Lk + C::kKeys - 1) / C::kKeys;
+  const int kt = blockIdx.x % k_tiles, bh = blockIdx.x / k_tiles;
   const int b = bh / p.H, h = bh % p.H;
-  const int q0 = qt * R;
-  const float* qg = static_cast<const float*>(p.q.base) + b * p.q.sb + h * p.q.sh;
-  const float* dog = static_cast<const float*>(p.dout.base) + b * p.dout.sb + h * p.dout.sh;
-  const float* kg = static_cast<const float*>(p.k.base) + b * p.k.sb + h * p.k.sh;
-  const float* vg = static_cast<const float*>(p.v.base) + b * p.v.sb + h * p.v.sh;
-  const int n_k = (p.Lk + C - 1) / C;
+  const int key0 = kt * C::kKeys;
+  const int n_q = (p.Lq + kQ - 1) / kQ;
 
-  load_rows<T, R>(q_s, qg, p.q.sl, q0, p.Lq, p.D);
-  load_rows<T, R>(do_s, dog, p.dout.sl, q0, p.Lq, p.D);
-  load_rows<T, C>(ring, kg, p.k.sl, 0, p.Lk, p.D);
-  load_rows<T, C>(ring + C * T::kStride, vg, p.v.sl, 0, p.Lk, p.D);
-  cp_async_commit();
-
-  const int rg = threadIdx.x / CG, cg = threadIdx.x % CG;
-  // this thread's query rows: LSE * log2(e) and Dcap, 0 past Lq (never stored)
-  float lse2[T::kTM], dc[T::kTM];
-#pragma unroll
-  for (int i = 0; i < T::kTM; ++i) {
-    const int row = q0 + rg * T::kTM + i;
-    const size_t r = (size_t)bh * p.Lq + row;
-    lse2[i] = 0.f;
-    dc[i] = 0.f;
-    if (row < p.Lq) {
-      lse2[i] = (p.l == nullptr ? p.lse[r] : p.lse[r] + logf(p.l[r])) * kLog2e;
-      dc[i] = p.dcap[r];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::kRaw; ++s) mbar_init(&bars->raw_full[s], 1);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&bars->a_full[s], 1);
+      mbar_init(&bars->a_empty[s], 8);  // the consumer warps
+      mbar_init(&bars->b_full[s], 1);
+      mbar_init(&bars->b_empty[s], 8);
     }
+    mbar_init(&bars->kv_full, 1);
+    mbar_init(&bars->kv_held, 8);
+    mbar_init_fence();
   }
-  float4 dq[T::kTM][T::kCD];
-  zero<T>(dq);
+  __syncthreads();
 
-  for (int j = 0; j < n_k; ++j) {
-    cp_async_wait_all();
-    __syncthreads();  // stage j is in; every thread is done with stage j - 1 and dS
-    if (j + 1 < n_k) {
-      float* next = ring + ((j + 1) & 1) * 2 * C * T::kStride;
-      load_rows<T, C>(next, kg, p.k.sl, (j + 1) * C, p.Lk, p.D);
-      load_rows<T, C>(next + C * T::kStride, vg, p.v.sl, (j + 1) * C, p.Lk, p.D);
-      cp_async_commit();
+  if (warp >= 8) {
+    // ---------------------------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(C::kProducerRegs));
+    const int tid = threadIdx.x - 256;
+    unsigned char* raw = base + C::kOffRaw;  // kRaw x (Q, dO)
+    float* rows = reinterpret_cast<float*>(base + C::kOffRows);
+    auto issue = [&](int j) {
+      const int s = j % C::kRaw;
+      unsigned char* qs = raw + (size_t)s * C::kRawStage;
+      uint64_t* full = &bars->raw_full[s];
+      mbar_expect_tx(full, C::kRawStage);
+      for (int c = 0; c < kWideSpans; ++c) {
+        tma_load_4d(qs + c * kRowSpan, &tq, full, c * kSpan, h, j * kQ, b);
+        tma_load_4d(qs + kRowTile + c * kRowSpan, &tdo, full, c * kSpan, h, j * kQ, b);
+      }
+    };
+    if (tid == 0) {
+      mbar_expect_tx(&bars->kv_full, 2 * kStatTile);
+      for (int c = 0; c < kWideSpans; ++c) {
+        tma_load_4d(base + C::kOffK + c * kStatSpan, &tk, &bars->kv_full, c * kSpan, h, key0, b);
+        tma_load_4d(base + C::kOffV + c * kStatSpan, &tv, &bars->kv_full, c * kSpan, h, key0, b);
+      }
+      for (int j = 0; j < C::kRaw && j < n_q; ++j) issue(j);
     }
-    const float* ks = ring + (j & 1) * 2 * C * T::kStride;
-    const float* vs = ks + C * T::kStride;
 
-    // S = Q K^T and dP = dO V^T, unscaled; P = exp(S * scale - LSE), 0 for keys at or
-    // past Lk; dS = P (dP - Dcap)
-    float s[T::kTM][T::kTN], dp[T::kTM][T::kTN];
-    dot_rows<T>(s, q_s, ks, rg, cg);
-    dot_rows<T>(dp, do_s, vs, rg, cg);
-    const int key0 = j * C;
-#pragma unroll
-    for (int t = 0; t < T::kTN; ++t) {
-      const int col = cg + t * CG;
-      const bool ok = key0 + col < p.Lk;
-#pragma unroll
-      for (int i = 0; i < T::kTM; ++i) {
-        const float pv = ok ? exp2f(fmaf(s[i][t], p.scale_log2, -lse2[i])) : 0.f;
-        ds_s[(rg * T::kTM + i) * T::kPStride + col] = pv * (dp[i][t] - dc[i]);
+    const size_t row0 = (size_t)bh * p.Lq;
+    for (int j = 0; j < n_q; ++j) {
+      const int rs = j % C::kRaw, s = j & 1, phase = ((j >> 1) & 1) ^ 1;
+      unsigned char* a = base + (s ? C::kOffK : C::kOffA0);  // stage 1: K's and V's rooms
+      unsigned char* bt = base + (s ? C::kOffV : C::kOffB0);
+      mbar_wait(&bars->raw_full[rs], (j / C::kRaw) & 1);
+      if (j == 1) mbar_wait(&bars->kv_held, 0);
+      mbar_wait(&bars->a_empty[s], phase);
+      const unsigned char* qs = raw + (size_t)rs * C::kRawStage;
+      // Q and dO, the raw stage's ten spans as one tile: hi and lo 20 KB apart
+      split_tile<kQ, 2 * kWideSpans, 2 * kWideDP, 128>(qs, a, a + 2 * kRowTile, tid);
+      if (tid < kQ) {  // 0 past Lq: those queries are masked by index
+        const int q = j * kQ + tid;
+        float lse2 = 0.f, dc = 0.f;
+        if (q < p.Lq) {
+          const size_t r = row0 + q;
+          lse2 = (p.l == nullptr ? p.lse[r] : p.lse[r] + logf(p.l[r])) * kLog2e;
+          dc = p.dcap[r];
+        }
+        rows[s * 2 * kQ + tid] = lse2;
+        rows[s * 2 * kQ + kQ + tid] = dc;
+      }
+      fence_async_shared();
+      named_sync(kProducerBar, 128);
+      if (tid == 0) mbar_arrive(&bars->a_full[s]);
+      mbar_wait(&bars->b_empty[s], phase);
+      // Q^T and dO^T: 320 rows, Q's columns then dO's
+      transpose_split16<2 * kWideDP, 128>(qs, bt, bt + 2 * kColTile, tid);
+      fence_async_shared();
+      named_sync(kProducerBar, 128);  // the raw stage is read: it takes the next copy
+      if (tid == 0) {
+        mbar_arrive(&bars->b_full[s]);
+        if (j + C::kRaw < n_q) issue(j + C::kRaw);
       }
     }
-    __syncthreads();  // dS is in
-    acc_rows<T>(dq, ds_s, ks, rg, cg);  // dQ += dS K
+    return;
   }
 
+  // ------------------------------------------------------------------ consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(C::kConsumerRegs));
+  const int r = (warp % 4) * 16 + (lane >> 2);  // this thread's keys r and r + 8 of the 64
+  const long long head = b * p.sb + h * p.sh;
+  if (warp < 4)
+    dkv_wide_consumer<true>(p, base, n_q, key0, head, r, threadIdx.x % 128, lane);
+  else
+    dkv_wide_consumer<false>(p, base, n_q, key0, head, r, threadIdx.x % 128, lane);
+}
+
+// dQ at D 88-160: 64 queries a block (kRows), 16-key tiles (kKeys) through kRaw raw
+// stages of K and V, and two derived stages (K hi, V hi, K lo, V lo, K^T hi, K^T lo):
+// stage 0 has its own room, stage 1 takes Q's and dO's once the consumers hold them in
+// registers. Byte offsets from the block's 1024-byte aligned base, as in DkvWide.
+struct DqWide {
+  static constexpr int kRows = kWideRows, kKeys = kWideTile, kRaw = 3;
+  static constexpr int kRawStage = 2 * kRowTile;
+  static constexpr int kDerStage = 4 * kRowTile + 2 * kColTile;
+  static constexpr int kExchange = 128 * (kWideTile / 2) * 4;  // a warpgroup's P tile
+  static constexpr int kOffQ = 0, kOffDO = kStatTile, kOffRaw = 2 * kStatTile;
+  static constexpr int kOffD0 = kOffRaw + kRaw * kRawStage;
+  static constexpr int kOffXch = kOffD0 + kDerStage;  // P, two tiles
+  static constexpr int kOffBars = kOffXch + 2 * kExchange;
+  static constexpr size_t kSmem = 1024 + kOffBars + 8 * (kRaw + 6);  // DqBars
+  static constexpr int kThreads = 384;  // two consumer warpgroups and a producer warpgroup
+  static constexpr int kConsumerRegs = DkvWide::kConsumerRegs;
+  static constexpr int kProducerRegs = DkvWide::kProducerRegs;
+  static_assert(kDerStage <= 2 * kStatTile, "stage 1 fits in Q's and dO's rooms");
+  static_assert(kSmem <= 232448, "a block has 227 KB of shared memory");
+};
+
+// The barriers of the D 160 dQ kernel: raw_full of the raw stages; der_full and
+// der_empty of the derived stages; qo_full (Q and dO in), qo_held (the consumers hold
+// them in registers: stage 1 may overwrite them).
+struct DqBars {
+  uint64_t raw_full[DqWide::kRaw], der_full[2], der_empty[2], qo_full, qo_held;
+};
+
+static_assert(sizeof(DqBars) == 8 * (DqWide::kRaw + 6), "DqWide::kSmem counts them");
+
+// One consumer warpgroup of the D 160 dQ kernel, its stationary operand's raw fragments
+// (Q, else with DQ dO) in registers. Warpgroup 0: S = Q K^T, P = exp(S * scale - LSE)
+// (into the exchange buffer of the tile's parity); with DQ: dP = dO V^T, P from the
+// exchange, dS = P (dP - Dcap), dQ += dS K (scaled at the store). Rows r and r + 8 of
+// the block's 64 queries (q0 + r the first); wtid this thread's index in its warpgroup.
+template <bool DQ>
+__device__ __forceinline__ void dq_wide_consumer(const BwdParams& p, unsigned char* base,
+                                                 int n_tiles, int q0, int bh, long long head,
+                                                 int r, int wtid, int lane) {
+  using C = DqWide;
+  constexpr int kK = kWideTile;
+  const int t4 = lane & 3, r0 = q0 + r;
+  DqBars* bars = reinterpret_cast<DqBars*>(base + C::kOffBars);
+
+  // the rows' LSE * log2(e) (K5: m + log l) and Dcap, 0 past Lq (never stored)
+  float lse2[2], dc[2];
 #pragma unroll
-  for (int i = 0; i < T::kTM; ++i) {
-    const int row = q0 + rg * T::kTM + i;
-    if (row >= p.Lq) continue;
-    store_row<T>(p.out0 + b * p.sb + h * p.sh + row * p.sl, dq, i, p.scale, cg, p.D);
+  for (int i = 0; i < 2; ++i) {
+    const size_t row = (size_t)bh * p.Lq + r0 + 8 * i;
+    lse2[i] = dc[i] = 0.f;
+    if (r0 + 8 * i < p.Lq) {
+      lse2[i] = (p.l == nullptr ? p.lse[row] : p.lse[row] + logf(p.l[row])) * kLog2e;
+      dc[i] = p.dcap[row];
+    }
   }
+  float dq[DQ ? kWideDP / 2 : 1];
+#pragma unroll
+  for (int i = 0; i < (DQ ? kWideDP / 2 : 1); ++i) dq[i] = 0.f;
+
+  mbar_wait(&bars->qo_full, 0);
+  float x[kWideDP / 8][4];  // Q's or dO's raw fragments, every k-step
+#pragma unroll
+  for (int kk = 0; kk < kWideDP / 8; ++kk)
+    stat_a_raw(x[kk], base + (DQ ? C::kOffDO : C::kOffQ), r, kk, t4);
+  __syncwarp();
+  if (lane == 0) mbar_arrive(&bars->qo_held);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j & 1;
+    const unsigned char* d = base + (s ? C::kOffQ : C::kOffD0);  // K, V hi; K, V lo; K^T
+    float* pt = reinterpret_cast<float*>(base + C::kOffXch) + s * (128 * kK / 2);
+    mbar_wait(&bars->der_full[s], (j >> 1) & 1);
+
+    float sc[kK / 2];  // S, or with DQ dP: 64 queries x 16 keys, unscaled
+    if constexpr (!DQ) {
+      reg_products(sc, x, d, d + 2 * kRowTile);
+      // P = 2^(S * scale * log2(e) - LSE * log2(e)) by query row, 0 for keys at or past
+      // Lk (there S is 0, from TMA's zero fill, and P would not be)
+      const int key0 = j * kK;
+#pragma unroll
+      for (int i = 0; i < kK / 2; ++i) {
+        const bool ok = key0 + (i / 4) * 8 + t4 * 2 + (i & 1) < p.Lk;
+        pt[i * 128 + wtid] = ok ? ex2(fmaf(sc[i], p.scale_log2, -lse2[(i >> 1) & 1])) : 0.f;
+      }
+      named_sync(kWideExchangeBar, 256);  // P is in
+    } else {
+      reg_products(sc, x, d + kRowTile, d + 3 * kRowTile);
+      named_sync(kWideExchangeBar, 256);
+      // dS = P (dP - Dcap), by query row; dQ += dS K over the tile's 16 keys
+#pragma unroll
+      for (int i = 0; i < kK / 2; ++i) sc[i] = pt[i * 128 + wtid] * (sc[i] - dc[(i >> 1) & 1]);
+      col_products(dq, sc, d + 4 * kRowTile, d + 4 * kRowTile + kColTile);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&bars->der_empty[s]);
+  }
+
+  // ------------------------------------------------------------------ epilogue
+  if constexpr (DQ)
+    store_acc_f32<kWideDP>(p.out0 + head, p.sl, dq, p.scale, p.scale, r0, p.Lq, 0, p.D, t4);
+}
+
+__global__ void __launch_bounds__(DqWide::kThreads, 1)
+    flash_bwd_dq_d160_3xtf32_kernel(const __grid_constant__ CUtensorMap tq,
+                                    const __grid_constant__ CUtensorMap tdo,
+                                    const __grid_constant__ CUtensorMap tk,
+                                    const __grid_constant__ CUtensorMap tv, const BwdParams p) {
+  using C = DqWide;
+  constexpr int kK = kWideTile;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  DqBars* bars = reinterpret_cast<DqBars*>(base + C::kOffBars);
+
+  const int q_tiles = (p.Lq + C::kRows - 1) / C::kRows;
+  const int qt = blockIdx.x % q_tiles, bh = blockIdx.x / q_tiles;
+  const int b = bh / p.H, h = bh % p.H;
+  const int q0 = qt * C::kRows;
+  const int n_tiles = (p.Lk + kK - 1) / kK;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::kRaw; ++s) mbar_init(&bars->raw_full[s], 1);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&bars->der_full[s], 1);
+      mbar_init(&bars->der_empty[s], 8);  // the consumer warps
+    }
+    mbar_init(&bars->qo_full, 1);
+    mbar_init(&bars->qo_held, 8);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    // ---------------------------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(C::kProducerRegs));
+    const int tid = threadIdx.x - 256;
+    unsigned char* raw = base + C::kOffRaw;  // kRaw x (K, V)
+    auto issue = [&](int j) {
+      const int s = j % C::kRaw;
+      unsigned char* ks = raw + (size_t)s * C::kRawStage;
+      uint64_t* full = &bars->raw_full[s];
+      mbar_expect_tx(full, C::kRawStage);
+      for (int c = 0; c < kWideSpans; ++c) {
+        tma_load_4d(ks + c * kRowSpan, &tk, full, c * kSpan, h, j * kK, b);
+        tma_load_4d(ks + kRowTile + c * kRowSpan, &tv, full, c * kSpan, h, j * kK, b);
+      }
+    };
+    if (tid == 0) {
+      mbar_expect_tx(&bars->qo_full, 2 * kStatTile);
+      for (int c = 0; c < kWideSpans; ++c) {
+        tma_load_4d(base + C::kOffQ + c * kStatSpan, &tq, &bars->qo_full, c * kSpan, h, q0, b);
+        tma_load_4d(base + C::kOffDO + c * kStatSpan, &tdo, &bars->qo_full, c * kSpan, h, q0, b);
+      }
+      for (int j = 0; j < C::kRaw && j < n_tiles; ++j) issue(j);
+    }
+    for (int j = 0; j < n_tiles; ++j) {
+      const int rs = j % C::kRaw, s = j & 1;
+      unsigned char* d = base + (s ? C::kOffQ : C::kOffD0);  // stage 1: Q's and dO's rooms
+      mbar_wait(&bars->raw_full[rs], (j / C::kRaw) & 1);
+      if (j == 1) mbar_wait(&bars->qo_held, 0);
+      mbar_wait(&bars->der_empty[s], ((j >> 1) & 1) ^ 1);
+      const unsigned char* ks = raw + (size_t)rs * C::kRawStage;
+      // K and V, the raw stage's ten spans as one tile: hi and lo 20 KB apart; then K^T
+      split_tile<kK, 2 * kWideSpans, 2 * kWideDP, 128>(ks, d, d + 2 * kRowTile, tid);
+      transpose_split16<kWideDP, 128>(ks, d + 4 * kRowTile, d + 4 * kRowTile + kColTile, tid);
+      fence_async_shared();
+      named_sync(kProducerBar, 128);  // raw stage read, derived one written
+      if (tid == 0) {
+        mbar_arrive(&bars->der_full[s]);
+        if (j + C::kRaw < n_tiles) issue(j + C::kRaw);
+      }
+    }
+    return;
+  }
+
+  // ------------------------------------------------------------------ consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(C::kConsumerRegs));
+  const int r = (warp % 4) * 16 + (lane >> 2);  // this thread's rows r and r + 8 of the 64
+  const long long head = b * p.sb + h * p.sh;
+  if (warp < 4)
+    dq_wide_consumer<false>(p, base, n_tiles, q0, bh, head, r, threadIdx.x % 128, lane);
+  else
+    dq_wide_consumer<true>(p, base, n_tiles, q0, bh, head, r, threadIdx.x % 128, lane);
 }
 
 // ---------------------------------------------------------------- launches
@@ -1754,31 +1971,35 @@ cudaError_t with_fwd_cfg(int D, F&& f) {
 }
 
 // dK/dV instances: D rounded up as in the forward; two consumer warpgroups up to D 64,
-// one (and one raw stage) at D 80, where two would not fit in shared memory.
+// one (and one raw stage) at D 80, where two would not fit in shared memory; 88-160 the
+// D 160 instance (DkvWide).
 template <class F>
 cudaError_t with_dkv_cfg(int D, F&& f) {
-  if (D < 8 || D % 8 != 0 || D > 80) return cudaErrorInvalidValue;
+  if (D < 8 || D % 8 != 0 || D > kWideDP) return cudaErrorInvalidValue;
   if (D <= 8) return f(DkvCfg<8, 2, 2>{});
   if (D <= 16) return f(DkvCfg<16, 2, 2>{});
   if (D <= 32) return f(DkvCfg<32, 2, 2>{});
   if (D <= 40) return f(DkvCfg<40, 2, 2>{});
   if (D <= 64) return f(DkvCfg<64, 2, 2>{});
-  return f(DkvCfg<80, 1, 1>{});
+  if (D <= 80) return f(DkvCfg<80, 1, 1>{});
+  return f(DkvWide{});
 }
 
 // dQ instances: D rounded up as in the forward. Up to D 40 two consumer warpgroups
 // (128 queries) with Q and dO in registers and 64-key tiles; at D 64 and 80 one (64
 // queries) with dO in shared memory and 32-key tiles: there the fragments would not fit
-// in registers, nor 64-key stages beside dO in shared memory.
+// in registers, nor 64-key stages beside dO in shared memory; 88-160 the D 160 instance
+// (DqWide).
 template <class F>
 cudaError_t with_dq_cfg(int D, F&& f) {
-  if (D < 8 || D % 8 != 0 || D > 80) return cudaErrorInvalidValue;
+  if (D < 8 || D % 8 != 0 || D > kWideDP) return cudaErrorInvalidValue;
   if (D <= 8) return f(DqCfg<8, 2, 64, 2, 3>{});
   if (D <= 16) return f(DqCfg<16, 2, 64, 2, 3>{});
   if (D <= 32) return f(DqCfg<32, 2, 64, 2, 3>{});
   if (D <= 40) return f(DqCfg<40, 2, 64, 1, 2>{});
   if (D <= 64) return f(DqCfg<64, 1, 32, 2, 3>{});
-  return f(DqCfg<80, 1, 32, 1, 2>{});
+  if (D <= 80) return f(DqCfg<80, 1, 32, 1, 2>{});
+  return f(DqWide{});
 }
 
 // What the loads need: a 16-byte aligned base and element strides in whole 16-byte
@@ -1870,40 +2091,29 @@ BwdParams bwd_params(const Views& x, const void* lse, const void* l, const void*
   return p;
 }
 
-// Heads of 88-160 columns take the FMA kernels (FmaTile), which read by plain loads.
-bool fma_head(int D) { return D > 80 && D <= FmaTile::kDP && D % 8 == 0; }
-
 cudaError_t run_dkv(const Views& x, const BwdParams& p, cudaStream_t stream) {
   if (!valid_bwd(x, p.B, p.H, p.Lq, p.Lk)) return cudaErrorInvalidValue;
-  if (fma_head(p.D)) {
-    using T = FmaTile;
-    const long long blocks = (long long)p.B * p.H * ((p.Lk + T::kR - 1) / T::kR);
-    return run(flash_bwd_dkv_fma_kernel<T::kDP, T::kR, T::kC, T::kCG, T::kNT>, blocks, T::kNT,
-               T::kDkvSmem, stream, p);
-  }
   return with_dkv_cfg(p.D, [&](auto cfg) {
     using C = decltype(cfg);
     CUtensorMap tq, tdo, tk, tv;
-    cudaError_t err = encode_heads(&tq, x.q, p.B, p.H, p.Lq, p.D, kDkvQueries, true);
+    cudaError_t err = encode_heads(&tq, x.q, p.B, p.H, p.Lq, p.D, C::kQueries, true);
     if (err == cudaSuccess)
-      err = encode_heads(&tdo, x.dout, p.B, p.H, p.Lq, p.D, kDkvQueries, true);
+      err = encode_heads(&tdo, x.dout, p.B, p.H, p.Lq, p.D, C::kQueries, true);
     if (err == cudaSuccess) err = encode_heads(&tk, x.k, p.B, p.H, p.Lk, p.D, C::kKeys, true);
     if (err == cudaSuccess) err = encode_heads(&tv, x.v, p.B, p.H, p.Lk, p.D, C::kKeys, true);
     if (err != cudaSuccess) return err;
     const long long blocks = (long long)p.B * p.H * ((p.Lk + C::kKeys - 1) / C::kKeys);
-    return run(flash_bwd_dkv_3xtf32_kernel<C::kDP, C::kNW, C::kRaw>, blocks, C::kThreads,
-               C::kSmem, stream, tq, tdo, tk, tv, p);
+    if constexpr (std::is_same_v<C, DkvWide>)
+      return run(flash_bwd_dkv_d160_3xtf32_kernel, blocks, C::kThreads, C::kSmem, stream, tq,
+                 tdo, tk, tv, p);
+    else
+      return run(flash_bwd_dkv_3xtf32_kernel<C::kDP, C::kNW, C::kRaw>, blocks, C::kThreads,
+                 C::kSmem, stream, tq, tdo, tk, tv, p);
   });
 }
 
 cudaError_t run_dq(const Views& x, const BwdParams& p, cudaStream_t stream) {
   if (!valid_bwd(x, p.B, p.H, p.Lq, p.Lk)) return cudaErrorInvalidValue;
-  if (fma_head(p.D)) {
-    using T = FmaTile;
-    const long long blocks = (long long)p.B * p.H * ((p.Lq + T::kR - 1) / T::kR);
-    return run(flash_bwd_dq_fma_kernel<T::kDP, T::kR, T::kC, T::kCG, T::kNT>, blocks, T::kNT,
-               T::kDqSmem, stream, p);
-  }
   return with_dq_cfg(p.D, [&](auto cfg) {
     using C = decltype(cfg);
     CUtensorMap tk, tv;
@@ -1911,8 +2121,18 @@ cudaError_t run_dq(const Views& x, const BwdParams& p, cudaStream_t stream) {
     if (err == cudaSuccess) err = encode_heads(&tv, x.v, p.B, p.H, p.Lk, p.D, C::kKeys, true);
     if (err != cudaSuccess) return err;
     const long long blocks = (long long)p.B * p.H * ((p.Lq + C::kRows - 1) / C::kRows);
-    return run(flash_bwd_dq_3xtf32_kernel<C::kDP, C::kNW, C::kKeys, C::kRaw, C::kDer>, blocks,
-               C::kThreads, C::kSmem, stream, tk, tv, p);
+    if constexpr (std::is_same_v<C, DqWide>) {  // Q and dO by TMA too
+      CUtensorMap tq, tdo;
+      err = encode_heads(&tq, x.q, p.B, p.H, p.Lq, p.D, C::kRows, true);
+      if (err == cudaSuccess)
+        err = encode_heads(&tdo, x.dout, p.B, p.H, p.Lq, p.D, C::kRows, true);
+      if (err != cudaSuccess) return err;
+      return run(flash_bwd_dq_d160_3xtf32_kernel, blocks, C::kThreads, C::kSmem, stream, tq, tdo,
+                 tk, tv, p);
+    } else {
+      return run(flash_bwd_dq_3xtf32_kernel<C::kDP, C::kNW, C::kKeys, C::kRaw, C::kDer>, blocks,
+                 C::kThreads, C::kSmem, stream, tk, tv, p);
+    }
   });
 }
 
@@ -1932,8 +2152,7 @@ Views strided(const void* q, const void* k, const void* v, const void* dout, lon
 
 // Each entry point takes the arguments of its bf16 namesake (flash_attn_fwd.cu,
 // flash_attn_bwd.cu) on fp32 tensors and returns the cudaError_t of its launches
-// (0 = success). The forward takes head dims up to 512, the backward up to 160 (3xTF32
-// up to 80, FMA above).
+// (0 = success). The forward takes head dims up to 512, the backward up to 160.
 
 // The tiles of the fp32 forward instance that takes head dim D: query rows a block (128
 // up to D 80, 64 above), keys a tile (64), and 1: it never splits the key range

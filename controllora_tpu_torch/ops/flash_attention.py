@@ -28,9 +28,9 @@ kernels; see the headers for the design). They read the projections through TMA 
 fp32 blocks with fp32 results: every product as 3xTF32 on wgmma (each operand split
 into two tf32 parts, three tensor-core products a product) fed by a TMA ring, each tile
 split and transposed in shared memory by the kernel (the loads need
-``vector_geometry``); the backward above head dim 80 runs on fp32 FMA tiles. Both routes take the
-projections in the (B, L, H*D) layout the attention layers produce, so no head split or
-padding copy is made.
+``vector_geometry``); the backward above head dim 80 holds its stationary operands in
+registers, one a consumer warpgroup. Both routes take the projections in the (B, L, H*D)
+layout the attention layers produce, so no head split or padding copy is made.
 The JAX block-size policy (``pick_block``, ``serving_blocks``) does not carry over:
 each kernel sizes its own tiles (``fwd_tiles`` reports K1/K2's), and bf16 heads wider
 than 80 split the key range where the query tiles alone leave SMs idle
@@ -68,7 +68,7 @@ ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # the forward's (K1, K2, K5): bf16 D <= 48, 64, 80, 160, 512; fp32 8-80, 88-160, 168-512
 MAX_HEAD_DIM = 512
-# the backward's (K3, K4, K5): bf16 DS 48, 64, 80, 160; fp32 8-80 (3xTF32), 88-160 (FMA)
+# the backward's (K3, K4, K5): bf16 DS 48, 64, 80, 160; fp32 8-80, 88-160 (3xTF32)
 MAX_BWD_HEAD_DIM = 160
 BWD_LIMIT_REASON = ("the widest UNet head of the zoo (SD1.5's level 2); no path "
                     "differentiates through a wider one (the VAE's D 512 attention "

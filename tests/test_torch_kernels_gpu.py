@@ -252,11 +252,11 @@ def test_fwd_head_dims_88_to_160(cuda, d, l, q_mul, dtype):
 @pytest.mark.parametrize("l", [300, 4225])
 @pytest.mark.parametrize("d", [8, 16, 32, 40, 48, 64, 80, 160, 512])
 def test_fp32_instances_at_ragged_lengths(cuda, d, l):
-    """Every instance of the fp32 forward, dK/dV and dQ kernels (3xTF32, and the FMA
-    backward at D 160) at a length that is not a whole number of their tiles (128 or 64
-    query rows, 64-key tiles; 64 or 128 keys and 32-query tiles in dK/dV; 128 queries
-    and 64-key tiles, or 64 queries and 32-key tiles, in dQ; 64 stationary rows and
-    32-row tiles in both FMA kernels): K2's O and LSE, the K5 forward's O, m and l at
+    """Every instance of the fp32 forward, dK/dV and dQ kernels (3xTF32 on wgmma) at a
+    length that is not a whole number of their tiles (128 or 64 query rows, 64-key
+    tiles; 64 or 128 keys and 32-query tiles in dK/dV; 128 queries and 64-key tiles, or
+    64 queries and 32-key tiles, in dQ; at D 160 64 stationary rows and 16-row tiles in
+    both): K2's O and LSE, the K5 forward's O, m and l at
     the stock scale negated, and K3's and K5's dK, dV and K4's and K5's dQ (up to D
     160), each against its plain version at the fp32 bounds. D 48 runs on the D 64
     instance."""
@@ -291,6 +291,65 @@ def test_fp32_instances_at_ragged_lengths(cuda, d, l):
         assert (out - ref).abs().max().item() <= bound(ref, FP32), name
     assert fa.FP32_LAUNCHES == {"k1": 0, "k2": 1, "k3": 1, "k4": 1}
     assert fs.FP32_LAUNCHES == {"k5_fwd": 1, "k5_dkv": 1, "k5_dq": 1}
+
+
+# the fp32 backward's D 160 instances (flash_bwd_dkv_d160_3xtf32_kernel,
+# flash_bwd_dq_d160_3xtf32_kernel) at each head dim they take, zero filled to 160
+FP32_BWD_D160 = {"k3": "flash_bwd_dkv_d160_3xtf32_kernel",
+                 "k4": "flash_bwd_dq_d160_3xtf32_kernel"}
+
+
+@pytest.mark.parametrize("q_mul", [1, 4])
+@pytest.mark.parametrize("l", [2116, 333])
+@pytest.mark.parametrize("d", [88, 96, 128, 152, 160])
+def test_fp32_bwd_head_dims_88_to_160(cuda, d, l, q_mul):
+    """The fp32 backward at D 88-160 (3xTF32 on wgmma, zero filled to 160) at ragged L
+    (SD1.5's 1472² level 2, and a short one), 2 heads, q as drawn and scaled x4: K3's dK
+    and dV and K4's dQ from K2's LSE, and K5's dK, dV and dQ from the K5 forward's m and
+    l at the stock scale negated, each within 1e-4 * max(1, max|ref|) of its plain
+    version."""
+    b, heads = 1, 2
+    q, k, v, do = (randn((b, l, heads * d), s, cuda, FP32) for s in range(4))
+    q = q * q_mul
+    o, lse = fa.flash_attention(q, k, v, heads)
+    dcap = fa.attention_dcap(o, do, heads)
+    qh, kh, vh, doh = (split_heads(x, heads) for x in (q, k, v, do))
+    scale = -(d**-0.5)
+    o5, m, lsum = fs.stock_flash_fwd(qh, kh, vh, scale)
+    di = (o5 * doh).sum(-1)
+    grads = (*fa.flash_bwd_dkv(q, k, v, do, lse, dcap, heads),
+             fa.flash_bwd_dq(q, k, v, do, lse, dcap, heads),
+             *fs.stock_flash_bwd_dkv(qh, kh, vh, doh, m, lsum, di, scale),
+             fs.stock_flash_bwd_dq(qh, kh, vh, doh, m, lsum, di, scale))
+    torch.cuda.synchronize()
+    assert fa.FP32_LAUNCHES == {"k1": 0, "k2": 1, "k3": 1, "k4": 1}
+    assert fs.FP32_LAUNCHES == {"k5_fwd": 1, "k5_dkv": 1, "k5_dq": 1}
+    refs = (*fa.flash_bwd_dkv_plain(q, k, v, do, lse, dcap, heads),
+            fa.flash_bwd_dq_plain(q, k, v, do, lse, dcap, heads),
+            *fs.stock_flash_bwd_dkv_plain(qh, kh, vh, doh, m, lsum, di, scale),
+            fs.stock_flash_bwd_dq_plain(qh, kh, vh, doh, m, lsum, di, scale))
+    for name, out, ref in zip(("K3 dK", "K3 dV", "K4 dQ", "K5 dK", "K5 dV", "K5 dQ"), grads,
+                              refs):
+        assert out.shape == ref.shape and torch.isfinite(out).all(), name
+        assert fp32_close(out, ref), name
+
+
+def test_fp32_bwd_at_d160_runs_the_3xtf32_kernels(cuda):
+    """At SD1.5's 1536² level 2 (1, 8, 2304, 160) the profiler sees K3 and K4 launch the
+    D 160 3xTF32 instances, and no other backward kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v, do = (randn((1, 2304, 8 * 160), s, cuda, FP32) for s in range(4))
+    o, lse = fa.flash_attention(q, k, v, 8)
+    dcap = fa.attention_dcap(o, do, 8)
+    for name, fn in (("k3", fa.flash_bwd_dkv), ("k4", fa.flash_bwd_dq)):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn(q, k, v, do, lse, dcap, 8)
+            torch.cuda.synchronize()
+        names = {e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA}
+        assert any(FP32_BWD_D160[name] in n for n in names), (name, names)
+        assert not any("flash_bwd" in n and FP32_BWD_D160[name] not in n for n in names), names
 
 
 @pytest.mark.parametrize("dtype", [BF16, FP32])

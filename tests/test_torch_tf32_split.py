@@ -6,10 +6,12 @@ mantissa bits. Each fp32 operand x is split into hi = x with its 13 low mantissa
 dropped and lo = tf32_rna(x - hi) (x - hi is exact in fp32; cvt.rna.tf32.f32 rounds to
 nearest, ties away from zero), and a product a*b is taken as lo_a*hi_b + hi_a*lo_b +
 hi_a*hi_b: the split of P and dS in registers, of Q, K, V, dO and their transposes by
-the producer warpgroups (or, for Q and dO in dQ, by the consumers). Here the same split
+the producer warpgroups (or, for Q and dO in dQ up to D 80 and for the stationary
+operands at D 88-160, in registers by the consumers). Here the same split
 is done in plain torch, every product of tf32 values is exact in float64 (22
 significant bits), and attention runs through it at each head dim of the fp32 paths (8,
-16, 32, 40, 64, 80 and the VAE's 512) at a small length, with q as drawn and scaled x4
+16, 32, 40, 64, 80, the D 88-160 instances' 96, 128 and 160, zero filled to 160 as they
+are, and the VAE's 512) at a small length, with q as drawn and scaled x4
 (a peaked softmax): the forward (S = Q K^T, O = P V), the products of dK/dV (S^T = K
 Q^T, dP^T = V dO^T, dV = P^T dO, dK = dS^T Q) and the chain of dQ (S = Q K^T, dP = dO
 V^T, dS in fp32, dQ = dS K * scale) against float64. Three products stay within the fp32
@@ -24,7 +26,8 @@ import torch
 
 B, H, L = 1, 2, 256
 BOUND = 1e-4  # the fp32 route's: 1e-4 * max(1, max|ref|)
-DIMS = [8, 16, 32, 40, 64, 80, 512]
+DIMS = [8, 16, 32, 40, 64, 80, 96, 128, 160, 512]
+WIDE = 160  # heads of 88-160 run zero filled to 160
 
 
 def tf32_rna(x):
@@ -86,6 +89,13 @@ def inputs(d, q_mul, seed=16):
     return q * q_mul, k, v, do
 
 
+def zero_filled(d, *xs):
+    """The operands as the kernel instance of head dim d reads them: heads of 88-160
+    with zero columns up to 160."""
+    pad = WIDE - d if 80 < d < WIDE else 0
+    return [torch.nn.functional.pad(x, (0, pad)) for x in xs]
+
+
 def errors(out, ref):
     """max|out - ref| over max(1, max|ref|), per output."""
     return [float((o - r).abs().max()) / max(1.0, float(r.abs().max()))
@@ -113,8 +123,9 @@ def test_three_tf32_products_hold_the_fp32_bound_and_one_does_not(d, q_mul):
     q, k, v, do = inputs(d, q_mul)
     scale = d**-0.5
     ref = reference(q, k, v, do, scale)
-    three = errors(attention(q, k, v, do, mm_3xtf32, scale), ref)
-    one = errors(attention(q, k, v, do, mm_tf32, scale), ref)
+    wide = zero_filled(d, q, k, v, do)
+    three = errors([x[..., :d] for x in attention(*wide, mm_3xtf32, scale)], ref)
+    one = errors([x[..., :d] for x in attention(*wide, mm_tf32, scale)], ref)
     assert max(three) <= BOUND, f"3xTF32 O, dK, dV: {three}"
     assert max(one) > BOUND, f"one TF32 product O, dK, dV: {one}"
 
@@ -140,14 +151,15 @@ def reference_dq(q, k, v, do, scale):
 
 
 @pytest.mark.parametrize("q_mul", [1, 4])
-@pytest.mark.parametrize("d", [8, 16, 32, 40, 64, 80])
+@pytest.mark.parametrize("d", [8, 16, 32, 40, 64, 80, 96, 128, 160])
 def test_dq_chain_holds_the_fp32_bound_through_3xtf32_and_not_through_one(d, q_mul):
     """dQ through the dQ kernel's chain of three 3xTF32 products within 1e-4 *
     max(1, max|ref|) of float64; through one TF32 product each, outside it."""
     q, k, v, do = inputs(d, q_mul)
     scale = d**-0.5
     ref = reference_dq(q, k, v, do, scale)
-    three = errors([dq_chain(q, k, v, do, mm_3xtf32, scale)], ref[None])[0]
-    one = errors([dq_chain(q, k, v, do, mm_tf32, scale)], ref[None])[0]
+    wide = zero_filled(d, q, k, v, do)
+    three = errors([dq_chain(*wide, mm_3xtf32, scale)[..., :d]], ref[None])[0]
+    one = errors([dq_chain(*wide, mm_tf32, scale)[..., :d]], ref[None])[0]
     assert three <= BOUND, f"3xTF32 dQ: {three}"
     assert one > BOUND, f"one TF32 product dQ: {one}"
