@@ -1,0 +1,1 @@
+"""The benchmark of ``controllora_tpu_torch`` on one NVIDIA H100 (see README.md)."""
