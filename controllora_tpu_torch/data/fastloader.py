@@ -22,6 +22,8 @@ from typing import Dict, Iterator, Optional
 
 import numpy as np
 
+from controllora_tpu_torch.utils import spans
+
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "fastloader.c"
 LIBRARY = SOURCE.parent / "_build" / "libfastloader.so"
 _lib: Optional[ctypes.CDLL] = None
@@ -170,7 +172,8 @@ class NativeNormalizeBatcher:
 
 class Prefetcher:
     """A background thread that keeps up to ``depth`` items of ``iterator`` ready,
-    in order. An exception in the producer is raised by the next ``next``."""
+    in order. An exception in the producer is raised by the next ``next``. The
+    consumer's wait for an item is span ``data.wait`` (``utils/spans.py``)."""
 
     def __init__(self, iterator, depth: int = 2):
         self._q: "queue.Queue" = queue.Queue(maxsize=depth)
@@ -192,7 +195,8 @@ class Prefetcher:
         return self
 
     def __next__(self):
-        item = self._q.get()
+        with spans.span("data.wait"):
+            item = self._q.get()
         if item is self._done:
             self._q.put(self._done)
             raise StopIteration

@@ -3,6 +3,8 @@
 
 Order of work: tokenizer -> CLIP -> hint encoder -> ``fold_adapters`` -> a plain
 Python loop of CFG UNet evals and scheduler updates -> one batched VAE decode.
+While a ``torch.profiler`` records, a call records its host spans
+(``utils/spans.py``): ``pipeline.call`` around one ``pipeline.step`` a grid index.
 The CFG batch is the block layout [uncond * n || cond * n]; a batch-1 guide's biases
 broadcast over it and per-image guides tile to it.
 
@@ -84,6 +86,7 @@ from controllora_tpu_torch.parallel.tp import (
     validate_tp,
 )
 from controllora_tpu_torch.schedulers import DPMSolverMultistepScheduler
+from controllora_tpu_torch.utils import spans
 from controllora_tpu_torch.utils.image import resize_linear
 
 
@@ -259,6 +262,7 @@ class StableDiffusionControlLoRAPipeline:
 
     # ------------------------------------------------------------------ call
 
+    @spans.traced("pipeline.call")
     @torch.inference_mode()
     def __call__(
         self,
@@ -525,33 +529,35 @@ class StableDiffusionControlLoRAPipeline:
         # lax.cond carry)
         cache = None
         for i in range(start, end):
-            x = sch.model_input(state, i)
-            t_i = sch.ts[i]
-            kw = dict(added, **unet_kw)
-            if tome is not None:
-                kw.update(tome=tome, tome_step=(0, t_i, i))
-            x_in = x if w_cfg is not None else torch.cat([x, x])
-            args = (x_in, torch.full((x_in.shape[0],), float(t_i), dtype=torch.float32,
-                                     device=self.device), ctx_n)
-            if deepcache_interval == 1:
-                eps = functional_call(unet, weights, args, kw)
-            elif (i - start) % deepcache_interval == 0:
-                eps, cache = functional_call(unet, weights, args, dict(kw, deepcache="full"))
-            else:
-                eps = functional_call(unet, weights, args,
-                                      dict(kw, deepcache="shallow", deepcache_feat=cache))
-            if w_cfg is not None:
-                # (1 - g) eps_u + g eps_c: one all-reduce of the ranks' weighted branch
-                eps_g = mesh.all_reduce(eps * w_cfg, "cfg")
-            else:
-                eps_u, eps_c = eps.chunk(2)
-                eps_g = eps_u + guidance_scale * (eps_c - eps_u)
-            state = sch.step(state, eps_g, i, first_index=start)
-            if paint is not None:
-                # re-inject the known region at the noise level of grid point i + 1
-                known = sch.noised_init(init, noise, i + 1)
-                state = sch.set_sample(state, paint * sch.get_sample(state)
-                                       + (1.0 - paint) * known)
+            with spans.span("pipeline.step", index=i):
+                x = sch.model_input(state, i)
+                t_i = sch.ts[i]
+                kw = dict(added, **unet_kw)
+                if tome is not None:
+                    kw.update(tome=tome, tome_step=(0, t_i, i))
+                x_in = x if w_cfg is not None else torch.cat([x, x])
+                args = (x_in, torch.full((x_in.shape[0],), float(t_i), dtype=torch.float32,
+                                         device=self.device), ctx_n)
+                if deepcache_interval == 1:
+                    eps = functional_call(unet, weights, args, kw)
+                elif (i - start) % deepcache_interval == 0:
+                    eps, cache = functional_call(unet, weights, args,
+                                                 dict(kw, deepcache="full"))
+                else:
+                    eps = functional_call(unet, weights, args,
+                                          dict(kw, deepcache="shallow", deepcache_feat=cache))
+                if w_cfg is not None:
+                    # (1 - g) eps_u + g eps_c: one all-reduce of the ranks' weighted branch
+                    eps_g = mesh.all_reduce(eps * w_cfg, "cfg")
+                else:
+                    eps_u, eps_c = eps.chunk(2)
+                    eps_g = eps_u + guidance_scale * (eps_c - eps_u)
+                state = sch.step(state, eps_g, i, first_index=start)
+                if paint is not None:
+                    # re-inject the known region at the noise level of grid point i + 1
+                    known = sch.noised_init(init, noise, i + 1)
+                    state = sch.set_sample(state, paint * sch.get_sample(state)
+                                           + (1.0 - paint) * known)
 
         sample = sch.get_sample(state)
         if return_latents:

@@ -32,7 +32,8 @@ preset's value.
 
 API:
     GET  /healthz  -> 200 "ok"
-    GET  /stats    -> the engine's statistics, JSON
+    GET  /stats    -> the engine's statistics, JSON (``BatchingEngine.snapshot``: the
+                      mean queue wait is queue_wait_s / requests)
     POST /generate -> JSON request:
         {"prompt": str, "negative_prompt": str, "steps": int, "seed": int,
          "guidance_scale": float, "width": int, "height": int,
@@ -199,7 +200,7 @@ def build_server(engine, host: str, port: int,
             if self.path == "/healthz":
                 self._send(200, "text/plain", b"ok")
             elif self.path == "/stats":
-                self._json(200, engine.stats)
+                self._json(200, engine.snapshot())
             else:
                 self._send(404, "text/plain", b"not found")
 

@@ -19,6 +19,12 @@ Concurrent requests coalesce into per-image-prompt batches over one pipeline:
   brings its own pooled text vector (per-image prompts in the pipeline).
 * **One dispatch thread** owns the device; a forming batch waits at most
   ``max_wait_ms`` for companions.
+* **Counters and spans.** ``stats`` counts requests, batches by bucket, padded slots,
+  errors and the queue wait (``queue_wait_s`` summed, ``queue_wait_max_s``), a batch's
+  counters changing together under a lock that ``snapshot()`` also takes. The wait
+  runs from ``submit`` to the batch's pipeline call, on the monotonic clock; while a
+  ``torch.profiler`` records, each request's wait is also span ``engine.queue``
+  (``utils/spans.py``), ending at that call.
 * **Data meshes** (a pipeline with a 'data' axis, JAX :93-105, 138-147, 213-217): the
   buckets snap up to multiples of the axis, since the batch must divide over it; a
   data mesh takes one replicated guide a call, so a guided request's guide joins its
@@ -38,6 +44,8 @@ from typing import Any, Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from controllora_tpu_torch.utils import spans
+
 
 @dataclass
 class Request:
@@ -55,6 +63,7 @@ class Request:
     _latents: Any = field(default=None, repr=False)
     _future: Any = field(default=None, repr=False)
     _guide_fp: Any = field(default=None, repr=False)  # guide identity on a data mesh
+    _submitted_ns: int = field(default=0, repr=False)  # time.monotonic_ns() at submit
 
     @property
     def group_key(self):
@@ -99,7 +108,9 @@ class BatchingEngine:
         self._held: list = []  # incompatible leftovers, FIFO priority next round
         self._stop = threading.Event()
         self.stats: Dict[str, Any] = {"requests": 0, "batches": 0, "padded_slots": 0,
-                                      "batch_sizes": {}, "errors": 0}
+                                      "batch_sizes": {}, "errors": 0,
+                                      "queue_wait_s": 0.0, "queue_wait_max_s": 0.0}
+        self._stats_lock = threading.Lock()  # held while a batch's counters change
         if mesh is not None:
             self.stats["mesh"] = mesh.shape
         self._worker = threading.Thread(target=self._loop, daemon=True,
@@ -124,8 +135,14 @@ class BatchingEngine:
         req._latents = request_latents(req.seed, req.height, req.width,
                                        self.pipe.unet.config.in_channels)
         req._future = Future()
+        req._submitted_ns = time.monotonic_ns()
         self._q.put(req)
         return req._future
+
+    def snapshot(self) -> Dict[str, Any]:
+        """A copy of ``stats`` with no batch half counted (``GET /stats``)."""
+        with self._stats_lock:
+            return dict(self.stats, batch_sizes=dict(self.stats["batch_sizes"]))
 
     def stop(self, timeout: float = 10.0) -> None:
         self._stop.set()
@@ -190,18 +207,27 @@ class BatchingEngine:
                            else np.stack([r.guide for r in reqs]))
         try:
             t0 = time.monotonic()
+            called_ns, wall_ns = time.monotonic_ns(), time.time_ns()
+            waits_ns = [called_ns - r._submitted_ns for r in batch]
+            for w in waits_ns:  # on the profiler's clock: the same wait, ending now
+                spans.record("engine.queue", wall_ns - w, wall_ns)
+            waits = [w * 1e-9 for w in waits_ns]
             imgs = self.pipe([r.prompt for r in reqs], **kw)
             dt = time.monotonic() - t0
             for r, img in zip(batch, imgs[:n]):
                 r._future.set_result(img)
-            self.stats["requests"] += n
-            self.stats["batches"] += 1
-            self.stats["padded_slots"] += pad
-            sizes = self.stats["batch_sizes"]
-            sizes[bucket] = sizes.get(bucket, 0) + 1
-            self.stats["last_batch_seconds"] = dt
+            with self._stats_lock:
+                self.stats["requests"] += n
+                self.stats["queue_wait_s"] += sum(waits)
+                self.stats["queue_wait_max_s"] = max(self.stats["queue_wait_max_s"], *waits)
+                self.stats["batches"] += 1
+                self.stats["padded_slots"] += pad
+                sizes = self.stats["batch_sizes"]
+                sizes[bucket] = sizes.get(bucket, 0) + 1
+                self.stats["last_batch_seconds"] = dt
         except Exception as e:  # fail the whole batch, keep serving
-            self.stats["errors"] += 1
+            with self._stats_lock:
+                self.stats["errors"] += 1
             for r in batch:
                 if not r._future.done():
                     r._future.set_exception(e)

@@ -37,8 +37,12 @@ checkpoint and exits 0 (a second signal aborts). The run ends by writing the
 adapter artifact (``training/checkpoint.py``) and a model card (``README.md``, the
 checkpoint directory as ``base_model``) to ``--output_dir``. ``--profile`` records
 steps start+3 to start+8 with ``torch.profiler`` (the card's kernels too) into a trace
-under ``<output_dir>/profile`` (view with tensorboard or chrome://tracing); a shorter
-run writes none. ``--no_remat`` is accepted and ignored, as in ``scripts/train.py``.
+under ``<output_dir>/profile`` (view with tensorboard or chrome://tracing), and beside
+it ``spans.json``: the host spans of those steps (``utils/spans.py``: ``data.wait``,
+``train.upload``, ``train.step`` and its ``train.forward``/``.backward``/``.optimizer``)
+as Chrome trace events in microseconds since the Unix epoch, on the profiler's clock,
+to lay over its kernels; a shorter run writes neither. ``--no_remat`` is accepted and
+ignored, as in ``scripts/train.py``.
 Flags of ``scripts/train.py`` not taken here: ``--push_to_hub`` and the ``--hub_*``
 flags (no network).
 
@@ -66,6 +70,7 @@ import time
 import torch
 
 from controllora_tpu_torch.parallel import distributed
+from controllora_tpu_torch.utils import spans
 from controllora_tpu_torch.utils.logging import REPORT_TO, MetricsLogger
 
 
@@ -141,7 +146,9 @@ def parse_args(argv=None):
     p.add_argument("--log_every", type=int, default=10)
     p.add_argument("--profile", action="store_true",
                    help="capture a torch.profiler trace of steps 3..8 to "
-                        "<output_dir>/profile (view with tensorboard)")
+                        "<output_dir>/profile (view with tensorboard), and the host "
+                        "spans of those steps to <output_dir>/profile/spans.json "
+                        "(Chrome trace events on the profiler's clock)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; the flash kernels run on cuda")
     distributed.add_dist_args(p)
@@ -436,6 +443,7 @@ def train(args):
         for step in range(start_step, args.max_train_steps):
             if args.profile and step == start_step + 3:
                 prof = start_profile(device)
+                prof_from_ns = time.time_ns()
             if args.profile and step == start_step + 8:
                 if device.type == "cuda":
                     torch.cuda.synchronize(device)
@@ -444,6 +452,8 @@ def train(args):
                 torch.profiler.tensorboard_trace_handler(
                     os.path.join(args.output_dir, "profile"))(prof)
                 prof = None
+                spans.chrome_trace(os.path.join(args.output_dir, "profile", "spans.json"),
+                                   [sp for sp in spans.recorded() if sp.start_ns >= prof_from_ns])
                 say(f"profiler trace written to {args.output_dir}/profile", flush=True)
                 t_last += time.perf_counter() - t_trace  # writing it is no step's time
             batch = shard_batch(next(batches), mesh)

@@ -24,6 +24,11 @@ equals a 1-process step at the global batch. After the backward, the adapter
 gradients are averaged over the axis (one fp32 all-reduce of them all), and only
 then clipped and stepped, so every rank holds the same parameters; the reported loss
 is the mean over the ranks.
+
+While a ``torch.profiler`` records, a step records its host spans
+(``utils/spans.py``): ``train.step`` around ``train.forward`` (the loss),
+``train.backward`` (gradients and their all-reduce) and ``train.optimizer`` (norm,
+clip and update); ``to_device_batch`` records ``train.upload``.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ from controllora_tpu_torch.models.lora import cast_adapters
 from controllora_tpu_torch.schedulers import DDPMScheduler
 from controllora_tpu_torch.training.adam8bit import AdamW8bit
 from controllora_tpu_torch.training.conditioning import resolve_text_conditioning
+from controllora_tpu_torch.utils import spans
 
 LR_SCHEDULES = ("constant", "constant_with_warmup", "linear", "cosine",
                 "cosine_with_restarts", "polynomial")
@@ -235,13 +241,14 @@ def to_device_batch(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Ten
     """A numpy batch of the JAX data pipeline (NHWC images) -> tensors on ``device``
     in the port's layout (NCHW images, int64 token ids)."""
     out = {}
-    for k, v in batch.items():
-        t = torch.from_numpy(np.ascontiguousarray(v))
-        if t.dim() == 4:
-            t = t.permute(0, 3, 1, 2)
-        if k.startswith("input_ids"):
-            t = t.long()
-        out[k] = t.to(device, non_blocking=True).contiguous()
+    with spans.span("train.upload"):
+        for k, v in batch.items():
+            t = torch.from_numpy(np.ascontiguousarray(v))
+            if t.dim() == 4:
+                t = t.permute(0, 3, 1, 2)
+            if k.startswith("input_ids"):
+                t = t.long()
+            out[k] = t.to(device, non_blocking=True).contiguous()
     return out
 
 
@@ -372,11 +379,15 @@ class AdapterTrainer:
         the device: reading them synchronises. Under dp, ``batch`` holds the rank's
         rows and both are the global batch's; ``return_grads`` adds the (reduced)
         gradients."""
-        loss = self.loss(batch, generator, **draws)
-        grads = self.all_reduce_grads(self.grads(loss))
-        grad_norm = global_norm(grads)
-        self.optimizer.step(grads)
-        out = {"loss": self._mean_loss(loss.detach()), "grad_norm": grad_norm}
+        with spans.span("train.step"):
+            with spans.span("train.forward"):
+                loss = self.loss(batch, generator, **draws)
+            with spans.span("train.backward"):
+                grads = self.all_reduce_grads(self.grads(loss))
+            with spans.span("train.optimizer"):
+                grad_norm = global_norm(grads)
+                self.optimizer.step(grads)
+            out = {"loss": self._mean_loss(loss.detach()), "grad_norm": grad_norm}
         if return_grads:
             out["grads"] = grads
         return out

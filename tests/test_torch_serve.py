@@ -267,6 +267,7 @@ def test_server_endpoints(smoke_pipe):
         code, raw = request(base, "/stats")
         stats = json.loads(raw)
         assert code == 200 and stats["batch_sizes"] == {"2": 1} and stats["requests"] == 2
+        assert 0 < stats["queue_wait_max_s"] <= stats["queue_wait_s"]
         code, raw = request(base, "/generate", dict(body, guide="bm90IGEgcG5n"))
         assert code == 500 and "not a PNG" in json.loads(raw)["error"]
     finally:

@@ -238,8 +238,9 @@ def test_cli_sigterm_saves_and_exits_0(tmp_path):
 @pytest.mark.parametrize("steps,traced", [(9, True), (8, False)])
 def test_cli_profile_traces_steps_3_to_8(tmp_path, capsys, steps, traced):
     """--profile records steps start+3 to start+8 (scripts/train.py's window) into one
-    trace under <output_dir>/profile; a run that ends before step start+8 writes none.
-    --no_remat parses and leaves remat off."""
+    trace under <output_dir>/profile, with the host spans of those steps beside it in
+    spans.json (Chrome trace events); a run that ends before step start+8 writes
+    neither. --no_remat parses and leaves remat off."""
     out = tmp_path / "run"
     args = SMOKE + ["--train_batch_size", "1", "--max_train_steps", str(steps),
                     "--checkpointing_steps", "0", "--profile", "--no_remat",
@@ -254,6 +255,12 @@ def test_cli_profile_traces_steps_3_to_8(tmp_path, capsys, steps, traced):
         assert len(traces) == 1
         with open(traces[0]) as f:
             assert json.load(f)["traceEvents"]
+        with open(out / "profile" / "spans.json") as f:
+            events = json.load(f)["traceEvents"]
+        steps_traced = [e for e in events if e["name"] == "train.step"]
+        assert len(steps_traced) == 5 and all(e["ph"] == "X" for e in events)
+        assert {"train.forward", "train.backward", "train.optimizer",
+                "train.upload"} <= {e["name"] for e in events}
     else:
         assert not (out / "profile").exists()
 
